@@ -1,0 +1,106 @@
+"""Serving telemetry: the metrics registry, request tracing, and the
+recording helpers the serving stack calls.
+
+A minimal counterpart of the JAX package's ``telemetry/__init__.py``: the
+same metric names and labels for what the serving slice records. Serving
+and resilience metrics record unconditionally (one registry update per
+request or control-plane event); ``prometheus_text`` is the ``/metrics``
+payload.
+"""
+
+from __future__ import annotations
+
+import weakref
+
+from deeplearning4j_tpu_torch.telemetry import registry as registry  # noqa: F401
+from deeplearning4j_tpu_torch.telemetry import tracing as tracing  # noqa: F401
+from deeplearning4j_tpu_torch.telemetry.registry import REGISTRY
+
+
+def reset() -> None:
+    """Clear request traces and metrics (collectors stay registered)."""
+    tracing.reset()
+    REGISTRY.reset()
+
+
+def record_serving_request(status: str, seconds: float = None) -> None:
+    """Count one inference request terminal state: ``ok`` / ``error`` /
+    ``bad_request`` / ``rejected`` (queue full) / ``expired`` (deadline) /
+    ``shed`` / ``timeout``; ``seconds`` = submit-to-completion latency when
+    the request made it into the queue."""
+    REGISTRY.counter("dl4j_serving_requests_total",
+                     help="inference requests by terminal status",
+                     status=status).inc()
+    if seconds is not None:
+        REGISTRY.histogram("dl4j_serving_request_seconds",
+                           help="submit-to-result request latency"
+                           ).observe(seconds)
+
+
+def record_serving_batch(rows: int, padded_rows: int, requests: int,
+                         seconds: float) -> None:
+    """Record one shared device launch: fill ratio (real rows / padded
+    bucket rows), rows and coalesced-request histograms, launch time."""
+    REGISTRY.counter("dl4j_serving_batches_total",
+                     help="shared inference launches").inc()
+    REGISTRY.histogram("dl4j_serving_batch_fill_ratio",
+                       help="real rows / padded bucket rows"
+                       ).observe(rows / max(padded_rows, 1))
+    REGISTRY.histogram("dl4j_serving_batch_rows",
+                       help="real rows per shared launch").observe(rows)
+    REGISTRY.histogram("dl4j_serving_batch_requests",
+                       help="requests coalesced per launch").observe(requests)
+    REGISTRY.histogram("dl4j_serving_batch_seconds",
+                       help="shared launch wall time").observe(seconds)
+
+
+def record_retry(op: str) -> None:
+    """Count one scheduled retry (first attempts are not retries)."""
+    REGISTRY.counter("dl4j_retries_total",
+                     help="retries scheduled by RetryPolicy", op=op).inc()
+
+
+def record_fault_injected(site: str, action: str) -> None:
+    REGISTRY.counter("dl4j_faults_injected_total",
+                     help="faults fired by an armed FaultPlan",
+                     site=site, action=action).inc()
+
+
+def record_circuit_state(name: str, state_code: int,
+                         transition: bool = True) -> None:
+    """Publish a breaker's state (0=closed, 1=half_open, 2=open); counts
+    the transition too unless this is the initial publish."""
+    REGISTRY.gauge("dl4j_circuit_state",
+                   help="0=closed 1=half_open 2=open",
+                   breaker=name).set(state_code)
+    if transition:
+        REGISTRY.counter("dl4j_circuit_transitions_total",
+                         help="breaker state transitions",
+                         breaker=name, to=str(state_code)).inc()
+
+
+_SERVING_ENGINES = weakref.WeakSet()
+
+
+def register_serving_engine(engine) -> None:
+    """Track a live ``InferenceEngine``; ``dl4j_serving_queue_depth`` is
+    collected at scrape time as the SUM over live engines."""
+    _SERVING_ENGINES.add(engine)
+
+
+def unregister_serving_engine(engine) -> None:
+    _SERVING_ENGINES.discard(engine)
+
+
+@REGISTRY.register_collector
+def _collect_serving_queue_depth(reg) -> None:
+    engines = list(_SERVING_ENGINES)
+    if engines:
+        reg.gauge("dl4j_serving_queue_depth",
+                  help="pending serving requests").set(
+            sum(e.queue_depth() for e in engines))
+
+
+def prometheus_text() -> str:
+    """The full ``/metrics`` payload."""
+    return REGISTRY.render_prometheus()
