@@ -10,14 +10,18 @@ Entry points run on ``device="cuda"`` unless the caller asks for the CPU, as
 the tests do. On a CPU tensor every kernel wrapper runs its plain PyTorch
 version; on a CUDA tensor it launches the kernel or raises.
 
-Package map (the serving slice):
+Package map (the serving and training slices):
 
-- ``conf``      — config DSL: layers, vertices, builder, configs
-- ``nn``        — ``ComputationGraph`` (eval-mode forward)
+- ``conf``      — config DSL: layers, vertices, builder, losses, updaters,
+                  schedules, regularization
+- ``nn``        — ``ComputationGraph`` (inference and ``fit``)
+- ``optimize``  — the solver step and training listeners
+- ``datasets``  — ``DataSet`` / ``MultiDataSet`` and iterators
+- ``ops``       — fused 1x1 conv + BN statistics on the kernels
 - ``kernels``   — the hand-written CUDA kernels, their build and routing
 - ``parallel``  — dynamic-batching ``InferenceEngine`` + ``InferenceServer``
-- ``zoo``       — ``ResNet50``
-- ``util``      — weight conversion from the JAX package
+- ``zoo``       — ``ResNet50`` (with ``fused_conv_bn``)
+- ``util``      — weight and updater-state conversion from the JAX package
 """
 
 __version__ = "0.1.0"

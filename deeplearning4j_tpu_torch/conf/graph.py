@@ -52,7 +52,10 @@ class GraphVertex:
     def param_order(self) -> List[str]:
         return []
 
-    def forward(self, params, state, inputs: List):
+    def regularized_param_keys(self) -> List[str]:
+        return []
+
+    def forward(self, params, state, inputs: List, train=False, gen=None):
         raise NotImplementedError
 
     def has_params(self) -> bool:
@@ -84,11 +87,24 @@ class LayerVertex(GraphVertex):
     def param_order(self):
         return self.layer.param_order()
 
-    def forward(self, params, state, inputs):
+    def regularized_param_keys(self):
+        return self.layer.regularized_param_keys()
+
+    def forward(self, params, state, inputs, train=False, gen=None):
         x = inputs[0]
         if self.preprocessor is not None:
             x, _ = self.preprocessor.forward({}, {}, x)
-        return self.layer.forward(params, state, x)
+        return self.layer.forward(params, state, x, train=train, gen=gen)
+
+    # score hook when wrapping an output layer (reference: output vertices
+    # are LayerVertex over an IOutputLayer)
+    def score(self, params, x, labels, mask=None):
+        if self.preprocessor is not None:
+            x, _ = self.preprocessor.forward({}, {}, x)
+        return self.layer.score(params, x, labels, mask)
+
+    def is_output(self) -> bool:
+        return hasattr(self.layer, "score")
 
 
 @serde.register_enum
@@ -110,7 +126,7 @@ class ElementWiseVertex(GraphVertex):
 
     op: ElementWiseOp = ElementWiseOp.ADD
 
-    def forward(self, params, state, inputs):
+    def forward(self, params, state, inputs, train=False, gen=None):
         y = inputs[0]
         if self.op is ElementWiseOp.ADD:
             for x in inputs[1:]:
@@ -176,6 +192,10 @@ class ComputationGraphConfiguration:
 
     def vertex_map(self) -> Dict[str, VertexSpec]:
         return {v.name: v for v in self.vertices}
+
+    def output_vertices(self) -> List[VertexSpec]:
+        vmap = self.vertex_map()
+        return [vmap[n] for n in self.network_outputs]
 
     def topo_order(self) -> List[str]:
         """Topological vertex order (reference

@@ -5,14 +5,19 @@ runtime impls in ``org.deeplearning4j.nn.layers``. As in the JAX package the
 conf dataclass *is* the layer: fields and ``@type`` tags are the JAX
 package's, so a configuration written by either package loads in the other.
 
-Contract (the serving slice; training adds train-mode forwards):
+Contract:
 
 - ``output_type(input_type)``: shape inference.
 - ``init(gen, input_type, dtype) -> params dict`` of CPU tensors drawn from
   the ``torch.Generator`` ``gen``.
 - ``init_state(input_type, dtype) -> state dict`` (e.g. BN running stats).
-- ``forward(params, state, x) -> (y, state)``: the eval-mode forward.
-- ``param_order()``: canonical parameter ordering.
+- ``forward(params, state, x, train=False, gen=None) -> (y, new_state)``:
+  ``train`` selects batch statistics and dropout; ``gen`` is the
+  ``torch.Generator`` of the step's dropout draws (None = no dropout). A
+  new state is computed outside the autograd graph.
+- ``param_order()``: canonical parameter ordering;
+  ``regularized_param_keys()``: the params the layer's weight
+  regularization applies to (the others take ``regularization_bias``).
 
 Layouts: CNN activations are logical NCHW tensors in ``channels_last``
 memory (byte-identical to the JAX package's NHWC arrays); conv weights are
@@ -34,6 +39,7 @@ from deeplearning4j_tpu_torch import serde
 from deeplearning4j_tpu_torch.conf import inputs as it
 from deeplearning4j_tpu_torch.conf.activations import Activation
 from deeplearning4j_tpu_torch.conf.losses import ILossFunction, LossMCXENT
+from deeplearning4j_tpu_torch.conf.regularization import Regularization
 from deeplearning4j_tpu_torch.conf.updaters import IUpdater
 from deeplearning4j_tpu_torch.conf.weights import Distribution, WeightInit
 
@@ -68,7 +74,10 @@ class Layer:
     def param_order(self) -> List[str]:
         return []
 
-    def forward(self, params, state, x):
+    def regularized_param_keys(self) -> List[str]:
+        return ["W"]
+
+    def forward(self, params, state, x, train=False, gen=None):
         return x, state
 
     def has_params(self) -> bool:
@@ -78,19 +87,28 @@ class Layer:
 @dataclasses.dataclass
 class BaseLayer(Layer):
     """Layers with weights (reference ``BaseLayer``): common hyperparams.
-    ``dropout`` is the reference's RETAIN probability; it acts in training
-    only, so the eval forwards here never read it."""
+    ``dropout`` is the reference's RETAIN probability applied to the layer
+    INPUT in training (inverted dropout: kept values scale by 1/p); 0
+    disables."""
 
     activation: Activation = Activation.IDENTITY
     weight_init: WeightInit = WeightInit.XAVIER
     bias_init: float = 0.0
     distribution: Optional[Distribution] = None
     updater: Optional[IUpdater] = None
-    regularization: Tuple[object, ...] = ()
-    regularization_bias: Tuple[object, ...] = ()
+    regularization: Tuple[Regularization, ...] = ()
+    regularization_bias: Tuple[Regularization, ...] = ()
     dropout: float = 0.0
     gradient_normalization: GradientNormalization = GradientNormalization.NONE
     gradient_normalization_threshold: float = 1.0
+
+    def _dropout_input(self, x, train, gen):
+        if train and 0.0 < self.dropout < 1.0 and gen is not None:
+            keep = self.dropout
+            u = torch.rand(x.shape, generator=gen, device=gen.device)
+            mask = (u < keep).to(x.device)
+            return torch.where(mask, x / keep, torch.zeros_like(x))
+        return x
 
 
 def promote(*tensors):
@@ -139,19 +157,28 @@ class DenseLayer(BaseLayer):
     def param_order(self):
         return ["W", "b"] if self.has_bias else ["W"]
 
-    def forward(self, params, state, x):
+    def forward(self, params, state, x, train=False, gen=None):
+        x = self._dropout_input(x, train, gen)
+        return self.activation.apply(self.pre_output(params, x)), state
+
+    def pre_output(self, params, x):
         x, w, b = promote(x, params["W"], params.get("b"))
-        y = F.linear(x, w, b if self.has_bias else None)
-        return self.activation.apply(y), state
+        return F.linear(x, w, b if self.has_bias else None)
 
 
 @serde.register
 @dataclasses.dataclass
 class OutputLayer(DenseLayer):
-    """Dense + loss head (reference ``OutputLayer``)."""
+    """Dense + loss head (reference ``OutputLayer``). The network scores
+    with :meth:`score` on the pre-activations, so the loss can take its
+    fused form (log-softmax for MCXENT)."""
 
     loss_fn: ILossFunction = dataclasses.field(default_factory=LossMCXENT)
     activation: Activation = Activation.SOFTMAX
+
+    def score(self, params, x, labels, mask=None):
+        z = self.pre_output(params, x)
+        return self.loss_fn.score(labels, z, self.activation, mask)
 
 
 @serde.register
@@ -161,7 +188,7 @@ class ActivationLayer(Layer):
 
     activation: Activation = Activation.RELU
 
-    def forward(self, params, state, x):
+    def forward(self, params, state, x, train=False, gen=None):
         return self.activation.apply(x), state
 
 
@@ -178,5 +205,5 @@ class CnnToFeedForwardPreProcessor(Layer):
     def output_type(self, input_type):
         return it.FeedForward(size=self.height * self.width * self.channels)
 
-    def forward(self, params, state, x):
+    def forward(self, params, state, x, train=False, gen=None):
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1), state

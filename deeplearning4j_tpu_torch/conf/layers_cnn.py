@@ -1,4 +1,4 @@
-"""Convolutional / pooling / normalization layer configs (serving slice).
+"""Convolutional / pooling / normalization layer configs.
 
 Reference confs: ``ConvolutionLayer``, ``SubsamplingLayer``,
 ``BatchNormalization``, ``GlobalPoolingLayer`` and the JAX package's
@@ -121,7 +121,8 @@ class ConvolutionLayer(BaseLayer):
     def param_order(self):
         return ["W", "b"] if self.has_bias else ["W"]
 
-    def forward(self, params, state, x):
+    def forward(self, params, state, x, train=False, gen=None):
+        x = self._dropout_input(x, train, gen)
         left, right, top, bottom = _window_pads(
             x, self.convolution_mode, self.kernel_size, self.stride,
             self.padding, self.dilation)
@@ -160,7 +161,7 @@ class SubsamplingLayer(Layer):
             channels=input_type.channels,
         )
 
-    def forward(self, params, state, x):
+    def forward(self, params, state, x, train=False, gen=None):
         k, s = _pair(self.kernel_size), _pair(self.stride)
         pads = _window_pads(x, self.convolution_mode, k, s, self.padding)
 
@@ -191,6 +192,15 @@ def _channel_view(v, ndim):
     return v.reshape((1, -1) + (1,) * (ndim - 2))
 
 
+def _bn_running_update(state, mean, var, decay):
+    """decay*running + (1-decay)*batch — the reference's update rule, shared
+    by BatchNormalization and FusedConvBN1x1. The batch statistics enter
+    detached: the running state is never part of the autograd graph."""
+    mean, var = mean.detach(), var.detach()
+    return {"mean": decay * state["mean"] + (1 - decay) * mean,
+            "var": decay * state["var"] + (1 - decay) * var}
+
+
 def _bn_normalize(y32, mean, var, eps, gamma, beta):
     """(y-mean)*rsqrt(var+eps)*gamma + beta (gamma None = locked), in the
     JAX package's operation order."""
@@ -209,9 +219,11 @@ def _channel_axes(x):
 @serde.register
 @dataclasses.dataclass
 class BatchNormalization(BaseLayer):
-    """Reference ``BatchNormalization``, eval mode: normalizes with the
-    running mean/var held in state, computing in the STATE dtype (f32 under
-    a bf16 compute policy) and casting back to the input dtype."""
+    """Reference ``BatchNormalization``. Statistics are computed in the
+    STATE dtype (f32 under a bf16 compute policy) and the output cast back
+    to the input dtype. Train mode normalizes with one-pass batch
+    statistics (``E[x^2] - E[x]^2``, clamped at 0) and returns the running
+    mean/var moved by ``decay``; eval mode reads the running statistics."""
 
     decay: float = 0.9
     eps: float = 1e-5
@@ -238,11 +250,21 @@ class BatchNormalization(BaseLayer):
     def param_order(self):
         return [] if self.lock_gamma_beta else ["gamma", "beta"]
 
-    def forward(self, params, state, x):
+    def regularized_param_keys(self):
+        return []
+
+    def forward(self, params, state, x, train=False, gen=None):
         x32 = x.to(state["mean"].dtype)
-        if self.use_batch_mean_in_eval:
+        axes = _channel_axes(x32)
+        new_state = state
+        if train:
+            # one pass: E[x] and E[x^2] in the same read of the activation
+            mean = x32.mean(dim=axes)
+            var = torch.clamp((x32 * x32).mean(dim=axes) - mean * mean,
+                              min=0.0)
+            new_state = _bn_running_update(state, mean, var, self.decay)
+        elif self.use_batch_mean_in_eval:
             # reference isMinibatch=false: batch statistics at inference
-            axes = _channel_axes(x32)
             mean = x32.mean(dim=axes)
             var = x32.var(dim=axes, unbiased=False)
         else:
@@ -251,17 +273,27 @@ class BatchNormalization(BaseLayer):
         xhat = _bn_normalize(x32, mean, var, self.eps,
                              None if locked else params["gamma"],
                              None if locked else params["beta"])
-        return self.activation.apply(xhat).to(x.dtype), state
+        return self.activation.apply(xhat).to(x.dtype), new_state
 
 
 @serde.register
 @dataclasses.dataclass
 class FusedConvBN1x1(BaseLayer):
-    """The JAX package's fused 1x1-convolution + batch norm, eval mode:
+    """The JAX package's fused 1x1 convolution + batch norm: the function of
     ``ConvolutionLayer(kernel=(1,1), has_bias=False)`` followed by
-    ``BatchNormalization`` on the running statistics. Its train-mode
-    statistics kernel lands with the training slice; ``kernel_mode`` and
-    ``force_kernel`` are carried for configuration parity only."""
+    ``BatchNormalization(activation=self.activation)``, with the same
+    params (W, gamma, beta) and running mean/var state.
+
+    Train mode takes the BN statistics from the convolution's own output
+    pass: ``ops.conv_fused.conv1x1_bn_stats`` (the ``matmul_stats``
+    kernel) returns y with per-channel ``sum(y)`` and ``sum(y*y)``, and the
+    variance is the one-pass ``E[y^2] - E[y]^2`` clamped at 0. The stock
+    path (``F.conv2d`` and the same one-pass statistics) computes the same
+    function. ``kernel_mode="auto"`` takes the kernel on a CUDA card for
+    the shapes ``conv_fused.fusable`` admits; ``force_kernel`` takes it on
+    any device (the plain version on the CPU). Eval mode reads the running
+    statistics and always runs ``F.conv2d``. With ``conf.use_kernels`` the
+    routing takes the kernel for every train-mode shape."""
 
     n_out: int = 0
     stride: Tuple[int, int] = (1, 1)
@@ -295,14 +327,54 @@ class FusedConvBN1x1(BaseLayer):
     def param_order(self):
         return ["W", "gamma", "beta"]
 
-    def forward(self, params, state, x):
+    def _use_kernel(self, m, cin, device):
+        from deeplearning4j_tpu_torch.ops import conv_fused
+
+        if not conv_fused.fusable(m, cin, self.n_out):
+            return False
+        return self.force_kernel or (self.kernel_mode != "off"
+                                     and device.type == "cuda")
+
+    def forward(self, params, state, x, train=False, gen=None):
+        x = self._dropout_input(x, train, gen)
         sh, sw = _pair(self.stride)
         xs = x[:, :, ::sh, ::sw] if (sh, sw) != (1, 1) else x
+        b, cin, h, wd = xs.shape
+        if train and self._use_kernel(b * h * wd, cin, x.device):
+            return self.forward_kernel(params, state, x)
         y = F.conv2d(xs, params["W"])
         sdt = state["mean"].dtype
-        xhat = _bn_normalize(y.to(sdt), state["mean"], state["var"], self.eps,
+        new_state = state
+        if train:
+            # one-pass statistics, the kernel path's formulation
+            y32 = y.to(sdt)
+            mean = y32.mean(dim=(0, 2, 3))
+            var = torch.clamp((y32 * y32).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+            new_state = _bn_running_update(state, mean, var, self.decay)
+        else:
+            mean, var = state["mean"], state["var"]
+        return self._normalize(params, y, mean, var, x.dtype), new_state
+
+    def forward_kernel(self, params, state, x):
+        """Train mode through ``matmul_stats`` (``x`` after dropout): the
+        layer's kernel path and the routed path of ``conf.use_kernels``."""
+        from deeplearning4j_tpu_torch.ops import conv_fused
+
+        y, s, q = conv_fused.conv1x1_bn_stats(x, params["W"],
+                                              _pair(self.stride))
+        m = y.shape[0] * y.shape[2] * y.shape[3]
+        sdt = state["mean"].dtype
+        mean = (s / m).to(sdt)
+        var = torch.clamp((q / m).to(sdt) - mean * mean, min=0.0)
+        new_state = _bn_running_update(state, mean, var, self.decay)
+        return self._normalize(params, y, mean, var, x.dtype), new_state
+
+    def _normalize(self, params, y, mean, var, dtype):
+        sdt = mean.dtype
+        xhat = _bn_normalize(y.to(sdt), mean, var, self.eps,
                              params["gamma"].to(sdt), params["beta"].to(sdt))
-        return self.activation.apply(xhat).to(x.dtype), state
+        return self.activation.apply(xhat).to(dtype)
 
 
 @serde.register
@@ -320,7 +392,7 @@ class GlobalPoolingLayer(Layer):
             return it.FeedForward(size=input_type.size)
         return input_type
 
-    def forward(self, params, state, x):
+    def forward(self, params, state, x, train=False, gen=None):
         dims = (2, 3) if x.ndim == 4 else tuple(range(1, x.ndim - 1))
         if self.pooling_type is PoolingType.MAX:
             return torch.amax(x, dim=dims), state

@@ -6,7 +6,8 @@ with a plain C interface, loaded with ``ctypes`` (pointers and the stream are
 would take minutes, and every fresh machine builds anew.
 
 The library lands in ``deeplearning4j_tpu_torch/_build/`` (git-ignored),
-named by a digest of the source and the flags, so an edited source rebuilds
+named by a digest of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header rebuilds
 and an unchanged one loads the library already there. Publishing is a
 rename of a finished temporary file, so concurrent processes never load a
 half-written library. Building needs ``nvcc`` (``PATH``, ``CUDA_HOME`` or
@@ -54,7 +55,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers (csrc/*.cuh) are part of every source's digest
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

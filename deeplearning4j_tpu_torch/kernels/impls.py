@@ -8,10 +8,17 @@ plain int, never touched by the plain path), so a run can show that its
 main path went through the kernel.
 
 ``matmul_bias_act`` replaces the JAX package's Pallas kernel
-``deeplearning4j_tpu/kernels/impls.py::matmul_bias_act``; ``probe`` replaces
-the capability probe's ``pallas_call`` in
-``deeplearning4j_tpu/kernels/routing.py::capability``. The CUDA source says
+``deeplearning4j_tpu/kernels/impls.py::matmul_bias_act``; ``matmul_stats``
+replaces ``deeplearning4j_tpu/kernels/impls.py::matmul_stats`` and
+``deeplearning4j_tpu/ops/conv_fused.py::matmul_with_stats`` (one function);
+``probe`` replaces the capability probe's ``pallas_call`` in
+``deeplearning4j_tpu/kernels/routing.py::capability``. The CUDA sources say
 what bounds each kernel on an H100 and what its design does about it.
+
+Gradients: ``matmul_bias_act`` and ``matmul_stats`` are
+``torch.autograd.Function``s whose backward is the JAX package's
+``custom_vjp`` (plain matrix products there and here, as XLA ran them), so
+the kernel route trains exactly like the stock route.
 """
 
 from __future__ import annotations
@@ -24,7 +31,9 @@ import torch
 from deeplearning4j_tpu_torch.conf.activations import Activation
 from deeplearning4j_tpu_torch.kernels import build
 
-SOURCE = "matmul_bias_act"  # csrc/matmul_bias_act.cu holds both kernels
+SOURCE = "matmul_bias_act"  # csrc/matmul_bias_act.cu: matmul_bias_act, probe
+STATS_SOURCE = "matmul_stats"  # csrc/matmul_stats.cu
+SOURCES = (SOURCE, STATS_SOURCE)
 
 _SIGNATURES = {
     "dl4j_matmul_bias_act": (
@@ -35,6 +44,15 @@ _SIGNATURES = {
     "dl4j_probe": (
         ctypes.c_int,
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+}
+_STATS_SIGNATURES = {
+    "dl4j_matmul_stats_block_m": (
+        ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.c_int]),
+    "dl4j_matmul_stats": (
+        ctypes.c_int,
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
 }
 
 # the epilogue's activation ids: every elementwise Activation, in the order
@@ -55,6 +73,10 @@ _COUNT_LOCK = threading.Lock()
 
 def _library() -> ctypes.CDLL:
     return build.load(SOURCE, _SIGNATURES)
+
+
+def _stats_library() -> ctypes.CDLL:
+    return build.load(STATS_SOURCE, _STATS_SIGNATURES)
 
 
 def _count(wrapper) -> None:
@@ -105,17 +127,7 @@ def matmul_bias_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return act.apply(z).to(x.dtype)
 
 
-def matmul_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                    act: Activation) -> torch.Tensor:
-    """``act(x @ w.T + b)``: x [M, K], w [N, K] (both K-contiguous — a 1x1
-    OIHW conv weight viewed as [N, K] already is), b [N]; float32 or
-    bfloat16, f32 accumulation, output [M, N] in the input dtype. ``act``
-    is an elementwise :class:`Activation` (softmax is refused)."""
-    _check_matmul(x, w, b, act)
-    if x.device.type == "cpu":
-        return matmul_bias_act_plain(x, w, b, act)
-    if x.device.type != "cuda":
-        raise ValueError(f"matmul_bias_act runs on cpu or cuda, not {x.device}")
+def _matmul_bias_act_cuda(x, w, b, act):
     if not (x.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
         raise ValueError("matmul_bias_act needs contiguous operands")
     (m, k), n = x.shape, w.shape[0]
@@ -133,7 +145,148 @@ def matmul_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y
 
 
+class _MatmulBiasAct(torch.autograd.Function):
+    """Forward: the kernel (the plain version on the CPU). Backward: the
+    JAX package's VJP (``kernels/impls.py::_mm_bias_act_bwd``) — recompute
+    ``z = x @ w.T + b`` with the stock ops, pull the cotangent through the
+    activation, then ``dx = dz @ w``, ``dw = dz.T @ x`` and ``db`` summed
+    in f32."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, act):
+        ctx.act = act
+        ctx.save_for_backward(x, w, b)
+        if x.device.type == "cpu":
+            return matmul_bias_act_plain(x, w, b, act)
+        return _matmul_bias_act_cuda(x, w, b, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b = ctx.saved_tensors
+        if ctx.act is Activation.IDENTITY:
+            dz = g.to(x.dtype)
+        else:
+            with torch.enable_grad():
+                z = (x @ w.T + b).detach().requires_grad_()
+                (dz,) = torch.autograd.grad(ctx.act.apply(z), z,
+                                            g.to(z.dtype))
+        need_x, need_w, need_b, _ = ctx.needs_input_grad
+        dx = (dz @ w).to(x.dtype) if need_x else None
+        dw = (dz.T @ x).to(w.dtype) if need_w else None
+        db = dz.float().sum(0).to(b.dtype) if need_b else None
+        return dx, dw, db, None
+
+
+def matmul_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    act: Activation) -> torch.Tensor:
+    """``act(x @ w.T + b)``: x [M, K], w [N, K] (both K-contiguous — a 1x1
+    OIHW conv weight viewed as [N, K] already is), b [N]; float32 or
+    bfloat16, f32 accumulation, output [M, N] in the input dtype. ``act``
+    is an elementwise :class:`Activation` (softmax is refused).
+    Differentiable in x, w and b."""
+    _check_matmul(x, w, b, act)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"matmul_bias_act runs on cpu or cuda, not {x.device}")
+    return _MatmulBiasAct.apply(x, w, b, act)
+
+
 matmul_bias_act.launches = 0
+
+
+# --------------------------------------------------------------------------
+# matmul + per-column sum / sum of squares (fused 1x1 conv + BN statistics)
+# --------------------------------------------------------------------------
+
+def _check_stats(x, w):
+    if x.ndim != 2 or w.ndim != 2 or w.shape[1] != x.shape[1]:
+        raise ValueError(f"matmul_stats takes x [M,K], w [N,K]; got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
+    if x.dtype != w.dtype or x.dtype not in _DTYPE_IDS:
+        raise ValueError(f"matmul_stats takes float32 or bfloat16 operands "
+                         f"of one dtype; got {x.dtype}, {w.dtype}")
+    if x.device != w.device:
+        raise ValueError(f"matmul_stats operands on different devices: "
+                         f"{x.device}, {w.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"matmul_stats runs on cpu or cuda, not {x.device}")
+
+
+def matmul_stats_plain(x: torch.Tensor, w: torch.Tensor):
+    """The kernel's function in plain PyTorch: ``y = x @ w.T`` accumulated
+    in f32 and rounded once to the input dtype, then ``sum(y)`` and
+    ``sum(y*y)`` per column over the ROUNDED y, accumulated in f64 and
+    returned as f32 (the reference the kernel's f32 sums are held to)."""
+    y = (x.float() @ w.float().T).to(x.dtype)
+    y64 = y.double()
+    return y, y64.sum(0).float(), (y64 * y64).sum(0).float()
+
+
+def _matmul_stats_cuda(x, w):
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("matmul_stats needs contiguous operands")
+    (m, k), n = x.shape, w.shape[0]
+    if max(m, n, k) > _INT_MAX:
+        raise ValueError(f"matmul_stats dimension over 2**31: {(m, k, n)}")
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0 or n == 0:
+        zeros = torch.zeros((n,), dtype=torch.float32, device=x.device)
+        return y, zeros, zeros.clone()
+    lib = _stats_library()
+    bm = lib.dl4j_matmul_stats_block_m(m, n, x.device.index)
+    if bm <= 0:
+        _raise_on_error("matmul_stats", -bm)
+    rows = -(-m // bm)
+    s_part = torch.empty((rows, n), dtype=torch.float32, device=x.device)
+    q_part = torch.empty((rows, n), dtype=torch.float32, device=x.device)
+    rc = lib.dl4j_matmul_stats(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), s_part.data_ptr(),
+        q_part.data_ptr(), m, n, k, _DTYPE_IDS[x.dtype], x.device.index,
+        _stream(x))
+    _raise_on_error("matmul_stats", rc)
+    _count(matmul_stats)
+    # the [rows, N] partials reduce in a fixed order, as the JAX package
+    # reduces its [row blocks, 1, N] partials in XLA
+    return y, s_part.sum(0), q_part.sum(0)
+
+
+class _MatmulStats(torch.autograd.Function):
+    """Forward: the kernel (the plain version on the CPU). Backward: the
+    JAX package's VJP (``kernels/impls.py::_mm_stats_bwd``,
+    ``ops/conv_fused.py::_bwd``): with ``s = sum(y)`` and ``q = sum(y*y)``
+    the cotangent into y is ``g = gy + gs + 2*y*gq`` (f32, then the input
+    dtype), and ``dx = g @ w``, ``dw = g.T @ x`` in the [N, K] layout."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        if x.device.type == "cpu":
+            y, s, q = matmul_stats_plain(x, w)
+        else:
+            y, s, q = _matmul_stats_cuda(x, w)
+        ctx.save_for_backward(x, w, y)
+        return y, s, q
+
+    @staticmethod
+    def backward(ctx, gy, gs, gq):
+        x, w, y = ctx.saved_tensors
+        g = (gy.float() + gs.float()[None, :]
+             + 2.0 * y.float() * gq.float()[None, :]).to(x.dtype)
+        need_x, need_w = ctx.needs_input_grad
+        dx = (g @ w).to(x.dtype) if need_x else None
+        dw = (g.T @ x).to(w.dtype) if need_w else None
+        return dx, dw
+
+
+def matmul_stats(x: torch.Tensor, w: torch.Tensor):
+    """``(y, s, q)``: ``y = x @ w.T`` [M, N] in the input dtype (f32
+    accumulation), and per column ``s = sum(y)``, ``q = sum(y*y)`` [N] in
+    f32 over the rounded y — the fused 1x1-conv + BN statistics in one pass
+    over y. x [M, K], w [N, K] (K-contiguous: a 1x1 OIHW weight viewed as
+    [N, K]); float32 or bfloat16. Differentiable in x and w."""
+    _check_stats(x, w)
+    return _MatmulStats.apply(x, w)
+
+
+matmul_stats.launches = 0
 
 
 # --------------------------------------------------------------------------

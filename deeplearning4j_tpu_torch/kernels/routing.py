@@ -1,8 +1,8 @@
 """Layer-to-kernel routing + the capability probe.
 
-``maybe_forward(layer, ...)`` is the dispatch point the graph forward calls
-when ``conf.use_kernels`` is on. It takes the same qualifiers as the JAX
-package's ``kernels/routing.py``:
+``maybe_forward(layer, ..., train, gen)`` is the dispatch point the graph
+forward calls when ``conf.use_kernels`` is on. It takes the same qualifiers
+as the JAX package's ``kernels/routing.py``:
 
 - ``DenseLayer`` (2-D input) and 1x1 ``ConvolutionLayer`` → ``matmul_bias_act``,
   only for the layer's exact class forward (a subclass with its own forward
@@ -10,12 +10,18 @@ package's ``kernels/routing.py``:
 - the 1x1 conv only when pad-free (explicit padding would add zero rows) or
   SAME; a stride subsamples the input before the GEMM, so the output is
   ``ceil(h / s)`` by ``ceil(w / s)``;
-- a missing bias (``has_bias=False``) is a zero bias.
+- a missing bias (``has_bias=False``) is a zero bias;
+- ``FusedConvBN1x1`` in train mode → ``matmul_stats`` (the statistics pass
+  fused into the conv's output pass); eval mode reads the running
+  statistics and takes the stock forward.
 
-Anything else returns ``None`` and the caller runs the stock forward. The
-JAX route takes its kernel only for a *tuned* envelope; this port has no
-tuner yet, so the route takes the kernel for every shape the qualifiers
-admit (the JAX package's tuned and stock paths agree, so no output changes).
+Dropout (train mode with a generator) masks the full input first, as the
+layer's own forward does. Both kernels are differentiable, so a routed
+forward trains. Anything else returns ``None`` and the caller runs the
+stock forward. The JAX route takes its kernel only for a *tuned* envelope;
+this port has no tuner yet, so the route takes the kernel for every shape
+the qualifiers admit (the JAX package's tuned and stock paths agree, so no
+output changes).
 """
 
 from __future__ import annotations
@@ -64,20 +70,21 @@ def _zero_bias(layer, x):
     return torch.zeros((layer.n_out,), dtype=x.dtype, device=x.device)
 
 
-def _route_dense(layer, params, state, x):
+def _route_dense(layer, params, state, x, train, gen):
     from deeplearning4j_tpu_torch.conf.layers import DenseLayer, promote
 
     if type(layer).forward is not DenseLayer.forward:
         return None  # a subclass with its own forward: never reroute it
     if x.ndim != 2 or not impls.elementwise(layer.activation):
         return None
+    x = layer._dropout_input(x, train, gen)
     b = params["b"] if layer.has_bias else _zero_bias(layer, x)
     x, w, b = promote(x, params["W"], b)
     y = impls.matmul_bias_act(x.contiguous(), w, b, layer.activation)
     return y, state
 
 
-def _route_conv1x1(layer, params, state, x):
+def _route_conv1x1(layer, params, state, x, train, gen):
     from deeplearning4j_tpu_torch.conf.layers_cnn import (
         ConvolutionLayer,
         ConvolutionMode,
@@ -98,6 +105,7 @@ def _route_conv1x1(layer, params, state, x):
     sh, sw = _pair(layer.stride)
     b_, cin, h, wd = x.shape
     h_o, w_o = -(-h // sh), -(-wd // sw)
+    x = layer._dropout_input(x, train, gen)  # the full input, as the layer
     xs = x[:, :, ::sh, ::sw] if (sh, sw) != (1, 1) else x
     # NCHW in channels_last memory: the NHWC permute is the memory order,
     # so [M, Cin] is a view unless the stride subsample made a gap
@@ -108,14 +116,32 @@ def _route_conv1x1(layer, params, state, x):
     return y2.view(b_, h_o, w_o, layer.n_out).permute(0, 3, 1, 2), state
 
 
-def maybe_forward(layer, params, state, x):
-    """Run ``layer`` through ``matmul_bias_act``, or return ``None`` for the
-    stock forward. On a CUDA tensor the first routed call per card checks
+def _route_fused_conv_bn(layer, params, state, x, train, gen):
+    from deeplearning4j_tpu_torch.conf.layers_cnn import FusedConvBN1x1
+
+    if type(layer).forward is not FusedConvBN1x1.forward:
+        return None
+    if not train or x.ndim != 4:
+        return None  # eval mode reads running stats: no statistics pass
+    # exactly the layer's train-mode kernel path (stride subsample first,
+    # statistics in the state dtype, var = max(q/m - mean^2, 0))
+    return layer.forward_kernel(params, state,
+                                layer._dropout_input(x, train, gen))
+
+
+def maybe_forward(layer, params, state, x, train=False, gen=None):
+    """Run ``layer`` through its kernel, or return ``None`` for the stock
+    forward. On a CUDA tensor the first routed call per card checks
     :func:`capability`."""
     from deeplearning4j_tpu_torch.conf.layers import DenseLayer
-    from deeplearning4j_tpu_torch.conf.layers_cnn import ConvolutionLayer
+    from deeplearning4j_tpu_torch.conf.layers_cnn import (
+        ConvolutionLayer,
+        FusedConvBN1x1,
+    )
 
-    if isinstance(layer, ConvolutionLayer):
+    if isinstance(layer, FusedConvBN1x1):
+        route = _route_fused_conv_bn
+    elif isinstance(layer, ConvolutionLayer):
         route = _route_conv1x1
     elif isinstance(layer, DenseLayer):
         route = _route_dense
@@ -123,10 +149,10 @@ def maybe_forward(layer, params, state, x):
         return None
     if x.is_cuda:
         capability(x.device)
-    return route(layer, params, state, x)
+    return route(layer, params, state, x, train, gen)
 
 
-def maybe_vertex_forward(vertex, params, state, xs):
+def maybe_vertex_forward(vertex, params, state, xs, train=False, gen=None):
     """Graph-side dispatch: route a single-input ``LayerVertex``'s wrapped
     layer, applying its preprocessor first exactly as ``LayerVertex.forward``
     does. None = run the stock vertex forward."""
@@ -137,4 +163,4 @@ def maybe_vertex_forward(vertex, params, state, xs):
     pre = getattr(vertex, "preprocessor", None)
     if pre is not None:
         x, _ = pre.forward({}, {}, x)
-    return maybe_forward(layer, params, state, x)
+    return maybe_forward(layer, params, state, x, train, gen)

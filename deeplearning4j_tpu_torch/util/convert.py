@@ -5,7 +5,9 @@ weights ``[nIn, nOut]``; the port keeps conv weights OIHW
 ``[out, in, kh, kw]`` and dense weights ``[nOut, nIn]`` (torch's
 ``nn.Linear`` layout, K-contiguous for the ``matmul_bias_act`` kernel).
 Biases, BN ``gamma``/``beta`` and the BN running ``mean``/``var`` state are
-per-channel vectors in both packages.
+per-channel vectors in both packages. An updater's state (Adam's ``m`` and
+``v``, Nesterovs' ``v``) has its parameter's shape, so it converts by the
+parameter's rule.
 
 This module imports neither package's JAX code: it takes the JAX graph's
 ``params``/``state`` as nested dicts of numpy arrays
@@ -57,3 +59,19 @@ def params_from_jax(conf, params: Dict[str, dict], state: Dict[str, dict]
     out_s = {name: {key: torch.tensor(np.asarray(v)) for key, v in vs.items()}
              for name, vs in state.items()}
     return out_p, out_s
+
+
+def opt_state_from_jax(conf, opt_state: Dict[str, dict]) -> Dict[str, dict]:
+    """Map the JAX graph's updater state (``{vertex: {param: {"m": ...,
+    "v": ...}}}``, numpy) onto the port's layouts, so training resumes in
+    the port: pass the result to ``ComputationGraph.set_params`` (and carry
+    the JAX graph's ``iteration``, which Adam's bias correction reads)."""
+    vmap = conf.vertex_map()
+    out = {}
+    for name, vp in opt_state.items():
+        layer = getattr(vmap[name].vertex, "layer", None)
+        out[name] = {
+            pk: {sk: convert_layer_params(layer, {pk: v})[pk]
+                 for sk, v in leaf.items()}
+            for pk, leaf in vp.items()}
+    return out

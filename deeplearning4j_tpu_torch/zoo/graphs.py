@@ -1,8 +1,8 @@
 """Model zoo — ComputationGraph models.
 
 Reference: ``org.deeplearning4j.zoo.model.ResNet50``; the topology is the
-JAX package's ``zoo/graphs.py::ResNet50`` (its default: the plain 7x7/2
-stem and unfused conv + BN pairs), so both packages build the same
+JAX package's ``zoo/graphs.py::ResNet50`` (the plain 7x7/2 stem; unfused
+conv + BN pairs, or ``fused_conv_bn``), so both packages build the same
 configuration JSON.
 """
 
@@ -19,6 +19,7 @@ from deeplearning4j_tpu_torch.conf.layers_cnn import (
     BatchNormalization,
     ConvolutionLayer,
     ConvolutionMode,
+    FusedConvBN1x1,
     GlobalPoolingLayer,
     PoolingType,
     SubsamplingLayer,
@@ -50,7 +51,21 @@ class ResNet50(GraphZooModel):
         self.seed = seed
         self.updater = updater or Adam(learning_rate=1e-3)
 
+    fused_conv_bn: bool = False
+    """Route every 1x1-conv + BN pair through ``FusedConvBN1x1`` (the same
+    function, with the BN statistics fused into the conv's output pass by
+    the ``matmul_stats`` kernel). ResNet-50 has 36 such pairs (bottleneck
+    a/c convs and projections). Weights map 1:1 from the unfused graph via
+    :meth:`fused_param_remap`. Default off keeps the reference's layer-pair
+    topology. Set via attribute after construction."""
+
     def _conv_bn(self, g, name, n_out, k, s, inp, act=True):
+        if self.fused_conv_bn and tuple(k) == (1, 1):
+            g.add_layer(f"{name}_cb", FusedConvBN1x1(
+                n_out=n_out, stride=s,
+                activation=Activation.RELU if act else Activation.IDENTITY),
+                inp)
+            return f"{name}_cb"
         g.add_layer(f"{name}_conv",
                     ConvolutionLayer(n_out=n_out, kernel_size=k, stride=s,
                                      activation=Activation.IDENTITY,
@@ -60,6 +75,35 @@ class ResNet50(GraphZooModel):
             activation=Activation.RELU if act else Activation.IDENTITY),
             f"{name}_conv")
         return f"{name}_bn"
+
+    @staticmethod
+    def fused_param_remap(params, state):
+        """Map an unfused ResNet-50's params/state (the port's layouts: OIHW
+        conv weights) onto the ``fused_conv_bn=True`` graph: every
+        ``{n}_conv`` (W, 1x1, no bias) + ``{n}_bn`` (gamma/beta, running
+        mean/var) pair collapses into ``{n}_cb`` holding all five; other
+        vertices pass through unchanged."""
+        def fusable_pair(n):
+            conv = params.get(f"{n}_conv", {})
+            return (f"{n}_bn" in params and conv.get("W") is not None
+                    and tuple(conv["W"].shape[2:]) == (1, 1)
+                    and "b" not in conv)
+
+        new_p, new_s = {}, {}
+        for k, v in params.items():
+            if k.endswith("_conv") and fusable_pair(k[:-5]):
+                n = k[:-5]
+                new_p[f"{n}_cb"] = {"W": v["W"],
+                                    "gamma": params[f"{n}_bn"]["gamma"],
+                                    "beta": params[f"{n}_bn"]["beta"]}
+                new_s[f"{n}_cb"] = dict(state.get(f"{n}_bn", {}))
+            elif k.endswith("_bn") and fusable_pair(k[:-3]):
+                continue  # folded into the _cb entry above
+            else:
+                new_p[k] = v
+                if k in state:
+                    new_s[k] = state[k]
+        return new_p, new_s
 
     def _bottleneck(self, g, name, inp, filters, stride, project):
         f1, f2, f3 = filters

@@ -21,7 +21,7 @@ import deeplearning4j_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-import chip_kernel_ab, chip_smoke
+import chip_kernel_ab, chip_smoke, chip_train_profile
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))
 print(len(names), bad)
@@ -33,15 +33,16 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(count) >= 30
+    assert int(count) >= 44  # every module of the port, training included
     assert bad == "[]"
 
 
 def test_no_port_source_imports_jax_or_the_jax_package():
     pattern = re.compile(
         r"^\s*(from|import)\s+(jax|jaxlib|deeplearning4j_tpu)(\s|\.|$)", re.M)
-    sources = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "chip_kernel_ab.py"]
+    sources = list(PKG.rglob("*.py")) + [
+        ROOT / name for name in ("chip_smoke.py", "chip_kernel_ab.py",
+                                 "chip_train_profile.py")]
     offenders = [str(p.relative_to(ROOT)) for p in sources
                  if pattern.search(p.read_text())]
     assert offenders == []

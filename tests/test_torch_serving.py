@@ -267,10 +267,13 @@ def test_retry_absorbs_one_transient_launch_failure(nets):
 
 
 def test_watchdog_fails_a_stuck_launch_and_keeps_serving(nets):
+    """A launch stuck for 3 s fails under a 1 s watchdog; the healthy
+    launch after it runs under the same watchdog and finishes in
+    milliseconds, so a loaded machine cannot trip it."""
     jnet, net = nets
     plan = FaultPlan().inject("serving.launch", on_calls=[1],
-                              action="delay", delay_s=0.5)
-    cfg = BatchingConfig(launch_timeout_ms=100.0)
+                              action="delay", delay_s=3.0)
+    cfg = BatchingConfig(launch_timeout_ms=1000.0)
     with InferenceEngine(net, cfg, retry=None) as eng, plan.armed():
         with pytest.raises(LaunchTimeoutError):
             eng.predict(_images(1, 0))
