@@ -1,24 +1,29 @@
 #!/usr/bin/env python3
-"""Compare the checkout's ``matmul_bias_act`` CUDA kernel with another
-version of its source, on one CUDA card.
+"""Compare the checkout's version of a CUDA kernel with another version of
+its source, on one CUDA card.
 
 Run from the root of a checkout::
 
-    python3 chip_kernel_ab.py OLD.cu [--pairs 10]
+    python3 chip_kernel_ab.py OLD.cu [--kernel matmul_bias_act] [--pairs 10]
 
 ``OLD.cu`` is another version of ``deeplearning4j_tpu_torch/csrc/
-matmul_bias_act.cu`` (same C interface), e.g. the parent commit's, written
-out with ``git show <rev>:deeplearning4j_tpu_torch/csrc/matmul_bias_act.cu``.
-Both are built with the same nvcc flags and, in one process on one card:
+<kernel>.cu`` (same C interface), e.g. the parent commit's, written out
+with ``git show <rev>:deeplearning4j_tpu_torch/csrc/<kernel>.cu``. Both
+are built with the same nvcc flags and, in one process on one card:
 
-1. compared element for element at ResNet-50's 15 distinct 1x1-conv shapes
-   at batch 32 plus ragged shapes, float32 and bfloat16, identity / relu /
-   gelu (``bitwise`` says whether every output is identical);
-2. timed per shape (float32, identity, CUDA-event medians) in ``--pairs``
+1. compared element for element at the main path's shapes, float32 and
+   bfloat16 (``bitwise`` says whether every output is identical);
+2. timed per shape (float32, CUDA-event medians) in ``--pairs``
    alternating pairs, old-new then new-old;
-3. timed end to end: ResNet-50 ``output`` at batch 32 with the route
-   sending the 1x1 convolutions to each version in turn, ``--pairs``
-   alternating pairs.
+3. timed end to end with the route sending the kernel's calls to each
+   version in turn, ``--pairs`` alternating pairs.
+
+``--kernel matmul_bias_act`` (the default): ResNet-50's 15 distinct 1x1-conv
+shapes at batch 32 plus ragged shapes, identity / relu / gelu; end to end,
+ResNet-50 ``output`` at batch 32. ``--kernel paged_decode_attention``: the
+chip_smoke decode checks (B 8, H 12, D 64, each S of the KV ladder); per S,
+seeded positions in [S/2, S); end to end, the GPT-2-small-width LM's
+``GenerationEngine`` over chip_smoke's 16 requests (tokens/s).
 
 Prints one JSON line per shape and a final summary line with quartiles and
 the count of pairs the new version won. Exits non-zero without a CUDA card.
@@ -45,6 +50,8 @@ def quartiles(v):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("old", type=Path, help="the other version's .cu source")
+    ap.add_argument("--kernel", default="matmul_bias_act",
+                    choices=("matmul_bias_act", "paged_decode_attention"))
     ap.add_argument("--pairs", type=int, default=10)
     args = ap.parse_args()
     import torch
@@ -52,6 +59,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_kernel_ab: no CUDA card", file=sys.stderr)
         return 1
+    if args.kernel == "paged_decode_attention":
+        return ab_decode(torch, args)
     import chip_smoke as cs
     from deeplearning4j_tpu_torch.conf.activations import Activation
     from deeplearning4j_tpu_torch.kernels import build, impls
@@ -158,6 +167,110 @@ def main() -> int:
         "forward_new_ms": quartiles(fwd["new"]),
         "forward_new_wins": sum(t_new < t_old for t_old, t_new
                                 in zip(fwd["old"], fwd["new"])),
+        "pairs": args.pairs}), flush=True)
+    return 0
+
+
+def _build_old(build, name, source, signatures):
+    """The other version's library, built with the checkout's flags."""
+    import chip_smoke as cs
+
+    print(cs.nvidia_smi_line(), flush=True)
+    build.build_all([name])
+    old_so = build.BUILD_DIR / f"lib{name}-old.so"
+    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
+                           str(build.CSRC), "-o", str(old_so), str(source)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(proc.stderr)
+    lib = ctypes.CDLL(str(old_so))
+    for fn, (restype, argtypes) in signatures.items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+    return lib
+
+
+def ab_decode(torch, args) -> int:
+    """The A/B of ``paged_decode_attention``: the wrapper launches the
+    library that ``build.load`` hands it, so each version is swapped in
+    through the loaded-library table."""
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.kernels import build, impls
+    from deeplearning4j_tpu_torch.nn.decoding import TransformerDecoder
+    from deeplearning4j_tpu_torch.nn.graph import serve_full_f32
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.zoo.graphs import TransformerEncoder
+
+    name = impls.DECODE_SOURCE
+    serve_full_f32()
+    old_lib = _build_old(build, name, args.old, att._DECODE_SIGNATURES)
+    new_lib = build.load(name, att._DECODE_SIGNATURES)
+
+    def use(side):
+        build._LIBS[name] = old_lib if side == "old" else new_lib
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    h, d = cs.GEN_MODEL["n_heads"], cs.GEN_HEAD_DIM
+    bitwise, rows = True, []
+    try:
+        for s in cs.GEN_KV_LADDER:
+            pos = cs.decode_positions(torch, gen, dev, s)
+            for dt in (torch.float32, torch.bfloat16):
+                q = torch.randn((8, h, d), generator=gen, device=dev).to(dt)
+                kc, vc = (torch.randn((8, s, h, d), generator=gen,
+                                      device=dev).to(dt) for _ in range(2))
+                outs = {}
+                for side in ("old", "new"):
+                    use(side)
+                    outs[side] = att.paged_decode_attention(q, kc, vc, pos)
+                bitwise &= bool(torch.equal(outs["old"], outs["new"]))
+            pos = torch.randint(s // 2, s, (8,), generator=gen,
+                                device=dev).to(torch.int32)
+            q = torch.randn((8, h, d), generator=gen, device=dev)
+            kc, vc = (torch.randn((8, s, h, d), generator=gen, device=dev)
+                      for _ in range(2))
+            times = {"old": [], "new": []}
+            for i in range(args.pairs):
+                for side in (("old", "new") if i % 2 == 0
+                             else ("new", "old")):
+                    use(side)
+                    times[side].append(cs.cuda_time_ms(
+                        lambda: att.paged_decode_attention(q, kc, vc, pos),
+                        samples=5))
+            row = {"s": s, "positions": pos.tolist(),
+                   "old_ms": quartiles(times["old"]),
+                   "new_ms": quartiles(times["new"]),
+                   "new_wins": sum(t_new < t_old for t_old, t_new
+                                   in zip(times["old"], times["new"]))}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+        print(json.dumps({"bitwise": bitwise}), flush=True)
+
+        zoo = TransformerEncoder(causal=True, lm_head=True, use_kernels=True,
+                                 seed=cs.GEN_SEED, **cs.GEN_MODEL)
+        dec = TransformerDecoder(
+            zoo.init(device=dev), max_len=zoo.max_len,
+            **{k: cs.GEN_CONFIG[k] for k in ("max_batch", "kv_bucket_min",
+                                             "prompt_bucket_min")})
+        dec.warmup(fused_steps=(cs.GEN_CONFIG["fused_steps"],))
+        prompts = cs.gen_requests(cs.GEN_REQUESTS, zoo.vocab_size,
+                                  cs.GEN_SEED)
+        tps = {"old": [], "new": []}
+        for i in range(args.pairs):
+            for side in (("old", "new") if i % 2 == 0 else ("new", "old")):
+                use(side)
+                _, timing, _ = cs._engine_run(torch, dec, prompts,
+                                              cs.GEN_MAX_NEW)
+                tps[side].append(timing["tokens_per_s"])
+    finally:
+        use("new")
+    print(json.dumps({
+        "card": cs.nvidia_smi_line(), "kernel": name, "bitwise": bitwise,
+        "engine_tokens_per_s_old": quartiles(tps["old"]),
+        "engine_tokens_per_s_new": quartiles(tps["new"]),
+        "engine_new_wins": sum(t_new > t_old for t_old, t_new
+                               in zip(tps["old"], tps["new"])),
         "pairs": args.pairs}), flush=True)
     return 0
 

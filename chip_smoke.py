@@ -41,10 +41,33 @@ Phases, in order; any failure exits non-zero:
 8. training timings: ``matmul_stats`` per shape beside its plain version,
    ``F.linear`` (the matmul part alone: no single PyTorch call also sums
    the columns) and the bound, and the train step at batch 32, kernel
-   route against stock.
+   route against stock;
+9. ``flash_attention`` against its plain version on the card: every
+   (join bucket 1/2/4/8, prompt bucket 8..1024) at 12 heads x 64, causal
+   with a prompt-length mask (a length-0 padding row included), ragged T
+   333 and 1000, and one bidirectional unmasked case; float32 and
+   bfloat16; o, l and m; a CUDA input that requires grad must raise;
+10. ``paged_decode_attention`` against its plain version at 8 rows x 12
+   heads x 64, each cache length of the KV ladder (64..1024), positions 0,
+   63, 64, S-1 and S (the whole cache) among them; float32 and bfloat16;
+11. the generation path: a causal LM at GPT-2 small's widths (vocab 50257,
+   768 wide, 12 heads, 12 layers, max_len 1024, seeded weights, float32,
+   ``use_kernels=True``) served by ``GenerationEngine(max_batch=8,
+   fused_steps=4, kv_bucket_min=64, prompt_bucket_min=8)``: 16 greedy
+   requests (prompts of 5-896 seeded tokens, 32 new tokens, one with an
+   eos_id); the kernels' launches counted over the engine run alone (12
+   flash per prefill, 12 paged per decode step); every stream held against
+   sequential ``TransformerDecoder.generate`` and against a
+   ``use_kernels=False`` decoder on the same weights (identical, or parting
+   only at a near tie of the reference's logits), and prefill logits
+   against the stock route;
+12. generation timings: both attention kernels at the engine run's shapes
+   beside their plain versions, SDPA and the bound, and the engine's
+   tokens/s, TTFT and per-token latency, kernel route against stock.
 
-Then one ``{"kernels": [...]}`` line with every kernel, the served and
-trained throughput lines, and last ``{"ok": true, "device": {...}}``.
+Then one ``{"kernels": [...]}`` line with every kernel, the served,
+trained and generated lines, and last ``{"ok": true, "device": {...}}``.
+The whole run takes about 80 s on an H100, the parallel build included.
 Without a CUDA card, or without the repository around it, the script exits
 non-zero before printing any result.
 """
@@ -124,6 +147,47 @@ ACTS = ("identity", "relu", "gelu")
 RAGGED = ((333, 37, 75), (20001, 77, 257))
 SOURCE = "deeplearning4j_tpu_torch/csrc/matmul_bias_act.cu"
 STATS_SOURCE = "deeplearning4j_tpu_torch/csrc/matmul_stats.cu"
+
+# the generation slice: a causal LM at GPT-2 small's published widths
+# (huggingface.co/openai-community/gpt2 config.json: n_embd 768, n_head 12,
+# n_layer 12, n_positions 1024, vocab_size 50257), seeded random weights,
+# float32, served by GenerationEngine with use_kernels
+GEN_MODEL = dict(vocab_size=50257, embed_dim=768, n_heads=12, n_layers=12,
+                 max_len=1024)
+GEN_HEAD_DIM = 64
+GEN_CONFIG = dict(max_batch=8, fused_steps=4, kv_bucket_min=64,
+                  prompt_bucket_min=8)
+GEN_PROMPT_LADDER = (8, 16, 32, 64, 128, 256, 512, 1024)
+GEN_JOIN_LADDER = (1, 2, 4, 8)
+GEN_KV_LADDER = (64, 128, 256, 512, 1024)
+GEN_REQUESTS = 16
+GEN_MAX_NEW = 32
+GEN_PROMPT_RANGE = (5, 896)
+GEN_EOS_REQUEST = 3  # this request stops at an eos_id (its 6th token)
+GEN_SEED = 0
+# flash_attention vs its plain version on the same inputs, per output:
+# float32 — o: both sum <= 1024 products p.v in f32 in other orders (the
+# kernel's running-max rescaling vs one softmax), |p v| <= |v| ~ 1; l: a sum
+# of <= 1024 terms in [0, 1]; m: one 64-term dot product, scaled. bfloat16 —
+# the kernel rounds p to bf16 against its running max, the plain version
+# against the final max, and o rounds once to bf16 (2**-8): a bf16 ulp of
+# |o| plus the p roundings; l and m come from the same widened inputs as in
+# float32.
+ATTN_TOL = {
+    "float32": {"o": (2e-5, 1e-4), "l": (1e-5, 1e-4), "m": (2e-5, 1e-5)},
+    "bfloat16": {"o": (2e-2, 2e-2), "l": (1e-5, 1e-4), "m": (2e-5, 1e-5)},
+}
+# paged_decode_attention vs its plain version: p stays f32 in both;
+# float32 sums of <= 1024 products in other orders; bfloat16 one rounding
+# of o (a bf16 ulp, 2**-8, of |o|, doubled for the f32 difference under it)
+DECODE_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (8e-3, 8e-3)}
+# logits of the 12-layer model, kernel route vs stock route (flash vs
+# cuBLAS + softmax attention, paged vs masked full-cache decode), float32;
+# greedy streams may diverge only where the reference's top-2 gap is below
+# twice this (two logits each within it can swap)
+GEN_LOGIT_ATOL = 5e-4
+FLASH_SOURCE = "deeplearning4j_tpu_torch/csrc/flash_attention.cu"
+DECODE_SOURCE = "deeplearning4j_tpu_torch/csrc/paged_decode_attention.cu"
 
 
 def log(msg: str) -> None:
@@ -824,6 +888,433 @@ def kernel_report(rows, launches, worst, probe_row, stats_row) -> dict:
     return {"kernels": [mm, probe_row, stats_row]}
 
 
+# ---------------------------------------------------------------------------
+# the generation slice: attention kernels and the GPT-2-small-width LM
+# ---------------------------------------------------------------------------
+
+def flash_cases():
+    """(B, T, causal, masked) of [9]: every (join bucket, prompt bucket) of
+    the generation path (causal, with the prompt-length mask), two ragged
+    T, and one bidirectional unmasked case."""
+    cases = [(b, t, True, True) for b in GEN_JOIN_LADDER
+             for t in GEN_PROMPT_LADDER]
+    return cases + [(8, 333, True, True), (8, 1000, True, True),
+                    (2, 256, False, False)]
+
+
+def _attention_inputs(torch, gen, dev, b, t, masked, dtype):
+    """q, k, v [B, 12, T, 64] and a float [B, T] prompt-length mask (the
+    last row of a join group of 2 or more has length 0, as padding rows
+    do), or None."""
+    shape = (b, GEN_MODEL["n_heads"], t, GEN_HEAD_DIM)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    km = None
+    if masked:
+        lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev)
+        if b >= 2:
+            lengths[-1] = 0
+        km = (torch.arange(t, device=dev)[None, :]
+              < lengths[:, None]).float()
+    return q, k, v, km
+
+
+def _within(torch, got, ref, tol):
+    atol, rtol = tol
+    diff = (got.float() - ref.float()).abs()
+    return float(diff.max()) if diff.numel() else 0.0, \
+        int((diff > atol + rtol * ref.float().abs()).sum())
+
+
+def check_flash(torch, att, dev) -> dict:
+    """flash_attention vs flash_attention_plain on the card at every case
+    of :func:`flash_cases`, float32 and bfloat16: o, l and m on the rows
+    with a valid key, and every row finite. Also: a CUDA input that
+    requires grad raises (no backward yet)."""
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    worst = {}
+    for b, t, causal, masked in flash_cases():
+        for dtype, tdt in (("float32", torch.float32),
+                           ("bfloat16", torch.bfloat16)):
+            q, k, v, km = _attention_inputs(torch, gen, dev, b, t, masked,
+                                            tdt)
+            o, l, m = att.flash_attention(q, k, v, km, causal,
+                                          return_stats=True)
+            ro, rl, rm = att.flash_attention_plain(q, k, v, km, causal)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(o.float()).all() and torch.isfinite(l).all()
+                    and torch.isfinite(m).all()):
+                raise AssertionError(f"flash_attention B={b} T={t} {dtype}: "
+                                     "non-finite output")
+            rows = (km.sum(-1) > 0) if km is not None else \
+                torch.ones(b, dtype=torch.bool, device=dev)
+            for key, got, ref in (("o", o[rows], ro[rows]),
+                                  ("l", l[rows], rl[rows]),
+                                  ("m", m[rows], rm[rows])):
+                tol = ATTN_TOL[dtype][key]
+                err, bad = _within(torch, got, ref, tol)
+                worst[f"{dtype}.{key}"] = max(worst.get(f"{dtype}.{key}", 0.0),
+                                              err)
+                if bad:
+                    raise AssertionError(
+                        f"flash_attention B={b} T={t} causal={causal} "
+                        f"{dtype} {key}: {bad} elements outside atol="
+                        f"{tol[0]} rtol={tol[1]} (max |err| {err})")
+        log(f"[9] flash_attention B={b} T={t} causal={causal} "
+            f"masked={masked}: f32 and bf16 o, l, m within tolerance")
+    q = torch.randn((1, 2, 8, 64), device=dev, requires_grad=True)
+    try:
+        att.flash_attention(q, q, q, None, True)
+    except NotImplementedError:
+        log("[9] flash_attention refuses a CUDA input that requires grad")
+    else:
+        raise AssertionError("flash_attention returned an output without a "
+                             "gradient for an input that requires grad")
+    log(f"[9] worst |kernel - plain|: {json.dumps(worst)} (tol "
+        f"{json.dumps(ATTN_TOL)})")
+    return worst
+
+
+def decode_positions(torch, gen, dev, s: int):
+    """Positions of [10] at cache length S: 0, 63, 64, S - 1, one past
+    S - 1 (the whole cache is attended), and three seeded ones."""
+    fixed = torch.tensor([0, 63, 64, s - 1, s], device=dev)
+    return torch.cat([fixed, torch.randint(0, s, (3,), generator=gen,
+                                           device=dev)]).to(torch.int32)
+
+
+def check_decode(torch, att, dev) -> dict:
+    """paged_decode_attention vs its plain version at B 8, H 12, D 64 and
+    each cache length of the KV ladder, float32 and bfloat16."""
+    gen = torch.Generator(device=dev).manual_seed(2025)
+    worst = {}
+    h, d = GEN_MODEL["n_heads"], GEN_HEAD_DIM
+    for s in GEN_KV_LADDER:
+        pos = decode_positions(torch, gen, dev, s)
+        for dtype, tdt in (("float32", torch.float32),
+                           ("bfloat16", torch.bfloat16)):
+            q = torch.randn((8, h, d), generator=gen, device=dev).to(tdt)
+            kc, vc = (torch.randn((8, s, h, d), generator=gen,
+                                  device=dev).to(tdt) for _ in range(2))
+            o = att.paged_decode_attention(q, kc, vc, pos)
+            ref = att.paged_decode_attention_plain(q, kc, vc, pos)
+            torch.cuda.synchronize()
+            err, bad = _within(torch, o, ref, DECODE_TOL[dtype])
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+            if bad or not torch.isfinite(o.float()).all():
+                raise AssertionError(
+                    f"paged_decode_attention S={s} {dtype}: {bad} elements "
+                    f"outside {DECODE_TOL[dtype]} (max |err| {err})")
+        log(f"[10] paged_decode_attention S={s} positions "
+            f"{pos.tolist()}: f32 and bf16 within tolerance")
+    log(f"[10] worst |kernel - plain|: {json.dumps(worst)} (tol "
+        f"{json.dumps(DECODE_TOL)})")
+    return worst
+
+
+def gen_requests(n: int, vocab: int, seed: int):
+    """Seeded prompts (lengths in GEN_PROMPT_RANGE)."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(GEN_PROMPT_RANGE[0], GEN_PROMPT_RANGE[1] + 1, n)
+    return [[int(t) for t in rng.integers(0, vocab, int(n_))]
+            for n_ in lengths]
+
+
+def _first_divergence(a, b):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def compare_streams(torch, ref_dec, got, ref, prompts, label) -> dict:
+    """Greedy streams: identical, or the first divergence at a step where
+    the reference's top-2 logit gap (its own prefill of the prompt and the
+    tokens before that step) is below 2 * GEN_LOGIT_ATOL; the gap is
+    printed. Otherwise the run fails."""
+    out = {"identical": 0, "near_ties": []}
+    for j, (g, r, p) in enumerate(zip(got, ref, prompts)):
+        i = _first_divergence(g, r)
+        if i is None:
+            out["identical"] += 1
+            continue
+        seq = list(p) + list(r[:i])
+        with torch.inference_mode():
+            logits, _ = ref_dec._run_prompt(
+                ref_dec.params,
+                torch.tensor([seq], device=ref_dec.device),
+                torch.tensor([len(seq)], device=ref_dec.device))
+        top2 = torch.topk(logits[0].float(), 2).values
+        gap = float(top2[0] - top2[1])
+        log(f"[11] {label}: request {j} diverges at step {i}: reference "
+            f"top-2 logit gap {gap:.3e} (limit {2 * GEN_LOGIT_ATOL:.1e})")
+        if gap >= 2 * GEN_LOGIT_ATOL:
+            raise AssertionError(f"{label}: request {j} diverges at step {i}"
+                                 f" with a top-2 gap of {gap:.3e}")
+        out["near_ties"].append({"request": j, "step": i, "gap": gap})
+    return out
+
+
+def _engine_run(torch, dec, prompts, max_new, eos=None):
+    """One engine over the requests, all submitted at once: outputs and
+    the host-clock latencies."""
+    from deeplearning4j_tpu_torch.parallel.generation import (
+        GenerationConfig,
+        GenerationEngine,
+    )
+
+    eos = eos or {}
+    with GenerationEngine(dec, GenerationConfig(**GEN_CONFIG)) as eng:
+        t0 = time.monotonic()
+        reqs = [eng.submit(p, max_new_tokens=max_new, eos_id=eos.get(j))
+                for j, p in enumerate(prompts)]
+        outs = [eng.result(r) for r in reqs]
+        wall = time.monotonic() - t0
+        stats = eng.stats()
+    ttft = sorted((r.t_first - r.t0) * 1e3 for r in reqs)
+    per_tok = sorted((r.t_done - r.t_first) / (len(r.out) - 1) * 1e3
+                     for r in reqs if len(r.out) > 1)
+    return outs, {
+        "wall_s": wall, "tokens": sum(len(o) for o in outs),
+        "tokens_per_s": sum(len(o) for o in outs) / wall,
+        "ttft_ms_p50": statistics.median(ttft),
+        "ttft_ms_p95": ttft[min(len(ttft) - 1,
+                                math.ceil(0.95 * len(ttft)) - 1)],
+        "token_ms_p50": statistics.median(per_tok),
+    }, stats
+
+
+def serve_gpt2(torch, dev, model_kw=None, n_requests=GEN_REQUESTS,
+               max_new=GEN_MAX_NEW) -> dict:
+    """[11] The generation path: the causal LM at GPT-2 small's widths
+    (seeded random weights, float32, use_kernels) served by
+    GenerationEngine; launch counts read from the engine run alone; the
+    streams held against sequential TransformerDecoder.generate and
+    against a use_kernels=False decoder on the same weights; prefill
+    logits held against the stock route."""
+    from deeplearning4j_tpu_torch.nn.decoding import TransformerDecoder
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.zoo.graphs import TransformerEncoder
+
+    model_kw = dict(model_kw or GEN_MODEL)
+    zoo = TransformerEncoder(causal=True, lm_head=True, use_kernels=True,
+                             seed=GEN_SEED, **model_kw)
+    t0 = time.monotonic()
+    net = zoo.init(device=dev)
+    n_params = net.num_params()
+    dec_kw = {k: GEN_CONFIG[k] for k in ("max_batch", "kv_bucket_min",
+                                         "prompt_bucket_min")}
+    dec = TransformerDecoder(net, max_len=zoo.max_len, **dec_kw)
+    stock = TransformerDecoder(net, max_len=zoo.max_len, **dec_kw)
+    stock.use_kernels = False
+    log(f"[11] causal LM {json.dumps(model_kw)}: {n_params:,} params on "
+        f"{dev}, built in {time.monotonic() - t0:.1f} s")
+    prompts = gen_requests(n_requests, zoo.vocab_size, GEN_SEED)
+    # request GEN_EOS_REQUEST stops at its own 6th greedy token
+    probe_out = dec.generate(prompts[GEN_EOS_REQUEST], 6)
+    eos = {GEN_EOS_REQUEST: probe_out[5]}
+    t0 = time.monotonic()
+    warm = dec.warmup(fused_steps=(GEN_CONFIG["fused_steps"],))
+    stock.warmup(fused_steps=(GEN_CONFIG["fused_steps"],))
+    log(f"[11] warmup: {len(warm['prompt_buckets'])} prompt x "
+        f"{len(warm['join_buckets'])} join buckets, "
+        f"{len(warm['kv_buckets'])} kv buckets per route in "
+        f"{time.monotonic() - t0:.1f} s")
+
+    # the main path: counts from this engine run alone
+    for fn in (att.flash_attention, att.paged_decode_attention):
+        fn.launches = 0
+    outs, timing, stats = _engine_run(torch, dec, prompts, max_new, eos)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": att.flash_attention.launches,
+                "paged_decode_attention": att.paged_decode_attention.launches}
+    n_layers = model_kw["n_layers"]
+    prefills = sum(stats["prefills"].values())
+    steps = sum(stats["windows"].values()) * GEN_CONFIG["fused_steps"]
+    log(f"[11] engine: {len(prompts)} requests, {timing['tokens']} tokens in "
+        f"{timing['wall_s']:.2f} s; {prefills} prefills "
+        f"{json.dumps(stats['prefills'])}, {steps} decode steps "
+        f"(windows {json.dumps(stats['windows'])}); launches "
+        f"{json.dumps(launches)}")
+    if launches["flash_attention"] != n_layers * prefills:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times, expected "
+                             f"{n_layers} per prefill x {prefills}")
+    if launches["paged_decode_attention"] != n_layers * steps:
+        raise AssertionError(f"paged_decode_attention launched "
+                             f"{launches['paged_decode_attention']} times, "
+                             f"expected {n_layers} per step x {steps}")
+    for j, o in enumerate(outs):
+        want = max_new if j not in eos else None
+        if (want is not None and len(o) != want) or not all(
+                0 <= t < zoo.vocab_size for t in o):
+            raise AssertionError(f"request {j}: {len(o)} tokens {o[:8]}...")
+    j = GEN_EOS_REQUEST
+    if outs[j][-1] != eos[j] or eos[j] in outs[j][:-1]:
+        raise AssertionError(f"request {j} did not stop at eos {eos[j]}: "
+                             f"{outs[j]}")
+
+    # the same requests sequentially, kernel route and stock route
+    seq = [dec.generate(p, max_new, eos_id=eos.get(i))
+           for i, p in enumerate(prompts)]
+    ref = [stock.generate(p, max_new, eos_id=eos.get(i))
+           for i, p in enumerate(prompts)]
+    engine_vs_seq = compare_streams(torch, dec, outs, seq, prompts,
+                                    "engine vs sequential generate")
+    kernel_vs_stock = compare_streams(torch, stock, seq, ref, prompts,
+                                      "kernel route vs use_kernels=False")
+    # prefill logits, kernel route vs stock route, on the first join group
+    group = prompts[:GEN_CONFIG["max_batch"]]
+    tp = max(len(p) for p in group)
+    batch = torch.zeros((len(group), tp), dtype=torch.long, device=dev)
+    for i, p in enumerate(group):
+        batch[i, :len(p)] = torch.tensor(p, device=dev)
+    lengths = torch.tensor([len(p) for p in group], device=dev)
+    with torch.inference_mode():
+        lk, _ = dec._run_prompt(dec.params, batch, lengths)
+        ls, _ = stock._run_prompt(stock.params, batch, lengths)
+    logit_err = float((lk - ls).abs().max())
+    log(f"[11] prefill logits, kernel vs stock route ({len(group)} prompts "
+        f"padded to {tp}): max |diff| {logit_err:.3e} (tol "
+        f"{GEN_LOGIT_ATOL}); streams: engine vs sequential "
+        f"{engine_vs_seq['identical']}/{len(prompts)} identical, kernel vs "
+        f"stock {kernel_vs_stock['identical']}/{len(prompts)} identical")
+    if not logit_err <= GEN_LOGIT_ATOL:
+        raise AssertionError(f"prefill logits differ by {logit_err}")
+    return {"net": net, "dec": dec, "stock": stock, "prompts": prompts,
+            "max_new": max_new, "params": n_params, "launches": launches,
+            "stats": stats, "timing": timing, "logit_err": logit_err,
+            "engine_vs_sequential": engine_vs_seq,
+            "kernel_vs_stock": kernel_vs_stock}
+
+
+def flash_bound_ms(b, h, t, d, causal, size):
+    """(operations ms, bytes ms) of one flash forward: 4·B·H·T²·D (half
+    causal) at the f32 FFMA peak; q, k, v read and o written once."""
+    ops = 4.0 * b * h * t * t * d * (0.5 if causal else 1.0)
+    return (ops / PEAK_OPS_PER_S["float32"] * 1e3,
+            4 * b * h * t * d * size / HBM_BYTES_PER_S * 1e3)
+
+
+def decode_bound_ms(pos, s, h, d, size, page=64):
+    """(operations ms, bytes ms) of one paged decode step: 4·H·(pos+1)·D
+    per row; the live K and V pages read once (and q, o)."""
+    live = [min(int(p), s - 1) + 1 for p in pos]
+    ops = sum(4.0 * h * n * d for n in live)
+    pages = sum((n - 1) // page + 1 for n in live)
+    nbytes = (2 * pages * page * h * d + 2 * len(live) * h * d) * size
+    return (ops / PEAK_OPS_PER_S["float32"] * 1e3,
+            nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def _weighted(rows, key):
+    n = sum(r["count"] for r in rows)
+    return sum(r[key] * r["count"] for r in rows) / n
+
+
+def time_attention(torch, F, att, dev, stats, n_layers) -> tuple:
+    """[12] Per-shape timings of both kernels at the geometries the engine
+    ran (counts from its stats): kernel, plain version, SDPA, bound."""
+    gen = torch.Generator(device=dev).manual_seed(77)
+    h, d = GEN_MODEL["n_heads"], GEN_HEAD_DIM
+    flash_rows, decode_rows = [], []
+    for key, n in stats["prefills"].items():
+        tp, bp = (int(v) for v in key.split("x"))
+        q, k, v, km = _attention_inputs(torch, gen, dev, bp, tp, True,
+                                        torch.float32)
+        keep = (torch.ones((tp, tp), dtype=torch.bool, device=dev).tril()
+                [None, None] & (km > 0)[:, None, None, :])
+        err = float((att.flash_attention(q, k, v, km, True)
+                     - att.flash_attention_plain(q, k, v, km, True)[0])
+                    [km.sum(-1) > 0].abs().max())
+        ops_ms, bytes_ms = flash_bound_ms(bp, h, tp, d, True, 4)
+        flash_rows.append({
+            "b": bp, "t": tp, "count": n * n_layers, "max_abs_err": err,
+            "ms": cuda_time_ms(lambda: att.flash_attention(q, k, v, km,
+                                                           True)),
+            "plain_ms": cuda_time_ms(
+                lambda: att.flash_attention_plain(q, k, v, km, True)),
+            "library_ms": cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=keep)),
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
+        del q, k, v, km, keep
+    for key, n in stats["windows"].items():
+        s = int(key)
+        pos = torch.randint(s // 2, s, (8,), generator=gen,
+                            device=dev).to(torch.int32)
+        q = torch.randn((8, h, d), generator=gen, device=dev)
+        kc, vc = (torch.randn((8, s, h, d), generator=gen, device=dev)
+                  for _ in range(2))
+        live = (torch.arange(s, device=dev)[None, :]
+                <= pos[:, None])[:, None, None, :]
+        qs, ks, vs = q[:, :, None], kc.permute(0, 2, 1, 3), \
+            vc.permute(0, 2, 1, 3)
+        err = float((att.paged_decode_attention(q, kc, vc, pos)
+                     - att.paged_decode_attention_plain(q, kc, vc, pos))
+                    .abs().max())
+        ops_ms, bytes_ms = decode_bound_ms(pos.tolist(), s, h, d, 4)
+        decode_rows.append({
+            "s": s, "positions": pos.tolist(),
+            "count": n * GEN_CONFIG["fused_steps"] * n_layers,
+            "max_abs_err": err,
+            "ms": cuda_time_ms(
+                lambda: att.paged_decode_attention(q, kc, vc, pos)),
+            "plain_ms": cuda_time_ms(
+                lambda: att.paged_decode_attention_plain(q, kc, vc, pos)),
+            "library_ms": cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                       attn_mask=live)),
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
+        del q, kc, vc, live, qs, ks, vs
+    return flash_rows, decode_rows
+
+
+def attention_report(rows, launches, worst, name, source, replaces,
+                     scope) -> dict:
+    row = {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches[name],
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": _weighted(rows, "ms"), "plain_ms": _weighted(rows, "plain_ms"),
+        "bound_ms": _weighted(rows, "bound_ms"),
+        "bound_by": max(("operations", "bytes"), key=lambda k: sum(
+            r["count"] for r in rows if r["bound_by"] == k)),
+        "library_ms": _weighted(rows, "library_ms"),
+        "scope": scope, "checked": worst, "shapes": rows,
+    }
+    row["max_err"], row["time_ms"] = row["max_abs_err"], row["ms"]
+    return row
+
+
+def generation_throughput(torch, served, smi: str) -> dict:
+    """Generated tokens/s, TTFT p50/p95 and per-token latency through the
+    engine, kernel route and stock route in turns (kernel, stock, stock,
+    kernel); medians of each route's two runs."""
+    runs = {"kernel": [], "stock": []}
+    for side in ("kernel", "stock", "stock", "kernel"):
+        dec = served["dec"] if side == "kernel" else served["stock"]
+        _, timing, _ = _engine_run(torch, dec, served["prompts"],
+                                   served["max_new"])
+        runs[side].append(timing)
+    out = {"model": dict(GEN_MODEL, params=served["params"]),
+           "config": GEN_CONFIG, "requests": len(served["prompts"]),
+           "max_new_tokens": served["max_new"], "card": smi,
+           "launches": served["launches"],
+           "prefills": served["stats"]["prefills"],
+           "windows": served["stats"]["windows"],
+           "prefill_logit_max_abs_diff": served["logit_err"],
+           "engine_vs_sequential": served["engine_vs_sequential"],
+           "kernel_vs_stock": served["kernel_vs_stock"]}
+    for side, v in runs.items():
+        for key in ("tokens_per_s", "ttft_ms_p50", "ttft_ms_p95",
+                    "token_ms_p50"):
+            out[f"{key}_{side}"] = statistics.median(r[key] for r in v)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -836,6 +1327,8 @@ def main() -> int:
 
         from deeplearning4j_tpu_torch.conf.activations import Activation
         from deeplearning4j_tpu_torch.kernels import build, impls
+        from deeplearning4j_tpu_torch.nn.graph import serve_full_f32
+        from deeplearning4j_tpu_torch.ops import attention as att
         from deeplearning4j_tpu_torch.zoo.graphs import ResNet50
     except ImportError as e:
         return fail(f"the port is not importable ({e}); run from the root "
@@ -935,10 +1428,71 @@ def main() -> int:
         f"bound {st['bound_ms']:.3f} ms ({st['bound_by']}); train step "
         f"{train_line['step_ms_kernel']:.2f} ms kernel route, "
         f"{train_line['step_ms_stock']:.2f} ms stock [{smi}]")
+    del trained, unfused
+    torch.cuda.empty_cache()
+
+    # 9. flash attention against its plain version
+    serve_full_f32()
+    flash_worst = check_flash(torch, att, dev)
+
+    # 10. paged decode attention against its plain version
+    decode_worst = check_decode(torch, att, dev)
+
+    # 11. the generation path
+    gen = serve_gpt2(torch, dev)
+
+    # 12. generation timings
+    n_layers = GEN_MODEL["n_layers"]
+    flash_rows, decode_rows = time_attention(torch, F, att, dev,
+                                             gen["stats"], n_layers)
+    for r in flash_rows:
+        log(f"[12] flash_attention B={r['b']} T={r['t']} x{r['count']}: "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    for r in decode_rows:
+        log(f"[12] paged_decode_attention S={r['s']} x{r['count']}: kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    report["kernels"] += [
+        attention_report(
+            flash_rows, gen["launches"], flash_worst, "flash_attention",
+            FLASH_SOURCE, "deeplearning4j_tpu/ops/attention.py:363",
+            "one launch (one layer's prefill attention), float32, B x 12 "
+            "heads x T x 64, causal with the prompt-length mask, averaged "
+            "over the engine run's launches by (join bucket B, prompt "
+            "bucket T); library = F.scaled_dot_product_attention with the "
+            "boolean causal + key mask"),
+        attention_report(
+            decode_rows, gen["launches"], decode_worst,
+            "paged_decode_attention", DECODE_SOURCE,
+            "deeplearning4j_tpu/ops/attention.py:119",
+            "one launch (one layer's decode step), float32, 8 rows x 12 "
+            "heads x 64 against [8, S, 12, 64] caches, seeded positions in "
+            "[S/2, S), averaged over the engine run's launches by KV bucket "
+            "S; library = F.scaled_dot_product_attention with a boolean "
+            "live-slot mask"),
+    ]
+    gen_line = generation_throughput(torch, gen, smi)
+    fl, pd = report["kernels"][3], report["kernels"][4]
+    log(f"[12] per launch: flash_attention {fl['ms']:.4f} ms (plain "
+        f"{fl['plain_ms']:.4f}, SDPA {fl['library_ms']:.4f}, bound "
+        f"{fl['bound_ms']:.4f} {fl['bound_by']}); paged_decode_attention "
+        f"{pd['ms']:.4f} ms (plain {pd['plain_ms']:.4f}, SDPA "
+        f"{pd['library_ms']:.4f}, bound {pd['bound_ms']:.4f} "
+        f"{pd['bound_by']}) [{smi}]")
+    log(f"[12] engine, {gen_line['requests']} requests x "
+        f"{gen_line['max_new_tokens']} tokens: kernel route "
+        f"{gen_line['tokens_per_s_kernel']:.1f} tokens/s (TTFT p50 "
+        f"{gen_line['ttft_ms_p50_kernel']:.1f} ms), stock "
+        f"{gen_line['tokens_per_s_stock']:.1f} tokens/s (TTFT p50 "
+        f"{gen_line['ttft_ms_p50_stock']:.1f} ms) [{smi}]")
     log(json.dumps(report))
     log(json.dumps({"served": served_line}))
     log(json.dumps({"trained": train_line}))
-    log(f"[8] total {time.monotonic() - t_start:.1f} s")
+    log(json.dumps({"generated": gen_line}))
+    log(f"[12] total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0

@@ -183,6 +183,34 @@ class OutputLayer(DenseLayer):
 
 @serde.register
 @dataclasses.dataclass
+class EmbeddingSequenceLayer(BaseLayer):
+    """Reference ``EmbeddingSequenceLayer``: token ids [batch, time] ->
+    [batch, time, nOut]. W: [nIn, nOut] (one row per token id, the JAX
+    package's layout and ``F.embedding``'s). Ids index W as ``long``; an
+    out-of-range id raises (a jnp gather would clamp it)."""
+
+    n_in: int = 0
+    n_out: int = 0
+
+    def output_type(self, input_type):
+        ts = input_type.timesteps if isinstance(input_type, it.Recurrent) else -1
+        return it.Recurrent(size=self.n_out, timesteps=ts)
+
+    def init(self, gen, input_type, dtype=torch.float32):
+        w = self.weight_init.init(gen, (self.n_in, self.n_out), self.n_in,
+                                  self.n_out, dtype, self.distribution)
+        return {"W": w}
+
+    def param_order(self):
+        return ["W"]
+
+    def forward(self, params, state, x, train=False, gen=None):
+        y = F.embedding(x.long(), params["W"])
+        return self.activation.apply(y), state
+
+
+@serde.register
+@dataclasses.dataclass
 class ActivationLayer(Layer):
     """Reference ``ActivationLayer``: applies an activation, no params."""
 

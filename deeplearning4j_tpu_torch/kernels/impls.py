@@ -33,7 +33,10 @@ from deeplearning4j_tpu_torch.kernels import build
 
 SOURCE = "matmul_bias_act"  # csrc/matmul_bias_act.cu: matmul_bias_act, probe
 STATS_SOURCE = "matmul_stats"  # csrc/matmul_stats.cu
-SOURCES = (SOURCE, STATS_SOURCE)
+# the attention kernels' wrappers live in ops/attention.py
+FLASH_SOURCE = "flash_attention"  # csrc/flash_attention.cu
+DECODE_SOURCE = "paged_decode_attention"  # csrc/paged_decode_attention.cu
+SOURCES = (SOURCE, STATS_SOURCE, FLASH_SOURCE, DECODE_SOURCE)
 
 _SIGNATURES = {
     "dl4j_matmul_bias_act": (
@@ -66,7 +69,7 @@ ACTIVATION_IDS = {
     "thresholdedrelu": 18,
 }
 
-_DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
 _COUNT_LOCK = threading.Lock()
 
@@ -79,16 +82,16 @@ def _stats_library() -> ctypes.CDLL:
     return build.load(STATS_SOURCE, _STATS_SIGNATURES)
 
 
-def _count(wrapper) -> None:
+def count(wrapper) -> None:
     with _COUNT_LOCK:
         wrapper.launches += 1
 
 
-def _stream(t: torch.Tensor) -> int:
+def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _raise_on_error(kernel: str, rc: int) -> None:
+def raise_on_error(kernel: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
 
@@ -111,7 +114,7 @@ def _check_matmul(x, w, b, act):
     if w.shape[1] != x.shape[1] or b.shape[0] != w.shape[0]:
         raise ValueError(f"matmul_bias_act shape mismatch: x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}, b {tuple(b.shape)}")
-    if not (x.dtype == w.dtype == b.dtype) or x.dtype not in _DTYPE_IDS:
+    if not (x.dtype == w.dtype == b.dtype) or x.dtype not in DTYPE_IDS:
         raise ValueError(f"matmul_bias_act takes float32 or bfloat16 operands "
                          f"of one dtype; got {x.dtype}, {w.dtype}, {b.dtype}")
     if not (x.device == w.device == b.device):
@@ -138,10 +141,10 @@ def _matmul_bias_act_cuda(x, w, b, act):
         return y  # nothing to launch
     rc = _library().dl4j_matmul_bias_act(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), m, n, k,
-        _DTYPE_IDS[x.dtype], ACTIVATION_IDS[act.value], x.device.index,
-        _stream(x))
-    _raise_on_error("matmul_bias_act", rc)
-    _count(matmul_bias_act)
+        DTYPE_IDS[x.dtype], ACTIVATION_IDS[act.value], x.device.index,
+        stream(x))
+    raise_on_error("matmul_bias_act", rc)
+    count(matmul_bias_act)
     return y
 
 
@@ -201,7 +204,7 @@ def _check_stats(x, w):
     if x.ndim != 2 or w.ndim != 2 or w.shape[1] != x.shape[1]:
         raise ValueError(f"matmul_stats takes x [M,K], w [N,K]; got "
                          f"{tuple(x.shape)}, {tuple(w.shape)}")
-    if x.dtype != w.dtype or x.dtype not in _DTYPE_IDS:
+    if x.dtype != w.dtype or x.dtype not in DTYPE_IDS:
         raise ValueError(f"matmul_stats takes float32 or bfloat16 operands "
                          f"of one dtype; got {x.dtype}, {w.dtype}")
     if x.device != w.device:
@@ -234,16 +237,16 @@ def _matmul_stats_cuda(x, w):
     lib = _stats_library()
     bm = lib.dl4j_matmul_stats_block_m(m, n, x.device.index)
     if bm <= 0:
-        _raise_on_error("matmul_stats", -bm)
+        raise_on_error("matmul_stats", -bm)
     rows = -(-m // bm)
     s_part = torch.empty((rows, n), dtype=torch.float32, device=x.device)
     q_part = torch.empty((rows, n), dtype=torch.float32, device=x.device)
     rc = lib.dl4j_matmul_stats(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), s_part.data_ptr(),
-        q_part.data_ptr(), m, n, k, _DTYPE_IDS[x.dtype], x.device.index,
-        _stream(x))
-    _raise_on_error("matmul_stats", rc)
-    _count(matmul_stats)
+        q_part.data_ptr(), m, n, k, DTYPE_IDS[x.dtype], x.device.index,
+        stream(x))
+    raise_on_error("matmul_stats", rc)
+    count(matmul_stats)
     # the [rows, N] partials reduce in a fixed order, as the JAX package
     # reduces its [row blocks, 1, N] partials in XLA
     return y, s_part.sum(0), q_part.sum(0)
@@ -310,9 +313,9 @@ def probe(x: torch.Tensor) -> torch.Tensor:
     if y.numel() > _INT_MAX:
         raise ValueError("probe takes fewer than 2**31 elements")
     rc = _library().dl4j_probe(y.data_ptr(), y.numel(), y.device.index,
-                               _stream(y))
-    _raise_on_error("probe", rc)
-    _count(probe)
+                               stream(y))
+    raise_on_error("probe", rc)
+    count(probe)
     return y
 
 

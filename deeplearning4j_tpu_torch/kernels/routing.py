@@ -13,10 +13,21 @@ as the JAX package's ``kernels/routing.py``:
 - a missing bias (``has_bias=False``) is a zero bias;
 - ``FusedConvBN1x1`` in train mode → ``matmul_stats`` (the statistics pass
   fused into the conv's output pass); eval mode reads the running
-  statistics and takes the stock forward.
+  statistics and takes the stock forward;
+- ``SelfAttentionLayer`` (3-D input, ``attention_impl`` auto or flash, a
+  head size the kernels take) → the layer's own forward with the
+  softmax(QK^T)V core on ``flash_attention``, so dropout, projections,
+  activation and mask-zeroing stay single-sourced in the layer. The flash
+  kernel has no backward on the card yet: a routed train-mode forward that
+  needs gradients raises there (transformer training is the next slice).
+
+The generation path routes through the functional twins
+:func:`maybe_flash_attention` (prefill) and :func:`maybe_decode_attention`
+(the paged single-token kernel), called from ``SelfAttentionLayer.prefill``
+/ ``decode_step`` when the decoder runs with ``use_kernels``.
 
 Dropout (train mode with a generator) masks the full input first, as the
-layer's own forward does. Both kernels are differentiable, so a routed
+layer's own forward does. Both GEMM kernels are differentiable, so a routed
 forward trains. Anything else returns ``None`` and the caller runs the
 stock forward. The JAX route takes its kernel only for a *tuned* envelope;
 this port has no tuner yet, so the route takes the kernel for every shape
@@ -129,16 +140,74 @@ def _route_fused_conv_bn(layer, params, state, x, train, gen):
                                 layer._dropout_input(x, train, gen))
 
 
+def _qualifies(q) -> bool:
+    from deeplearning4j_tpu_torch.ops.attention import head_dim_supported
+
+    return (q.dtype in impls.DTYPE_IDS and q.device.type in ("cpu", "cuda")
+            and head_dim_supported(q.shape[-1]))
+
+
+def maybe_flash_attention(q, k, v, key_mask=None, causal=False):
+    """Head-split ``[B, H, T, D]`` attention through the flash kernel, or
+    ``None`` for the stock tier (a dtype or head size the kernel does not
+    take). On a CUDA tensor the first call per card checks
+    :func:`capability`."""
+    from deeplearning4j_tpu_torch.ops import attention
+
+    if not _qualifies(q):
+        return None
+    if q.is_cuda:
+        capability(q.device)
+    return attention.flash_attention(q, k, v, key_mask, causal)
+
+
+def maybe_decode_attention(q, k_cache, v_cache, positions):
+    """Single-token decode attention (``q [B, H, D]`` against ``[B, S, H,
+    D]`` caches valid through ``positions``) through the paged decode
+    kernel, or ``None`` for the stock masked full-cache read (a dtype or
+    head size the kernel does not take, or a cache length that
+    ``min(64, S)``-slot pages do not divide)."""
+    from deeplearning4j_tpu_torch.ops import attention
+
+    s = k_cache.shape[1]
+    if not _qualifies(q) or s % min(64, s):
+        return None
+    if q.is_cuda:
+        capability(q.device)
+    return attention.paged_decode_attention(q, k_cache, v_cache, positions)
+
+
+def _route_self_attention(layer, params, state, x, train, gen):
+    from deeplearning4j_tpu_torch.conf.layers_attention import (
+        SelfAttentionLayer,
+    )
+    from deeplearning4j_tpu_torch.ops.attention import head_dim_supported
+
+    if type(layer).forward is not SelfAttentionLayer.forward:
+        return None
+    if x.ndim != 3 or layer.attention_impl not in ("auto", "flash"):
+        return None
+    if not head_dim_supported(layer._head_size(x.shape[-1])):
+        return None
+    return layer.forward(params, state, x, train=train, gen=gen,
+                         use_kernels=True)
+
+
 def maybe_forward(layer, params, state, x, train=False, gen=None):
     """Run ``layer`` through its kernel, or return ``None`` for the stock
     forward. On a CUDA tensor the first routed call per card checks
     :func:`capability`."""
     from deeplearning4j_tpu_torch.conf.layers import DenseLayer
+    from deeplearning4j_tpu_torch.conf.layers_attention import (
+        SelfAttentionLayer,
+    )
     from deeplearning4j_tpu_torch.conf.layers_cnn import (
         ConvolutionLayer,
         FusedConvBN1x1,
     )
 
+    if isinstance(layer, SelfAttentionLayer):
+        return _route_self_attention(layer, params, state, x, train, gen)
     if isinstance(layer, FusedConvBN1x1):
         route = _route_fused_conv_bn
     elif isinstance(layer, ConvolutionLayer):

@@ -28,8 +28,11 @@ float32's.
 ``conf.use_kernels`` sends every vertex through
 ``kernels.maybe_vertex_forward`` first, exactly where the JAX package's
 ``_forward`` does; 1x1 convolutions and dense layers then run the
-hand-written ``matmul_bias_act`` kernel, and train-mode ``FusedConvBN1x1``
-layers ``matmul_stats``. Both kernels carry the JAX package's backward.
+hand-written ``matmul_bias_act`` kernel, train-mode ``FusedConvBN1x1``
+layers ``matmul_stats`` (both carry the JAX package's backward), and
+``SelfAttentionLayer`` its core on the forward-only ``flash_attention``.
+An input consumed by an ``EmbeddingSequenceLayer`` holds token ids and
+crosses as ``long``.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch
 
 from deeplearning4j_tpu_torch import kernels
 from deeplearning4j_tpu_torch.conf.graph import ComputationGraphConfiguration
+from deeplearning4j_tpu_torch.conf.layers import EmbeddingSequenceLayer
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.datasets.iterators import DataSetIterator
 from deeplearning4j_tpu_torch.nn import io as nn_io
@@ -115,6 +119,7 @@ class ComputationGraph:
         self._topo = conf.topo_order()
         self._vmap = conf.vertex_map()
         self._image = [nn_io.image_input(t) for t in conf.input_types]
+        self._ids = [self._feeds_embedding(n) for n in conf.network_inputs]
         # activations each vertex is the last consumer of (freed after it)
         last = {}
         for i, name in enumerate(self._topo):
@@ -165,6 +170,13 @@ class ComputationGraph:
                            for k, vp in self.params.items()})
         self._cast_params = None
         return self
+
+    def _feeds_embedding(self, name: str) -> bool:
+        """Whether network input ``name`` holds token ids: some vertex
+        consuming it is an ``EmbeddingSequenceLayer``."""
+        return any(name in spec.inputs and isinstance(
+            getattr(spec.vertex, "layer", None), EmbeddingSequenceLayer)
+            for spec in self.conf.vertices)
 
     def set_listeners(self, *listeners: TrainingListener
                       ) -> "ComputationGraph":
@@ -243,7 +255,8 @@ class ComputationGraph:
             t = nn_io.as_device(x, self.device, self._dtype,
                                 self._cdtype or self._dtype,
                                 scale=self._image[i] if i < len(self._image)
-                                else True)
+                                else True,
+                                ids=i < len(self._ids) and self._ids[i])
             if t.ndim == 4:  # NHWC -> logical NCHW, channels_last memory
                 t = t.permute(0, 3, 1, 2)
             xs.append(t)

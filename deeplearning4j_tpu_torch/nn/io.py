@@ -4,7 +4,10 @@ As in the JAX package (``deeplearning4j_tpu/nn/io.py``), uint8 FEATURE
 batches keep their dtype across the host -> device copy (4x fewer bytes) and
 are dequantized on the device: image-shaped inputs to ``[0, 1]``
 (``x * (1/255)``, the ``ImagePreProcessingScaler`` math), other integer
-inputs by a plain cast. Everything else lands in the network dtype.
+inputs by a plain cast. Token ids (an input consumed by an embedding) cross
+as integers and land as ``long``: a float dtype would round them (bfloat16
+holds integers exactly only up to 256). Everything else lands in the
+network dtype.
 """
 
 from __future__ import annotations
@@ -24,13 +27,16 @@ def image_input(input_type) -> bool:
 
 
 def as_device(a, device, dtype: torch.dtype, compute_dtype: torch.dtype,
-              scale: bool) -> torch.Tensor:
+              scale: bool, ids: bool = False) -> torch.Tensor:
     """Place one feature array on ``device`` in ``compute_dtype``: floats
     pass through the storage ``dtype`` first, as the JAX package casts
     them; uint8 crosses as uint8 and is dequantized there in the compute
-    dtype (``scale``: image input)."""
+    dtype (``scale``: image input). ``ids``: token ids, placed as ``long``
+    (floats truncate, as the JAX package's ``astype(int32)`` does)."""
     t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
     t = t.to(device)
+    if ids:
+        return t.long()
     if t.dtype == torch.uint8:
         t = t.to(compute_dtype)
         return t * (1.0 / 255.0) if scale else t

@@ -1,5 +1,6 @@
-"""Serving telemetry: the metrics registry, request tracing, and the
-recording helpers the serving stack calls.
+"""Serving and generation telemetry: the metrics registry, request
+tracing, and the recording helpers the serving and generation engines
+call.
 
 A minimal counterpart of the JAX package's ``telemetry/__init__.py``: the
 same metric names and labels for what the serving slice records. Serving
@@ -79,7 +80,65 @@ def record_circuit_state(name: str, state_code: int,
                          breaker=name, to=str(state_code)).inc()
 
 
+def record_decode_request(status: str, seconds: float = None,
+                          model: str = None) -> None:
+    """Count one generation-request terminal state (``ok`` / ``error`` /
+    ``bad_request`` / ``rejected`` / ``expired`` / ``shed``); ``seconds`` =
+    submit-to-last-token latency when it ran. ``model`` labels the series
+    for named engines."""
+    labels = {"model": model} if model else {}
+    REGISTRY.counter("dl4j_decode_requests_total",
+                     help="generation requests by terminal status",
+                     status=status, **labels).inc()
+    if seconds is not None:
+        REGISTRY.histogram("dl4j_decode_request_seconds",
+                           help="submit-to-completion generation latency",
+                           **labels).observe(seconds)
+
+
+def record_decode_iteration(tokens: int, active_rows: int, capacity: int,
+                            rows_in_use: int, k: int,
+                            seconds: float) -> None:
+    """One decode window: tokens emitted, running-batch occupancy, KV-cache
+    rows in use, per-token latency (window wall time / K)."""
+    REGISTRY.counter("dl4j_decode_tokens_total",
+                     help="tokens generated (all sequences)").inc(tokens)
+    REGISTRY.gauge("dl4j_decode_batch_occupancy",
+                   help="active rows / max_batch in the running "
+                        "decode batch").set(active_rows / max(capacity, 1))
+    REGISTRY.gauge("dl4j_decode_kv_rows_in_use",
+                   help="KV-cache rows currently owned by sequences").set(
+        rows_in_use)
+    if k > 0:
+        REGISTRY.histogram("dl4j_decode_token_seconds",
+                           help="per-token decode latency "
+                                "(window time / K)").observe(seconds / k)
+
+
+def record_decode_prefill(rows: int, bucket_rows: int,
+                          seconds: float) -> None:
+    """One prefill launch: joining sequences, padded join-bucket fill and
+    prompt-ingestion wall time. Each joining row samples its first token
+    in the prefill, so those count as generated tokens."""
+    REGISTRY.counter("dl4j_decode_prefills_total",
+                     help="prompt prefill launches").inc()
+    REGISTRY.counter("dl4j_decode_tokens_total",
+                     help="tokens generated (all sequences)").inc(rows)
+    REGISTRY.histogram("dl4j_decode_prefill_fill_ratio",
+                       help="joining rows / padded join bucket").observe(
+        rows / max(bucket_rows, 1))
+    REGISTRY.histogram("dl4j_decode_prefill_seconds",
+                       help="prefill launch wall time").observe(seconds)
+
+
+def record_decode_first_token(seconds: float) -> None:
+    """Time-to-first-token for one request (submit → prefill sample)."""
+    REGISTRY.histogram("dl4j_decode_first_token_seconds",
+                       help="submit-to-first-token latency").observe(seconds)
+
+
 _SERVING_ENGINES = weakref.WeakSet()
+_GENERATION_ENGINES = weakref.WeakSet()
 
 
 def register_serving_engine(engine) -> None:
@@ -90,6 +149,25 @@ def register_serving_engine(engine) -> None:
 
 def unregister_serving_engine(engine) -> None:
     _SERVING_ENGINES.discard(engine)
+
+
+def register_generation_engine(engine) -> None:
+    """Track a live ``GenerationEngine``; ``dl4j_decode_queue_depth`` is
+    collected at scrape time as the SUM over live engines."""
+    _GENERATION_ENGINES.add(engine)
+
+
+def unregister_generation_engine(engine) -> None:
+    _GENERATION_ENGINES.discard(engine)
+
+
+@REGISTRY.register_collector
+def _collect_decode_queue_depth(reg) -> None:
+    engines = list(_GENERATION_ENGINES)
+    if engines:
+        reg.gauge("dl4j_decode_queue_depth",
+                  help="generation requests waiting for a cache row").set(
+            sum(e.queue_depth() for e in engines))
 
 
 @REGISTRY.register_collector

@@ -4,8 +4,13 @@ The JAX package keeps conv weights HWIO ``[kh, kw, in, out]`` and dense
 weights ``[nIn, nOut]``; the port keeps conv weights OIHW
 ``[out, in, kh, kw]`` and dense weights ``[nOut, nIn]`` (torch's
 ``nn.Linear`` layout, K-contiguous for the ``matmul_bias_act`` kernel).
-Biases, BN ``gamma``/``beta`` and the BN running ``mean``/``var`` state are
-per-channel vectors in both packages. An updater's state (Adam's ``m`` and
+``SelfAttentionLayer``'s projections ``Wq/Wk/Wv`` ``[nIn, e]`` and ``Wo``
+``[e, nOut]`` are transposed the same way, to ``[e, nIn]`` and
+``[nOut, e]``. Embedding tables (``EmbeddingSequenceLayer.W [vocab, nOut]``,
+``PositionEmbeddingLayer.P [max_len, size]``) keep their layout: a row per
+id in both packages. Biases, LayerNormalization ``gain``/``b``, BN
+``gamma``/``beta`` and the BN running ``mean``/``var`` state are vectors in
+both packages. An updater's state (Adam's ``m`` and
 ``v``, Nesterovs' ``v``) has its parameter's shape, so it converts by the
 parameter's rule.
 
@@ -21,11 +26,18 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.conf.layers import DenseLayer
+from deeplearning4j_tpu_torch.conf.layers import (
+    DenseLayer,
+    EmbeddingSequenceLayer,
+)
+from deeplearning4j_tpu_torch.conf.layers_attention import SelfAttentionLayer
 from deeplearning4j_tpu_torch.conf.layers_cnn import (
     ConvolutionLayer,
     FusedConvBN1x1,
 )
+
+
+_ATTN_WEIGHTS = ("Wq", "Wk", "Wv", "Wo")
 
 
 def convert_layer_params(layer, params: Dict[str, object]) -> Dict[str, torch.Tensor]:
@@ -34,12 +46,14 @@ def convert_layer_params(layer, params: Dict[str, object]) -> Dict[str, torch.Te
     out = {}
     for key, v in params.items():
         v = np.asarray(v)
-        if key == "W":
+        if isinstance(layer, SelfAttentionLayer) and key in _ATTN_WEIGHTS:
+            v = np.transpose(v)  # [in, out] -> [out, in]
+        elif key == "W":
             if isinstance(layer, (ConvolutionLayer, FusedConvBN1x1)):
                 v = np.transpose(v, (3, 2, 0, 1))  # HWIO -> OIHW
             elif isinstance(layer, DenseLayer):
                 v = np.transpose(v)  # [nIn, nOut] -> [nOut, nIn]
-            else:
+            elif not isinstance(layer, EmbeddingSequenceLayer):
                 raise ValueError(
                     f"no weight layout rule for {type(layer).__name__}")
         out[key] = torch.tensor(v)

@@ -1,5 +1,6 @@
-"""Model zoo (reference: ``deeplearning4j-zoo``): the serving slice holds
-``ResNet50``."""
+"""Model zoo (reference: ``deeplearning4j-zoo``): ``ResNet50`` and
+``TransformerEncoder``."""
 
 from deeplearning4j_tpu_torch.zoo.graphs import ResNet50  # noqa: F401
+from deeplearning4j_tpu_torch.zoo.graphs import TransformerEncoder  # noqa: F401
 from deeplearning4j_tpu_torch.zoo.models import ZooModel  # noqa: F401

@@ -1,9 +1,10 @@
 """Model zoo — ComputationGraph models.
 
-Reference: ``org.deeplearning4j.zoo.model.ResNet50``; the topology is the
+Reference: ``org.deeplearning4j.zoo.model.ResNet50``; the topologies are the
 JAX package's ``zoo/graphs.py::ResNet50`` (the plain 7x7/2 stem; unfused
-conv + BN pairs, or ``fused_conv_bn``), so both packages build the same
-configuration JSON.
+conv + BN pairs, or ``fused_conv_bn``) and ``TransformerEncoder`` (the
+dense-FFN classifier and causal language model), so both packages build
+the same configuration JSON.
 """
 
 from __future__ import annotations
@@ -14,7 +15,13 @@ from deeplearning4j_tpu_torch.conf.graph import (
     ElementWiseOp,
     ElementWiseVertex,
 )
-from deeplearning4j_tpu_torch.conf.layers import ActivationLayer, OutputLayer
+from deeplearning4j_tpu_torch.conf.layers import (
+    ActivationLayer,
+    DenseLayer,
+    EmbeddingSequenceLayer,
+    OutputLayer,
+)
+from deeplearning4j_tpu_torch.conf.layers_attention import SelfAttentionLayer
 from deeplearning4j_tpu_torch.conf.layers_cnn import (
     BatchNormalization,
     ConvolutionLayer,
@@ -23,6 +30,10 @@ from deeplearning4j_tpu_torch.conf.layers_cnn import (
     GlobalPoolingLayer,
     PoolingType,
     SubsamplingLayer,
+)
+from deeplearning4j_tpu_torch.conf.layers_extra import (
+    LayerNormalization,
+    PositionEmbeddingLayer,
 )
 from deeplearning4j_tpu_torch.conf.losses import LossMCXENT
 from deeplearning4j_tpu_torch.conf.multilayer import NeuralNetConfiguration
@@ -148,3 +159,116 @@ class ResNet50(GraphZooModel):
                                           loss_fn=LossMCXENT()), "avgpool")
         g.set_outputs("output")
         return g.build()
+
+
+class TransformerEncoder(GraphZooModel):
+    """Transformer encoder classifier, or causal language model with
+    ``lm_head`` (the JAX package's ``TransformerEncoder``). Learned
+    position embeddings, then pre-LN blocks ``x + MHA(LN(x))``,
+    ``x + FFN(LN(x))`` with a tanh-GELU FFN, a final LN, and either a
+    pooled softmax classifier or a time-distributed ``[batch, time,
+    vocab_size]`` softmax head. With ``vocab_size`` the inputs are token
+    ids through an embedding; with 0, ``[batch, time, embed_dim]`` floats.
+
+    ``use_kernels`` routes the attention core through the flash kernel
+    (``kernels/routing.py``), and the decoder's prefill and decode steps
+    through the flash and paged decode kernels. Mixture-of-experts blocks
+    (``moe_experts > 0``) are not ported yet."""
+
+    def __init__(self, num_classes: int = 2, vocab_size: int = 0,
+                 embed_dim: int = 64, n_heads: int = 4, n_layers: int = 2,
+                 ffn_dim: int = 0, max_len: int = 128, seed: int = 123,
+                 updater: IUpdater | None = None,
+                 attention_impl: str = "auto", causal: bool = False,
+                 moe_experts: int = 0, moe_top_k: int = 2,
+                 moe_capacity_factor: float = 1.25,
+                 lm_head: bool = False, use_kernels: bool = False):
+        if moe_experts > 0:
+            raise NotImplementedError(
+                "TransformerEncoder(moe_experts > 0): MoE blocks are not "
+                "ported yet; they land with the expert-parallel slice")
+        self.num_classes = num_classes
+        self.vocab_size = vocab_size
+        self.embed_dim = embed_dim
+        self.n_heads = n_heads
+        self.n_layers = n_layers
+        self.ffn_dim = ffn_dim or 4 * embed_dim
+        self.max_len = max_len
+        self.seed = seed
+        self.updater = updater or Adam(learning_rate=1e-3)
+        self.attention_impl = attention_impl
+        self.causal = causal
+        self.lm_head = lm_head
+        self.use_kernels = use_kernels
+        if lm_head and not (vocab_size and causal):
+            raise ValueError("lm_head=True requires vocab_size > 0 and "
+                             "causal=True (a language model decodes token "
+                             "ids left to right)")
+
+    def conf(self) -> ComputationGraphConfiguration:
+        e = self.embed_dim
+        g = (NeuralNetConfiguration.builder()
+             .seed(self.seed).updater(self.updater)
+             .weight_init(WeightInit.XAVIER)
+             .use_kernels(self.use_kernels)
+             .graph_builder()
+             .add_inputs("input")
+             .set_input_types(InputType.recurrent(
+                 e if not self.vocab_size else 1, timesteps=self.max_len)))
+        prev = "input"
+        if self.vocab_size:
+            g.add_layer("embed", EmbeddingSequenceLayer(
+                n_in=self.vocab_size, n_out=e), prev)
+            prev = "embed"
+        g.add_layer("pos", PositionEmbeddingLayer(max_len=self.max_len),
+                    prev)
+        prev = "pos"
+        for i in range(self.n_layers):
+            g.add_layer(f"b{i}_ln1", LayerNormalization(), prev)
+            g.add_layer(f"b{i}_attn", SelfAttentionLayer(
+                n_out=e, n_heads=self.n_heads, causal=self.causal,
+                attention_impl=self.attention_impl), f"b{i}_ln1")
+            g.add_vertex(f"b{i}_res1",
+                         ElementWiseVertex(op=ElementWiseOp.ADD),
+                         prev, f"b{i}_attn")
+            g.add_layer(f"b{i}_ln2", LayerNormalization(), f"b{i}_res1")
+            g.add_layer(f"b{i}_ff1", DenseLayer(
+                n_out=self.ffn_dim, activation=Activation.GELU),
+                f"b{i}_ln2")
+            g.add_layer(f"b{i}_ff2", DenseLayer(
+                n_out=e, activation=Activation.IDENTITY), f"b{i}_ff1")
+            g.add_vertex(f"b{i}_res2",
+                         ElementWiseVertex(op=ElementWiseOp.ADD),
+                         f"b{i}_res1", f"b{i}_ff2")
+            prev = f"b{i}_res2"
+        g.add_layer("final_ln", LayerNormalization(), prev)
+        if self.lm_head:
+            # time-distributed vocab logits: every position predicts its
+            # next token
+            g.add_layer("output", OutputLayer(
+                n_out=self.vocab_size, activation=Activation.SOFTMAX,
+                loss_fn=LossMCXENT()), "final_ln")
+        else:
+            g.add_layer("pool", GlobalPoolingLayer(
+                pooling_type=PoolingType.AVG), "final_ln")
+            g.add_layer("output", OutputLayer(
+                n_out=self.num_classes, activation=Activation.SOFTMAX,
+                loss_fn=LossMCXENT()), "pool")
+        g.set_outputs("output")
+        return g.build()
+
+    def decoder(self, net=None, device="cuda", **kw):
+        """The KV-cached generation front of this configuration: a
+        ``nn.decoding.TransformerDecoder`` over ``net`` (an initialized
+        ComputationGraph of this conf; default a fresh ``init`` on
+        ``device``). Remaining kwargs go to ``TransformerDecoder``
+        (``max_batch``, bucket knobs)."""
+        if not self.lm_head:
+            raise ValueError(
+                "decoder() requires lm_head=True (the classifier head "
+                "pools over time and cannot emit next-token logits)")
+        from deeplearning4j_tpu_torch.nn.decoding import TransformerDecoder
+
+        return TransformerDecoder(
+            net if net is not None else self.init(device=device),
+            max_len=self.max_len, **kw)
