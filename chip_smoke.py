@@ -46,7 +46,8 @@ Phases, in order; any failure exits non-zero:
    (join bucket 1/2/4/8, prompt bucket 8..1024) at 12 heads x 64, causal
    with a prompt-length mask (a length-0 padding row included), ragged T
    333 and 1000, and one bidirectional unmasked case; float32 and
-   bfloat16; o, l and m; a CUDA input that requires grad must raise;
+   bfloat16; o, l and m; a CUDA input that requires grad gets its gradient
+   from the backward kernels;
 10. ``paged_decode_attention`` against its plain version at 8 rows x 12
    heads x 64, each cache length of the KV ladder (64..1024), positions 0,
    63, 64, S-1 and S (the whole cache) among them; float32 and bfloat16;
@@ -63,11 +64,30 @@ Phases, in order; any failure exits non-zero:
    against the stock route;
 12. generation timings: both attention kernels at the engine run's shapes
    beside their plain versions, SDPA and the bound, and the engine's
-   tokens/s, TTFT and per-token latency, kernel route against stock.
+   tokens/s, TTFT and per-token latency, kernel route against stock;
+13. the flash backward kernels (dq, dk/dv) against
+   ``flash_attention_bwd_plain`` on the card: 8 x 1024 causal unmasked and
+   masked, ragged T 333 and 1000, 8 x 512 bidirectional masked, Tq < Tk,
+   head sizes 32, 64 and 128; float32 and bfloat16; a length-0 mask row
+   leaves every gradient finite; the whole Function against float64
+   autograd of ``reference_attention``;
+14. the transformer's training path: the GPT-2-small-width LM (seeded
+   weights, float32, Adam(1e-3)) trained by ``fit`` with
+   ``use_kernels=True`` on 8 x 1024 seeded tokens with one-hot next-token
+   labels built on the card: 12 flash, 12 dq and 12 dk/dv launches per
+   step over the fit alone, the loss falls over 5 steps, and step-1
+   gradients and 3 losses agree with ``use_kernels=False``; then a batch
+   with a ragged length mask as features and labels mask, and the
+   bidirectional classifier (2 layers, T 512, masked), 2 steps each
+   against the stock route;
+15. training timings: the dq and dk/dv kernels at 8 x 1024 beside the plain
+   backward, SDPA's backward and the bound; the LM train step, kernel route
+   against stock in alternating turns (ms per step, tokens/s).
 
 Then one ``{"kernels": [...]}`` line with every kernel, the served,
-trained and generated lines, and last ``{"ok": true, "device": {...}}``.
-The whole run takes about 80 s on an H100, the parallel build included.
+trained, generated and trained_lm lines, and last ``{"ok": true,
+"device": {...}}``. The whole run takes a few minutes on an H100, the
+parallel build included.
 Without a CUDA card, or without the repository around it, the script exits
 non-zero before printing any result.
 """
@@ -188,6 +208,51 @@ DECODE_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (8e-3, 8e-3)}
 GEN_LOGIT_ATOL = 5e-4
 FLASH_SOURCE = "deeplearning4j_tpu_torch/csrc/flash_attention.cu"
 DECODE_SOURCE = "deeplearning4j_tpu_torch/csrc/paged_decode_attention.cu"
+FLASH_BWD_SOURCE = "deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu"
+
+# [13] the backward kernels vs flash_attention_bwd_plain on the same (q, k, v,
+# mask, o, l, m, do), per element |got - ref| <= atol + rtol |ref|. float32:
+# dq, dk, dv are f32 sums of <= 1024 products (ds k, ds q, p do) of magnitude
+# <= ~1 in other orders (<= 1024 * 2**-24 ~ 6e-5 of the sum of |terms|, ~2e-6
+# typical), and both recompute p from s = q . k formed in other orders (~1e-6
+# relative); bfloat16: both round p and ds to bf16 before their products, and
+# a p or ds computed in another order can round to the neighbouring bf16 (one
+# ulp, 2**-8 relative, of one term), and the outputs round once to bf16 (one
+# ulp of |ref|): a few bf16 ulps.
+ATTN_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
+# the whole Function (kernel forward and backward, float32) vs autograd of
+# reference_attention in float64 on the card: the float32 sums' error above,
+# with the f64 side exact to f32's eyes
+ATTN_GRAD_F64_TOL = (1e-4, 1e-4)
+
+# [14] the training path of the transformer: the generation slice's LM
+# (GEN_MODEL at full depth, seeded weights, float32, the zoo's default
+# Adam(1e-3)) trained by fit on one micro-batch of 8 x 1024 seeded tokens with
+# one-hot next-token labels built on the card (GPT-2 trained on 512 sequences a
+# step: the micro-batch is the cut). Kernel route (flash forward, dq and dk/dv
+# kernels) vs use_kernels=False (materialized scores) on the same weights.
+# The routes compute one float32 function in other summation orders
+# (attention ~1e-6 relative, [13]); the pre-LN residual blocks do not amplify
+# that as a deep BN ResNet does, so the gradients are held 20x tighter than
+# TRAIN_GRAD_L2. Each block's key bias bk has a gradient of exactly 0 (a key
+# bias adds the same q . bk to every score of a row, which softmax ignores):
+# rounding noise on both routes, held in the global error only. Losses as
+# TRAIN_LOSS_RTOL (Adam's sign steps move near-zero gradients 2 lr apart).
+LM_BATCH = 8
+LM_SEED = 11
+LM_TRAIN_STEPS = 5  # kernel route, one repeated batch: the loss must fall
+LM_GRAD_L2 = {"global": 1e-4, "tensor": 1e-3}
+LM_GRAD_MAXREL = 1e-2
+LM_ZERO_GRADS = ("bk",)
+# the masked batch: one length per row, as features_mask and labels_mask
+# (left padding, see lm_dataset)
+LM_MASK_LENGTHS = (1024, 1000, 777, 512, 333, 129, 64, 1)
+# the bidirectional classifier (causal=False, GlobalPoolingLayer AVG, which
+# pools unmasked in a graph, as the JAX package's does): GPT-2 small's widths,
+# depth cut to 2 to keep the run short, T 512, masked, 2 classes
+CLS_MODEL = dict(vocab_size=50257, embed_dim=768, n_heads=12, n_layers=2,
+                 max_len=512)
+CLS_LENGTHS = (512, 500, 389, 256, 167, 65, 32, 1)
 
 
 def log(msg: str) -> None:
@@ -590,10 +655,12 @@ def _synthetic_batch(zoo_model, batch, seed):
     return DataSet(x, labels)
 
 
-def _grad_errors(ga, gb) -> dict:
+def _grad_errors(ga, gb, skip=()) -> dict:
     """Errors of gradients ``ga`` against ``gb``: the relative L2 error of
     all tensors together and the worst tensors by relative L2 error and by
-    max |ga - gb| / max |gb|."""
+    max |ga - gb| / max |gb|. ``skip``: param names (``bk``) whose gradient
+    is zero in exact arithmetic, so rounding noise on both sides: counted
+    in the global error only."""
     l2, maxrel = [], []
     num = den = 0.0
     for k in gb:
@@ -601,6 +668,8 @@ def _grad_errors(ga, gb) -> dict:
             a, b = ga[k][p].double(), gb[k][p].double()
             d2, b2 = float(((a - b) ** 2).sum()), float((b * b).sum())
             num, den = num + d2, den + b2
+            if p in skip:
+                continue
             l2.append(((d2 / max(b2, 1e-300)) ** 0.5, f"{k}.{p}"))
             maxrel.append((float((a - b).abs().max()
                                  / b.abs().max().clamp_min(1e-300)),
@@ -610,10 +679,14 @@ def _grad_errors(ga, gb) -> dict:
             "tensor_maxrel": sorted(maxrel, reverse=True)[:4]}
 
 
-def _compare_training(torch, net, ref, ds, steps, label) -> dict:
+def _compare_training(torch, net, ref, ds, steps, label,
+                      grad_tol=TRAIN_GRAD_L2, maxrel=TRAIN_GRAD_MAXREL,
+                      skip=()) -> dict:
     """Step-1 gradients, the first ``steps`` losses and the BN state after
-    step 1 of two graphs on the same weights and batch; the graphs are
-    left trained by ``steps`` steps (``net`` through ``fit``)."""
+    step 1 (if the graphs have any) of two graphs on the same weights and
+    batch; the graphs are left trained by ``steps`` steps (``net`` through
+    ``fit``). ``grad_tol``, ``maxrel``, ``skip``: the gradient limits and
+    the params left out of the per-tensor ones (:func:`_grad_errors`)."""
     from deeplearning4j_tpu_torch.datasets.iterators import (
         ListDataSetIterator,
     )
@@ -623,7 +696,7 @@ def _compare_training(torch, net, ref, ds, steps, label) -> dict:
 
     gk, lk = net.compute_gradient_and_score(ds)
     gr, lr = ref.compute_gradient_and_score(ds)
-    grad = _grad_errors(gk, gr)
+    grad = _grad_errors(gk, gr, skip)
     del gk, gr
     log(f"[{label}] step-1 gradients: {json.dumps(grad)}")
     out = {"grad": grad, "score_kernel": lk, "score_stock": lr}
@@ -637,20 +710,19 @@ def _compare_training(torch, net, ref, ds, steps, label) -> dict:
         firsts.append(first.state)
     torch.cuda.synchronize()
     loss_err = [abs(a - b) / abs(b) for a, b in zip(*scores)]
-    state_err = max(float((firsts[0][k][sk] - firsts[1][k][sk]).abs().max()
-                          / firsts[1][k][sk].abs().max())
-                    for k in firsts[1] for sk in firsts[1][k])
+    state_err = max((float((firsts[0][k][sk] - firsts[1][k][sk]).abs().max()
+                           / firsts[1][k][sk].abs().max())
+                     for k in firsts[1] for sk in firsts[1][k]), default=0.0)
     out.update(losses_kernel=scores[0], losses_stock=scores[1],
                loss_rel_err=loss_err, state_rel_err=state_err)
-    log(f"[{label}] losses kernel {scores[0]} stock {scores[1]}; BN state "
-        f"after step 1 {state_err:.3e}")
-    if not (grad["global_l2"] <= TRAIN_GRAD_L2["global"]
-            and grad["tensor_l2"][0][0] <= TRAIN_GRAD_L2["tensor"]
-            and grad["tensor_maxrel"][0][0] <= TRAIN_GRAD_MAXREL
+    log(f"[{label}] losses kernel {scores[0]} stock {scores[1]}"
+        + (f"; BN state after step 1 {state_err:.3e}" if firsts[1] else ""))
+    if not (grad["global_l2"] <= grad_tol["global"]
+            and grad["tensor_l2"][0][0] <= grad_tol["tensor"]
+            and grad["tensor_maxrel"][0][0] <= maxrel
             and math.isfinite(lk)):
         raise AssertionError(f"[{label}] step-1 gradients differ: {grad} "
-                             f"(tol L2 {TRAIN_GRAD_L2}, max-relative "
-                             f"{TRAIN_GRAD_MAXREL})")
+                             f"(tol L2 {grad_tol}, max-relative {maxrel})")
     if not (loss_err[0] <= TRAIN_LOSS_RTOL[0]
             and max(loss_err) <= TRAIN_LOSS_RTOL[1]
             and all(math.isfinite(v) for v in scores[0])):
@@ -930,7 +1002,7 @@ def check_flash(torch, att, dev) -> dict:
     """flash_attention vs flash_attention_plain on the card at every case
     of :func:`flash_cases`, float32 and bfloat16: o, l and m on the rows
     with a valid key, and every row finite. Also: a CUDA input that
-    requires grad raises (no backward yet)."""
+    requires grad gets its gradient through the backward kernels."""
     gen = torch.Generator(device=dev).manual_seed(2024)
     worst = {}
     for b, t, causal, masked in flash_cases():
@@ -962,16 +1034,122 @@ def check_flash(torch, att, dev) -> dict:
                         f"{tol[0]} rtol={tol[1]} (max |err| {err})")
         log(f"[9] flash_attention B={b} T={t} causal={causal} "
             f"masked={masked}: f32 and bf16 o, l, m within tolerance")
+    # a CUDA input that requires grad gets its gradient from the kernels
     q = torch.randn((1, 2, 8, 64), device=dev, requires_grad=True)
-    try:
-        att.flash_attention(q, q, q, None, True)
-    except NotImplementedError:
-        log("[9] flash_attention refuses a CUDA input that requires grad")
-    else:
-        raise AssertionError("flash_attention returned an output without a "
-                             "gradient for an input that requires grad")
+    before = att.flash_attention_bwd.dq_launches
+    g, = torch.autograd.grad(att.flash_attention(q, q, q, None, True).sum(),
+                             (q,))
+    torch.cuda.synchronize()
+    if att.flash_attention_bwd.dq_launches != before + 1 \
+            or not torch.isfinite(g).all():
+        raise AssertionError("flash_attention's gradient did not come from "
+                             "the backward kernels")
+    log("[9] a CUDA input that requires grad gets its gradient from the "
+        "backward kernels")
     log(f"[9] worst |kernel - plain|: {json.dumps(worst)} (tol "
         f"{json.dumps(ATTN_TOL)})")
+    return worst
+
+
+def flash_bwd_cases():
+    """(B, Tq, Tk, D, causal, masked) of [13]: the training path's shape
+    (8 x 1024, 12 heads x 64, causal) unmasked and with a ragged length
+    mask, ragged T 333 and 1000, 8 x 512 bidirectional and masked, Tq < Tk,
+    and head sizes 32 and 128."""
+    return [(8, 1024, 1024, 64, True, False), (8, 1024, 1024, 64, True, True),
+            (8, 333, 333, 64, True, True), (8, 1000, 1000, 64, True, True),
+            (8, 512, 512, 64, False, True), (4, 200, 333, 64, True, True),
+            (2, 256, 256, 32, True, True), (2, 256, 256, 128, True, True)]
+
+
+def _bwd_inputs(torch, gen, dev, b, tq, tk, d, masked, zero_row=False):
+    """f32 q [B, 12, Tq, D], k, v [B, 12, Tk, D], do like q, and a [B, Tk]
+    length mask (lengths >= 1, or the last row of length 0), or None."""
+    h = GEN_MODEL["n_heads"]
+    q = torch.randn((b, h, tq, d), generator=gen, device=dev)
+    k, v = (torch.randn((b, h, tk, d), generator=gen, device=dev)
+            for _ in range(2))
+    do = torch.randn((b, h, tq, d), generator=gen, device=dev)
+    km = None
+    if masked:
+        lengths = torch.randint(1, tk + 1, (b,), generator=gen, device=dev)
+        if zero_row:
+            lengths[-1] = 0
+        km = (torch.arange(tk, device=dev)[None, :]
+              < lengths[:, None]).float()
+    return q, k, v, do, km
+
+
+def check_flash_bwd(torch, att, dev) -> dict:
+    """[13] flash_attention_bwd (the dq and dk/dv kernels) vs
+    flash_attention_bwd_plain on the card, at every case of
+    :func:`flash_bwd_cases`, float32 and bfloat16, on the kernel forward's
+    o, l, m; a length-0 row leaves every gradient finite; then the whole
+    Function (kernel forward and backward) vs autograd of
+    reference_attention in float64."""
+    gen = torch.Generator(device=dev).manual_seed(2026)
+    worst = {}
+    for b, tq, tk, d, causal, masked in flash_bwd_cases():
+        q32, k32, v32, do32, km = _bwd_inputs(torch, gen, dev, b, tq, tk, d,
+                                              masked)
+        for dtype, tdt in (("float32", torch.float32),
+                           ("bfloat16", torch.bfloat16)):
+            q, k, v, do = (t.to(tdt) for t in (q32, k32, v32, do32))
+            o, l, m = att.flash_attention(q, k, v, km, causal,
+                                          return_stats=True)
+            got = att.flash_attention_bwd(q, k, v, km, o, l, m, do, causal)
+            ref = att.flash_attention_bwd_plain(q, k, v, km, o, l, m, do,
+                                                causal)
+            torch.cuda.synchronize()
+            for key, g, r in zip(("dq", "dk", "dv"), got, ref):
+                err, bad = _within(torch, g, r, ATTN_BWD_TOL[dtype])
+                worst[f"{dtype}.{key}"] = max(
+                    worst.get(f"{dtype}.{key}", 0.0), err)
+                if bad or not torch.isfinite(g.float()).all():
+                    raise AssertionError(
+                        f"flash_attention_bwd B={b} Tq={tq} Tk={tk} D={d} "
+                        f"causal={causal} masked={masked} {dtype} {key}: {bad}"
+                        f" elements outside {ATTN_BWD_TOL[dtype]} (max |err| "
+                        f"{err})")
+        log(f"[13] flash_attention_bwd B={b} Tq={tq} Tk={tk} D={d} "
+            f"causal={causal} masked={masked}: f32 and bf16 dq, dk, dv "
+            f"within tolerance")
+    # a length-0 row: finite gradients (its ds is not 0; not compared)
+    q32, k32, v32, do32, km = _bwd_inputs(torch, gen, dev, 4, 256, 256, 64,
+                                          True, zero_row=True)
+    for tdt in (torch.float32, torch.bfloat16):
+        q, k, v, do = (t.to(tdt) for t in (q32, k32, v32, do32))
+        o, l, m = att.flash_attention(q, k, v, km, True, return_stats=True)
+        grads = att.flash_attention_bwd(q, k, v, km, o, l, m, do, True)
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(g.float()).all() for g in grads):
+            raise AssertionError(f"a length-0 row gave non-finite gradients "
+                                 f"({tdt})")
+    log("[13] a length-0 mask row: every gradient finite (f32 and bf16)")
+    # the Function, kernel forward and backward, vs float64 autograd
+    for b, tq, tk, d, causal, masked in flash_bwd_cases()[1::3]:
+        q, k, v, do, km = _bwd_inputs(torch, gen, dev, b, tq, tk, d, masked)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(att.flash_attention(*leaves, km, causal),
+                                  leaves, do)
+        leaves = [t.double().requires_grad_() for t in (q, k, v)]
+        ref = torch.autograd.grad(att.reference_attention(
+            *leaves, None if km is None else km.double(), causal), leaves,
+            do.double())
+        torch.cuda.synchronize()
+        for key, g, r in zip(("dq", "dk", "dv"), got, ref):
+            err, bad = _within(torch, g.double(), r, ATTN_GRAD_F64_TOL)
+            worst[f"f64.{key}"] = max(worst.get(f"f64.{key}", 0.0), err)
+            if bad:
+                raise AssertionError(
+                    f"flash_attention gradient vs float64 autograd B={b} "
+                    f"Tq={tq} Tk={tk} D={d} causal={causal} {key}: {bad} "
+                    f"elements outside {ATTN_GRAD_F64_TOL} (max |err| {err})")
+        log(f"[13] flash_attention Function B={b} Tq={tq} Tk={tk} D={d} "
+            f"causal={causal}: dq, dk, dv vs float64 autograd of "
+            f"reference_attention within tolerance")
+    log(f"[13] worst |kernel - reference|: {json.dumps(worst)} (tol "
+        f"{json.dumps(ATTN_BWD_TOL)}; f64 {ATTN_GRAD_F64_TOL})")
     return worst
 
 
@@ -1315,6 +1493,273 @@ def generation_throughput(torch, served, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the transformer's training slice: the LM through fit, the backward kernels
+# ---------------------------------------------------------------------------
+
+def lm_dataset(torch, dev, vocab, b, t, seed, lengths=None, classes=0):
+    """A seeded batch built on the card: token ids [B, T] with one-hot
+    next-token labels [B, T, vocab] (or, with ``classes``, one-hot class
+    labels [B, classes]); with ``lengths``, the [B, T] length mask as the
+    features mask and (for the LM) the labels mask. The LM's valid steps
+    sit at each row's end (left padding): a causal row never sees the keys
+    after it, so only then do valid rows meet padded keys, and rows before
+    a row's start have no valid key at all. The classifier's sit at the
+    start."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, vocab, (b, t + 1), generator=gen, device=dev)
+    if classes:
+        y = torch.zeros((b, classes), device=dev)
+        y[torch.arange(b, device=dev),
+          torch.randint(0, classes, (b,), generator=gen, device=dev)] = 1.0
+    else:
+        y = torch.zeros((b, t, vocab), device=dev)
+        y.scatter_(2, ids[:, 1:, None], 1.0)
+    mask = None
+    if lengths is not None:
+        steps = torch.arange(t, device=dev)[None, :]
+        if not classes:
+            steps = t - 1 - steps
+        mask = (steps < torch.tensor(lengths, device=dev)[:, None]).float()
+    return DataSet(ids[:, :t].contiguous(), y, features_mask=mask,
+                   labels_mask=None if classes else mask)
+
+
+def _attention_launches(att) -> dict:
+    return {"flash_attention": att.flash_attention.launches,
+            "flash_attention_bwd_dq": att.flash_attention_bwd.dq_launches,
+            "flash_attention_bwd_dkv": att.flash_attention_bwd.dkv_launches}
+
+
+def _reset_attention_launches(att) -> None:
+    att.flash_attention.launches = 0
+    att.flash_attention_bwd.dq_launches = 0
+    att.flash_attention_bwd.dkv_launches = 0
+
+
+def _route_pair(torch, dev, zoo):
+    """The zoo model's graph on the kernel route and the same weights on
+    the stock route (use_kernels=False)."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    conf = dataclasses.replace(zoo.conf(), use_kernels=True)
+    net = ComputationGraph(conf, device=dev).init()
+    ref = ComputationGraph(dataclasses.replace(conf, use_kernels=False),
+                           device=dev).set_params(net.params, net.state)
+    return net, ref
+
+
+def _compare_lm(torch, att, net, ref, ds, steps, label, n_layers) -> dict:
+    """:func:`_compare_training` at the LM limits; the kernel route's
+    compute_gradient_and_score and ``steps`` fit steps launch each
+    attention kernel n_layers times per forward / backward."""
+    _reset_attention_launches(att)
+    cmp = _compare_training(torch, net, ref, ds, steps, label,
+                            grad_tol=LM_GRAD_L2, maxrel=LM_GRAD_MAXREL,
+                            skip=LM_ZERO_GRADS)
+    launches = _attention_launches(att)
+    if any(n != n_layers * (steps + 1) for n in launches.values()):
+        raise AssertionError(f"[{label}] launches {launches}, expected "
+                             f"{n_layers} x {steps + 1} of each")
+    return {"launches": launches, **cmp}
+
+
+def train_gpt2(torch, dev) -> dict:
+    """[14] The training path: the GPT-2-small-width LM trained by ``fit``
+    with ``use_kernels=True``; launch counts over the fit alone; step-1
+    gradients and per-step losses against the stock route; then a masked
+    batch (the key-mask path of all three kernels through the graph's
+    feature masks) and the bidirectional classifier (the non-causal path),
+    each 2 steps against the stock route."""
+    from deeplearning4j_tpu_torch.datasets.iterators import (
+        ListDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresListener,
+    )
+    from deeplearning4j_tpu_torch.zoo.graphs import TransformerEncoder
+
+    n_layers, t = GEN_MODEL["n_layers"], GEN_MODEL["max_len"]
+    t0 = time.monotonic()
+    zoo = TransformerEncoder(causal=True, lm_head=True, use_kernels=True,
+                             seed=GEN_SEED, **GEN_MODEL)
+    net, ref = _route_pair(torch, dev, zoo)
+    ds = lm_dataset(torch, dev, zoo.vocab_size, LM_BATCH, t, LM_SEED)
+    log(f"[14] causal LM {json.dumps(GEN_MODEL)}: {net.num_params():,} "
+        f"params, updater {type(net.conf.updater).__name__}"
+        f"({net.conf.updater.learning_rate}), batch {LM_BATCH} x {t} tokens "
+        f"({time.monotonic() - t0:.1f} s to build)")
+    trial = net.clone()  # the main path trains a copy of the same weights
+
+    # ---- the main path: counts from here on belong to it ----
+    _reset_attention_launches(att)
+    collect = CollectScoresListener()
+    trial.set_listeners(collect)
+    t0 = time.monotonic()
+    trial.fit(ListDataSetIterator([ds] * LM_TRAIN_STEPS))
+    torch.cuda.synchronize()
+    launches = _attention_launches(att)
+    # ---- end of the main path ----
+    losses = collect.scores
+    log(f"[14] fit: {LM_TRAIN_STEPS} steps in {time.monotonic() - t0:.1f} "
+        f"s, losses {[round(v, 4) for v in losses]}; launches "
+        f"{json.dumps(launches)}")
+    for name, n in launches.items():
+        if n != n_layers * LM_TRAIN_STEPS:
+            raise AssertionError(f"{name} launched {n} times, expected "
+                                 f"{n_layers} per step = "
+                                 f"{n_layers * LM_TRAIN_STEPS}")
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss did not fall: {losses}")
+    del trial
+
+    cmp = _compare_lm(torch, att, net, ref, ds, COMPARE_STEPS, "14",
+                      n_layers)
+    log(f"[14] kernel vs stock route: step-1 gradients global L2 "
+        f"{cmp['grad']['global_l2']:.3e} (tol {LM_GRAD_L2}), losses "
+        f"{cmp['loss_rel_err']} (tol {TRAIN_LOSS_RTOL})")
+
+    mnet, mref = _route_pair(torch, dev, zoo)
+    mds = lm_dataset(torch, dev, zoo.vocab_size, LM_BATCH, t, LM_SEED + 1,
+                     lengths=LM_MASK_LENGTHS)
+    masked = _compare_lm(torch, att, mnet, mref, mds, 2, "14 masked",
+                         n_layers)
+    del mnet, mref, mds
+    log(f"[14] masked batch (lengths {LM_MASK_LENGTHS} as features and "
+        f"labels mask): step-1 gradients global L2 "
+        f"{masked['grad']['global_l2']:.3e}, losses {masked['loss_rel_err']}"
+        f"; launches {json.dumps(masked['launches'])}")
+
+    czoo = TransformerEncoder(causal=False, use_kernels=True, seed=GEN_SEED,
+                              **CLS_MODEL)
+    cnet, cref = _route_pair(torch, dev, czoo)
+    cds = lm_dataset(torch, dev, czoo.vocab_size, LM_BATCH,
+                     CLS_MODEL["max_len"], LM_SEED + 2, lengths=CLS_LENGTHS,
+                     classes=czoo.num_classes)
+    cls = _compare_lm(torch, att, cnet, cref, cds, 2, "14 classifier",
+                      CLS_MODEL["n_layers"])
+    del cnet, cref, cds
+    log(f"[14] bidirectional classifier {json.dumps(CLS_MODEL)}, masked "
+        f"(lengths {CLS_LENGTHS}): step-1 gradients global L2 "
+        f"{cls['grad']['global_l2']:.3e}, losses {cls['loss_rel_err']}; "
+        f"launches {json.dumps(cls['launches'])}")
+    torch.cuda.empty_cache()
+    return {"net": net, "ref": ref, "ds": ds, "params": net.num_params(),
+            "launches": launches, "losses": losses, "compare": cmp,
+            "masked": masked, "classifier": cls}
+
+
+def flash_bwd_bound_ms(b, h, t, d, products, operands):
+    """(operations ms, bytes ms) of one causal backward kernel at
+    [B, H, T, D] float32: ``products`` matrix products of 2·B·H·T²·D·½
+    operations at the FFMA peak; ``operands`` [B, H, T, D] tensors read or
+    written once, plus the [B, H, T] row vectors (l, m, di: 3)."""
+    ops = products * 2.0 * b * h * t * t * d * 0.5
+    nbytes = (operands * b * h * t * d + 3 * b * h * t) * 4
+    return (ops / PEAK_OPS_PER_S["float32"] * 1e3,
+            nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def time_flash_bwd(torch, F, att, dev) -> list:
+    """[15] The dq and dk/dv kernels at the training path's shape ([8, 12,
+    1024, 64] float32, causal, no mask), each alone, beside the plain
+    backward, SDPA's backward (autograd through
+    F.scaled_dot_product_attention against its saved forward; both rows
+    at once) and the bound."""
+    gen = torch.Generator(device=dev).manual_seed(78)
+    b, h, t, d = LM_BATCH, GEN_MODEL["n_heads"], GEN_MODEL["max_len"], \
+        GEN_HEAD_DIM
+    q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device=dev)
+                   for _ in range(4))
+    sm = 1.0 / math.sqrt(d)
+    o, l, m = att.flash_attention(q, k, v, None, True, return_stats=True)
+    ops = att.bwd_operands(q, k, v, None, o, l, m, do)
+    dq, di = att._flash_dq_cuda(*ops, True, sm)
+    dk, dv = att._flash_dkv_cuda(*ops[:4], l, m, di, do, True, sm)
+    ref = att.flash_attention_bwd_plain(q, k, v, None, o, l, m, do, True)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    lib_o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    plain_ms = cuda_time_ms(
+        lambda: att.flash_attention_bwd_plain(q, k, v, None, o, l, m, do,
+                                              True))
+    library_ms = cuda_time_ms(
+        lambda: torch.autograd.grad(lib_o, leaves, do, retain_graph=True))
+    rows = []
+    for name, ms, got, want, products, operands in (
+            ("flash_attention_bwd_dq",
+             cuda_time_ms(lambda: att._flash_dq_cuda(*ops, True, sm)),
+             (dq,), ref[:1], 3, 6),
+            ("flash_attention_bwd_dkv",
+             cuda_time_ms(lambda: att._flash_dkv_cuda(*ops[:4], l, m, di, do,
+                                                      True, sm)),
+             (dk, dv), ref[1:], 4, 6)):
+        ops_ms, bytes_ms = flash_bwd_bound_ms(b, h, t, d, products, operands)
+        rows.append({
+            "name": name, "b": b, "t": t, "ms": ms,
+            "max_abs_err": max(float((g - w).abs().max())
+                               for g, w in zip(got, want)),
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
+    return rows
+
+
+def flash_bwd_report(rows, launches, worst) -> list:
+    out = []
+    for r, line in zip(rows, ("deeplearning4j_tpu/ops/attention.py:420",
+                              "deeplearning4j_tpu/ops/attention.py:450")):
+        row = {
+            "name": r["name"], "route": "cuda", "source": FLASH_BWD_SOURCE,
+            "replaces": line, "launches": launches[r["name"]],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "scope": ("one launch (one layer's backward attention) at the "
+                      "LM training step's shape, float32, 8 x 12 heads x "
+                      "1024 x 64, causal; plain_ms and library_ms are the "
+                      "whole backward (dq, dk and dv together: the plain "
+                      "version, and torch.autograd.grad through "
+                      "F.scaled_dot_product_attention)"),
+            "checked": worst}
+        row["max_err"], row["time_ms"] = row["max_abs_err"], row["ms"]
+        out.append(row)
+    return out
+
+
+def lm_train_throughput(torch, trained, smi: str, pairs: int = 3,
+                        steps: int = 2) -> dict:
+    """The LM train step at 8 x 1024 tokens (host clock around
+    ``fit_batch``, which returns the loss and so waits for the card),
+    kernel route and stock route in alternating turns: ms per step and
+    tokens/s."""
+    net, ref, ds = trained["net"], trained["ref"], trained["ds"]
+    tokens = LM_BATCH * GEN_MODEL["max_len"]
+    times = {"kernel": [], "stock": []}
+    for i in range(pairs):
+        order = (("kernel", net), ("stock", ref))
+        for side, model in (order if i % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for _ in range(steps):
+                model.fit_batch(ds)
+            times[side].append((time.monotonic() - t0) / steps * 1e3)
+    out = {"model": dict(GEN_MODEL, params=trained["params"]),
+           "batch": LM_BATCH, "tokens_per_step": tokens, "card": smi,
+           "pairs": pairs, "steps_per_sample": steps,
+           "launches": trained["launches"], "losses": trained["losses"]}
+    for side, v in times.items():
+        out[f"step_ms_{side}"] = statistics.median(v)
+        out[f"tokens_per_s_{side}"] = tokens / statistics.median(v) * 1e3
+    for key in ("compare", "masked", "classifier"):
+        out[key] = {k: trained[key][k] for k in (
+            "grad", "loss_rel_err", "launches", "losses_kernel",
+            "losses_stock")}
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1488,11 +1933,37 @@ def main() -> int:
         f"{gen_line['ttft_ms_p50_kernel']:.1f} ms), stock "
         f"{gen_line['tokens_per_s_stock']:.1f} tokens/s (TTFT p50 "
         f"{gen_line['ttft_ms_p50_stock']:.1f} ms) [{smi}]")
+    del gen
+    torch.cuda.empty_cache()
+
+    # 13. the flash backward kernels against their plain version
+    bwd_worst = check_flash_bwd(torch, att, dev)
+
+    # 14. the transformer's training path
+    trained_lm = train_gpt2(torch, dev)
+
+    # 15. training timings of the transformer
+    bwd_rows = time_flash_bwd(torch, F, att, dev)
+    report["kernels"] += flash_bwd_report(bwd_rows, trained_lm["launches"],
+                                          bwd_worst)
+    lm_line = lm_train_throughput(torch, trained_lm, smi)
+    del trained_lm
+    for r in bwd_rows:
+        log(f"[15] {r['name']} B={r['b']} T={r['t']}: kernel {r['ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); whole "
+            f"backward: plain {r['plain_ms']:.4f} ms, SDPA "
+            f"{r['library_ms']:.4f} ms [{smi}]")
+    log(f"[15] LM train step at {LM_BATCH} x {GEN_MODEL['max_len']} tokens: "
+        f"kernel route {lm_line['step_ms_kernel']:.1f} ms "
+        f"({lm_line['tokens_per_s_kernel']:.0f} tokens/s), stock "
+        f"{lm_line['step_ms_stock']:.1f} ms "
+        f"({lm_line['tokens_per_s_stock']:.0f} tokens/s) [{smi}]")
     log(json.dumps(report))
     log(json.dumps({"served": served_line}))
     log(json.dumps({"trained": train_line}))
     log(json.dumps({"generated": gen_line}))
-    log(f"[12] total {time.monotonic() - t_start:.1f} s")
+    log(json.dumps({"trained_lm": lm_line}))
+    log(f"[15] total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0

@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Where a ResNet-50 training step's time goes on one CUDA card.
+"""Where a training step's time goes on one CUDA card.
 
 Run from the root of a checkout, on a machine with one NVIDIA Hopper card::
 
-    python3 chip_train_profile.py [--batch 32] [--steps 3]
+    python3 chip_train_profile.py [--model resnet50|transformer]
+                                  [--batch N] [--steps 3]
 
-Builds full-width ResNet-50 with ``fused_conv_bn=True`` (224x224x3, 1000
-classes, seeded weights, the default Adam(1e-3)) on the ``use_kernels=True``
-route and on the stock route, warms both up, then traces ``--steps``
-``fit_batch`` steps of each with ``torch.profiler`` (CPU and CUDA
-activities). Prints, per route, one JSON line: the wall time per step, the
-device time per step (the sum of all kernel durations), the device's idle
-share (1 - device time / wall time, kernels counted as if they never
-overlap), and the kernels with the most device time per step, by name.
+``resnet50`` (the default): full-width ResNet-50 with ``fused_conv_bn=True``
+(224x224x3, 1000 classes, seeded weights, the default Adam(1e-3)), batch 32.
+``transformer``: the GPT-2-small-width causal LM of ``chip_smoke.py`` (vocab
+50257, 768 wide, 12 heads, 12 layers, seeded weights, Adam(1e-3)) on a
+micro-batch of 8 x 1024 seeded tokens with one-hot next-token labels built
+on the card. Each model is built on the ``use_kernels=True`` route and on
+the stock route, warmed up, then ``--steps`` ``fit_batch`` steps of each
+are traced with ``torch.profiler`` (CPU and CUDA activities). Prints, per
+route, one JSON line: the wall time per step, the device time per step (the
+sum of all kernel durations), the device's idle share (1 - device time /
+wall time, kernels counted as if they never overlap), the kernel launches
+per step, and the kernels with the most device time per step, by name.
 Exits non-zero without a CUDA card.
 """
 
@@ -38,21 +43,26 @@ def profile_route(torch, net, ds, steps: int) -> dict:
             net.fit_batch(ds)
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) / steps * 1e3
-    kernels = {}
+    kernels, launches = {}, 0
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA \
                 and evt.device_time > 0:
             kernels[evt.name] = kernels.get(evt.name, 0.0) + evt.device_time
+            launches += 1
     device_ms = sum(kernels.values()) / steps / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+            "launches_per_step": launches / steps,
             "top": [[name[:90], us / steps / 1e3] for name, us in top]}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--model", choices=("resnet50", "transformer"),
+                    default="resnet50")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default: 32 (resnet50), 8 sequences (transformer)")
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
     import torch
@@ -62,21 +72,34 @@ def main() -> int:
         return 1
     import chip_smoke as cs
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
-    from deeplearning4j_tpu_torch.zoo.graphs import ResNet50
+    from deeplearning4j_tpu_torch.zoo.graphs import (
+        ResNet50,
+        TransformerEncoder,
+    )
 
     print(cs.nvidia_smi_line(), flush=True)
-    zoo = ResNet50()
-    zoo.fused_conv_bn = True
-    conf = dataclasses.replace(zoo.conf(), use_kernels=True)
-    net = ComputationGraph(conf, device="cuda").init()
-    cs.condition_residual_bn(net)
-    ref = ComputationGraph(dataclasses.replace(conf, use_kernels=False),
-                           device="cuda").set_params(net.params, net.state)
-    ds = cs._synthetic_batch(zoo, args.batch, 0)
+    dev = torch.device("cuda", 0)
+    if args.model == "transformer":
+        batch = args.batch or cs.LM_BATCH
+        zoo = TransformerEncoder(causal=True, lm_head=True, seed=cs.GEN_SEED,
+                                 **cs.GEN_MODEL)
+        net, ref = cs._route_pair(torch, dev, zoo)
+        ds = cs.lm_dataset(torch, dev, zoo.vocab_size, batch, zoo.max_len,
+                           cs.LM_SEED)
+    else:
+        batch = args.batch or cs.BATCH
+        zoo = ResNet50()
+        zoo.fused_conv_bn = True
+        conf = dataclasses.replace(zoo.conf(), use_kernels=True)
+        net = ComputationGraph(conf, device=dev).init()
+        cs.condition_residual_bn(net)
+        ref = ComputationGraph(dataclasses.replace(conf, use_kernels=False),
+                               device=dev).set_params(net.params, net.state)
+        ds = cs._synthetic_batch(zoo, batch, 0)
     for route, model in (("kernel", net), ("stock", ref)):
         out = profile_route(torch, model, ds, args.steps)
-        print(json.dumps({"route": route, "batch": args.batch, **out}),
-              flush=True)
+        print(json.dumps({"model": args.model, "route": route,
+                          "batch": batch, **out}), flush=True)
     return 0
 
 

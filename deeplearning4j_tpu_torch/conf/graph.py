@@ -11,7 +11,8 @@ Vertex contract (multi-input generalization of ``conf.layers.Layer``):
 - ``output_type(input_types: list) -> InputType``
 - ``init(gen, input_types, dtype) -> params dict``
 - ``init_state(input_types, dtype) -> state dict``
-- ``forward(params, state, inputs: list) -> (y, state)`` (eval mode)
+- ``forward(params, state, inputs: list) -> (y, state)`` (eval mode); a
+  ``LayerVertex`` also takes the feature ``mask`` the graph propagates
 """
 
 from __future__ import annotations
@@ -90,11 +91,19 @@ class LayerVertex(GraphVertex):
     def regularized_param_keys(self):
         return self.layer.regularized_param_keys()
 
-    def forward(self, params, state, inputs, train=False, gen=None):
+    def forward(self, params, state, inputs, train=False, gen=None,
+                mask=None):
+        """``mask``: the [batch, time] feature mask reaching this vertex;
+        handed on only to a layer with ``uses_mask`` (SelfAttentionLayer),
+        as the JAX package's LayerVertex does, so a GlobalPoolingLayer in a
+        graph pools unmasked."""
         x = inputs[0]
         if self.preprocessor is not None:
             x, _ = self.preprocessor.forward({}, {}, x)
-        return self.layer.forward(params, state, x, train=train, gen=gen)
+        kw = ({"mask": mask} if mask is not None
+              and getattr(self.layer, "uses_mask", False) else {})
+        return self.layer.forward(params, state, x, train=train, gen=gen,
+                                  **kw)
 
     # score hook when wrapping an output layer (reference: output vertices
     # are LayerVertex over an IOutputLayer)

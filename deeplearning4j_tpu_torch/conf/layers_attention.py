@@ -1,11 +1,15 @@
-"""Self-attention layer (the serving subset of the JAX package's
-``conf/layers_attention.py``).
+"""Self-attention layer (``SelfAttentionLayer`` of the JAX package's
+``conf/layers_attention.py``: training, serving and the KV-cached decode).
 
 Reference: ``org.deeplearning4j.nn.conf.layers.SelfAttentionLayer``. The
 same fields and ``@type`` tag as the JAX package, so configurations
 round-trip. The softmax(QK^T)V core goes through
 :func:`ops.attention.dot_product_attention`, or, with ``use_kernels``,
-through the flash kernel (``kernels.routing.maybe_flash_attention``).
+through the flash kernel (``kernels.routing.maybe_flash_attention``) in
+eval and train mode alike: ``flash_attention`` is an autograd Function
+whose backward is the dq and dk/dv kernels. In a graph the feature mask
+reaches :meth:`SelfAttentionLayer.forward` as ``mask`` (``uses_mask``) and
+becomes the kernels' key mask.
 
 Weight layout: the port keeps every projection in torch's ``nn.Linear``
 layout, ``[out, in]``: ``Wq/Wk/Wv: [nHeads*headSize, nIn]``,

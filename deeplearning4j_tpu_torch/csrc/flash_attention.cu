@@ -32,55 +32,21 @@
 //
 // Variants by padded head size DP (D <= DP, the lanes mask d >= D): 32, 64 and 128
 // with 64-row tiles; 256 and 512 with 32-row tiles. The key tile BK keeps both
-// staged tiles at 32 KB or less of static shared memory.
+// staged tiles at 32 KB or less of static shared memory. The tiles, the mask rule
+// and the keys visited are in flash_common.cuh, which the backward kernels
+// (flash_attention_bwd.cu) share.
 //
 // A faster kernel (wgmma on bf16, TMA-fed double buffering, a persistent
-// schedule over tiles) is later work; so is the backward (rows 7-8).
+// schedule over tiles) is later work.
 
-#include <math_constants.h>
-
-#include "ffma_gemm.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;  // NEG_INF of the JAX package
-
-template <int DP>
-struct FlashCfg;
-template <>
-struct FlashCfg<32> {
-  static constexpr int TPR = 2, BQ = 64, BK = 64;
-};
-template <>
-struct FlashCfg<64> {
-  static constexpr int TPR = 4, BQ = 64, BK = 64;
-};
-template <>
-struct FlashCfg<128> {
-  static constexpr int TPR = 8, BQ = 64, BK = 32;
-};
-template <>
-struct FlashCfg<256> {
-  static constexpr int TPR = 8, BQ = 32, BK = 16;
-};
-template <>
-struct FlashCfg<512> {
-  static constexpr int TPR = 8, BQ = 32, BK = 8;
-};
-
-// Element strides of one [B, H, T, D] operand (D stride 1).
-struct Strides {
-  long long b, h, t;
-};
-
-template <typename T>
-__device__ __forceinline__ float round_like(float p);
-template <>
-__device__ __forceinline__ float round_like<float>(float p) { return p; }
-template <>
-__device__ __forceinline__ float round_like<__nv_bfloat16>(float p) {
-  return __bfloat162float(__float2bfloat16(p));
-}
+using dl4j::FlashCfg;
+using dl4j::kNegInf;
+using dl4j::round_like;
+using dl4j::Strides;
 
 template <typename T, int DP>
 __global__ void __launch_bounds__(FlashCfg<DP>::BQ * FlashCfg<DP>::TPR)
@@ -126,12 +92,8 @@ __global__ void __launch_bounds__(FlashCfg<DP>::BQ * FlashCfg<DP>::TPR)
   float l = 0.f;
 
   // keys [0, kend): the causal diagonal of the block's last row bounds them
-  int kend = Tk;
-  if (causal) {
-    const int last_row = min(row0 + BQ - 1, Tq - 1);
-    kend = min(Tk, last_row + off + 1);
-  }
-  const int ntiles = kend > 0 ? (kend + BK - 1) / BK : 0;
+  const int kend = dl4j::flash_key_limit<DP>(row0, Tq, Tk, causal);
+  const int ntiles = (kend + BK - 1) / BK;
 
   for (int tile = 0; tile < ntiles; ++tile) {
     const int k0 = tile * BK;
@@ -169,13 +131,8 @@ __global__ void __launch_bounds__(FlashCfg<DP>::BQ * FlashCfg<DP>::TPR)
       for (int w = TPR / 2; w > 0; w >>= 1) {
         part += __shfl_xor_sync(0xffffffffu, part, w);
       }
-      const int col = k0 + j;
-      float sc = part * scale;
-      if (col >= Tk) {
-        sc = -CUDART_INF_F;  // past the ragged end: weighs exactly 0
-      } else if (!(mask_s[j] > 0.f) || (causal && col > row + off)) {
-        sc = kNegInf;
-      }
+      const float sc = dl4j::masked_score(part, scale, row, k0 + j, Tk, off,
+                                          causal, mask_s[j]);
       s[j] = sc;
       tmax = fmaxf(tmax, sc);
     }

@@ -35,8 +35,10 @@ SOURCE = "matmul_bias_act"  # csrc/matmul_bias_act.cu: matmul_bias_act, probe
 STATS_SOURCE = "matmul_stats"  # csrc/matmul_stats.cu
 # the attention kernels' wrappers live in ops/attention.py
 FLASH_SOURCE = "flash_attention"  # csrc/flash_attention.cu
+FLASH_BWD_SOURCE = "flash_attention_bwd"  # csrc/flash_attention_bwd.cu
 DECODE_SOURCE = "paged_decode_attention"  # csrc/paged_decode_attention.cu
-SOURCES = (SOURCE, STATS_SOURCE, FLASH_SOURCE, DECODE_SOURCE)
+SOURCES = (SOURCE, STATS_SOURCE, FLASH_SOURCE, FLASH_BWD_SOURCE,
+           DECODE_SOURCE)
 
 _SIGNATURES = {
     "dl4j_matmul_bias_act": (
@@ -82,9 +84,9 @@ def _stats_library() -> ctypes.CDLL:
     return build.load(STATS_SOURCE, _STATS_SIGNATURES)
 
 
-def count(wrapper) -> None:
+def count(wrapper, counter: str = "launches") -> None:
     with _COUNT_LOCK:
-        wrapper.launches += 1
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
 def stream(t: torch.Tensor) -> int:

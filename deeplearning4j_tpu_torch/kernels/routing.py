@@ -17,9 +17,11 @@ as the JAX package's ``kernels/routing.py``:
 - ``SelfAttentionLayer`` (3-D input, ``attention_impl`` auto or flash, a
   head size the kernels take) → the layer's own forward with the
   softmax(QK^T)V core on ``flash_attention``, so dropout, projections,
-  activation and mask-zeroing stay single-sourced in the layer. The flash
-  kernel has no backward on the card yet: a routed train-mode forward that
-  needs gradients raises there (transformer training is the next slice).
+  activation and mask-zeroing stay single-sourced in the layer. The graph's
+  feature ``mask`` rides through to it as the flash kernels' key mask; a
+  masked input to any other layer is never routed (the JAX package's rule).
+  ``flash_attention`` is an autograd Function whose backward is the dq and
+  dk/dv kernels, so a routed train-mode forward trains on the card.
 
 The generation path routes through the functional twins
 :func:`maybe_flash_attention` (prefill) and :func:`maybe_decode_attention`
@@ -177,7 +179,7 @@ def maybe_decode_attention(q, k_cache, v_cache, positions):
     return attention.paged_decode_attention(q, k_cache, v_cache, positions)
 
 
-def _route_self_attention(layer, params, state, x, train, gen):
+def _route_self_attention(layer, params, state, x, train, gen, mask):
     from deeplearning4j_tpu_torch.conf.layers_attention import (
         SelfAttentionLayer,
     )
@@ -189,14 +191,15 @@ def _route_self_attention(layer, params, state, x, train, gen):
         return None
     if not head_dim_supported(layer._head_size(x.shape[-1])):
         return None
-    return layer.forward(params, state, x, train=train, gen=gen,
+    return layer.forward(params, state, x, train=train, gen=gen, mask=mask,
                          use_kernels=True)
 
 
-def maybe_forward(layer, params, state, x, train=False, gen=None):
+def maybe_forward(layer, params, state, x, train=False, gen=None, mask=None):
     """Run ``layer`` through its kernel, or return ``None`` for the stock
-    forward. On a CUDA tensor the first routed call per card checks
-    :func:`capability`."""
+    forward. ``mask`` (a [batch, time] feature mask) routes only a
+    SelfAttentionLayer. On a CUDA tensor the first routed call per card
+    checks :func:`capability`."""
     from deeplearning4j_tpu_torch.conf.layers import DenseLayer
     from deeplearning4j_tpu_torch.conf.layers_attention import (
         SelfAttentionLayer,
@@ -207,7 +210,10 @@ def maybe_forward(layer, params, state, x, train=False, gen=None):
     )
 
     if isinstance(layer, SelfAttentionLayer):
-        return _route_self_attention(layer, params, state, x, train, gen)
+        return _route_self_attention(layer, params, state, x, train, gen,
+                                     mask)
+    if mask is not None:
+        return None
     if isinstance(layer, FusedConvBN1x1):
         route = _route_fused_conv_bn
     elif isinstance(layer, ConvolutionLayer):
@@ -221,10 +227,13 @@ def maybe_forward(layer, params, state, x, train=False, gen=None):
     return route(layer, params, state, x, train, gen)
 
 
-def maybe_vertex_forward(vertex, params, state, xs, train=False, gen=None):
+def maybe_vertex_forward(vertex, params, state, xs, train=False, gen=None,
+                         mask=None):
     """Graph-side dispatch: route a single-input ``LayerVertex``'s wrapped
     layer, applying its preprocessor first exactly as ``LayerVertex.forward``
-    does. None = run the stock vertex forward."""
+    does. A feature ``mask`` rides through only for SelfAttentionLayer (the
+    one routed class that consumes it). None = run the stock vertex
+    forward."""
     layer = getattr(vertex, "layer", None)
     if layer is None or len(xs) != 1:
         return None
@@ -232,4 +241,4 @@ def maybe_vertex_forward(vertex, params, state, xs, train=False, gen=None):
     pre = getattr(vertex, "preprocessor", None)
     if pre is not None:
         x, _ = pre.forward({}, {}, x)
-    return maybe_forward(layer, params, state, x, train, gen)
+    return maybe_forward(layer, params, state, x, train, gen, mask)

@@ -29,10 +29,19 @@ float32's.
 ``kernels.maybe_vertex_forward`` first, exactly where the JAX package's
 ``_forward`` does; 1x1 convolutions and dense layers then run the
 hand-written ``matmul_bias_act`` kernel, train-mode ``FusedConvBN1x1``
-layers ``matmul_stats`` (both carry the JAX package's backward), and
-``SelfAttentionLayer`` its core on the forward-only ``flash_attention``.
-An input consumed by an ``EmbeddingSequenceLayer`` holds token ids and
-crosses as ``long``.
+layers ``matmul_stats``, and ``SelfAttentionLayer`` its core on
+``flash_attention`` (each carries the JAX package's backward). An input
+consumed by an ``EmbeddingSequenceLayer`` holds token ids and crosses as
+``long``.
+
+Feature masks (``DataSet.features_mask``, ``MultiDataSet.features_masks``,
+``fmasks=`` of ``output`` / ``feed_forward``) are ``[batch, time]`` per
+network input. ``_forward`` propagates them along sequence-shaped paths
+(``nn.io.propagate_mask``), ANDs (``min``) the masks of a vertex's several
+inputs, and hands the result to each ``LayerVertex``, which passes it on
+only to a layer with ``uses_mask``, as the JAX package does. A feature
+mask is never a label mask: a missing label mask means the mean over
+examples.
 """
 
 from __future__ import annotations
@@ -44,7 +53,10 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import kernels
-from deeplearning4j_tpu_torch.conf.graph import ComputationGraphConfiguration
+from deeplearning4j_tpu_torch.conf.graph import (
+    ComputationGraphConfiguration,
+    LayerVertex,
+)
 from deeplearning4j_tpu_torch.conf.layers import EmbeddingSequenceLayer
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.datasets.iterators import DataSetIterator
@@ -91,6 +103,8 @@ def _as_multi(ds) -> MultiDataSet:
         return ds
     return MultiDataSet(
         features=[ds.features], labels=[ds.labels],
+        features_masks=([ds.features_mask] if ds.features_mask is not None
+                        else None),
         labels_masks=([ds.labels_mask] if ds.labels_mask is not None
                       else None))
 
@@ -189,30 +203,46 @@ class ComputationGraph:
 
     # --- functional core ---------------------------------------------------
     def _forward(self, params, state, inputs: Sequence, train=False,
-                 seed=None, keep_all=False, skip=frozenset()):
+                 seed=None, keep_all=False, skip=frozenset(), fmasks=None):
         """DAG forward; returns ``(activations, new_state)``. Eval mode keeps
         every vertex's activation only with ``keep_all`` (else it frees each
         one after its last consumer); train mode keeps them all for the
         backward. ``seed`` seeds the step's dropout generators; ``skip``:
-        vertices left out (the loss scores the output vertices itself)."""
+        vertices left out (the loss scores the output vertices itself);
+        ``fmasks``: per-input [batch, time] feature masks (or None),
+        propagated and handed to mask-consuming layers."""
         acts: Dict[str, torch.Tensor] = dict(zip(self.conf.network_inputs,
                                                  inputs))
+        masks: Dict[str, torch.Tensor] = {}
+        if fmasks is not None:
+            masks.update(zip(self.conf.network_inputs, fmasks))
         new_state = {}
         for i, name in enumerate(self._topo):
             if name in skip:
                 continue
             spec = self._vmap[name]
             xs = [acts[src] for src in spec.inputs]
+            # several masked inputs (merge vertices): a step is valid only
+            # where every input is
+            mask = None
+            for src in spec.inputs:
+                m = masks.get(src)
+                if m is not None:
+                    mask = m if mask is None else torch.minimum(mask, m)
+            kw = ({"mask": mask} if mask is not None
+                  and isinstance(spec.vertex, LayerVertex) else {})
             p = params.get(name, {})
             s = state.get(name, {})
             gen = self._dropout_gen(spec.vertex, seed, i) if train else None
             routed = None
             if self.conf.use_kernels:
                 routed = kernels.maybe_vertex_forward(spec.vertex, p, s, xs,
-                                                      train, gen)
+                                                      train, gen, **kw)
             y, s2 = (routed if routed is not None
-                     else spec.vertex.forward(p, s, xs, train=train, gen=gen))
+                     else spec.vertex.forward(p, s, xs, train=train, gen=gen,
+                                              **kw))
             acts[name] = y
+            masks[name] = nn_io.propagate_mask(mask, y, spec.vertex)
             if name in state:
                 new_state[name] = s2
             if not (keep_all or train):
@@ -270,25 +300,44 @@ class ComputationGraph:
             t = t.float()
         return t.cpu().numpy()
 
-    def feed_forward(self, *inputs) -> Dict[str, np.ndarray]:
+    def _place_masks(self, masks, n: int):
+        """Per-input feature masks on this graph's device in the storage
+        dtype (None stays None), or None when no input has one."""
+        if masks is None:
+            return None
+        if len(masks) != n:
+            raise ValueError(f"graph takes {n} feature mask(s), got "
+                             f"{len(masks)}")
+        return [None if m is None else
+                (m if isinstance(m, torch.Tensor) else torch.as_tensor(
+                    np.asarray(m))).to(device=self.device, dtype=self._dtype)
+                for m in masks]
+
+    def feed_forward(self, *inputs, fmasks=None) -> Dict[str, np.ndarray]:
         """Every vertex's activation, eval mode, as host arrays in the JAX
-        package's layouts (reference ``ComputationGraph#feedForward``)."""
+        package's layouts (reference ``ComputationGraph#feedForward``).
+        ``fmasks``: per-input feature masks."""
         if self.params is None:
             self.init()
         with torch.inference_mode():
             acts, _ = self._forward(self._fwd_params(), self.state,
-                                    self._prepare(inputs), keep_all=True)
+                                    self._prepare(inputs), keep_all=True,
+                                    fmasks=self._place_masks(fmasks,
+                                                             len(inputs)))
             return {n: self._to_host(acts[n]) for n in self._topo}
 
-    def output(self, *inputs):
+    def output(self, *inputs, fmasks=None):
         """Forward pass, eval mode (reference ``#output(INDArray...)``).
         Returns a numpy array per network output (a single array for one
-        output), in the storage dtype."""
+        output), in the storage dtype. ``fmasks``: per-input feature masks
+        (reference ``#output(INDArray[], INDArray[] featureMasks, ...)``)."""
         if self.params is None:
             self.init()
         with torch.inference_mode():
             acts, _ = self._forward(self._fwd_params(), self.state,
-                                    self._prepare(inputs))
+                                    self._prepare(inputs),
+                                    fmasks=self._place_masks(fmasks,
+                                                             len(inputs)))
             outs = [self._to_host(acts[n]) for n in self.conf.network_outputs]
         return outs[0] if len(outs) == 1 else outs
 
@@ -303,9 +352,10 @@ class ComputationGraph:
         return specs
 
     def _prep_batch(self, ds):
-        """(features, labels, label masks) on this graph's device: features
-        as ``output`` takes them (uint8 images dequantized on the device),
-        labels and masks in the storage dtype."""
+        """(features, labels, feature masks, label masks) on this graph's
+        device: features as ``output`` takes them (uint8 images dequantized
+        on the device), labels and masks in the storage dtype (a CUDA
+        tensor on this device passes through without a copy)."""
         mds = _as_multi(ds)
 
         def place(a):
@@ -317,18 +367,21 @@ class ComputationGraph:
         masks = (mds.labels_masks if mds.labels_masks is not None
                  else [None] * len(labels))
         lmasks = [None if m is None else place(m) for m in masks]
-        return self._prepare(mds.features), labels, lmasks
+        features = self._prepare(mds.features)
+        return (features, labels,
+                self._place_masks(mds.features_masks, len(features)), lmasks)
 
-    def _loss(self, params, state, features, labels, lmasks, train=True,
-              seed=None):
+    def _loss(self, params, state, features, labels, fmasks, lmasks,
+              train=True, seed=None):
         """The score of one batch and the forward's new state: the forward
-        up to the output vertices, then each output vertex's loss on its
-        pre-activations with the storage-dtype (f32 master) params, plus
-        the regularization terms."""
+        up to the output vertices (feature masks propagated), then each
+        output vertex's loss on its pre-activations with the storage-dtype
+        (f32 master) params, plus the regularization terms."""
         out_specs = self._output_specs()
         acts, new_state = self._forward(self._cast(params), state, features,
                                         train, seed,
-                                        skip={s.name for s in out_specs})
+                                        skip={s.name for s in out_specs},
+                                        fmasks=fmasks)
         loss = 0.0
         for i, spec in enumerate(out_specs):
             x = acts[spec.inputs[0]].to(self._dtype)
@@ -354,12 +407,13 @@ class ComputationGraph:
         ``(loss, new_state, grads)``."""
         if self.params is None:
             self.init()
-        features, labels, lmasks = self._prep_batch(ds)
+        features, labels, fmasks, lmasks = self._prep_batch(ds)
         leaves = {k: {pk: v.detach().requires_grad_(v.is_floating_point())
                       for pk, v in vp.items()}
                   for k, vp in self.params.items()}
         loss, new_state = self._loss(leaves, self.state, features, labels,
-                                     lmasks, train=True, seed=train_seed)
+                                     fmasks, lmasks, train=True,
+                                     seed=train_seed)
         loss.backward()
         grads = {k: {pk: (v.grad if v.grad is not None
                           else torch.zeros_like(v))
@@ -435,10 +489,10 @@ class ComputationGraph:
             return float("nan") if self._score is None else float(self._score)
         if self.params is None:
             self.init()
-        features, labels, lmasks = self._prep_batch(ds)
+        features, labels, fmasks, lmasks = self._prep_batch(ds)
         with torch.no_grad():
             loss, _ = self._loss(self.params, self.state, features, labels,
-                                 lmasks, train=False)
+                                 fmasks, lmasks, train=False)
         return float(loss)
 
     # --- misc --------------------------------------------------------------

@@ -8,6 +8,9 @@ inputs by a plain cast. Token ids (an input consumed by an embedding) cross
 as integers and land as ``long``: a float dtype would round them (bfloat16
 holds integers exactly only up to 256). Everything else lands in the
 network dtype.
+
+``propagate_mask`` threads a ``[batch, time]`` feature mask past one vertex,
+as the JAX package's ``nn/io.py::propagate_mask`` does.
 """
 
 from __future__ import annotations
@@ -56,3 +59,24 @@ def warm_dtype_variants(input_types, base_dtype):
         else:
             per_input.append((base,))
     return list(itertools.product(*per_input))
+
+
+def propagate_mask(mask, y, layer_or_vertex):
+    """Thread a [batch, time] feature mask past one layer/vertex whose
+    OUTPUT is ``y`` (reference ``feedForwardMaskArray`` semantics, decided
+    from the output's shape): a same-T sequence output keeps the mask; a
+    time-resizing layer exposing ``resize_mask`` transforms it; losing the
+    sequence shape (pooling over time, flatten) or resizing without a
+    resizer ends it."""
+    if mask is None or getattr(y, "ndim", 0) != 3:
+        return None
+    if y.shape[1] == mask.shape[1]:
+        return mask
+    layer = layer_or_vertex
+    while layer is not None:
+        rm = getattr(layer, "resize_mask", None)
+        if rm is not None:
+            resized = rm(mask)
+            return resized if resized.shape[1] == y.shape[1] else None
+        layer = getattr(layer, "layer", None)
+    return None

@@ -7,8 +7,12 @@ the same functions, signatures and semantics:
 - ``blockwise_attention``: online softmax over key blocks, a Python loop in
   place of ``lax.scan`` (differentiable through autograd);
 - ``decode_attention`` / ``cache_update``: the KV-cached single-token step;
-- ``flash_attention``: the forward kernel ``csrc/flash_attention.cu``
-  (replacing the Pallas ``_fwd_kernel``), with ``flash_attention_plain``;
+- ``flash_attention``: an autograd Function over the forward kernel
+  ``csrc/flash_attention.cu`` (replacing the Pallas ``_fwd_kernel``, with
+  ``flash_attention_plain``) and the backward kernels
+  ``csrc/flash_attention_bwd.cu`` (replacing ``_dq_kernel`` and
+  ``_dkv_kernel``, through ``flash_attention_bwd``, with
+  ``flash_attention_bwd_plain``);
 - ``paged_decode_attention``: the decode kernel
   ``csrc/paged_decode_attention.cu`` (replacing ``_paged_decode_kernel``),
   with ``paged_decode_attention_plain``;
@@ -22,9 +26,8 @@ dot product after it is formed.
 
 Each kernel wrapper runs its plain version for CPU tensors and launches its
 kernel for CUDA tensors, or raises: there is no fallback. It counts its
-launches in ``<wrapper>.launches``. ``flash_attention`` has no backward on
-the card yet (TPU kernel rows 7-8, the next slice): on a CUDA tensor that
-requires grad it raises rather than return an output without a gradient.
+launches in ``<wrapper>.launches`` (``flash_attention_bwd`` counts its two
+kernels in ``.dq_launches`` and ``.dkv_launches``).
 """
 
 from __future__ import annotations
@@ -43,6 +46,17 @@ _FLASH_SIGNATURES = {
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
         + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
            ctypes.c_void_p]),
+}
+# dq kernel: q k v key_mask do o l m dq di; dk/dv kernel: q k v key_mask do
+# l m di dk dv; then B H Tq Tk D, the (b, h, t) strides of q k v do, causal,
+# scale, dtype, device, stream
+_BWD_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+             + [ctypes.c_longlong] * 12
+             + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p])
+_FLASH_BWD_SIGNATURES = {
+    "dl4j_flash_attention_bwd_dq": (ctypes.c_int, _BWD_ARGS),
+    "dl4j_flash_attention_bwd_dkv": (ctypes.c_int, _BWD_ARGS),
 }
 _DECODE_SIGNATURES = {
     "dl4j_paged_decode_attention": (
@@ -240,25 +254,173 @@ def _flash_cuda(q, k, v, key_mask, causal, sm):
     return o, l, m
 
 
+def flash_attention_bwd_plain(q, k, v, key_mask, o, l, m, do, causal=False,
+                              scale=None):
+    """The backward kernels' function in plain PyTorch: ``(dq, dk, dv)``
+    from the forward's ``o, l, m`` and the cotangent ``do``, step by step as
+    the TPU kernels compute it. ``p = exp(s - m) / l`` (``l == 0`` divides
+    by 1) over the masked, scaled f32 scores; ``di = rowsum(do . o)`` in
+    f32 from the stored o; ``dp = do . v^T``; ``ds = p (dp - di)``, then
+    times the scale; ``dq = ds . k``, ``dk = ds^T . q``, ``dv = p^T . do``.
+    In bfloat16, p is rounded to do's dtype before ``p^T . do`` and ds to
+    k's (q's) dtype before its products, as ``_dq_kernel`` and
+    ``_dkv_kernel`` cast; products accumulate in f32. A row with no valid
+    key has ``m = -1e30``, so its p is ``1 / l`` at every key and its ds is
+    not 0 (the TPU kernels' rule too): finite, not a true gradient."""
+    sm = _scale(q, scale)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm
+    keep = _keep_mask(q.shape[0], q.shape[2], k.shape[2], key_mask, causal,
+                      q.device)
+    if keep is not None:
+        s = s.masked_fill(~keep, NEG_INF)
+    linv = torch.where(l == 0, torch.ones_like(l), 1.0 / l)
+    p = torch.exp(s - m[..., None]) * linv[..., None]
+    d32 = do.float()
+    di = (d32 * o.float()).sum(-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", d32, v.float())
+    ds = p * (dp - di) * sm
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(), d32)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(), k.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_tail(q, k, v, do, causal, sm):
+    """The scalar arguments both backward kernels take after their
+    pointers."""
+    from deeplearning4j_tpu_torch.kernels import impls
+
+    b, h, tq, d = q.shape
+    return (b, h, tq, k.shape[2], d, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *do.stride()[:3], int(bool(causal)), float(sm),
+            impls.DTYPE_IDS[q.dtype], q.device.index, impls.stream(q))
+
+
+def _flash_dq_cuda(q, k, v, km, o, l, m, do, causal, sm):
+    """``(dq, di)`` through the dq kernel: unit-D-stride q, k, v, do;
+    contiguous o, l, m; ``km`` a contiguous f32 [B, Tk] mask or None; ``di =
+    rowsum(do . o)`` [B, H, Tq] f32 is its by-product."""
+    from deeplearning4j_tpu_torch.kernels import build, impls
+
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    di = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    lib = build.load(impls.FLASH_BWD_SOURCE, _FLASH_BWD_SIGNATURES)
+    rc = lib.dl4j_flash_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if km is None else km.data_ptr(), do.data_ptr(), o.data_ptr(),
+        l.data_ptr(), m.data_ptr(), dq.data_ptr(), di.data_ptr(),
+        *_bwd_tail(q, k, v, do, causal, sm))
+    impls.raise_on_error("flash_attention_bwd dq", rc)
+    impls.count(flash_attention_bwd, "dq_launches")
+    return dq, di
+
+
+def _flash_dkv_cuda(q, k, v, km, l, m, di, do, causal, sm):
+    """``(dk, dv)`` through the dk/dv kernel, reading the dq kernel's ``di``
+    (it runs after it on the same stream)."""
+    from deeplearning4j_tpu_torch.kernels import build, impls
+
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    lib = build.load(impls.FLASH_BWD_SOURCE, _FLASH_BWD_SIGNATURES)
+    rc = lib.dl4j_flash_attention_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if km is None else km.data_ptr(), do.data_ptr(), l.data_ptr(),
+        m.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_bwd_tail(q, k, v, do, causal, sm))
+    impls.raise_on_error("flash_attention_bwd dkv", rc)
+    impls.count(flash_attention_bwd, "dkv_launches")
+    return dk, dv
+
+
+def bwd_operands(q, k, v, key_mask, o, l, m, do):
+    """The backward kernels' operands as they take them: q, k, v, do with
+    unit D stride; o, l, m contiguous; the key mask as contiguous f32 or
+    None."""
+    q, k, v, do = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (q, k, v, do))
+    km = None
+    if key_mask is not None:
+        km = key_mask.to(device=q.device, dtype=torch.float32).contiguous()
+    return q, k, v, km, o.contiguous(), l.contiguous(), m.contiguous(), do
+
+
+def _flash_bwd_cuda(q, k, v, key_mask, o, l, m, do, causal, sm):
+    q, k, v, km, o, l, m, do = bwd_operands(q, k, v, key_mask, o, l, m, do)
+    if q.numel() == 0 or k.numel() == 0:  # nothing to launch
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dq, di = _flash_dq_cuda(q, k, v, km, o, l, m, do, causal, sm)
+    dk, dv = _flash_dkv_cuda(q, k, v, km, l, m, di, do, causal, sm)
+    return dq, dk, dv
+
+
+def _check_bwd(q, o, l, m, do):
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} must be like q "
+                             f"{tuple(q.shape)} {q.dtype} on {q.device}; got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    for name, t in (("l", l), ("m", m)):
+        if t.shape != q.shape[:3] or t.dtype != torch.float32 \
+                or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} must be float32 "
+                             f"{tuple(q.shape[:3])} on {q.device}; got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def flash_attention_bwd(q, k, v, key_mask, o, l, m, do, causal=False,
+                        scale=None):
+    """``(dq, dk, dv)`` of :func:`flash_attention` from its saved ``o, l,
+    m`` and the cotangent ``do``: :func:`flash_attention_bwd_plain` for CPU
+    tensors, the dq and dk/dv kernels (``csrc/flash_attention_bwd.cu``) for
+    CUDA tensors."""
+    _check_attention(q, k, v, key_mask)
+    _check_bwd(q, o, l, m, do)
+    sm = _scale(q, scale)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, key_mask, o, l, m, do,
+                                         causal, sm)
+    return _flash_bwd_cuda(q, k, v, key_mask, o, l, m, do, causal, sm)
+
+
+flash_attention_bwd.dq_launches = 0
+flash_attention_bwd.dkv_launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash forward (plain on the CPU, the kernel on the card) saving
+    q, k, v, the key mask, o, l and m (not the scores); its backward is
+    :func:`flash_attention_bwd`. The key mask gets no gradient (the JAX
+    VJP returns zeros for it)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, causal, sm):
+        if q.device.type == "cpu":
+            o, l, m = flash_attention_plain(q, k, v, key_mask, causal, sm)
+        else:
+            o, l, m = _flash_cuda(q, k, v, key_mask, causal, sm)
+        ctx.save_for_backward(q, k, v, key_mask, o, l, m)
+        ctx.causal, ctx.sm = causal, sm
+        ctx.mark_non_differentiable(l, m)
+        return o, l, m
+
+    @staticmethod
+    def backward(ctx, do, dl, dm):
+        q, k, v, key_mask, o, l, m = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, key_mask, o, l, m, do,
+                                         ctx.causal, ctx.sm)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, key_mask=None, causal=False, scale=None,
                     return_stats: bool = False):
     """Causal/masked attention over ``[B, H, T, D]`` (float32 or bfloat16,
-    f32 accumulation), through the flash kernel on the card. Returns ``o``,
-    or ``(o, l, m)`` with ``return_stats`` (``l``, ``m``: [B,H,Tq] f32, the
-    softmax sum and max the backward recomputes p from). Forward only on
-    the card: a CUDA tensor that requires grad raises."""
+    f32 accumulation), through the flash kernel on the card, differentiable
+    through the backward kernels. Returns ``o``, or ``(o, l, m)`` with
+    ``return_stats`` (``l``, ``m``: [B,H,Tq] f32, the softmax sum and max
+    the backward recomputes p from; they carry no gradient)."""
     _check_attention(q, k, v, key_mask)
-    sm = _scale(q, scale)
-    if q.device.type == "cpu":
-        out = flash_attention_plain(q, k, v, key_mask, causal, sm)
-    else:
-        if torch.is_grad_enabled() and any(t.requires_grad
-                                           for t in (q, k, v)):
-            raise NotImplementedError(
-                "flash_attention has no backward on the card yet: its "
-                "gradient kernels (TPU rows 7-8, _dq_kernel and _dkv_kernel) "
-                "are ported with transformer training in the next slice")
-        out = _flash_cuda(q, k, v, key_mask, causal, sm)
+    out = _FlashAttention.apply(q, k, v, key_mask, causal, _scale(q, scale))
     return out if return_stats else out[0]
 
 

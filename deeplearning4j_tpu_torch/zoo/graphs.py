@@ -171,8 +171,13 @@ class TransformerEncoder(GraphZooModel):
     ids through an embedding; with 0, ``[batch, time, embed_dim]`` floats.
 
     ``use_kernels`` routes the attention core through the flash kernel
-    (``kernels/routing.py``), and the decoder's prefill and decode steps
-    through the flash and paged decode kernels. Mixture-of-experts blocks
+    (``kernels/routing.py``; ``fit`` trains through its backward kernels,
+    and a ``features_mask`` is their key mask), and the decoder's prefill
+    and decode steps through the flash and paged decode kernels. Both heads
+    train through ``fit``: the LM on ``[batch, time, vocab_size]`` one-hot
+    next-token labels (a ``[batch, time]`` labels mask averages over the
+    valid positions), the classifier on ``[batch, num_classes]`` labels
+    (its average pooling is unmasked in a graph, as in the JAX package). Mixture-of-experts blocks
     (``moe_experts > 0``) are not ported yet."""
 
     def __init__(self, num_classes: int = 2, vocab_size: int = 0,

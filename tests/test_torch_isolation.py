@@ -47,7 +47,19 @@ GENERATION_MODULES = [
 ]
 
 
-@pytest.mark.parametrize("module", GENERATION_MODULES)
+# the transformer training slice's modules (the graph's feature masks, the
+# flash backward and its routing, Adam state from the JAX package)
+TRAINING_MODULES = [
+    "deeplearning4j_tpu_torch.nn.graph",
+    "deeplearning4j_tpu_torch.nn.io",
+    "deeplearning4j_tpu_torch.conf.graph",
+    "deeplearning4j_tpu_torch.kernels.routing",
+    "deeplearning4j_tpu_torch.util.convert",
+    "deeplearning4j_tpu_torch.zoo.graphs",
+]
+
+
+@pytest.mark.parametrize("module", GENERATION_MODULES + TRAINING_MODULES)
 def test_generation_module_alone_loads_no_jax(module):
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
