@@ -82,11 +82,31 @@ Phases, in order; any failure exits non-zero:
    against the stock route;
 15. training timings: the dq and dk/dv kernels at 8 x 1024 beside the plain
    backward, SDPA's backward and the bound; the LM train step, kernel route
-   against stock in alternating turns (ms per step, tokens/s).
+   against stock in alternating turns (ms per step, tokens/s);
+16. ``matmul_bias_act_int8`` against its plain version on the card: AlexNet's
+   two quantized dense layers (K x N = 6400 x 4096 and 4096 x 4096) at
+   every serving bucket M = 1..32, the 15 ResNet-50 1x1 shapes (the
+   ``QuantizedConv1x1Layer`` path at large M) and two ragged shapes, seeded
+   int8 over -128..127; the int32 sums (identity, scale 1, bias 0) bit for
+   bit, identity and relu within 1 ulp;
+17. the int8 serving path: full-width AlexNet (224x224x3, 1000 classes,
+   seeded float32 weights, ``use_kernels=True``) through ``calibrate`` (4
+   seeded batches of 32 synthetic images) and ``quantize_for_inference``,
+   served by ``InferenceServer(max_batch=32)`` with warmup, concurrent
+   ``/predict`` requests (one uint8), ``/model``, ``/healthz`` and
+   ``/metrics``; ``matmul_bias_act_int8`` launches twice per forward,
+   counted over the serving run alone; every response held against the
+   same artifact with ``use_kernels=False``; calibrating twice gives the
+   same digest and bit-identical params; the int8 output's deviation from
+   the float32 AlexNet printed, not gated;
+18. int8 timings: the kernel at both sites and every bucket beside its
+   plain version, ``torch._int_mm`` and the bound (weights read from device
+   memory), and served images/s at batch 32 for the int8 kernel route, the
+   int8 stock route and the float32 AlexNet, in turns.
 
 Then one ``{"kernels": [...]}`` line with every kernel, the served,
-trained, generated and trained_lm lines, and last ``{"ok": true,
-"device": {...}}``. The whole run takes a few minutes on an H100, the
+trained, generated, trained_lm and served_int8 lines, and last
+``{"ok": true, "device": {...}}``. The whole run takes a few minutes on an H100, the
 parallel build included.
 Without a CUDA card, or without the repository around it, the script exits
 non-zero before printing any result.
@@ -95,6 +115,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import statistics
@@ -107,7 +128,8 @@ import numpy as np
 
 # published peaks of one H100 SXM (NVIDIA data sheet; dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # FFMA / tensor core
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12,  # FFMA / tensor core
+                  "int8": 1979e12}  # dense int8 tensor core
 
 # kernel vs plain version on the same inputs: |y - ref| <= atol + rtol*|ref|.
 # float32: both accumulate in f32, in different orders (~K * 2**-24 relative
@@ -255,6 +277,32 @@ CLS_MODEL = dict(vocab_size=50257, embed_dim=768, n_heads=12, n_layers=2,
 CLS_LENGTHS = (512, 500, 389, 256, 167, 65, 32, 1)
 
 
+# [16]-[18] int8 serving: full-width AlexNet (zoo defaults: 224x224x3, 1000
+# classes) calibrated on 4 seeded batches of 32 synthetic images, quantized,
+# and served at max_batch 32; its dense layers 11 (6400 -> 4096) and 12
+# (4096 -> 4096) run matmul_bias_act_int8, 2 launches per forward.
+INT8_SOURCE = "deeplearning4j_tpu_torch/csrc/matmul_bias_act_int8.cu"
+INT8_SITES = ((6400, 4096), (4096, 4096))  # (K, N) of layers 11 and 12
+INT8_BUCKETS = (1, 2, 4, 8, 16, 32)  # the serving buckets up to max_batch
+INT8_RAGGED = ((333, 27, 75), (20001, 77, 257))  # K, N off every tile
+INT8_CAL_BATCHES = 4
+INT8_SEED = 0
+# int8 kernel vs its plain version on the same int8 inputs: the int32 sums
+# are exact on both sides, and both round float32(acc) * scale, then + b,
+# then apply identity or relu (exact): bit-equal; at most 1 ulp is allowed
+# and every ulp counted. The identity / scale 1 / bias 0 case compares the
+# sums themselves, bit for bit.
+INT8_MAX_ULP = 1
+# served int8 softmax vs the same artifact's use_kernels=False output on the
+# same request: the server pads requests into shared launches, cuDNN may
+# pick another algorithm at another batch size, and a float32 conv output
+# that moves by rounding can move one int8 input by one step. The two
+# routes on one batch are held to INT8_MAX_ULP besides.
+INT8_SERVED_TOL = (1e-6, 1e-3)
+# the kernel's CUDA functions (the main kernel and the split-K epilogue)
+INT8_KERNEL_NAMES = ("mm_int8_kernel", "splitk_epilogue_kernel")
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -287,6 +335,45 @@ def cuda_time_ms(fn, samples: int = 7) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_times(fn, reps: int = 20) -> dict:
+    """Device time per call of ``fn`` by CUDA kernel (or copy) name, from
+    ``torch.profiler``: host time between launches excluded, unlike
+    ``cuda_time_ms`` where the card waits for the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for event in prof.key_averages():
+        us = getattr(event, "device_time_total",
+                     getattr(event, "cuda_time_total", 0.0))
+        if us > 0:
+            out[event.key] = out.get(event.key, 0.0) + us / reps / 1e3
+    return out
+
+
+def device_ms(fn, kernels):
+    """Device time per call of ``fn`` in the kernels whose names contain
+    one of ``kernels``; None when the profiler recorded none."""
+    total = sum(ms for name, ms in device_times(fn).items()
+                if any(k in name for k in kernels))
+    return total or None
+
+
+def device_breakdown(fn, top: int = 8) -> dict:
+    """Device time per call of ``fn`` in all its kernels and copies, and
+    the ``top`` kernels by time (names cut to 80 characters)."""
+    times = device_times(fn, reps=5)
+    ranked = sorted(times.items(), key=lambda kv: -kv[1])
+    return {"device_ms": sum(times.values()),
+            "top": [(name[:80], ms) for name, ms in ranked[:top]]}
 
 
 def matmul_bound_ms(m: int, k: int, n: int, dtype: str):
@@ -1760,6 +1847,405 @@ def lm_train_throughput(torch, trained, smi: str, pairs: int = 3,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the int8 serving slice: matmul_bias_act_int8 and full-width AlexNet
+# ---------------------------------------------------------------------------
+
+def int8_bound_ms(m: int, k: int, n: int):
+    """Least time for y = act(int32(xq @ wq) * scale + b) on an H100: xq,
+    wq (int8), scale and b (f32) read once, y (f32) written once; 2*M*N*K
+    operations at the dense int8 tensor-core peak. Returns (ops_ms,
+    bytes_ms)."""
+    nbytes = m * k + k * n + 2 * n * 4 + m * n * 4
+    return (2.0 * m * n * k / PEAK_OPS_PER_S["int8"] * 1e3,
+            nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def _int8_operands(torch, gen, dev, m, k, n):
+    """Seeded int8 operands over -128..127 (row 0 of xq and column 0 of wq
+    at -128: the largest sum, 128 * 128 * K) and float32 scale and bias."""
+    xq = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                       dtype=torch.int8)
+    wq = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                       dtype=torch.int8)
+    xq[0] = -128
+    wq[:, 0] = -128
+    scale = torch.empty(n, device=dev).uniform_(1e-4, 1e-2, generator=gen)
+    b = torch.randn(n, generator=gen, device=dev)
+    return xq, wq, scale, b
+
+
+def _ulps(torch, got, ref) -> int:
+    """The largest distance in float32 ulps between ``got`` and ``ref``
+    (0 = bit-equal; +0 and -0 are equal)."""
+    if torch.equal(got, ref):
+        return 0
+    g = got.contiguous().view(torch.int32).long()
+    r = ref.contiguous().view(torch.int32).long()
+    # map the sign-magnitude bit patterns onto one ordered integer line
+    g = torch.where(g < 0, -(g & 0x7FFFFFFF), g)
+    r = torch.where(r < 0, -(r & 0x7FFFFFFF), r)
+    return int((g - r).abs().max())
+
+
+def check_int8(torch, impls, Activation, dev, resnet_shapes) -> dict:
+    """[16] matmul_bias_act_int8 vs its plain version: the two AlexNet
+    sites at every serving bucket, the ResNet-50 1x1 shapes (the
+    QuantizedConv1x1Layer path at large M) and two ragged shapes; the
+    exact int32 sums (identity, scale 1, bias 0) bit for bit, identity
+    and relu within INT8_MAX_ULP."""
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    shapes = ([(m, k, n) for (k, n) in INT8_SITES for m in INT8_BUCKETS]
+              + sorted(set(resnet_shapes)) + list(INT8_RAGGED))
+    worst = {"max_abs_err": 0.0, "max_ulps": 0, "shapes": len(shapes)}
+    for (m, k, n) in shapes:
+        xq, wq, scale, b = _int8_operands(torch, gen, dev, m, k, n)
+        ones = torch.ones(n, device=dev)
+        zeros = torch.zeros(n, device=dev)
+        ident = Activation("identity")
+        y = impls.matmul_bias_act_int8(xq, wq, ones, zeros, ident)
+        ref = impls.matmul_bias_act_int8_plain(xq, wq, ones, zeros, ident)
+        torch.cuda.synchronize()
+        if not torch.equal(y, ref):
+            raise AssertionError(
+                f"matmul_bias_act_int8 m={m} k={k} n={n}: the int32 sums "
+                f"differ from the plain version's (max |err| "
+                f"{float((y - ref).abs().max())})")
+        if float(ref[0, 0]) != float(128 * 128 * k):
+            raise AssertionError("the -128 row and column did not meet")
+        for act_name in ("identity", "relu"):
+            act = Activation(act_name)
+            y = impls.matmul_bias_act_int8(xq, wq, scale, b, act)
+            ref = impls.matmul_bias_act_int8_plain(xq, wq, scale, b, act)
+            torch.cuda.synchronize()
+            ulps = _ulps(torch, y, ref)
+            err = float((y - ref).abs().max())
+            worst["max_ulps"] = max(worst["max_ulps"], ulps)
+            worst["max_abs_err"] = max(worst["max_abs_err"], err)
+            if ulps > INT8_MAX_ULP or not torch.isfinite(y).all():
+                raise AssertionError(
+                    f"matmul_bias_act_int8 m={m} k={k} n={n} {act_name}: "
+                    f"{ulps} ulps from the plain version (max {INT8_MAX_ULP})")
+        log(f"[16] matmul_bias_act_int8 m={m} k={k} n={n}: int32 sums "
+            f"bit-equal; identity and relu within {INT8_MAX_ULP} ulp")
+        del xq, wq, scale, b, y, ref
+    log(f"[16] {len(shapes)} shapes: max |kernel - plain| "
+        f"{worst['max_abs_err']:.3e}, max {worst['max_ulps']} ulp "
+        f"(tol {INT8_MAX_ULP} ulp)")
+    return worst
+
+
+def serve_alexnet_int8(torch, dev, seed: int = INT8_SEED) -> dict:
+    """[17] The int8 serving path: full-width AlexNet (seeded float32
+    weights, use_kernels) calibrated and quantized, then served by
+    InferenceServer; every response held against the same artifact with
+    use_kernels=False, matmul_bias_act_int8 launched twice per forward."""
+    import urllib.request
+
+    from deeplearning4j_tpu_torch import telemetry
+    from deeplearning4j_tpu_torch.kernels import impls
+    from deeplearning4j_tpu_torch.nn import inference_opt as iopt
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel.batcher import BatchingConfig
+    from deeplearning4j_tpu_torch.parallel.serving import InferenceServer
+    from deeplearning4j_tpu_torch.zoo.models import AlexNet
+
+    t0 = time.monotonic()
+    zoo = AlexNet()
+    image = (zoo.height, zoo.width, zoo.channels)
+    net = MultiLayerNetwork(dataclasses.replace(zoo.conf(), use_kernels=True),
+                            dev).init()
+    f32 = MultiLayerNetwork(dataclasses.replace(net.conf, use_kernels=False),
+                            dev).set_params(net.params, net.state)
+    log(f"[17] AlexNet {net.num_params():,} params on {dev} "
+        f"({time.monotonic() - t0:.1f} s to build)")
+
+    rng = np.random.default_rng(seed)
+    cal = [rng.random((BATCH,) + image, np.float32)
+           for _ in range(INT8_CAL_BATCHES)]
+    t0 = time.monotonic()
+    rec = iopt.calibrate(net, cal)
+    q = iopt.quantize_for_inference(net, rec)
+    t_quant = time.monotonic() - t0
+    rec2 = iopt.calibrate(net, cal)
+    q2 = iopt.quantize_for_inference(net, rec2)
+    if rec2.digest != rec.digest or rec2.ranges != rec.ranges:
+        raise AssertionError("calibrating twice on the same batches gave "
+                             f"{rec.digest[:12]} and {rec2.digest[:12]}")
+    for key, vp in q.params.items():
+        for name, v in vp.items():
+            if not torch.equal(v, q2.params[key][name]):
+                raise AssertionError(f"quantized params differ between two "
+                                     f"calibrations: layer {key} {name}")
+    del q2
+    names = [type(layer).__name__ for layer in q.conf.layers]
+    if names[11:] != ["QuantizedDenseLayer", "QuantizedDenseLayer",
+                      "OutputLayer"] or "Quantized" in "".join(names[:11]):
+        raise AssertionError(f"unexpected quantized layers: {names}")
+    log(f"[17] calibrate ({INT8_CAL_BATCHES} batches of {BATCH}) + "
+        f"quantize_for_inference in {t_quant:.1f} s; digest "
+        f"{rec.digest[:16]} twice, params bit-identical; layers 11, 12 -> "
+        f"QuantizedDenseLayer (Wq {tuple(q.params['11']['Wq'].shape)}, "
+        f"{tuple(q.params['12']['Wq'].shape)} int8)")
+    ref = MultiLayerNetwork(dataclasses.replace(q.conf, use_kernels=False),
+                            dev).set_params(q.params, q.state)
+
+    sizes = (1, 2, 3, 4, 2, 1, 4, 3)
+    inputs = []
+    for i, size in enumerate(sizes):
+        if i == 3:  # one client sends raw pixels
+            inputs.append(rng.integers(0, 256, (size,) + image, np.uint8))
+        else:
+            inputs.append(rng.random((size,) + image, np.float32))
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+    def http(path, body=None):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}{path}",
+            data=None if body is None else json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with opener.open(req, timeout=600) as resp:
+            return resp.status, resp.read()
+
+    # ---- the int8 serving path: counts from here on belong to it ----
+    impls.matmul_bias_act_int8.launches = 0
+    impls.matmul_bias_act.launches = 0
+    telemetry.reset()
+    server = InferenceServer(q, batching=BatchingConfig(
+        max_batch=BATCH, max_delay_ms=50.0, settle_ms=5.0))
+    try:
+        t0 = time.monotonic()
+        warm = server.warmup()
+        server.start(port=0, host="127.0.0.1")
+        log(f"[17] warmup: {warm['forwards']} forwards over buckets "
+            f"{warm['buckets']} in {time.monotonic() - t0:.1f} s; serving "
+            f"on 127.0.0.1:{server.port}")
+        results = [None] * len(inputs)
+        errors = []
+
+        def client(i):
+            try:
+                code, raw = http("/predict", {"inputs": [inputs[i].tolist()]})
+                results[i] = (code, json.loads(raw))
+            except Exception as e:  # reported below, never swallowed
+                errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(inputs))]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"/predict failed: {errors}")
+        log(f"[17] {len(inputs)} concurrent /predict requests "
+            f"({sum(sizes)} images, one uint8) answered in "
+            f"{time.monotonic() - t0:.1f} s")
+        code, raw = http("/model")
+        info = json.loads(raw)
+        if (code != 200 or info.get("type") != "MultiLayerNetwork"
+                or info.get("num_params") != q.num_params()):
+            raise AssertionError(f"/model: {code} {info}")
+        code, raw = http("/healthz")
+        health = json.loads(raw)
+        if code != 200 or health.get("status") != "ok":
+            raise AssertionError(f"/healthz: {code} {health}")
+        code, raw = http("/metrics")
+        if code != 200 or "dl4j_serving_batches_total" not in raw.decode():
+            raise AssertionError(f"/metrics: {code}")
+        batches = int(telemetry.REGISTRY.counter(
+            "dl4j_serving_batches_total").value)
+    finally:
+        server.stop()
+    torch.cuda.synchronize()
+    launches = {"matmul_bias_act_int8": impls.matmul_bias_act_int8.launches,
+                "matmul_bias_act": impls.matmul_bias_act.launches}
+    # ---- end of the int8 serving path ----
+    forwards = warm["forwards"] + batches
+    log(f"[17] launches on the int8 serving path: {launches} over "
+        f"{forwards} forwards ({warm['forwards']} warmup + {batches} served "
+        "batches)")
+    if launches["matmul_bias_act_int8"] != 2 * forwards:
+        raise AssertionError(
+            f"matmul_bias_act_int8 launched "
+            f"{launches['matmul_bias_act_int8']} times, expected 2 per "
+            f"forward = {2 * forwards}")
+
+    worst, route_ulps = 0.0, 0
+    for i, x in enumerate(inputs):
+        code, body = results[i]
+        got = np.asarray(body["outputs"][0], np.float32)
+        want = ref.output(x)
+        if code != 200 or got.shape != (sizes[i], zoo.num_classes) \
+                or not np.isfinite(got).all():
+            raise AssertionError(f"request {i}: {code} shape {got.shape}")
+        atol, rtol = INT8_SERVED_TOL
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                                   err_msg=f"request {i}")
+        worst = max(worst, float(np.abs(got - want).max()))
+        # the kernel route and the stock route on the same batch
+        route_ulps = max(route_ulps, _ulps(torch, torch.from_numpy(
+            q.output(x)), torch.from_numpy(want)))
+    if route_ulps > INT8_MAX_ULP:
+        raise AssertionError(f"the kernel route's output is {route_ulps} "
+                             f"ulps from the stock route's on one batch")
+    x = np.concatenate([a for a in inputs if a.dtype == np.float32])
+    y8, y32 = ref.output(x), f32.output(x)
+    dev_f32 = float(np.abs(y8 - y32).max())
+    top1 = float((y8.argmax(-1) == y32.argmax(-1)).mean())
+    log(f"[17] served outputs vs use_kernels=False on the same artifact: max "
+        f"|diff| {worst:.3e} (tol atol={INT8_SERVED_TOL[0]} "
+        f"rtol={INT8_SERVED_TOL[1]}); kernel vs stock route on one batch: "
+        f"{route_ulps} ulp (tol {INT8_MAX_ULP}); int8 vs f32 AlexNet (not "
+        f"gated: random weights give a near-uniform softmax): max |diff| "
+        f"{dev_f32:.3e}, top-1 agreement {top1:.3f} on {len(x)} images")
+    return {"q": q, "ref": ref, "f32": f32, "launches": launches,
+            "served_max_abs_err": worst, "route_max_ulps": route_ulps,
+            "int8_vs_f32_max_abs": dev_f32, "int8_vs_f32_top1": top1,
+            "digest": rec.digest}
+
+
+def _int_mm_takes(torch, xq, wq) -> bool:
+    """Whether ``torch._int_mm`` takes these operands (it refuses M <= 16)."""
+    try:
+        torch._int_mm(xq, wq)
+    except RuntimeError:
+        return False
+    return True
+
+
+def time_int8(torch, impls, Activation, dev) -> list:
+    """[18] matmul_bias_act_int8 at the two AlexNet sites for every serving
+    bucket, beside its plain version, torch._int_mm (the int32 product
+    alone) and the bound. Each launch reads the next of several copies of
+    wq (more than 150 MB in all), so the weights come from device memory
+    as they do in a forward, not from the 50 MB L2. ``ms`` is the CUDA-event
+    time per call (the wrapper's host work included where the card waits
+    for it), ``device_ms`` the profiler's device time of the kernel's
+    launches alone."""
+    gen = torch.Generator(device=dev).manual_seed(77)
+    act = Activation("relu")  # AlexNet's dense layers
+    rows = []
+    for (k, n) in INT8_SITES:
+        copies = max(2, -(-150 * 2 ** 20 // (k * n)))
+        xq, wq, scale, b = _int8_operands(torch, gen, dev, BATCH, k, n)
+        wqs = [wq] + [torch.randint(-128, 128, (k, n), generator=gen,
+                                    device=dev, dtype=torch.int8)
+                      for _ in range(copies - 1)]
+        for m in INT8_BUCKETS:
+            x = xq[:m].contiguous()
+            turn = itertools.count()
+            err = float((impls.matmul_bias_act_int8(x, wq, scale, b, act)
+                         - impls.matmul_bias_act_int8_plain(
+                             x, wq, scale, b, act)).abs().max())
+            lib_ms = None
+            if _int_mm_takes(torch, x, wq):
+                lib_ms = cuda_time_ms(
+                    lambda: torch._int_mm(x, wqs[next(turn) % copies]))
+            ops_ms, bytes_ms = int8_bound_ms(m, k, n)
+            rows.append({
+                "m": m, "k": k, "n": n, "max_abs_err": err,
+                "ms": cuda_time_ms(lambda: impls.matmul_bias_act_int8(
+                    x, wqs[next(turn) % copies], scale, b, act)),
+                "device_ms": device_ms(
+                    lambda: impls.matmul_bias_act_int8(
+                        x, wqs[next(turn) % copies], scale, b, act),
+                    INT8_KERNEL_NAMES),
+                "plain_ms": cuda_time_ms(
+                    lambda: impls.matmul_bias_act_int8_plain(
+                        x, wqs[next(turn) % copies], scale, b, act)),
+                "library_ms": lib_ms,
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            })
+        del xq, wq, wqs, scale, b
+    return rows
+
+
+def int8_report(rows, launches, worst) -> dict:
+    """The kernels-line entry: one served forward at batch 32, the two
+    sites summed."""
+    main = [r for r in rows if r["m"] == BATCH]
+    ops_ms = sum(int8_bound_ms(r["m"], r["k"], r["n"])[0] for r in main)
+    bytes_ms = sum(int8_bound_ms(r["m"], r["k"], r["n"])[1] for r in main)
+    lib = [r["library_ms"] for r in main]
+    row = {
+        "name": "matmul_bias_act_int8", "route": "cuda",
+        "source": INT8_SOURCE,
+        "replaces": "deeplearning4j_tpu/kernels/impls.py:248",
+        "launches": launches["matmul_bias_act_int8"],
+        "max_abs_err": worst["max_abs_err"],
+        "ms": sum(r["ms"] for r in main),
+        "device_ms": (None if any(r["device_ms"] is None for r in main)
+                      else sum(r["device_ms"] for r in main)),
+        "plain_ms": sum(r["plain_ms"] for r in main),
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None if None in lib else sum(lib),
+        "scope": (f"one AlexNet forward at batch {BATCH}: the two quantized "
+                  "dense layers (32 x 6400 x 4096 and 32 x 4096 x 4096, "
+                  "relu), weights read from device memory; library = "
+                  "torch._int_mm, the int32 product alone"),
+        "checked": worst,
+        "shapes": rows,
+    }
+    row["max_err"], row["time_ms"] = row["max_abs_err"], row["ms"]
+    return row
+
+
+def int8_served_throughput(torch, served, smi: str, reps: int = 20) -> dict:
+    """Batch 32 for the int8 kernel route, the int8 stock route and the
+    float32 AlexNet, in turns (kernel, stock, f32, f32, stock, kernel):
+    images/s through the batching engine (numpy in and out, the 19 MB
+    host-to-device copy included), the forward alone on a batch already on
+    the card (CUDA events), and each route's forward by kernel (device
+    time, ``torch.profiler``)."""
+    from deeplearning4j_tpu_torch.parallel.batcher import (
+        BatchingConfig,
+        InferenceEngine,
+    )
+
+    routes = {"int8_kernel": served["q"], "int8_stock": served["ref"],
+              "f32": served["f32"]}
+    t = served["f32"].conf.input_type
+    x = np.random.default_rng(7).random(
+        (BATCH, t.height, t.width, t.channels), np.float32)
+    order = ("int8_kernel", "int8_stock", "f32", "f32", "int8_stock",
+             "int8_kernel")
+    out = {"batch": BATCH, "card": smi}
+    forward = {name: [] for name in routes}
+    with torch.inference_mode():
+        x_dev = routes["f32"]._prepare(x)
+        for name in order:
+            model = routes[name]
+            forward[name].append(cuda_time_ms(
+                lambda: model._forward(model._fwd_params(), x_dev), samples=3))
+        for name, model in routes.items():
+            out[f"profile_{name}"] = device_breakdown(
+                lambda: model._forward(model._fwd_params(), x_dev))
+    engines = {name: InferenceEngine(model, BatchingConfig(max_batch=BATCH))
+               for name, model in routes.items()}
+    rates = {name: [] for name in routes}
+    try:
+        for engine in engines.values():
+            engine.predict(x)
+        for name in order:
+            t0 = time.monotonic()
+            for _ in range(reps):
+                engines[name].predict(x)
+            rates[name].append(reps * BATCH / (time.monotonic() - t0))
+    finally:
+        for engine in engines.values():
+            engine.close()
+    for name in routes:
+        out[f"forward_ms_{name}"] = statistics.mean(forward[name])
+        out[f"forward_ms_{name}_turns"] = forward[name]
+        out[f"images_per_s_{name}"] = statistics.mean(rates[name])
+        out[f"images_per_s_{name}_turns"] = rates[name]
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1958,12 +2444,54 @@ def main() -> int:
         f"({lm_line['tokens_per_s_kernel']:.0f} tokens/s), stock "
         f"{lm_line['step_ms_stock']:.1f} ms "
         f"({lm_line['tokens_per_s_stock']:.0f} tokens/s) [{smi}]")
+    torch.cuda.empty_cache()
+
+    # 16. the int8 kernel against its plain version
+    int8_worst = check_int8(torch, impls, Activation, dev, shapes)
+
+    # 17. the int8 serving path
+    served8 = serve_alexnet_int8(torch, dev)
+
+    # 18. int8 timings
+    int8_rows = time_int8(torch, impls, Activation, dev)
+    for r in int8_rows:
+        lib = ("refused" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        log(f"[18] matmul_bias_act_int8 m={r['m']} k={r['k']} n={r['n']}: "
+            f"kernel {r['ms']:.4f} ms (device {r['device_ms']} ms), plain "
+            f"{r['plain_ms']:.4f} ms, "
+            f"torch._int_mm {lib}, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    q8 = int8_report(int8_rows, served8["launches"], int8_worst)
+    report["kernels"].append(q8)
+    int8_line = int8_served_throughput(torch, served8, smi)
+    for key in ("served_max_abs_err", "route_max_ulps", "int8_vs_f32_max_abs",
+                "int8_vs_f32_top1", "digest", "launches"):
+        int8_line[key] = served8[key]
+    del served8
+    log(f"[18] per forward at batch {BATCH}: matmul_bias_act_int8 "
+        f"{q8['ms']:.4f} ms (2 sites; device time {q8['device_ms']} ms), "
+        f"plain {q8['plain_ms']:.4f} ms, "
+        f"torch._int_mm {q8['library_ms']} ms, bound {q8['bound_ms']:.4f} ms "
+        f"({q8['bound_by']}) [{smi}]")
+    log(f"[18] AlexNet served at batch {BATCH}: int8 kernel route "
+        f"{int8_line['images_per_s_int8_kernel']:.1f} images/s, int8 stock "
+        f"{int8_line['images_per_s_int8_stock']:.1f}, f32 "
+        f"{int8_line['images_per_s_f32']:.1f}; forward on the card "
+        f"{int8_line['forward_ms_int8_kernel']:.3f} / "
+        f"{int8_line['forward_ms_int8_stock']:.3f} / "
+        f"{int8_line['forward_ms_f32']:.3f} ms [{smi}]")
+    for name in ("int8_kernel", "int8_stock", "f32"):
+        prof = int8_line[f"profile_{name}"]
+        log(f"[18] {name} forward, device time {prof['device_ms']:.3f} ms: "
+            + "; ".join(f"{k} {v:.3f}" for k, v in prof["top"]))
     log(json.dumps(report))
     log(json.dumps({"served": served_line}))
     log(json.dumps({"trained": train_line}))
     log(json.dumps({"generated": gen_line}))
     log(json.dumps({"trained_lm": lm_line}))
-    log(f"[15] total {time.monotonic() - t_start:.1f} s")
+    log(json.dumps({"served_int8": int8_line}))
+    log(f"[18] total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0

@@ -12,6 +12,6 @@ from deeplearning4j_tpu_torch.conf.weights import WeightInit
 # import the config modules for their serde tag registrations, so from_json
 # works regardless of which entry point the user imported first
 from deeplearning4j_tpu_torch.conf import (  # noqa: E402,F401
-    graph, layers, layers_attention, layers_cnn, layers_extra, losses,
-    multilayer, regularization, schedules, updaters,
+    graph, layers, layers_attention, layers_cnn, layers_extra, layers_quant,
+    losses, multilayer, regularization, schedules, updaters,
 )

@@ -103,12 +103,17 @@ class BaseLayer(Layer):
     gradient_normalization_threshold: float = 1.0
 
     def _dropout_input(self, x, train, gen):
-        if train and 0.0 < self.dropout < 1.0 and gen is not None:
-            keep = self.dropout
-            u = torch.rand(x.shape, generator=gen, device=gen.device)
-            mask = (u < keep).to(x.device)
-            return torch.where(mask, x / keep, torch.zeros_like(x))
-        return x
+        return _inverted_dropout(x, self.dropout, train, gen)
+
+
+def _inverted_dropout(x, keep: float, train: bool, gen):
+    """Training with a generator: each value kept with probability
+    ``keep`` (0 < keep < 1) and scaled by 1/keep, else 0; otherwise x."""
+    if train and 0.0 < keep < 1.0 and gen is not None:
+        u = torch.rand(x.shape, generator=gen, device=gen.device)
+        mask = (u < keep).to(x.device)
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+    return x
 
 
 def promote(*tensors):
@@ -120,6 +125,22 @@ def promote(*tensors):
     for d in dts[1:]:
         dt = torch.promote_types(dt, d)
     return tuple(None if t is None else t.to(dt) for t in tensors)
+
+
+def _fold_out_channels(layer, params, key, scale, shift):
+    """``params[key]`` (output channels on axis 0: dense [nOut, nIn], conv
+    OIHW) times ``scale`` and the bias ``b*scale + shift``, computed in
+    float32 and stored in the weight's dtype; the layer gains a bias."""
+    w = params[key]
+    dt = w.dtype
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=w.device)
+    shift = torch.as_tensor(shift, dtype=torch.float32, device=w.device)
+    view = (-1,) + (1,) * (w.ndim - 1)
+    out = dict(params)
+    out[key] = (w.float() * scale.reshape(view)).to(dt)
+    b = params["b"].float() if layer.has_bias else 0.0
+    out["b"] = (b * scale + shift).to(dt)
+    return dataclasses.replace(layer, has_bias=True), out
 
 
 def _as_ff_size(input_type) -> int:
@@ -164,6 +185,14 @@ class DenseLayer(BaseLayer):
     def pre_output(self, params, x):
         x, w, b = promote(x, params["W"], params.get("b"))
         return F.linear(x, w, b if self.has_bias else None)
+
+    def fold_scale_shift(self, params, scale, shift):
+        """Inference fold hook (``nn.inference_opt``): absorb a following
+        per-output-channel affine ``y*scale + shift`` (an eval-mode batch
+        norm) into W/b, in float32. Valid only when this layer's activation
+        is IDENTITY — the caller checks. Returns ``(new_layer,
+        new_params)``; a bias appears if the layer had none."""
+        return _fold_out_channels(self, params, "W", scale, shift)
 
 
 @serde.register
@@ -218,6 +247,18 @@ class ActivationLayer(Layer):
 
     def forward(self, params, state, x, train=False, gen=None):
         return self.activation.apply(x), state
+
+
+@serde.register
+@dataclasses.dataclass
+class DropoutLayer(Layer):
+    """Reference ``DropoutLayer``; ``dropout`` = retain probability
+    (inverted dropout in training; the identity in eval mode)."""
+
+    dropout: float = 0.5
+
+    def forward(self, params, state, x, train=False, gen=None):
+        return _inverted_dropout(x, self.dropout, train, gen), state
 
 
 @serde.register

@@ -1,7 +1,8 @@
 """Convolutional / pooling / normalization layer configs.
 
 Reference confs: ``ConvolutionLayer``, ``SubsamplingLayer``,
-``BatchNormalization``, ``GlobalPoolingLayer`` and the JAX package's
+``BatchNormalization``, ``LocalResponseNormalization``,
+``GlobalPoolingLayer`` and the JAX package's
 ``FusedConvBN1x1`` (``org.deeplearning4j.nn.conf.layers``). Fields and
 ``@type`` tags are the JAX package's. Tensors are logical NCHW in
 ``channels_last`` memory; weights are OIHW.
@@ -24,7 +25,12 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch import serde
 from deeplearning4j_tpu_torch.conf import inputs as it
-from deeplearning4j_tpu_torch.conf.layers import BaseLayer, Layer, _as_ff_size
+from deeplearning4j_tpu_torch.conf.layers import (
+    BaseLayer,
+    Layer,
+    _as_ff_size,
+    _fold_out_channels,
+)
 
 
 @serde.register_enum
@@ -134,6 +140,13 @@ class ConvolutionLayer(BaseLayer):
             y = F.conv2d(F.pad(x, (left, right, top, bottom)), params["W"], b,
                          _pair(self.stride), 0, _pair(self.dilation))
         return self.activation.apply(y), state
+
+    def fold_scale_shift(self, params, scale, shift):
+        """Inference fold hook (``nn.inference_opt``): absorb a following
+        per-output-channel affine (an eval-mode BN) into W/b. OIHW weights
+        put the output channel first. The caller guarantees the activation
+        is IDENTITY."""
+        return _fold_out_channels(self, params, "W", scale, shift)
 
 
 @serde.register
@@ -375,6 +388,29 @@ class FusedConvBN1x1(BaseLayer):
         xhat = _bn_normalize(y.to(sdt), mean, var, self.eps,
                              params["gamma"].to(sdt), params["beta"].to(sdt))
         return self.activation.apply(xhat).to(dtype)
+
+
+@serde.register
+@dataclasses.dataclass
+class LocalResponseNormalization(Layer):
+    """Reference ``LocalResponseNormalization`` (AlexNet-era LRN):
+    ``y = x / (k + alpha * s)**beta`` with ``s`` the sum of ``x**2`` over
+    a window of ``n`` adjacent channels (dim 1), zero-padded by
+    ``(n // 2, n - 1 - n // 2)`` as the JAX package pads its last axis."""
+
+    k: float = 2.0
+    n: int = 5
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    def forward(self, params, state, x, train=False, gen=None):
+        half = self.n // 2
+        c = x.shape[1]
+        sq = F.pad(x * x, (0, 0, 0, 0, half, self.n - 1 - half))
+        s = sq[:, 0:c]
+        for i in range(1, self.n):
+            s = s + sq[:, i:i + c]
+        return x / (self.k + self.alpha * s) ** self.beta, state
 
 
 @serde.register

@@ -11,7 +11,10 @@ main path went through the kernel.
 ``deeplearning4j_tpu/kernels/impls.py::matmul_bias_act``; ``matmul_stats``
 replaces ``deeplearning4j_tpu/kernels/impls.py::matmul_stats`` and
 ``deeplearning4j_tpu/ops/conv_fused.py::matmul_with_stats`` (one function);
-``probe`` replaces the capability probe's ``pallas_call`` in
+``matmul_bias_act_int8`` replaces
+``deeplearning4j_tpu/kernels/impls.py::matmul_bias_act_int8`` (the quantized
+serving variant, forward only as in the JAX package); ``probe`` replaces the
+capability probe's ``pallas_call`` in
 ``deeplearning4j_tpu/kernels/routing.py::capability``. The CUDA sources say
 what bounds each kernel on an H100 and what its design does about it.
 
@@ -37,8 +40,9 @@ STATS_SOURCE = "matmul_stats"  # csrc/matmul_stats.cu
 FLASH_SOURCE = "flash_attention"  # csrc/flash_attention.cu
 FLASH_BWD_SOURCE = "flash_attention_bwd"  # csrc/flash_attention_bwd.cu
 DECODE_SOURCE = "paged_decode_attention"  # csrc/paged_decode_attention.cu
+INT8_SOURCE = "matmul_bias_act_int8"  # csrc/matmul_bias_act_int8.cu
 SOURCES = (SOURCE, STATS_SOURCE, FLASH_SOURCE, FLASH_BWD_SOURCE,
-           DECODE_SOURCE)
+           DECODE_SOURCE, INT8_SOURCE)
 
 _SIGNATURES = {
     "dl4j_matmul_bias_act": (
@@ -59,10 +63,19 @@ _STATS_SIGNATURES = {
          ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
 }
+_INT8_SIGNATURES = {
+    "dl4j_matmul_int8_splits": (
+        ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]),
+    "dl4j_matmul_bias_act_int8": (
+        ctypes.c_int,
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+}
 
 # the epilogue's activation ids: every elementwise Activation, in the order
-# of apply_act's switch in csrc/matmul_bias_act.cu (a test holds the two
-# tables equal). Softmax normalizes over the row and cannot run per element.
+# of apply_act's switch in csrc/activations.cuh, which both GEMM epilogues
+# share (a test holds the two tables equal). Softmax normalizes over the row and cannot run per element.
 ACTIVATION_IDS = {
     "identity": 0, "sigmoid": 1, "tanh": 2, "relu": 3, "relu6": 4,
     "leakyrelu": 5, "elu": 6, "selu": 7, "gelu": 8, "softplus": 9,
@@ -73,6 +86,8 @@ ACTIVATION_IDS = {
 
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2 ** 31 - 1
+# int8 x int8 sums stay within int32: |acc| <= 128 * 128 * K < 2**31
+INT8_K_MAX = (2 ** 31 - 1) // 128 ** 2
 _COUNT_LOCK = threading.Lock()
 
 
@@ -82,6 +97,10 @@ def _library() -> ctypes.CDLL:
 
 def _stats_library() -> ctypes.CDLL:
     return build.load(STATS_SOURCE, _STATS_SIGNATURES)
+
+
+def _int8_library() -> ctypes.CDLL:
+    return build.load(INT8_SOURCE, _INT8_SIGNATURES)
 
 
 def count(wrapper, counter: str = "launches") -> None:
@@ -292,6 +311,100 @@ def matmul_stats(x: torch.Tensor, w: torch.Tensor):
 
 
 matmul_stats.launches = 0
+
+
+# --------------------------------------------------------------------------
+# int8 matmul + f32 scale/bias + activation (quantized dense / 1x1 conv)
+# --------------------------------------------------------------------------
+
+def _check_int8(xq, wq, scale, b, act):
+    if not elementwise(act):
+        raise ValueError(f"matmul_bias_act_int8 needs an elementwise "
+                         f"activation, got {act.value}")
+    if xq.ndim != 2 or wq.ndim != 2 or scale.ndim != 1 or b.ndim != 1:
+        raise ValueError(
+            f"matmul_bias_act_int8 takes xq [M,K], wq [K,N], scale [N], b [N]; "
+            f"got {tuple(xq.shape)}, {tuple(wq.shape)}, {tuple(scale.shape)}, "
+            f"{tuple(b.shape)}")
+    n = wq.shape[1]
+    if wq.shape[0] != xq.shape[1] or scale.shape[0] != n or b.shape[0] != n:
+        raise ValueError(
+            f"matmul_bias_act_int8 shape mismatch: xq {tuple(xq.shape)}, wq "
+            f"{tuple(wq.shape)}, scale {tuple(scale.shape)}, b {tuple(b.shape)}")
+    if (xq.dtype, wq.dtype, scale.dtype, b.dtype) != (
+            torch.int8, torch.int8, torch.float32, torch.float32):
+        raise ValueError(
+            f"matmul_bias_act_int8 takes int8 xq and wq, float32 scale and b; "
+            f"got {xq.dtype}, {wq.dtype}, {scale.dtype}, {b.dtype}")
+    if not (xq.device == wq.device == scale.device == b.device):
+        raise ValueError(f"matmul_bias_act_int8 operands on different devices: "
+                         f"{xq.device}, {wq.device}, {scale.device}, {b.device}")
+    if xq.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"matmul_bias_act_int8 runs on cpu or cuda, not "
+                         f"{xq.device}")
+    if xq.shape[1] > INT8_K_MAX:
+        raise ValueError(f"matmul_bias_act_int8: K = {xq.shape[1]} could "
+                         f"overflow the int32 sums (K <= {INT8_K_MAX})")
+
+
+def matmul_bias_act_int8_plain(xq: torch.Tensor, wq: torch.Tensor,
+                               scale: torch.Tensor, b: torch.Tensor,
+                               act: Activation) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: the exact int32 sums, then
+    ``act(float32(acc) * scale + b)`` with the scale and the bias rounded
+    one after the other. On the CPU the sums are an int32 product (an int8
+    product would return int8 and wrap); CUDA has no integer matmul, so
+    there they are a float64 product, exact since |acc| < 2**53."""
+    if xq.device.type == "cpu":
+        acc = xq.to(torch.int32) @ wq.to(torch.int32)
+    else:
+        acc = (xq.double() @ wq.double()).to(torch.int32)
+    return act.apply(acc.float() * scale + b)
+
+
+def _matmul_bias_act_int8_cuda(xq, wq, scale, b, act):
+    if not (xq.is_contiguous() and wq.is_contiguous() and scale.is_contiguous()
+            and b.is_contiguous()):
+        raise ValueError("matmul_bias_act_int8 needs contiguous operands")
+    (m, k), n = xq.shape, wq.shape[1]
+    if max(m, n) > _INT_MAX:
+        raise ValueError(f"matmul_bias_act_int8 dimension over 2**31: "
+                         f"{(m, k, n)}")
+    y = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+    if m == 0 or n == 0:
+        return y  # nothing to launch
+    lib = _int8_library()
+    splits = lib.dl4j_matmul_int8_splits(m, n, k, xq.device.index)
+    if splits <= 0:
+        raise_on_error("matmul_bias_act_int8", -splits)
+    # split K: the int32 partial sums of each K chunk, added by the kernel's
+    # second pass (the allocator keeps the block for this stream's launches)
+    work = (torch.empty((splits, m, n), dtype=torch.int32, device=xq.device)
+            if splits > 1 else None)
+    rc = lib.dl4j_matmul_bias_act_int8(
+        xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), b.data_ptr(),
+        y.data_ptr(), None if work is None else work.data_ptr(), m, n, k,
+        ACTIVATION_IDS[act.value], xq.device.index, stream(xq))
+    raise_on_error("matmul_bias_act_int8", rc)
+    count(matmul_bias_act_int8)
+    return y
+
+
+def matmul_bias_act_int8(xq: torch.Tensor, wq: torch.Tensor,
+                         scale: torch.Tensor, b: torch.Tensor,
+                         act: Activation) -> torch.Tensor:
+    """``act(float32(int32_dot(xq, wq)) * scale + b)`` as float32 [M, N]:
+    xq [M, K] int8 (already quantized), wq [K, N] int8 (the contract
+    layout), scale and b [N] float32 (``nn.inference_opt``'s effective
+    scale and bias). ``act`` is an elementwise :class:`Activation`. Forward
+    only: quantized layers never train."""
+    _check_int8(xq, wq, scale, b, act)
+    if xq.device.type == "cpu":
+        return matmul_bias_act_int8_plain(xq, wq, scale, b, act)
+    return _matmul_bias_act_int8_cuda(xq, wq, scale, b, act)
+
+
+matmul_bias_act_int8.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -11,6 +11,11 @@ as the JAX package's ``kernels/routing.py``:
   SAME; a stride subsamples the input before the GEMM, so the output is
   ``ceil(h / s)`` by ``ceil(w / s)``;
 - a missing bias (``has_bias=False``) is a zero bias;
+- the int8 layers of a quantized artifact (``QuantizedDenseLayer`` on 2-D
+  input, ``QuantizedConv1x1Layer`` on 4-D input, exact class forward,
+  elementwise activation) → ``matmul_bias_act_int8``; the round / clip /
+  cast of ``quantize_input`` stays plain PyTorch before the kernel, as the
+  JAX package keeps it in XLA;
 - ``FusedConvBN1x1`` in train mode → ``matmul_stats`` (the statistics pass
   fused into the conv's output pass); eval mode reads the running
   statistics and takes the stock forward;
@@ -29,8 +34,9 @@ The generation path routes through the functional twins
 / ``decode_step`` when the decoder runs with ``use_kernels``.
 
 Dropout (train mode with a generator) masks the full input first, as the
-layer's own forward does. Both GEMM kernels are differentiable, so a routed
-forward trains. Anything else returns ``None`` and the caller runs the
+layer's own forward does. The float GEMM kernels are differentiable, so a
+routed forward trains; the int8 kernel serves only (quantized layers never
+train). Anything else returns ``None`` and the caller runs the
 stock forward. The JAX route takes its kernel only for a *tuned* envelope;
 this port has no tuner yet, so the route takes the kernel for every shape
 the qualifiers admit (the JAX package's tuned and stock paths agree, so no
@@ -129,6 +135,46 @@ def _route_conv1x1(layer, params, state, x, train, gen):
     return y2.view(b_, h_o, w_o, layer.n_out).permute(0, 3, 1, 2), state
 
 
+def _route_quant_dense(layer, params, state, x, train, gen):
+    from deeplearning4j_tpu_torch.conf.layers_quant import (
+        QuantizedDenseLayer,
+        quantize_input,
+    )
+
+    if type(layer).forward is not QuantizedDenseLayer.forward:
+        return None
+    if x.ndim != 2 or not impls.elementwise(layer.activation):
+        return None
+    xq = quantize_input(x, params["xs"], params["xz"])
+    y = impls.matmul_bias_act_int8(xq.contiguous(), params["Wq"],
+                                   params["scale"], params["b"],
+                                   layer.activation)
+    return y.to(x.dtype), state
+
+
+def _route_quant_conv1x1(layer, params, state, x, train, gen):
+    from deeplearning4j_tpu_torch.conf.layers_quant import (
+        QuantizedConv1x1Layer,
+        quantize_input,
+    )
+
+    if type(layer).forward is not QuantizedConv1x1Layer.forward:
+        return None
+    if x.ndim != 4 or not impls.elementwise(layer.activation):
+        return None
+    sh, sw = _pair(layer.stride)
+    b_, cin, h, wd = x.shape
+    h_o, w_o = -(-h // sh), -(-wd // sw)
+    xs = x[:, :, ::sh, ::sw] if (sh, sw) != (1, 1) else x
+    x2 = xs.permute(0, 2, 3, 1).reshape(b_ * h_o * w_o, cin)
+    xq = quantize_input(x2, params["xs"], params["xz"])
+    y2 = impls.matmul_bias_act_int8(xq.contiguous(), params["Wq"],
+                                    params["scale"], params["b"],
+                                    layer.activation)
+    y = y2.view(b_, h_o, w_o, layer.n_out).permute(0, 3, 1, 2)
+    return y.to(x.dtype), state
+
+
 def _route_fused_conv_bn(layer, params, state, x, train, gen):
     from deeplearning4j_tpu_torch.conf.layers_cnn import FusedConvBN1x1
 
@@ -208,13 +254,22 @@ def maybe_forward(layer, params, state, x, train=False, gen=None, mask=None):
         ConvolutionLayer,
         FusedConvBN1x1,
     )
+    from deeplearning4j_tpu_torch.conf.layers_quant import (
+        QuantizedConv1x1Layer,
+        QuantizedDenseLayer,
+    )
 
     if isinstance(layer, SelfAttentionLayer):
         return _route_self_attention(layer, params, state, x, train, gen,
                                      mask)
     if mask is not None:
         return None
-    if isinstance(layer, FusedConvBN1x1):
+    # the quantized layers first, in the JAX package's order
+    if isinstance(layer, QuantizedDenseLayer):
+        route = _route_quant_dense
+    elif isinstance(layer, QuantizedConv1x1Layer):
+        route = _route_quant_conv1x1
+    elif isinstance(layer, FusedConvBN1x1):
         route = _route_fused_conv_bn
     elif isinstance(layer, ConvolutionLayer):
         route = _route_conv1x1

@@ -12,6 +12,9 @@ The statistics are taken over the stored (storage-dtype) y, as the unfused
 path reads it back; the variance is the one-pass ``E[y^2] - E[y]^2`` in
 f32. The backward is the JAX package's VJP (``kernels.impls.matmul_stats``).
 
+``bn_fold_scale_shift`` gives the inference pass (``nn.inference_opt``) the
+constants of an eval-mode BN folded into the layer before it.
+
 Layouts are the port's: activations NCHW in ``channels_last`` memory, conv
 weights OIHW, and the matmul operands x [M, Cin], w [Cout, Cin] (both
 Cin-contiguous, so neither is transposed).
@@ -76,3 +79,22 @@ def conv1x1_bn_stats(x: torch.Tensor, w: torch.Tensor,
     x2 = x.permute(0, 2, 3, 1).reshape(b * h * wd, cin).contiguous()
     y2, s, q = matmul_with_stats(x2, w.reshape(cout, cin).contiguous())
     return y2.view(b, h, wd, cout).permute(0, 3, 1, 2), s, q
+
+
+def bn_fold_scale_shift(gamma, beta, mean, var, eps):
+    """Inference-time BN folding constants: eval-mode batch norm is the
+    per-channel affine ``y*scale + shift`` with ``scale = gamma /
+    sqrt(var + eps)`` and ``shift = beta - mean * scale``, so a preceding
+    linear op (identity activation) absorbs it: ``W' = W * scale`` over the
+    output channels, ``b' = b * scale + shift``. Computed in float32
+    whatever the serving dtype, in the JAX package's operation order.
+    ``gamma``/``beta`` None = locked gamma/beta (1/0)."""
+    var32 = torch.as_tensor(var).float()
+    mean32 = torch.as_tensor(mean).float()
+    scale = torch.rsqrt(var32 + eps)
+    if gamma is not None:
+        scale = scale * torch.as_tensor(gamma).float()
+    shift = -mean32 * scale
+    if beta is not None:
+        shift = shift + torch.as_tensor(beta).float()
+    return scale, shift

@@ -138,14 +138,20 @@ class _Request:
 
 
 def _input_types(model):
-    """The model conf's per-input InputTypes, or None when unreadable."""
+    """The model conf's per-input InputTypes (a ComputationGraph's
+    ``input_types``, a MultiLayerNetwork's one ``input_type``), or None
+    when unreadable."""
     conf = getattr(model, "conf", None)
-    if conf is None or not hasattr(conf, "network_inputs"):
+    if conf is None:
         return None
-    types = list(getattr(conf, "input_types", ()) or ())
-    if len(types) != len(conf.network_inputs):
-        return [None] * len(conf.network_inputs)
-    return types
+    if hasattr(conf, "network_inputs"):
+        types = list(getattr(conf, "input_types", ()) or ())
+        if len(types) != len(conf.network_inputs):
+            return [None] * len(conf.network_inputs)
+        return types
+    if getattr(conf, "input_type", None) is not None:
+        return [conf.input_type]
+    return None
 
 
 def _input_templates(model):
@@ -185,10 +191,12 @@ class InferenceEngine:
         engine.close()
 
     ``model`` is anything exposing ``output(*arrays)`` and ``conf`` — a
-    ``ComputationGraph``. ``graph_opt=True`` (default) serves the
+    ``ComputationGraph`` or a ``MultiLayerNetwork`` (a quantized artifact
+    included). ``graph_opt=True`` (default) serves the
     ``nn.inference_opt.optimize_for_inference`` copy, whose params a
-    training original never touches; ``bf16=True`` additionally serves the
-    forward in bfloat16 with float32 outputs.
+    training original never touches (a MultiLayerNetwork's BNs folded and
+    dropout pruned; a quantized artifact copied untouched); ``bf16=True``
+    additionally serves the forward in bfloat16 with float32 outputs.
     """
 
     def __init__(self, model, config: Optional[BatchingConfig] = None,

@@ -42,7 +42,8 @@ from deeplearning4j_tpu_torch.telemetry import tracing
 
 
 class InferenceServer:
-    """Serve a ``ComputationGraph``.
+    """Serve a ``ComputationGraph`` or a ``MultiLayerNetwork`` (an int8
+    artifact of ``nn.inference_opt.quantize_for_inference`` included).
 
     Usage::
 
@@ -89,8 +90,13 @@ class InferenceServer:
         from deeplearning4j_tpu_torch.nn import io as nn_io
 
         conf = getattr(self.model, "conf", None)
-        types = list(getattr(conf, "input_types", ()) or ())
-        t = types[idx] if idx < len(types) else None
+        if conf is None:
+            return False
+        if hasattr(conf, "network_inputs"):
+            types = list(getattr(conf, "input_types", ()) or ())
+            t = types[idx] if idx < len(types) else None
+        else:  # MultiLayerNetwork: one input
+            t = getattr(conf, "input_type", None)
         return t is not None and nn_io.image_input(t)
 
     def _parse_inputs(self, inputs):

@@ -1,4 +1,4 @@
-"""Carry a JAX-package ComputationGraph's weights into the port.
+"""Carry a JAX-package network's weights into the port.
 
 The JAX package keeps conv weights HWIO ``[kh, kw, in, out]`` and dense
 weights ``[nIn, nOut]``; the port keeps conv weights OIHW
@@ -10,13 +10,20 @@ weights ``[nIn, nOut]``; the port keeps conv weights OIHW
 ``PositionEmbeddingLayer.P [max_len, size]``) keep their layout: a row per
 id in both packages. Biases, LayerNormalization ``gain``/``b``, BN
 ``gamma``/``beta`` and the BN running ``mean``/``var`` state are vectors in
-both packages. An updater's state (Adam's ``m`` and
+both packages. A quantized layer's ``Wq`` is ``[K, N]`` int8 in both
+packages (the int8 kernel's contract layout) and stays int8; its
+``scale``, ``b``, ``xs`` and ``xz`` are vectors. An updater's state (Adam's ``m`` and
 ``v``, Nesterovs' ``v``) has its parameter's shape, so it converts by the
 parameter's rule.
 
-This module imports neither package's JAX code: it takes the JAX graph's
+This module imports neither package's JAX code: it takes the JAX network's
 ``params``/``state`` as nested dicts of numpy arrays
-(``{vertex: {"W": ..., "b": ...}}``, e.g. ``np.asarray`` of each leaf).
+(``{vertex: {"W": ..., "b": ...}}`` for a graph, ``{"0": {...}, ...}`` by
+layer index for a MultiLayerNetwork; e.g. ``np.asarray`` of each leaf).
+
+A MultiLayerNetwork's 6400-wide dense layer after AlexNet's flatten keeps
+its rows: the port's ``CnnToFeedForwardPreProcessor`` flattens in the JAX
+package's NHWC order.
 """
 
 from __future__ import annotations
@@ -60,15 +67,21 @@ def convert_layer_params(layer, params: Dict[str, object]) -> Dict[str, torch.Te
     return out
 
 
+def _layer_of(conf, key: str):
+    """The layer behind a params key: a graph vertex's layer, or a
+    MultiLayerNetwork's layer by its string index."""
+    if hasattr(conf, "vertex_map"):
+        return getattr(conf.vertex_map()[key].vertex, "layer", None)
+    return conf.layers[int(key)]
+
+
 def params_from_jax(conf, params: Dict[str, dict], state: Dict[str, dict]
                     ) -> Tuple[Dict[str, dict], Dict[str, dict]]:
-    """Map the JAX graph's ``params``/``state`` onto the port's layouts for
-    the graph ``conf`` (a port ``ComputationGraphConfiguration``). Returns
-    ``(params, state)`` as dicts of CPU tensors, ready for
-    ``ComputationGraph.set_params``."""
-    vmap = conf.vertex_map()
-    out_p = {name: convert_layer_params(getattr(vmap[name].vertex, "layer",
-                                                None), vp)
+    """Map the JAX network's ``params``/``state`` onto the port's layouts
+    for ``conf`` (a port ``ComputationGraphConfiguration`` or
+    ``MultiLayerConfiguration``). Returns ``(params, state)`` as dicts of
+    CPU tensors, ready for ``set_params`` of either network."""
+    out_p = {name: convert_layer_params(_layer_of(conf, name), vp)
              for name, vp in params.items()}
     out_s = {name: {key: torch.tensor(np.asarray(v)) for key, v in vs.items()}
              for name, vs in state.items()}

@@ -33,7 +33,7 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(count) >= 49  # every module of the port, generation included
+    assert int(count) >= 52  # every module of the port, int8 serving included
     assert bad == "[]"
 
 
@@ -59,7 +59,22 @@ TRAINING_MODULES = [
 ]
 
 
-@pytest.mark.parametrize("module", GENERATION_MODULES + TRAINING_MODULES)
+# the int8 serving slice's modules (MultiLayerNetwork, calibration and
+# quantization, the quantized layers and their kernel's wrapper)
+QUANT_MODULES = [
+    "deeplearning4j_tpu_torch.conf.multilayer",
+    "deeplearning4j_tpu_torch.conf.layers_quant",
+    "deeplearning4j_tpu_torch.nn.multilayer",
+    "deeplearning4j_tpu_torch.nn.inference_opt",
+    "deeplearning4j_tpu_torch.optimize.aot_cache",
+    "deeplearning4j_tpu_torch.kernels.impls",
+    "deeplearning4j_tpu_torch.zoo.models",
+    "deeplearning4j_tpu_torch.parallel.serving",
+]
+
+
+@pytest.mark.parametrize("module", GENERATION_MODULES + TRAINING_MODULES
+                         + QUANT_MODULES)
 def test_generation_module_alone_loads_no_jax(module):
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "

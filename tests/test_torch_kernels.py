@@ -146,8 +146,11 @@ def test_every_elementwise_activation_has_a_kernel_id():
 
 def test_activation_ids_match_the_cuda_epilogue():
     """The ids the wrapper passes are the cases of apply_act in the CUDA
-    source, each commented with its activation's name."""
-    src = (build.CSRC / "matmul_bias_act.cu").read_text()
+    header both GEMM epilogues include, each commented with its
+    activation's name."""
+    src = (build.CSRC / "activations.cuh").read_text()
+    for user in ("matmul_bias_act.cu", "matmul_bias_act_int8.cu"):
+        assert '#include "activations.cuh"' in (build.CSRC / user).read_text()
     body = src[src.index("apply_act(int act, float z)"):]
     body = body[:body.index("kNumActs")]
     cases = {name: int(i) for i, name in
