@@ -24,6 +24,13 @@ ResNet-50 ``output`` at batch 32. ``--kernel paged_decode_attention``: the
 chip_smoke decode checks (B 8, H 12, D 64, each S of the KV ladder); per S,
 seeded positions in [S/2, S); end to end, the GPT-2-small-width LM's
 ``GenerationEngine`` over chip_smoke's 16 requests (tokens/s).
+``--kernel flash_attention_bwd`` (the dq and dk/dv kernels, one source):
+both versions against ``flash_attention_bwd_plain`` at every case of
+``chip_smoke.flash_bwd_cases()`` in float32 and bfloat16 (within
+``ATTN_BWD_TOL``, not bitwise: the versions sum in other orders); dq and
+dk/dv timed apart at the LM's shape ([8, 12, 1024, 64], causal, float32)
+beside autograd through causal SDPA in the same pairs; end to end, the
+GPT-2-small-width LM's ``fit_batch`` at 8 x 1024 tokens (ms a step).
 
 Prints one JSON line per shape and a final summary line with quartiles and
 the count of pairs the new version won. Exits non-zero without a CUDA card.
@@ -51,7 +58,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("old", type=Path, help="the other version's .cu source")
     ap.add_argument("--kernel", default="matmul_bias_act",
-                    choices=("matmul_bias_act", "paged_decode_attention"))
+                    choices=("matmul_bias_act", "paged_decode_attention",
+                             "flash_attention_bwd"))
     ap.add_argument("--pairs", type=int, default=10)
     args = ap.parse_args()
     import torch
@@ -61,6 +69,8 @@ def main() -> int:
         return 1
     if args.kernel == "paged_decode_attention":
         return ab_decode(torch, args)
+    if args.kernel == "flash_attention_bwd":
+        return ab_flash_bwd(torch, args)
     import chip_smoke as cs
     from deeplearning4j_tpu_torch.conf.activations import Activation
     from deeplearning4j_tpu_torch.kernels import build, impls
@@ -273,6 +283,132 @@ def ab_decode(torch, args) -> int:
                                in zip(tps["old"], tps["new"])),
         "pairs": args.pairs}), flush=True)
     return 0
+
+
+def ab_flash_bwd(torch, args) -> int:
+    """The A/B of the flash backward kernels: both wrappers launch the
+    library that ``build.load`` hands them, so each version is swapped in
+    through the loaded-library table."""
+    import math
+
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.kernels import build, impls
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.zoo.graphs import TransformerEncoder
+
+    name = impls.FLASH_BWD_SOURCE
+    old_lib = _build_old(build, name, args.old, att._FLASH_BWD_SIGNATURES)
+    new_lib = build.load(name, att._FLASH_BWD_SIGNATURES)
+
+    def use(side):
+        build._LIBS[name] = old_lib if side == "old" else new_lib
+
+    def order(i):
+        return ("old", "new") if i % 2 == 0 else ("new", "old")
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    ok, worst = True, {"old": {}, "new": {}}
+    try:
+        # 1. both versions against the plain version
+        for b, tq, tk, d, causal, masked in cs.flash_bwd_cases():
+            q32, k32, v32, do32, km = cs._bwd_inputs(torch, gen, dev, b, tq,
+                                                     tk, d, masked)
+            for dtype, tdt in (("float32", torch.float32),
+                               ("bfloat16", torch.bfloat16)):
+                q, k, v, do = (t.to(tdt) for t in (q32, k32, v32, do32))
+                o, l, m = att.flash_attention(q, k, v, km, causal,
+                                              return_stats=True)
+                ref = att.flash_attention_bwd_plain(q, k, v, km, o, l, m, do,
+                                                    causal)
+                for side in ("old", "new"):
+                    use(side)
+                    got = att.flash_attention_bwd(q, k, v, km, o, l, m, do,
+                                                  causal)
+                    for key, g, r in zip(("dq", "dk", "dv"), got, ref):
+                        err, bad = cs._within(torch, g, r,
+                                              cs.ATTN_BWD_TOL[dtype])
+                        ok &= bad == 0 and bool(torch.isfinite(g.float()).all())
+                        w = worst[side]
+                        w[f"{dtype}.{key}"] = max(w.get(f"{dtype}.{key}", 0.0),
+                                                  err)
+            print(json.dumps({"case": [b, tq, tk, d, causal, masked],
+                              "within_tolerance": ok}), flush=True)
+        print(json.dumps({"within_tolerance": ok, "worst": worst,
+                          "tol": cs.ATTN_BWD_TOL}), flush=True)
+
+        # 2. dq and dk/dv apart at the training path's shape
+        b, h, t, d = (cs.LM_BATCH, cs.GEN_MODEL["n_heads"],
+                      cs.GEN_MODEL["max_len"], cs.GEN_HEAD_DIM)
+        sm = 1.0 / math.sqrt(d)
+        q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device=dev)
+                       for _ in range(4))
+        o, l, m = att.flash_attention(q, k, v, None, True, return_stats=True)
+        ops = att.bwd_operands(q, k, v, None, o, l, m, do)
+        use("new")
+        _, di = att._flash_dq_cuda(*ops, True, sm)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        lib_o = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=True)
+        times = {"old_dq": [], "new_dq": [], "old_dkv": [], "new_dkv": [],
+                 "sdpa": []}
+        for i in range(args.pairs):
+            for side in order(i):
+                use(side)
+                times[f"{side}_dq"].append(cs.cuda_time_ms(
+                    lambda: att._flash_dq_cuda(*ops, True, sm), samples=5))
+                times[f"{side}_dkv"].append(cs.cuda_time_ms(
+                    lambda: att._flash_dkv_cuda(*ops[:4], l, m, di, do, True,
+                                                sm), samples=5))
+            times["sdpa"].append(cs.cuda_time_ms(
+                lambda: torch.autograd.grad(lib_o, leaves, do,
+                                            retain_graph=True), samples=5))
+        kernels = {key: quartiles(v) for key, v in times.items()}
+        for kern in ("dq", "dkv"):
+            kernels[f"{kern}_new_wins"] = sum(
+                n < o_ for o_, n in zip(times[f"old_{kern}"],
+                                        times[f"new_{kern}"]))
+        kernels["new_pair_below_sdpa"] = (
+            kernels["new_dq"][1] + kernels["new_dkv"][1] < kernels["sdpa"][1])
+        print(json.dumps({"shape": [b, h, t, d], **kernels}), flush=True)
+        del q, k, v, do, o, l, m, ops, di, leaves, lib_o
+
+        # 3. end to end: the LM's training step on each version in turn
+        zoo = TransformerEncoder(causal=True, lm_head=True, use_kernels=True,
+                                 seed=cs.GEN_SEED, **cs.GEN_MODEL)
+        net = ComputationGraph(dataclasses.replace(zoo.conf(),
+                                                   use_kernels=True),
+                               device=dev).init()
+        ds = cs.lm_dataset(torch, dev, zoo.vocab_size, cs.LM_BATCH, t,
+                           cs.LM_SEED)
+        steps = {"old": [], "new": []}
+        for side in ("old", "new"):
+            use(side)
+            net.fit_batch(ds)
+        for i in range(args.pairs):
+            for side in order(i):
+                use(side)
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                for _ in range(2):
+                    net.fit_batch(ds)
+                steps[side].append((time.monotonic() - t0) / 2 * 1e3)
+    finally:
+        use("new")
+    print(json.dumps({
+        "card": cs.nvidia_smi_line(), "kernel": name, "within_tolerance": ok,
+        **{f"{key}_ms": v for key, v in kernels.items()
+           if key in times},
+        "dq_new_wins": kernels["dq_new_wins"],
+        "dkv_new_wins": kernels["dkv_new_wins"],
+        "new_pair_below_sdpa": kernels["new_pair_below_sdpa"],
+        "lm_step_old_ms": quartiles(steps["old"]),
+        "lm_step_new_ms": quartiles(steps["new"]),
+        "lm_step_new_wins": sum(n < o_ for o_, n in zip(steps["old"],
+                                                        steps["new"])),
+        "pairs": args.pairs}), flush=True)
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

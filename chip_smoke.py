@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero:
 
 1. the card: name, count, and ``nvidia-smi``'s name and power limit;
 2. build the CUDA kernels from ``deeplearning4j_tpu_torch/csrc`` (nvcc,
-   sm_90a) and hold the probe kernel against its plain version;
+   sm_90a), print each kernel's registers and spills as ptxas reports
+   them, and hold the probe kernel against its plain version;
 3. ``matmul_bias_act`` against its plain PyTorch version on the card: the
    15 distinct (M, K, N) of ResNet-50's 36 1x1 convolutions at batch 32
    plus two ragged shapes, float32 and bfloat16, activations identity,
@@ -68,7 +69,8 @@ Phases, in order; any failure exits non-zero:
 13. the flash backward kernels (dq, dk/dv) against
    ``flash_attention_bwd_plain`` on the card: 8 x 1024 causal unmasked and
    masked, ragged T 333 and 1000, 8 x 512 bidirectional masked, Tq < Tk,
-   head sizes 32, 64 and 128; float32 and bfloat16; a length-0 mask row
+   head sizes 32, 64 and 128 (the tensor-core kernels) and 256 (the FFMA
+   kernels); float32 and bfloat16; a length-0 mask row
    leaves every gradient finite; the whole Function against float64
    autograd of ``reference_attention``;
 14. the transformer's training path: the GPT-2-small-width LM (seeded
@@ -81,7 +83,8 @@ Phases, in order; any failure exits non-zero:
    bidirectional classifier (2 layers, T 512, masked), 2 steps each
    against the stock route;
 15. training timings: the dq and dk/dv kernels at 8 x 1024 beside the plain
-   backward, SDPA's backward and the bound; the LM train step, kernel route
+   backward, SDPA's backward and the bound at the FFMA and at the 3xTF32
+   tensor-core rate; the LM train step, kernel route
    against stock in alternating turns (ms per step, tokens/s);
 16. ``matmul_bias_act_int8`` against its plain version on the card: AlexNet's
    two quantized dense layers (K x N = 6400 x 4096 and 4096 x 4096) at
@@ -118,6 +121,7 @@ import dataclasses
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -129,7 +133,10 @@ import numpy as np
 # published peaks of one H100 SXM (NVIDIA data sheet; dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12,  # FFMA / tensor core
-                  "int8": 1979e12}  # dense int8 tensor core
+                  "int8": 1979e12,  # dense int8 tensor core
+                  # float32-accurate products on the tensor cores through the
+                  # 3xTF32 split: three TF32 MMAs (495e12) a product
+                  "tf32x3": 165e12}
 
 # kernel vs plain version on the same inputs: |y - ref| <= atol + rtol*|ref|.
 # float32: both accumulate in f32, in different orders (~K * 2**-24 relative
@@ -376,6 +383,16 @@ def device_breakdown(fn, top: int = 8) -> dict:
             "top": [(name[:80], ms) for name, ms in ranked[:top]]}
 
 
+def tc_bound_ms(ops_ms: float, bytes_ms: float) -> float:
+    """The bound of float32-accurate work on the tensor cores (3xTF32):
+    the operations, timed at the FFMA peak in ``ops_ms``, at the 3xTF32
+    rate instead, or the bytes if they take longer. Every float32 row
+    carries it beside its FFMA ``bound_ms``, one yardstick for the kernels
+    that moved onto the tensor cores and those that did not."""
+    return max(ops_ms * PEAK_OPS_PER_S["float32"] / PEAK_OPS_PER_S["tf32x3"],
+               bytes_ms)
+
+
 def matmul_bound_ms(m: int, k: int, n: int, dtype: str):
     """Least time for y = act(x @ w.T + b) on an H100: each input read
     once, the output written once, 2*M*N*K operations at the dtype's peak.
@@ -442,6 +459,66 @@ def stats_bound_ms(m: int, k: int, n: int):
     once. Returns (ops_ms, bytes_ms)."""
     return (2.0 * m * n * k / PEAK_OPS_PER_S["float32"] * 1e3,
             (m * k + n * k + m * n) * 4 / HBM_BYTES_PER_S * 1e3)
+
+
+_TYPES = {"f": "float", "i": "int", "b": "bool", "a": "int8", "h": "uint8",
+          "__nv_bfloat16": "bf16"}
+
+
+def kernel_name(mangled: str) -> str:
+    """A CUDA entry function's name with its template arguments, e.g.
+    ``mma_dq_kernel<float,64>``, from the Itanium-mangled symbol ptxas
+    reports (the anonymous namespace dropped)."""
+    m = re.match(r"_ZN?", mangled)
+    if not m:
+        return mangled
+    pos, names = m.end(), []
+    while pos < len(mangled) and mangled[pos].isdigit():
+        n = re.match(r"\d+", mangled[pos:]).group()
+        pos += len(n)
+        names.append(mangled[pos:pos + int(n)])
+        pos += int(n)
+    if not names:
+        return mangled
+    args = []
+    if mangled[pos:pos + 1] == "I":
+        pos += 1
+        while pos < len(mangled) and mangled[pos] != "E":
+            c = mangled[pos]
+            if c == "L":  # a literal: L <type> <value> E
+                end = mangled.index("E", pos)
+                args.append(mangled[pos + 2:end])
+                pos = end + 1
+            elif c.isdigit():
+                n = re.match(r"\d+", mangled[pos:]).group()
+                name = mangled[pos + len(n):pos + len(n) + int(n)]
+                args.append(_TYPES.get(name, name))
+                pos += len(n) + int(n)
+            else:
+                args.append(_TYPES.get(c, c))
+                pos += 1
+    return names[-1] + (f"<{','.join(args)}>" if args else "")
+
+
+def ptxas_report(log: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) of every
+    entry function in an ``nvcc -Xptxas -v`` report."""
+    out, fn, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn, spill = kernel_name(m.group(1)), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            out.append((fn, int(m.group(1)), *spill))
+            fn = None
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -932,6 +1009,7 @@ def time_stats_kernel(torch, impls, F, dev, shapes) -> list:
             "plain_ms": cuda_time_ms(lambda: impls.matmul_stats_plain(x, w)),
             "library_ms": cuda_time_ms(lambda: F.linear(x, w)),
             "bound_ms": max(ops_ms, bytes_ms),
+            "bound_tc_ms": tc_bound_ms(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         })
         del x, w
@@ -985,6 +1063,7 @@ def time_kernels(torch, impls, Activation, F, dev, shapes) -> list:
                 lambda: impls.matmul_bias_act_plain(x, w, b, act)),
             "library_ms": cuda_time_ms(lambda: F.linear(x, w, b)),
             "bound_ms": max(ops_ms, bytes_ms),
+            "bound_tc_ms": tc_bound_ms(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         })
         del x, w, b
@@ -1008,6 +1087,7 @@ def stats_report(rows, launches, worst) -> dict:
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": _total(rows, "ms"), "plain_ms": _total(rows, "plain_ms"),
         "bound_ms": max(ops_ms, bytes_ms),
+        "bound_tc_ms": tc_bound_ms(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": _total(rows, "library_ms"),
         "scope": (f"one ResNet-50 training step at batch {BATCH}: the 36 "
@@ -1036,6 +1116,7 @@ def kernel_report(rows, launches, worst, probe_row, stats_row) -> dict:
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": total("ms"), "plain_ms": total("plain_ms"),
         "bound_ms": max(ops_ms, bytes_ms),
+        "bound_tc_ms": tc_bound_ms(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": total("library_ms"),
         "scope": (f"one ResNet-50 forward at batch {BATCH}: the 36 1x1 "
@@ -1142,11 +1223,12 @@ def flash_bwd_cases():
     """(B, Tq, Tk, D, causal, masked) of [13]: the training path's shape
     (8 x 1024, 12 heads x 64, causal) unmasked and with a ragged length
     mask, ragged T 333 and 1000, 8 x 512 bidirectional and masked, Tq < Tk,
-    and head sizes 32 and 128."""
+    and head sizes 32, 128 and 256 (the FFMA kernels' route)."""
     return [(8, 1024, 1024, 64, True, False), (8, 1024, 1024, 64, True, True),
             (8, 333, 333, 64, True, True), (8, 1000, 1000, 64, True, True),
             (8, 512, 512, 64, False, True), (4, 200, 333, 64, True, True),
-            (2, 256, 256, 32, True, True), (2, 256, 256, 128, True, True)]
+            (2, 256, 256, 32, True, True), (2, 256, 256, 128, True, True),
+            (2, 256, 256, 256, True, True)]
 
 
 def _bwd_inputs(torch, gen, dev, b, tq, tk, d, masked, zero_row=False):
@@ -1503,6 +1585,7 @@ def time_attention(torch, F, att, dev, stats, n_layers) -> tuple:
                 lambda: F.scaled_dot_product_attention(q, k, v,
                                                        attn_mask=keep)),
             "bound_ms": max(ops_ms, bytes_ms),
+            "bound_tc_ms": tc_bound_ms(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
         del q, k, v, km, keep
     for key, n in stats["windows"].items():
@@ -1532,6 +1615,7 @@ def time_attention(torch, F, att, dev, stats, n_layers) -> tuple:
                 lambda: F.scaled_dot_product_attention(qs, ks, vs,
                                                        attn_mask=live)),
             "bound_ms": max(ops_ms, bytes_ms),
+            "bound_tc_ms": tc_bound_ms(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
         del q, kc, vc, live, qs, ks, vs
     return flash_rows, decode_rows
@@ -1545,6 +1629,7 @@ def attention_report(rows, launches, worst, name, source, replaces,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": _weighted(rows, "ms"), "plain_ms": _weighted(rows, "plain_ms"),
         "bound_ms": _weighted(rows, "bound_ms"),
+        "bound_tc_ms": _weighted(rows, "bound_tc_ms"),
         "bound_by": max(("operations", "bytes"), key=lambda k: sum(
             r["count"] for r in rows if r["bound_by"] == k)),
         "library_ms": _weighted(rows, "library_ms"),
@@ -1790,6 +1875,7 @@ def time_flash_bwd(torch, F, att, dev) -> list:
                                for g, w in zip(got, want)),
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(ops_ms, bytes_ms),
+            "bound_tc_ms": tc_bound_ms(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
     return rows
 
@@ -1803,6 +1889,7 @@ def flash_bwd_report(rows, launches, worst) -> list:
             "replaces": line, "launches": launches[r["name"]],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_tc_ms": r["bound_tc_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "scope": ("one launch (one layer's backward attention) at the "
                       "LM training step's shape, float32, 8 x 12 heads x "
@@ -2281,9 +2368,9 @@ def main() -> int:
     log(f"[2] nvcc built {', '.join(impls.SOURCES)} in parallel in "
         f"{time.monotonic() - t0:.1f} s")
     for name in impls.SOURCES:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[2] ptxas {name}: {line.strip()}")
+        for fn, regs, stores, loads in ptxas_report(build.build_log(name)):
+            log(f"[2] ptxas {name} {fn}: {regs} registers, {stores} bytes "
+                f"spill stores, {loads} bytes spill loads")
     probe = check_probe(torch, impls, dev)
 
     # 3. the serving kernel against its plain version
@@ -2307,6 +2394,7 @@ def main() -> int:
         "ms": cuda_time_ms(lambda: impls.probe(x)),
         "plain_ms": cuda_time_ms(lambda: impls.probe_plain(x)),
         "bound_ms": 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+        "bound_tc_ms": 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
         "library_ms": cuda_time_ms(lambda: torch.add(x, 1.0)),
     }
@@ -2436,7 +2524,8 @@ def main() -> int:
     del trained_lm
     for r in bwd_rows:
         log(f"[15] {r['name']} B={r['b']} T={r['t']}: kernel {r['ms']:.4f} "
-            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); whole "
+            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, FFMA), "
+            f"{r['bound_tc_ms']:.4f} ms (3xTF32 tensor cores); whole "
             f"backward: plain {r['plain_ms']:.4f} ms, SDPA "
             f"{r['library_ms']:.4f} ms [{smi}]")
     log(f"[15] LM train step at {LM_BATCH} x {GEN_MODEL['max_len']} tokens: "
