@@ -12,7 +12,10 @@ with ``git show <rev>:deeplearning4j_tpu_torch/csrc/<kernel>.cu``. Both
 are built with the same nvcc flags and, in one process on one card:
 
 1. compared element for element at the main path's shapes, float32 and
-   bfloat16 (``bitwise`` says whether every output is identical);
+   bfloat16 (``bitwise`` says whether every output is identical; for
+   ``matmul_bias_act``, ``within_tolerance`` whether both versions stay
+   within ``KERNEL_TOL`` of the plain version, which gates the exit code:
+   versions that sum in other orders are not bitwise equal);
 2. timed per shape (float32, CUDA-event medians) in ``--pairs``
    alternating pairs, old-new then new-old;
 3. timed end to end with the route sending the kernel's calls to each
@@ -24,6 +27,17 @@ ResNet-50 ``output`` at batch 32. ``--kernel paged_decode_attention``: the
 chip_smoke decode checks (B 8, H 12, D 64, each S of the KV ladder); per S,
 seeded positions in [S/2, S); end to end, the GPT-2-small-width LM's
 ``GenerationEngine`` over chip_smoke's 16 requests (tokens/s).
+``--kernel flash_attention`` (the forward): both versions against
+``flash_attention_plain`` at every case of ``chip_smoke.flash_cases()`` in
+float32 and bfloat16 (within ``ATTN_TOL``, not bitwise); timed at every
+generation prefill bucket (join 1..8 x prompt 8..1024, causal with a
+prompt-length mask, float32) and at [8, 12, 1024, 64] causal unmasked (the
+LM's training shape) beside SDPA in the same pairs; end to end, an 8 x 1024
+prefill of the GPT-2-small-width LM (``prompt_fn``) and its ``fit_batch``
+at 8 x 1024 tokens. The forward's tiles live in ``csrc/flash_common.cuh``:
+OLD.cu is built against the ``flash_common.cuh`` beside it (write out the
+other version's header next to OLD.cu), the shared ``.cuh`` it does not
+find there from ``csrc/``.
 ``--kernel flash_attention_bwd`` (the dq and dk/dv kernels, one source):
 both versions against ``flash_attention_bwd_plain`` at every case of
 ``chip_smoke.flash_bwd_cases()`` in float32 and bfloat16 (within
@@ -59,7 +73,7 @@ def main() -> int:
     ap.add_argument("old", type=Path, help="the other version's .cu source")
     ap.add_argument("--kernel", default="matmul_bias_act",
                     choices=("matmul_bias_act", "paged_decode_attention",
-                             "flash_attention_bwd"))
+                             "flash_attention", "flash_attention_bwd"))
     ap.add_argument("--pairs", type=int, default=10)
     args = ap.parse_args()
     import torch
@@ -69,6 +83,8 @@ def main() -> int:
         return 1
     if args.kernel == "paged_decode_attention":
         return ab_decode(torch, args)
+    if args.kernel == "flash_attention":
+        return ab_flash(torch, args)
     if args.kernel == "flash_attention_bwd":
         return ab_flash_bwd(torch, args)
     import chip_smoke as cs
@@ -77,19 +93,7 @@ def main() -> int:
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.zoo.graphs import ResNet50
 
-    print(cs.nvidia_smi_line(), flush=True)
-    build.build_all([impls.SOURCE])
-    old_so = build.BUILD_DIR / "libmatmul_bias_act-old.so"
-    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
-                           str(old_so), str(args.old)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        print(proc.stderr, file=sys.stderr)
-        return 1
-    lib = ctypes.CDLL(str(old_so))
-    for fn, (restype, argtypes) in impls._SIGNATURES.items():
-        getattr(lib, fn).restype = restype
-        getattr(lib, fn).argtypes = argtypes
+    lib = _build_old(build, impls.SOURCE, args.old, impls._SIGNATURES)
     dtype_ids = {torch.float32: 0, torch.bfloat16: 1}
 
     def old(x, w, b, act):
@@ -109,19 +113,27 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(5)
     shapes = cs.path_shapes(ResNet50().conf(), cs.BATCH)
 
-    # 1. element for element
-    bitwise = True
+    # 1. element for element, and both versions against the plain version
+    bitwise, ok = True, True
+    worst = {"old": {}, "new": {}}
     for (m, k, n) in sorted(set(shapes)) + list(cs.RAGGED):
         x = torch.randn((m, k), generator=gen, device=dev)
         w = torch.randn((n, k), generator=gen, device=dev) / k ** 0.5
         b = torch.randn((n,), generator=gen, device=dev)
-        for dt in (torch.float32, torch.bfloat16):
+        for dt, dname in ((torch.float32, "float32"),
+                          (torch.bfloat16, "bfloat16")):
             for name in ("identity", "relu", "gelu"):
                 a = Activation(name)
                 args_ = (x.to(dt), w.to(dt), b.to(dt), a)
-                if not torch.equal(old(*args_), new(*args_)):
-                    bitwise = False
-    print(json.dumps({"bitwise": bitwise}), flush=True)
+                ref = impls.matmul_bias_act_plain(*args_)
+                outs = {"old": old(*args_), "new": new(*args_)}
+                bitwise &= bool(torch.equal(outs["old"], outs["new"]))
+                for side, y in outs.items():
+                    err, bad = cs._within(torch, y, ref, cs.KERNEL_TOL[dname])
+                    ok &= bad == 0 and bool(torch.isfinite(y.float()).all())
+                    worst[side][dname] = max(worst[side].get(dname, 0.0), err)
+    print(json.dumps({"bitwise": bitwise, "within_tolerance": ok,
+                      "worst": worst, "tol": cs.KERNEL_TOL}), flush=True)
 
     # 2. per shape
     act = Activation("identity")
@@ -171,6 +183,7 @@ def main() -> int:
         impls.matmul_bias_act = new
     print(json.dumps({
         "card": cs.nvidia_smi_line(), "bitwise": bitwise,
+        "within_tolerance": ok,
         "per_forward_old_ms": sum(r["old_ms"][1] * r["count"] for r in rows),
         "per_forward_new_ms": sum(r["new_ms"][1] * r["count"] for r in rows),
         "forward_old_ms": quartiles(fwd["old"]),
@@ -178,7 +191,7 @@ def main() -> int:
         "forward_new_wins": sum(t_new < t_old for t_old, t_new
                                 in zip(fwd["old"], fwd["new"])),
         "pairs": args.pairs}), flush=True)
-    return 0
+    return 0 if ok else 1
 
 
 def _build_old(build, name, source, signatures):
@@ -283,6 +296,163 @@ def ab_decode(torch, args) -> int:
                                in zip(tps["old"], tps["new"])),
         "pairs": args.pairs}), flush=True)
     return 0
+
+
+def ab_flash(torch, args) -> int:
+    """The A/B of the flash forward: the wrapper launches the library that
+    ``build.load`` hands it, so each version is swapped in through the
+    loaded-library table. The backward (the checkout's) follows whichever
+    forward ran."""
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.kernels import build, impls
+    from deeplearning4j_tpu_torch.nn.decoding import TransformerDecoder
+    from deeplearning4j_tpu_torch.nn.graph import (
+        ComputationGraph,
+        serve_full_f32,
+    )
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.zoo.graphs import TransformerEncoder
+
+    name = impls.FLASH_SOURCE
+    if not (args.old.parent / "flash_common.cuh").is_file():
+        print("chip_kernel_ab: put the other version's flash_common.cuh "
+              "beside OLD.cu", file=sys.stderr)
+        return 1
+    serve_full_f32()
+    old_lib = _build_old(build, name, args.old, att._FLASH_SIGNATURES)
+    new_lib = build.load(name, att._FLASH_SIGNATURES)
+
+    def use(side):
+        build._LIBS[name] = old_lib if side == "old" else new_lib
+
+    def order(i):
+        return ("old", "new") if i % 2 == 0 else ("new", "old")
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    F = torch.nn.functional
+    ok, worst = True, {"old": {}, "new": {}}
+    try:
+        # 1. both versions against the plain version
+        for b, tq, tk, d, causal, masked in cs.flash_cases():
+            for dtype, tdt in (("float32", torch.float32),
+                               ("bfloat16", torch.bfloat16)):
+                q, k, v, km = cs._attention_inputs(torch, gen, dev, b, tq,
+                                                   masked, tdt, tk=tk, d=d)
+                ref = att.flash_attention_plain(q, k, v, km, causal)
+                rows = (km.sum(-1) > 0) if km is not None else \
+                    torch.ones(b, dtype=torch.bool, device=dev)
+                for side in ("old", "new"):
+                    use(side)
+                    got = att.flash_attention(q, k, v, km, causal,
+                                              return_stats=True)
+                    for key, g, r in zip(("o", "l", "m"), got, ref):
+                        err, bad = cs._within(torch, g[rows], r[rows],
+                                              cs.ATTN_TOL[dtype][key])
+                        ok &= bad == 0 and bool(torch.isfinite(g.float()).all())
+                        w = worst[side]
+                        w[f"{dtype}.{key}"] = max(w.get(f"{dtype}.{key}", 0.0),
+                                                  err)
+            print(json.dumps({"case": [b, tq, tk, d, causal, masked],
+                              "within_tolerance": ok}), flush=True)
+        print(json.dumps({"within_tolerance": ok, "worst": worst,
+                          "tol": cs.ATTN_TOL}), flush=True)
+
+        # 2. per shape: every generation prefill bucket (masked) and the
+        # LM's training shape (unmasked), float32, beside SDPA
+        h, d = cs.GEN_MODEL["n_heads"], cs.GEN_HEAD_DIM
+        shapes = [(b, t, True) for b in cs.GEN_JOIN_LADDER
+                  for t in cs.GEN_PROMPT_LADDER]
+        shapes.append((cs.LM_BATCH, cs.GEN_MODEL["max_len"], False))
+        rows = []
+        for b, t, masked in shapes:
+            q, k, v, km = cs._attention_inputs(torch, gen, dev, b, t, masked,
+                                               torch.float32)
+            keep = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
+            if km is not None:
+                keep = keep[None, None] & (km > 0)[:, None, None, :]
+            times = {"old": [], "new": [], "sdpa": []}
+            for i in range(args.pairs):
+                for side in order(i):
+                    use(side)
+                    times[side].append(cs.cuda_time_ms(
+                        lambda: att.flash_attention(q, k, v, km, True),
+                        samples=5))
+                times["sdpa"].append(cs.cuda_time_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v,
+                                                           attn_mask=keep),
+                    samples=5))
+            row = {"b": b, "t": t, "masked": masked,
+                   **{f"{key}_ms": quartiles(v_) for key, v_ in times.items()},
+                   "new_wins": sum(n < o_ for o_, n in zip(times["old"],
+                                                           times["new"]))}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+            del q, k, v, km, keep
+
+        # 3. end to end: an 8 x 1024 prefill and the LM's training step
+        zoo = TransformerEncoder(causal=True, lm_head=True, use_kernels=True,
+                                 seed=cs.GEN_SEED, **cs.GEN_MODEL)
+        net = ComputationGraph(dataclasses.replace(zoo.conf(),
+                                                   use_kernels=True),
+                               device=dev).init()
+        bp, s = cs.GEN_CONFIG["max_batch"], zoo.max_len
+        dec = TransformerDecoder(
+            net, max_len=s, **{k_: cs.GEN_CONFIG[k_] for k_ in (
+                "max_batch", "kv_bucket_min", "prompt_bucket_min")})
+        prompts = cs.gen_requests(bp, zoo.vocab_size, cs.GEN_SEED)
+        batch = np.zeros((bp, s), np.int64)
+        for i, p_ in enumerate(prompts):
+            batch[i, :len(p_)] = p_
+        lengths = np.asarray([len(p_) for p_ in prompts])
+        ones = np.ones((bp,), np.int64)
+
+        def prefill():
+            out = dec.prompt_fn(s, bp)(dec.params, batch, lengths, ones * s,
+                                       -ones, np.zeros((bp,)), [None] * bp)
+            torch.cuda.synchronize()
+            return out
+
+        ds = cs.lm_dataset(torch, dev, zoo.vocab_size, cs.LM_BATCH, s,
+                           cs.LM_SEED)
+        ends = {"prefill_old": [], "prefill_new": [], "step_old": [],
+                "step_new": []}
+        for side in ("old", "new"):
+            use(side)
+            prefill()
+            net.fit_batch(ds)
+        for i in range(args.pairs):
+            for side in order(i):
+                use(side)
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                with torch.inference_mode():
+                    prefill()
+                ends[f"prefill_{side}"].append((time.monotonic() - t0) * 1e3)
+                t0 = time.monotonic()
+                for _ in range(2):
+                    net.fit_batch(ds)
+                ends[f"step_{side}"].append((time.monotonic() - t0) / 2 * 1e3)
+    finally:
+        use("new")
+    by = {r_["b"] * 10000 + r_["t"]: r_ for r_ in rows if r_["masked"]}
+    train = [r_ for r_ in rows if not r_["masked"]][0]
+    print(json.dumps({
+        "card": cs.nvidia_smi_line(), "kernel": name, "within_tolerance": ok,
+        "prefill_8x1024_kernel_old_ms": by[8 * 10000 + 1024]["old_ms"],
+        "prefill_8x1024_kernel_new_ms": by[8 * 10000 + 1024]["new_ms"],
+        "train_8x1024_kernel_old_ms": train["old_ms"],
+        "train_8x1024_kernel_new_ms": train["new_ms"],
+        "train_8x1024_sdpa_ms": train["sdpa_ms"],
+        "shapes_new_wins": sum(r_["new_wins"] for r_ in rows),
+        "shapes_pairs": len(rows) * args.pairs,
+        **{f"{key}_ms": quartiles(v_) for key, v_ in ends.items()},
+        "prefill_new_wins": sum(n < o_ for o_, n in zip(
+            ends["prefill_old"], ends["prefill_new"])),
+        "step_new_wins": sum(n < o_ for o_, n in zip(ends["step_old"],
+                                                     ends["step_new"])),
+        "pairs": args.pairs}), flush=True)
+    return 0 if ok else 1
 
 
 def ab_flash_bwd(torch, args) -> int:

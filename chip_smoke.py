@@ -46,9 +46,11 @@ Phases, in order; any failure exits non-zero:
 9. ``flash_attention`` against its plain version on the card: every
    (join bucket 1/2/4/8, prompt bucket 8..1024) at 12 heads x 64, causal
    with a prompt-length mask (a length-0 padding row included), ragged T
-   333 and 1000, and one bidirectional unmasked case; float32 and
-   bfloat16; o, l and m; a CUDA input that requires grad gets its gradient
-   from the backward kernels;
+   333 and 1000, one bidirectional unmasked case, Tq < Tk, and head sizes
+   32, 33 (rows off 16 bytes) and 128 (the tensor-core kernel) and 256
+   (the FFMA kernel); float32 and bfloat16; o, l and m, every row finite,
+   a fully masked row included; a CUDA input that requires grad gets its
+   gradient from the backward kernels;
 10. ``paged_decode_attention`` against its plain version at 8 rows x 12
    heads x 64, each cache length of the KV ladder (64..1024), positions 0,
    63, 64, S-1 and S (the whole cache) among them; float32 and bfloat16;
@@ -521,6 +523,31 @@ def ptxas_report(log: str) -> list:
     return out
 
 
+# each kernel row's CUDA source (the build's name) and the prefixes of its
+# entry functions' names, for the ptxas rows of the kernels line
+PTXAS_OF = {
+    "matmul_bias_act": ("matmul_bias_act", ("mm_bias_act_kernel",)),
+    "probe": ("matmul_bias_act", ("probe_kernel",)),
+    "matmul_stats": ("matmul_stats", ("mm_stats_kernel",)),
+    "flash_attention": ("flash_attention", ("",)),
+    "paged_decode_attention": ("paged_decode_attention", ("",)),
+    "flash_attention_bwd_dq": ("flash_attention_bwd", ("mma_dq", "ffma_dq")),
+    "flash_attention_bwd_dkv": ("flash_attention_bwd",
+                                ("mma_dkv", "ffma_dkv")),
+    "matmul_bias_act_int8": ("matmul_bias_act_int8", ("",)),
+}
+
+
+def ptxas_rows(logs: dict, source: str, prefix: str) -> list:
+    """The ptxas registers and spills of the entry functions of
+    ``csrc/<source>.cu`` whose names start with ``prefix``, for a kernel's
+    row in the kernels line."""
+    return [{"kernel": fn, "registers": regs, "spill_stores": stores,
+             "spill_loads": loads}
+            for fn, regs, stores, loads in logs.get(source, ())
+            if fn.startswith(prefix)]
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -566,6 +593,9 @@ def check_matmul(torch, impls, Activation, dev, shapes) -> dict:
                 err = float((y - ref).abs().max())
                 bad = int(((y - ref).abs() > atol + rtol * ref.abs()).sum())
                 worst[dtype] = max(worst.get(dtype, 0.0), err)
+                worst[f"{dtype}_of_tol"] = max(
+                    worst.get(f"{dtype}_of_tol", 0.0),
+                    float(((y - ref).abs() / (atol + rtol * ref.abs())).max()))
                 if bad or not torch.isfinite(y).all():
                     raise AssertionError(
                         f"matmul_bias_act m={m} k={k} n={n} {dtype} "
@@ -576,7 +606,10 @@ def check_matmul(torch, impls, Activation, dev, shapes) -> dict:
     log(f"[3] max |kernel - plain|: float32 {worst['float32']:.3e} "
         f"(tol atol={KERNEL_TOL['float32'][0]} rtol={KERNEL_TOL['float32'][1]}),"
         f" bfloat16 {worst['bfloat16']:.3e} (tol atol="
-        f"{KERNEL_TOL['bfloat16'][0]} rtol={KERNEL_TOL['bfloat16'][1]})")
+        f"{KERNEL_TOL['bfloat16'][0]} rtol={KERNEL_TOL['bfloat16'][1]}); the "
+        f"largest |kernel - plain| / (atol + rtol |plain|): float32 "
+        f"{worst['float32_of_tol']:.3f}, bfloat16 "
+        f"{worst['bfloat16_of_tol']:.3f}")
     return worst
 
 
@@ -1133,28 +1166,41 @@ def kernel_report(rows, launches, worst, probe_row, stats_row) -> dict:
 # ---------------------------------------------------------------------------
 
 def flash_cases():
-    """(B, T, causal, masked) of [9]: every (join bucket, prompt bucket) of
-    the generation path (causal, with the prompt-length mask), two ragged
-    T, and one bidirectional unmasked case."""
-    cases = [(b, t, True, True) for b in GEN_JOIN_LADDER
+    """(B, Tq, Tk, D, causal, masked) of [9]: every (join bucket, prompt
+    bucket) of the generation path (12 heads x 64, causal, with the
+    prompt-length mask), two ragged T, one bidirectional unmasked case,
+    Tq < Tk, and head sizes 32 and 128 (the tensor-core kernel's other
+    variants), 33 (rows off 16 bytes: element loads, odd-width stores) and
+    256 (the FFMA kernel). Every masked case with B >= 2 has a fully
+    masked row."""
+    cases = [(b, t, t, GEN_HEAD_DIM, True, True) for b in GEN_JOIN_LADDER
              for t in GEN_PROMPT_LADDER]
-    return cases + [(8, 333, True, True), (8, 1000, True, True),
-                    (2, 256, False, False)]
+    return cases + [(8, 333, 333, 64, True, True),
+                    (8, 1000, 1000, 64, True, True),
+                    (2, 256, 256, 64, False, False),
+                    (4, 200, 333, 64, True, True),
+                    (2, 256, 256, 32, True, True),
+                    (2, 256, 256, 128, True, True),
+                    (2, 100, 100, 33, True, True),
+                    (2, 256, 256, 256, True, True)]
 
 
-def _attention_inputs(torch, gen, dev, b, t, masked, dtype):
-    """q, k, v [B, 12, T, 64] and a float [B, T] prompt-length mask (the
-    last row of a join group of 2 or more has length 0, as padding rows
-    do), or None."""
-    shape = (b, GEN_MODEL["n_heads"], t, GEN_HEAD_DIM)
-    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-               for _ in range(3))
+def _attention_inputs(torch, gen, dev, b, t, masked, dtype, tk=None,
+                      d=GEN_HEAD_DIM):
+    """q [B, 12, T, D], k, v [B, 12, Tk, D] (Tk = T unless given) and a
+    float [B, Tk] length mask (the last row of a join group of 2 or more
+    has length 0, as padding rows do), or None."""
+    tk = t if tk is None else tk
+    h = GEN_MODEL["n_heads"]
+    q = torch.randn((b, h, t, d), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((b, h, tk, d), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
     km = None
     if masked:
-        lengths = torch.randint(1, t + 1, (b,), generator=gen, device=dev)
+        lengths = torch.randint(1, tk + 1, (b,), generator=gen, device=dev)
         if b >= 2:
             lengths[-1] = 0
-        km = (torch.arange(t, device=dev)[None, :]
+        km = (torch.arange(tk, device=dev)[None, :]
               < lengths[:, None]).float()
     return q, k, v, km
 
@@ -1173,19 +1219,19 @@ def check_flash(torch, att, dev) -> dict:
     requires grad gets its gradient through the backward kernels."""
     gen = torch.Generator(device=dev).manual_seed(2024)
     worst = {}
-    for b, t, causal, masked in flash_cases():
+    for b, tq, tk, d, causal, masked in flash_cases():
         for dtype, tdt in (("float32", torch.float32),
                            ("bfloat16", torch.bfloat16)):
-            q, k, v, km = _attention_inputs(torch, gen, dev, b, t, masked,
-                                            tdt)
+            q, k, v, km = _attention_inputs(torch, gen, dev, b, tq, masked,
+                                            tdt, tk=tk, d=d)
             o, l, m = att.flash_attention(q, k, v, km, causal,
                                           return_stats=True)
             ro, rl, rm = att.flash_attention_plain(q, k, v, km, causal)
             torch.cuda.synchronize()
             if not (torch.isfinite(o.float()).all() and torch.isfinite(l).all()
                     and torch.isfinite(m).all()):
-                raise AssertionError(f"flash_attention B={b} T={t} {dtype}: "
-                                     "non-finite output")
+                raise AssertionError(f"flash_attention B={b} Tq={tq} Tk={tk} "
+                                     f"D={d} {dtype}: non-finite output")
             rows = (km.sum(-1) > 0) if km is not None else \
                 torch.ones(b, dtype=torch.bool, device=dev)
             for key, got, ref in (("o", o[rows], ro[rows]),
@@ -1197,11 +1243,14 @@ def check_flash(torch, att, dev) -> dict:
                                               err)
                 if bad:
                     raise AssertionError(
-                        f"flash_attention B={b} T={t} causal={causal} "
-                        f"{dtype} {key}: {bad} elements outside atol="
-                        f"{tol[0]} rtol={tol[1]} (max |err| {err})")
-        log(f"[9] flash_attention B={b} T={t} causal={causal} "
-            f"masked={masked}: f32 and bf16 o, l, m within tolerance")
+                        f"flash_attention B={b} Tq={tq} Tk={tk} D={d} "
+                        f"causal={causal} {dtype} {key}: {bad} elements "
+                        f"outside atol={tol[0]} rtol={tol[1]} (max |err| "
+                        f"{err})")
+        zero = "" if not masked or b < 2 else ", a fully masked row finite"
+        log(f"[9] flash_attention B={b} Tq={tq} Tk={tk} D={d} "
+            f"causal={causal} masked={masked}: f32 and bf16 o, l, m within "
+            f"tolerance{zero}")
     # a CUDA input that requires grad gets its gradient from the kernels
     q = torch.randn((1, 2, 8, 64), device=dev, requires_grad=True)
     before = att.flash_attention_bwd.dq_launches
@@ -2367,8 +2416,10 @@ def main() -> int:
     build.build_all(impls.SOURCES)
     log(f"[2] nvcc built {', '.join(impls.SOURCES)} in parallel in "
         f"{time.monotonic() - t0:.1f} s")
+    ptxas = {name: ptxas_report(build.build_log(name))
+             for name in impls.SOURCES}
     for name in impls.SOURCES:
-        for fn, regs, stores, loads in ptxas_report(build.build_log(name)):
+        for fn, regs, stores, loads in ptxas[name]:
             log(f"[2] ptxas {name} {fn}: {regs} registers, {stores} bytes "
                 f"spill stores, {loads} bytes spill loads")
     probe = check_probe(torch, impls, dev)
@@ -2404,7 +2455,7 @@ def main() -> int:
         log(f"[5] m={r['m']} k={r['k']} n={r['n']} x{r['count']}: kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, F.linear "
             f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+            f"({r['bound_by']}, FFMA), {r['bound_tc_ms']:.4f} ms (3xTF32)")
     served_line = served_throughput(torch, served, smi)
     served_launches = served["launches"]
     del served
@@ -2441,7 +2492,10 @@ def main() -> int:
     mm, st = report["kernels"][0], report["kernels"][2]
     log(f"[5] per forward: matmul_bias_act {mm['ms']:.3f} ms, plain "
         f"{mm['plain_ms']:.3f} ms, F.linear {mm['library_ms']:.3f} ms, "
-        f"bound {mm['bound_ms']:.3f} ms ({mm['bound_by']}) [{smi}]")
+        f"bound {mm['bound_ms']:.3f} ms ({mm['bound_by']}, FFMA), "
+        f"{mm['bound_tc_ms']:.3f} ms (3xTF32); ptxas "
+        f"{json.dumps(ptxas_rows(ptxas, impls.SOURCE, 'mm_bias_act'))} "
+        f"[{smi}]")
     log(f"[8] per training step: matmul_stats {st['ms']:.3f} ms, plain "
         f"{st['plain_ms']:.3f} ms, F.linear {st['library_ms']:.3f} ms, "
         f"bound {st['bound_ms']:.3f} ms ({st['bound_by']}); train step "
@@ -2468,7 +2522,7 @@ def main() -> int:
         log(f"[12] flash_attention B={r['b']} T={r['t']} x{r['count']}: "
             f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
             f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
+            f"({r['bound_by']}, FFMA), {r['bound_tc_ms']:.4f} ms (3xTF32)")
     for r in decode_rows:
         log(f"[12] paged_decode_attention S={r['s']} x{r['count']}: kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
@@ -2574,6 +2628,10 @@ def main() -> int:
         prof = int8_line[f"profile_{name}"]
         log(f"[18] {name} forward, device time {prof['device_ms']:.3f} ms: "
             + "; ".join(f"{k} {v:.3f}" for k, v in prof["top"]))
+    for row in report["kernels"]:
+        source, prefixes = PTXAS_OF[row["name"]]
+        row["ptxas"] = [r for prefix in prefixes
+                        for r in ptxas_rows(ptxas, source, prefix)]
     log(json.dumps(report))
     log(json.dumps({"served": served_line}))
     log(json.dumps({"trained": train_line}))

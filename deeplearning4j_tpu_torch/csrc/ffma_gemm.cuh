@@ -1,6 +1,8 @@
-// The FFMA main loop shared by the port's GEMM kernels (matmul_bias_act.cu,
-// matmul_stats.cu): one block accumulates a BM x BN tile of x[M,K] . w[N,K]^T in
-// f32 registers, and each kernel runs its own epilogue on the accumulator.
+// The FFMA main loop of matmul_stats.cu: one block accumulates a BM x BN tile
+// of x[M,K] . w[N,K]^T in f32 registers, and the kernel runs its epilogue on
+// the accumulator. matmul_bias_act.cu runs on the tensor cores instead
+// (tc_gemm.cuh); the dtype conversions and the device helpers at the end of
+// this header (aligned16, use_device, sm_count) serve every kernel source.
 //
 // One block owns a BM x BN output tile and walks K in steps of BK. Each step
 // stages the x and w slices through shared memory, transposed to k-major so the
@@ -15,9 +17,8 @@
 // load is masked (rows >= M, columns >= N and k >= K read 0), so any M, N, K is
 // covered and the accumulator of a row or column outside the problem is 0.
 //
-// f32 must stay f32 (no TF32), so the tensor cores are out for f32 and these are
-// FFMA kernels. A faster main loop (wgmma on bf16, TMA, a persistent schedule) is
-// later work.
+// This loop runs on the FFMA units; the 3xTF32 split (mma_tiles.cuh) keeps f32
+// accuracy on the tensor cores, where matmul_stats is to follow matmul_bias_act.
 
 #pragma once
 

@@ -139,34 +139,6 @@ __device__ __forceinline__ RowStats row_stats(const float* __restrict__ m,
           dl4j::flash_key_limit<DP>(row, Tq, Tk, causal)};
 }
 
-// a warp's 16 x DP accumulator rows r (g) and r + 8 (g + 8) into out rows < n
-template <typename T, int NTILES>
-__device__ __forceinline__ void store_acc(T* __restrict__ out,
-                                          const float (&acc)[NTILES][4], int r,
-                                          int n, int D, int t) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = r + 8 * half;
-    if (row >= n) continue;
-    T* o = out + static_cast<long long>(row) * D;
-#pragma unroll
-    for (int j = 0; j < NTILES; ++j) {
-      const int c = j * 8 + 2 * t;
-      const float x = acc[j][2 * half], y = acc[j][2 * half + 1];
-      if (c + 1 < D && D % 2 == 0) {
-        if constexpr (std::is_same<T, float>::value) {
-          *reinterpret_cast<float2*>(o + c) = make_float2(x, y);
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(o + c) = __floats2bfloat162_rn(x, y);
-        }
-      } else {
-        if (c < D) o[c] = dl4j::from_f32<T>(x);
-        if (c + 1 < D) o[c + 1] = dl4j::from_f32<T>(y);
-      }
-    }
-  }
-}
-
 template <typename T, int DP>
 __global__ void __launch_bounds__(MmaCfg<T, DP>::NT)
     mma_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -308,7 +280,7 @@ __global__ void __launch_bounds__(MmaCfg<T, DP>::NT)
       mask_s[(st ^ 1) * BN + tid] = mask_next;
     }
   }
-  store_acc<T, DP / 8>(dq + bh * Tq * D, acc, ra, Tq, D, t);
+  mma::store_acc<T, DP / 8>(dq + bh * Tq * D, acc, ra, Tq, D, t);
 }
 
 template <typename T, int DP>
@@ -465,8 +437,8 @@ __global__ void __launch_bounds__(MmaCfg<T, DP>::NT)
     }
   }
   mma::cp_async_wait<0>();  // K and V, when no query tile reached the block
-  store_acc<T, DP / 8>(dk + bh * Tk * D, dka, ka, Tk, D, t);
-  store_acc<T, DP / 8>(dv + bh * Tk * D, dva, ka, Tk, D, t);
+  mma::store_acc<T, DP / 8>(dk + bh * Tk * D, dka, ka, Tk, D, t);
+  mma::store_acc<T, DP / 8>(dv + bh * Tk * D, dva, ka, Tk, D, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -733,40 +705,19 @@ struct BwdArgs {
   int device;
 };
 
-// 16-byte cp.async takes every tile row: the operands' bases and (b, h, t)
-// strides are 16-byte multiples
+// 16-byte cp.async takes every tile row of q, k, v and do
 template <typename T>
 bool rows_aligned(const BwdArgs& a) {
-  const auto ptr = [](const void* p) {
-    return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
-  };
-  const auto str = [](const Strides& s) {
-    constexpr long long e = sizeof(T);
-    return (s.b * e) % 16 == 0 && (s.h * e) % 16 == 0 && (s.t * e) % 16 == 0;
-  };
-  return ptr(a.q) && ptr(a.k) && ptr(a.v) && ptr(a.dout) && str(a.sq) &&
-         str(a.sk) && str(a.sv) && str(a.sdo);
-}
-
-// Dynamic shared memory above 48 KB, allowed once per kernel and device (a
-// launch asking for more than allowed is refused and never runs).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, int device,
-                       std::atomic<unsigned long long>& done) {
-  const unsigned long long bit =
-      device >= 0 && device < 64 ? 1ull << device : 0ull;
-  if (bit != 0 && (done.load() & bit) != 0) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done.fetch_or(bit);
-  return err;
+  return dl4j::rows_aligned<T>({a.q, a.k, a.v, a.dout},
+                                {a.sq, a.sk, a.sv, a.sdo});
 }
 
 template <typename T, int DP>
 cudaError_t launch_mma_dq(const BwdArgs& a, cudaStream_t stream) {
   using C = MmaCfg<T, DP>;
   static std::atomic<unsigned long long> done{0};
-  cudaError_t err = allow_smem(mma_dq_kernel<T, DP>, C::kSmem, a.device, done);
+  cudaError_t err =
+      mma::allow_smem(mma_dq_kernel<T, DP>, C::kSmem, a.device, done);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.B * a.H, (a.Tq + C::BM - 1) / C::BM);
   mma_dq_kernel<T, DP><<<grid, C::NT, C::kSmem, stream>>>(
@@ -782,7 +733,8 @@ template <typename T, int DP>
 cudaError_t launch_mma_dkv(const BwdArgs& a, cudaStream_t stream) {
   using C = MmaCfg<T, DP>;
   static std::atomic<unsigned long long> done{0};
-  cudaError_t err = allow_smem(mma_dkv_kernel<T, DP>, C::kSmem, a.device, done);
+  cudaError_t err =
+      mma::allow_smem(mma_dkv_kernel<T, DP>, C::kSmem, a.device, done);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.B * a.H, (a.Tk + C::BM - 1) / C::BM);
   mma_dkv_kernel<T, DP><<<grid, C::NT, C::kSmem, stream>>>(

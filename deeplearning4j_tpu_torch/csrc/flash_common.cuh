@@ -11,41 +11,63 @@
 
 #include <math_constants.h>
 
+#include <cstdint>
+#include <initializer_list>
+
 #include "ffma_gemm.cuh"
 
 namespace dl4j {
 
 constexpr float kNegInf = -1e30f;  // NEG_INF of the JAX package
 
-// Forward tiles by padded head size DP (D <= DP, lanes mask d >= D): BQ query
-// rows a block, TPR lanes a row, BK keys a staged tile.
+// The forward's tiles by padded head size DP (D <= DP): BQ query rows a block,
+// and the key tile BK to which a causal row's visited keys are rounded
+// (flash_key_limit). The tensor-core forward (DP <= 128) stages key tiles of a
+// size that divides BK; the FFMA forward (DP = 256, 512) stages BK keys.
 template <int DP>
 struct FlashCfg;
 template <>
 struct FlashCfg<32> {
-  static constexpr int TPR = 2, BQ = 64, BK = 64;
+  static constexpr int BQ = 64, BK = 64;
 };
 template <>
 struct FlashCfg<64> {
-  static constexpr int TPR = 4, BQ = 64, BK = 64;
+  static constexpr int BQ = 64, BK = 64;
 };
 template <>
 struct FlashCfg<128> {
-  static constexpr int TPR = 8, BQ = 64, BK = 32;
+  static constexpr int BQ = 64, BK = 32;
 };
 template <>
 struct FlashCfg<256> {
-  static constexpr int TPR = 8, BQ = 32, BK = 16;
+  static constexpr int BQ = 32, BK = 16;
 };
 template <>
 struct FlashCfg<512> {
-  static constexpr int TPR = 8, BQ = 32, BK = 8;
+  static constexpr int BQ = 32, BK = 8;
 };
 
 // Element strides of one [B, H, T, D] operand (D stride 1).
 struct Strides {
   long long b, h, t;
 };
+
+// 16-byte cp.async takes every tile row of the operands: their bases and
+// (b, h, t) strides are 16-byte multiples
+template <typename T>
+inline bool rows_aligned(std::initializer_list<const void*> bases,
+                         std::initializer_list<Strides> strides) {
+  constexpr long long e = sizeof(T);
+  for (const void* p : bases) {
+    if (reinterpret_cast<std::uintptr_t>(p) % 16 != 0) return false;
+  }
+  for (const Strides& s : strides) {
+    if ((s.b * e) % 16 != 0 || (s.h * e) % 16 != 0 || (s.t * e) % 16 != 0) {
+      return false;
+    }
+  }
+  return true;
+}
 
 // p rounded as the TPU kernels cast it to the operand dtype before a product.
 template <typename T>

@@ -5,109 +5,133 @@
 // an f32 VMEM accumulator and runs bias + activation in the last K block.
 //
 // What bounds it on an H100: at the ResNet-50 serving shapes (K = 64..2048,
-// N = 64..2048, M = batch * H * W) the f32 problems sit near the FFMA ridge:
-// the K = N = 64 shape moves more bytes than it computes (bytes-bound), the
-// others are operation-bound on the 67 TFLOP/s FFMA rate. f32 must stay f32 (no
-// TF32), so the tensor cores are out for f32 and this kernel is an FFMA kernel.
+// N = 64..2048, M = batch * H * W) the problems are operation-bound except the
+// K = N = 64 shape, which moves more bytes than it computes. float32 stays f32
+// accurate on the tensor cores through the 3xTF32 split (three TF32 MMAs a
+// product: 495 / 3 = 165 TFLOP/s, against 67 for FFMA, the rate of any f32
+// kernel off the tensor cores); bfloat16 runs bf16 MMAs with f32 accumulation.
 //
-// Design: the FFMA main loop of ffma_gemm.cuh (BM x BN block tiles, two
-// shared-memory stages, an 8 x 8 f32 accumulator per thread, k-order sums) and
-// an epilogue that adds the bias and applies the activation on the f32
-// accumulator; the store rounds once to the input dtype, and a warp's stores
-// cover 256 contiguous bytes. Every load and store is masked, so any M, N, K is
-// covered (the TPU kernel needed tiles that divide the problem).
+// Design: the tensor-core main loop of tc_gemm.cuh (BM x BN block tiles of
+// m16n8 warp fragments, a 3-stage cp.async ring over K steps of 32, each f32
+// fragment split in registers) and an epilogue that adds the bias and applies
+// the activation on the f32 accumulator; the store rounds once to the input
+// dtype, two neighbouring columns a lane, so a quad writes 32 contiguous bytes
+// (one whole memory sector) of a row. Loads are zero-filled and stores masked,
+// so any M, N, K is covered (the TPU kernel needed tiles that divide the
+// problem).
 //
-// Variants: float32 problems with K and N multiples of 4 (all ResNet-50 shapes)
-// load 16-byte float4s, and store them from 128 x 128 tiles. A 128 x 128 tile (256
-// threads, 16-deep K step) is capped at 128 registers so two blocks share an SM;
-// problems with too few such tiles to give each of the 132 SMs one take 64 x 64
-// tiles (64 threads, 8-deep K step).
-//
-// A faster kernel (wgmma on bf16, TMA, a persistent schedule) is later work.
+// Tiles: 128 x 64 (4 warps of 64 x 32) where the problem has two such tiles for
+// each SM (tc::wide_tiles), else 64 x 64 (4 warps of 32 x 32). Both sum each
+// output in the same order, so a row's output does not depend on the batch it
+// is served in.
 
+#include <atomic>
+#include <cstdint>
 #include <type_traits>
 
 #include "activations.cuh"
 #include "ffma_gemm.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
 using dl4j::apply_act;
 using dl4j::kNumActs;
-using dl4j::kTM;
-using dl4j::kTN;
+namespace mma = dl4j::mma;
+namespace tc = dl4j::tc;
 
-// kVec: float32 with K % 4 == 0, N % 4 == 0 and 16-byte aligned x, w, y —
-// staged as float4s, and stored as float4s from the 128 x 128 tiles.
-template <typename T, int BM, int BN, int BK, bool kVec>
-__global__ void __launch_bounds__((BM / kTM) * (BN / kTN), BM == 128 ? 2 : 1)
-    mm_bias_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                       const T* __restrict__ b, T* __restrict__ y, int M, int N,
-                       int K, int act) {
-  const int tx = threadIdx.x % (BN / kTN);
-  const int ty = threadIdx.x / (BN / kTN);
-  const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-  float acc[kTM][kTN];
-  dl4j::gemm_tile<T, BM, BN, BK, kVec>(x, w, M, N, K, row0, col0, acc);
-
-  float bias[kTN];
-  int cols[kTN];
+// the bias and activation of a warp's fragments, stored as T. ACT: the
+// activation id when it is known at compile time, else -1 (act at run time)
+template <int ACT, typename T, typename G>
+__device__ __forceinline__ void store_tile(const float (&acc)[G::MT][G::NTL][4],
+                                           const T* __restrict__ b,
+                                           T* __restrict__ y, int M, int N,
+                                           int r0, int c0, int act, bool pairs,
+                                           int t) {
 #pragma unroll
-  for (int j = 0; j < kTN; ++j) {
-    cols[j] = col0 + dl4j::tile_col<BN>(j, tx);
-    bias[j] = cols[j] < N ? dl4j::to_f32(b[cols[j]]) : 0.f;
-  }
+  for (int nt = 0; nt < G::NTL; ++nt) {
+    const int c = c0 + nt * 8 + 2 * t;
+    const float b0 = c < N ? dl4j::to_f32(b[c]) : 0.f;
+    const float b1 = c + 1 < N ? dl4j::to_f32(b[c + 1]) : 0.f;
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = row0 + dl4j::tile_row<BM>(i, ty);
-    if (r >= M) continue;
-    T* yrow = y + static_cast<size_t>(r) * N;
-    float z[kTN];
+    for (int mt = 0; mt < G::MT; ++mt) {
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) z[j] = apply_act(act, acc[i][j] + bias[j]);
-    if constexpr (kVec && BM == 128) {
-      // N % 4 == 0: a 4-column group is either wholly inside N or wholly out
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (cols[h * 4] < N) {
-          *reinterpret_cast<float4*>(yrow + cols[h * 4]) =
-              make_float4(z[h * 4], z[h * 4 + 1], z[h * 4 + 2], z[h * 4 + 3]);
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + mt * 16 + 8 * half;
+        if (r >= M) continue;
+        T* yp = y + static_cast<size_t>(r) * N + c;
+        const float z0 = apply_act(ACT < 0 ? act : ACT, acc[mt][nt][2 * half] + b0);
+        const float z1 =
+            apply_act(ACT < 0 ? act : ACT, acc[mt][nt][2 * half + 1] + b1);
+        if (pairs && c + 1 < N) {
+          mma::store2(yp, z0, z1);
+        } else {
+          if (c < N) mma::store1(yp, z0);
+          if (c + 1 < N) mma::store1(yp + 1, z1);
         }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        if (cols[j] < N) yrow[cols[j]] = dl4j::from_f32<T>(z[j]);
       }
     }
   }
 }
 
-template <typename T, int BM, int BN, int BK, bool kVec>
+template <typename T, int BM, int BN, int WM, int WN>
+__global__ void __launch_bounds__(tc::Gemm<T, BM, BN, WM, WN>::NT)
+    mm_bias_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                       const T* __restrict__ b, T* __restrict__ y, int M, int N,
+                       int K, int act, int vec, int pairs) {
+  using G = tc::Gemm<T, BM, BN, WM, WN>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int row0 = blockIdx.x * G::BM;
+  const int col0 = blockIdx.y * G::BN;
+  float acc[G::MT][G::NTL][4];
+  tc::gemm_tile<G>(x, w, M, N, K, row0, col0, vec != 0,
+                   reinterpret_cast<T*>(smem), acc);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = row0 + (warp / G::kWarpsN) * G::WM + (lane >> 2);
+  const int c0 = col0 + (warp % G::kWarpsN) * G::WN;
+  // identity and relu (the 1x1 convolutions' activations) inlined; any other
+  // activation through the run-time switch: the switch inlined at each of a
+  // thread's outputs made the whole kernel several times slower at small K
+  switch (act) {
+    case 0:
+      store_tile<0, T, G>(acc, b, y, M, N, r0, c0, act, pairs != 0, lane & 3);
+      break;
+    case 3:
+      store_tile<3, T, G>(acc, b, y, M, N, r0, c0, act, pairs != 0, lane & 3);
+      break;
+    default:
+      store_tile<-1, T, G>(acc, b, y, M, N, r0, c0, act, pairs != 0, lane & 3);
+  }
+}
+
+template <typename T, int BM, int BN, int WM, int WN>
 cudaError_t launch(const void* x, const void* w, const void* b, void* y, int m,
-                   int n, int k, int act, cudaStream_t stream) {
-  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
-  const dim3 block((BM / kTM) * (BN / kTN));
-  mm_bias_act_kernel<T, BM, BN, BK, kVec><<<grid, block, 0, stream>>>(
+                   int n, int k, int act, int device, cudaStream_t stream) {
+  using G = tc::Gemm<T, BM, BN, WM, WN>;
+  auto* const kernel = mm_bias_act_kernel<T, BM, BN, WM, WN>;
+  static std::atomic<unsigned long long> done{0};
+  cudaError_t err = mma::allow_smem(kernel, G::kSmem, device, done);
+  if (err != cudaSuccess) return err;
+  // 16-byte rows for cp.async; 2-element stores where y's rows keep them aligned
+  const bool vec = dl4j::aligned16(x) && dl4j::aligned16(w) &&
+                   (static_cast<long long>(k) * sizeof(T)) % 16 == 0;
+  const bool pairs = n % 2 == 0 &&
+                     reinterpret_cast<std::uintptr_t>(y) % (2 * sizeof(T)) == 0;
+  const dim3 grid((m + G::BM - 1) / G::BM, (n + G::BN - 1) / G::BN);
+  kernel<<<grid, G::NT, G::kSmem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
-      static_cast<T*>(y), m, n, k, act);
+      static_cast<T*>(y), m, n, k, act, vec ? 1 : 0, pairs ? 1 : 0);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* x, const void* w, const void* b, void* y, int m,
-                     int n, int k, int act, int num_sms, cudaStream_t stream) {
-  const bool wide = dl4j::wide_tiles(m, n, num_sms);
-  if constexpr (std::is_same<T, float>::value) {
-    if (k % 4 == 0 && n % 4 == 0 && dl4j::aligned16(x) && dl4j::aligned16(w) &&
-        dl4j::aligned16(y)) {
-      return wide ? launch<T, 128, 128, 16, true>(x, w, b, y, m, n, k, act, stream)
-                  : launch<T, 64, 64, 8, true>(x, w, b, y, m, n, k, act, stream);
-    }
-  }
-  return wide ? launch<T, 128, 128, 16, false>(x, w, b, y, m, n, k, act, stream)
-              : launch<T, 64, 64, 8, false>(x, w, b, y, m, n, k, act, stream);
+                     int n, int k, int act, int num_sms, int device,
+                     cudaStream_t stream) {
+  return tc::wide_tiles(m, n, num_sms)
+             ? launch<T, 128, 64, 64, 32>(x, w, b, y, m, n, k, act, device, stream)
+             : launch<T, 64, 64, 32, 32>(x, w, b, y, m, n, k, act, device, stream);
 }
 
 __global__ void probe_kernel(float* x, int n) {
@@ -136,10 +160,11 @@ int dl4j_matmul_bias_act(const void* x, const void* w, const void* b, void* y,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      err = dispatch<float>(x, w, b, y, m, n, k, act, num_sms, s);
+      err = dispatch<float>(x, w, b, y, m, n, k, act, num_sms, device, s);
       break;
     case 1:
-      err = dispatch<__nv_bfloat16>(x, w, b, y, m, n, k, act, num_sms, s);
+      err = dispatch<__nv_bfloat16>(x, w, b, y, m, n, k, act, num_sms, device,
+                                    s);
       break;
     default:
       err = cudaErrorInvalidValue;

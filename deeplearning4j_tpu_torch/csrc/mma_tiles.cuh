@@ -3,8 +3,8 @@
 // fragment loads from padded shared-memory tiles, and the cp.async staging of
 // [rows, D] operand tiles.
 //
-// csrc/flash_attention_bwd.cu includes it; the other attention kernels can reuse
-// it as they move onto the tensor cores.
+// csrc/flash_attention.cu (the forward), csrc/flash_attention_bwd.cu (dq and
+// dk/dv) and csrc/tc_gemm.cuh (the GEMM main loop) include it.
 //
 // Fragments follow PTX's mma.sync layouts (g = lane / 4, t = lane % 4):
 // - m16n8k8 tf32: A (16 x 8, row) a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
@@ -35,6 +35,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
 
@@ -310,6 +311,62 @@ __device__ __forceinline__ void mma_ckn(float (&acc)[NTILES][4],
       for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// stores and launches
+// ---------------------------------------------------------------------------
+
+// one or two f32 values stored as T (bf16: rounded to nearest even)
+__device__ __forceinline__ void store1(float* o, float x) { *o = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* o, float x) {
+  *o = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store2(float* o, float x, float y) {
+  *reinterpret_cast<float2*>(o) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* o, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(x, y);
+}
+
+// a warp's 16 x (NTILES * 8) accumulator rows r (g) and r + 8 (g + 8) into
+// out rows < n (row stride D, columns < D), rounded once to T; a quad writes
+// 32 contiguous bytes of a row
+template <typename T, int NTILES>
+__device__ __forceinline__ void store_acc(T* __restrict__ out,
+                                          const float (&acc)[NTILES][4], int r,
+                                          int n, int D, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r + 8 * half;
+    if (row >= n) continue;
+    T* o = out + static_cast<long long>(row) * D;
+#pragma unroll
+    for (int j = 0; j < NTILES; ++j) {
+      const int c = j * 8 + 2 * t;
+      const float x = acc[j][2 * half], y = acc[j][2 * half + 1];
+      if (c + 1 < D && D % 2 == 0) {
+        store2(o + c, x, y);
+      } else {
+        if (c < D) store1(o + c, x);
+        if (c + 1 < D) store1(o + c + 1, y);
+      }
+    }
+  }
+}
+
+// Dynamic shared memory above 48 KB, allowed once per kernel and device (a
+// launch asking for more than allowed is refused and never runs).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, int device,
+                       std::atomic<unsigned long long>& done) {
+  const unsigned long long bit =
+      device >= 0 && device < 64 ? 1ull << device : 0ull;
+  if (bit != 0 && (done.load() & bit) != 0) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
 }
 
 }  // namespace mma
