@@ -5,6 +5,7 @@ its source, on one CUDA card.
 Run from the root of a checkout::
 
     python3 chip_kernel_ab.py OLD.cu [--kernel matmul_bias_act] [--pairs 10]
+    python3 chip_kernel_ab.py --variant NAME=VALUE [--kernel ...] [--pairs N]
 
 ``OLD.cu`` is another version of ``deeplearning4j_tpu_torch/csrc/
 <kernel>.cu`` (same C interface), e.g. the parent commit's, written out
@@ -24,9 +25,14 @@ are built with the same nvcc flags and, in one process on one card:
 ``--kernel matmul_bias_act`` (the default): ResNet-50's 15 distinct 1x1-conv
 shapes at batch 32 plus ragged shapes, identity / relu / gelu; end to end,
 ResNet-50 ``output`` at batch 32. ``--kernel paged_decode_attention``: the
-chip_smoke decode checks (B 8, H 12, D 64, each S of the KV ladder); per S,
-seeded positions in [S/2, S); end to end, the GPT-2-small-width LM's
-``GenerationEngine`` over chip_smoke's 16 requests (tokens/s).
+chip_smoke decode checks (B 8, H 12, every head size of
+``DECODE_HEAD_DIMS``, each S of the KV ladder), both versions within
+``DECODE_TOL`` of ``paged_decode_attention_plain`` (the exit code's gate;
+``bitwise`` is reported beside it); per S at D 64, seeded positions in
+[S/2, S), CUDA-event and device times (``torch.profiler``: the event time of
+a launch this short is mostly the wrapper's host work); end to end, the
+GPT-2-small-width LM's ``GenerationEngine`` over chip_smoke's 16 requests
+(tokens/s).
 ``--kernel flash_attention`` (the forward): both versions against
 ``flash_attention_plain`` at every case of ``chip_smoke.flash_cases()`` in
 float32 and bfloat16 (within ``ATTN_TOL``, not bitwise); timed at every
@@ -38,6 +44,14 @@ at 8 x 1024 tokens. The forward's tiles live in ``csrc/flash_common.cuh``:
 OLD.cu is built against the ``flash_common.cuh`` beside it (write out the
 other version's header next to OLD.cu), the shared ``.cuh`` it does not
 find there from ``csrc/``.
+``--kernel matmul_stats``: both versions against ``matmul_stats_plain`` at
+ResNet-50's 15 distinct 1x1 shapes plus ragged ones, float32 and bfloat16 (y
+within ``KERNEL_TOL``, the column statistics within ``STATS_RTOL``; not
+bitwise: the FFMA and tensor-core versions sum in other orders); timed per
+shape (CUDA events, and device time by ``torch.profiler``); end to end, the
+``fused_conv_bn`` ResNet-50's ``fit_batch`` at batch 32. A version written
+against another ``ffma_gemm.cuh`` (the FFMA one of commit 6d54560) needs
+that header written out beside OLD.cu (the build looks there first).
 ``--kernel flash_attention_bwd`` (the dq and dk/dv kernels, one source):
 both versions against ``flash_attention_bwd_plain`` at every case of
 ``chip_smoke.flash_bwd_cases()`` in float32 and bfloat16 (within
@@ -45,6 +59,11 @@ both versions against ``flash_attention_bwd_plain`` at every case of
 dk/dv timed apart at the LM's shape ([8, 12, 1024, 64], causal, float32)
 beside autograd through causal SDPA in the same pairs; end to end, the
 GPT-2-small-width LM's ``fit_batch`` at 8 x 1024 tokens (ms a step).
+
+``--variant NAME=VALUE`` (repeatable) takes the place of OLD.cu: the "old"
+side is then the checkout's source with the one ``constexpr int`` (or
+``bool``) ``NAME`` set to VALUE, e.g. ``--kernel paged_decode_attention
+--variant kStageElems=4096`` for larger decode stages.
 
 Prints one JSON line per shape and a final summary line with quartiles and
 the count of pairs the new version won. Exits non-zero without a CUDA card.
@@ -56,6 +75,7 @@ import argparse
 import ctypes
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -68,21 +88,62 @@ def quartiles(v):
     return [float(q) for q in np.percentile(v, [25, 50, 75])]
 
 
+# the --kernel modes, each named after its source csrc/<kernel>.cu
+KERNELS = ("matmul_bias_act", "matmul_stats", "paged_decode_attention",
+           "flash_attention", "flash_attention_bwd")
+
+
+def variant_source(csrc: Path, name: str, settings, out_dir: Path) -> Path:
+    """The checkout's ``csrc/<name>.cu`` with each ``NAME=VALUE`` of
+    ``settings`` set (the one ``constexpr int|bool NAME = ...;`` line of
+    the source), written to ``out_dir`` beside copies of the shared
+    headers. Raises if a name does not occur exactly once."""
+    src = (csrc / f"{name}.cu").read_text()
+    for setting in settings:
+        key, _, value = setting.partition("=")
+        pattern = rf"(constexpr (?:int|bool) {re.escape(key)} = )[^;]+;"
+        src, n = re.subn(pattern, rf"\g<1>{value};", src)
+        if n != 1 or not value:
+            raise ValueError(f"--variant {setting}: {n} definitions of "
+                             f"{key} in csrc/{name}.cu")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for header in csrc.glob("*.cuh"):
+        (out_dir / header.name).write_bytes(header.read_bytes())
+    path = out_dir / f"{name}.cu"
+    path.write_text(src)
+    return path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("old", type=Path, help="the other version's .cu source")
+    ap.add_argument("old", type=Path, nargs="?",
+                    help="the other version's .cu source")
+    ap.add_argument("--variant", action="append", default=[],
+                    metavar="NAME=VALUE",
+                    help="instead of OLD.cu: the checkout's source with the "
+                         "constant NAME set to VALUE (repeatable)")
     ap.add_argument("--kernel", default="matmul_bias_act",
-                    choices=("matmul_bias_act", "paged_decode_attention",
-                             "flash_attention", "flash_attention_bwd"))
+                    choices=KERNELS)
     ap.add_argument("--pairs", type=int, default=10)
     args = ap.parse_args()
+    if (args.old is None) == (not args.variant):
+        ap.error("give either OLD.cu or --variant")
     import torch
 
     if not torch.cuda.is_available():
         print("chip_kernel_ab: no CUDA card", file=sys.stderr)
         return 1
+    if args.variant:
+        from deeplearning4j_tpu_torch.kernels import build
+
+        args.old = variant_source(build.CSRC, args.kernel, args.variant,
+                                  build.BUILD_DIR / "variant")
+        print(json.dumps({"old": "variant", "settings": args.variant}),
+              flush=True)
     if args.kernel == "paged_decode_attention":
         return ab_decode(torch, args)
+    if args.kernel == "matmul_stats":
+        return ab_stats(torch, args)
     if args.kernel == "flash_attention":
         return ab_flash(torch, args)
     if args.kernel == "flash_attention_bwd":
@@ -213,6 +274,129 @@ def _build_old(build, name, source, signatures):
     return lib
 
 
+def ab_stats(torch, args) -> int:
+    """The A/B of ``matmul_stats``: the wrapper launches the library that
+    ``build.load`` hands it (both its row-block height and its launch), so
+    each version is swapped in through the loaded-library table."""
+    import math
+
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.kernels import build, impls
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo.graphs import ResNet50
+
+    name = impls.STATS_SOURCE
+    if not (args.old.parent / "ffma_gemm.cuh").is_file():
+        print("chip_kernel_ab: put the other version's ffma_gemm.cuh "
+              "beside OLD.cu", file=sys.stderr)
+        return 1
+    old_lib = _build_old(build, name, args.old, impls._STATS_SIGNATURES)
+    new_lib = build.load(name, impls._STATS_SIGNATURES)
+
+    def use(side):
+        build._LIBS[name] = old_lib if side == "old" else new_lib
+
+    def order(i):
+        return ("old", "new") if i % 2 == 0 else ("new", "old")
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    shapes = cs.path_shapes(ResNet50().conf(), cs.BATCH)
+    ok, worst, rows = True, {"old": {}, "new": {}}, []
+    try:
+        # 1. both versions against the plain version
+        for (m, k, n) in sorted(set(shapes)) + list(cs.RAGGED):
+            x32 = torch.randn((m, k), generator=gen, device=dev)
+            w32 = torch.randn((n, k), generator=gen, device=dev) / k ** 0.5
+            for dt, dname in ((torch.float32, "float32"),
+                              (torch.bfloat16, "bfloat16")):
+                x, w = x32.to(dt), w32.to(dt)
+                ref = impls.matmul_stats_plain(x, w)
+                shape = {"m": m, "k": k, "n": n, "dtype": dname}
+                for side in ("old", "new"):
+                    use(side)
+                    errs, good = cs.stats_errors(torch, impls.matmul_stats(
+                        x, w), ref, dname)
+                    ok &= good
+                    shape[side] = {"within": good, **errs}
+                    for key, v in errs.items():
+                        key = f"{dname}.{key}"
+                        worst[side][key] = max(worst[side].get(key, 0), v)
+                print(json.dumps(shape), flush=True)
+        print(json.dumps({"within_tolerance": ok, "worst": worst,
+                          "tol": [cs.KERNEL_TOL, cs.STATS_RTOL]}), flush=True)
+
+        # 2. per shape, float32
+        counts = {}
+        for sh in shapes:
+            counts[sh] = counts.get(sh, 0) + 1
+        for (m, k, n), count in counts.items():
+            x = torch.randn((m, k), generator=gen, device=dev)
+            w = torch.randn((n, k), generator=gen, device=dev) / math.sqrt(k)
+            times = {"old": [], "new": []}
+            for i in range(args.pairs):
+                for side in order(i):
+                    use(side)
+                    times[side].append(cs.cuda_time_ms(
+                        lambda: impls.matmul_stats(x, w), samples=5))
+            device = {}
+            for side in ("old", "new"):
+                use(side)
+                device[side] = cs.device_ms(lambda: impls.matmul_stats(x, w),
+                                            ["stats_kernel"])
+            row = {"m": m, "k": k, "n": n, "count": count,
+                   "old_ms": quartiles(times["old"]),
+                   "new_ms": quartiles(times["new"]),
+                   "old_device_ms": device["old"],
+                   "new_device_ms": device["new"],
+                   "new_wins": sum(t_new < t_old for t_old, t_new
+                                   in zip(times["old"], times["new"]))}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+            del x, w
+
+        # 3. end to end: the fused ResNet-50's training step
+        zoo = ResNet50()
+        zoo.fused_conv_bn = True
+        net = ComputationGraph(dataclasses.replace(zoo.conf(),
+                                                   use_kernels=True),
+                               device=dev).init()
+        cs.condition_residual_bn(net)
+        ds = cs._synthetic_batch(zoo, cs.BATCH, 0)
+        steps = {"old": [], "new": []}
+        for side in ("old", "new"):
+            use(side)
+            net.fit_batch(ds)
+        for i in range(args.pairs):
+            for side in order(i):
+                use(side)
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                for _ in range(2):
+                    net.fit_batch(ds)
+                steps[side].append((time.monotonic() - t0) / 2 * 1e3)
+    finally:
+        use("new")
+
+    def per_step(key):
+        return sum(r[key] * r["count"] for r in rows)
+
+    print(json.dumps({
+        "card": cs.nvidia_smi_line(), "kernel": name, "within_tolerance": ok,
+        "per_step_old_ms": sum(r["old_ms"][1] * r["count"] for r in rows),
+        "per_step_new_ms": sum(r["new_ms"][1] * r["count"] for r in rows),
+        "per_step_old_device_ms": per_step("old_device_ms"),
+        "per_step_new_device_ms": per_step("new_device_ms"),
+        "shapes_new_wins": sum(r["new_wins"] for r in rows),
+        "shapes_pairs": len(rows) * args.pairs,
+        "train_step_old_ms": quartiles(steps["old"]),
+        "train_step_new_ms": quartiles(steps["new"]),
+        "train_step_new_wins": sum(n < o for o, n in zip(steps["old"],
+                                                         steps["new"])),
+        "pairs": args.pairs}), flush=True)
+    return 0 if ok else 1
+
+
 def ab_decode(torch, args) -> int:
     """The A/B of ``paged_decode_attention``: the wrapper launches the
     library that ``build.load`` hands it, so each version is swapped in
@@ -234,20 +418,40 @@ def ab_decode(torch, args) -> int:
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(5)
-    h, d = cs.GEN_MODEL["n_heads"], cs.GEN_HEAD_DIM
-    bitwise, rows = True, []
+    h = cs.GEN_MODEL["n_heads"]
+    bitwise, ok, rows = True, True, []
+    worst = {"old": {}, "new": {}}
     try:
+        # 1. both versions against the plain version
+        for d in cs.DECODE_HEAD_DIMS:
+            for s in cs.GEN_KV_LADDER:
+                pos = cs.decode_positions(torch, gen, dev, s)
+                for dt, dname in ((torch.float32, "float32"),
+                                  (torch.bfloat16, "bfloat16")):
+                    q = torch.randn((8, h, d), generator=gen,
+                                    device=dev).to(dt)
+                    kc, vc = (torch.randn((8, s, h, d), generator=gen,
+                                          device=dev).to(dt)
+                              for _ in range(2))
+                    ref = att.paged_decode_attention_plain(q, kc, vc, pos)
+                    outs = {}
+                    for side in ("old", "new"):
+                        use(side)
+                        outs[side] = att.paged_decode_attention(q, kc, vc,
+                                                                pos)
+                        err, bad = cs._within(torch, outs[side], ref,
+                                              cs.DECODE_TOL[dname])
+                        ok &= bad == 0 and bool(
+                            torch.isfinite(outs[side].float()).all())
+                        key = f"{dname}.d{d}"
+                        worst[side][key] = max(worst[side].get(key, 0.0), err)
+                    bitwise &= bool(torch.equal(outs["old"], outs["new"]))
+        print(json.dumps({"within_tolerance": ok, "bitwise": bitwise,
+                          "worst": worst, "tol": cs.DECODE_TOL}), flush=True)
+
+        # 2. per S at the path's head size
+        d = cs.GEN_HEAD_DIM
         for s in cs.GEN_KV_LADDER:
-            pos = cs.decode_positions(torch, gen, dev, s)
-            for dt in (torch.float32, torch.bfloat16):
-                q = torch.randn((8, h, d), generator=gen, device=dev).to(dt)
-                kc, vc = (torch.randn((8, s, h, d), generator=gen,
-                                      device=dev).to(dt) for _ in range(2))
-                outs = {}
-                for side in ("old", "new"):
-                    use(side)
-                    outs[side] = att.paged_decode_attention(q, kc, vc, pos)
-                bitwise &= bool(torch.equal(outs["old"], outs["new"]))
             pos = torch.randint(s // 2, s, (8,), generator=gen,
                                 device=dev).to(torch.int32)
             q = torch.randn((8, h, d), generator=gen, device=dev)
@@ -261,14 +465,23 @@ def ab_decode(torch, args) -> int:
                     times[side].append(cs.cuda_time_ms(
                         lambda: att.paged_decode_attention(q, kc, vc, pos),
                         samples=5))
+            device = {}
+            for side in ("old", "new"):
+                use(side)
+                device[side] = cs.device_ms(
+                    lambda: att.paged_decode_attention(q, kc, vc, pos),
+                    ["decode"])
             row = {"s": s, "positions": pos.tolist(),
                    "old_ms": quartiles(times["old"]),
                    "new_ms": quartiles(times["new"]),
+                   "old_device_ms": device["old"],
+                   "new_device_ms": device["new"],
+                   "bound_ms": cs.decode_bound_ms(pos.tolist(), s, h, d,
+                                                  4)[1],
                    "new_wins": sum(t_new < t_old for t_old, t_new
                                    in zip(times["old"], times["new"]))}
             rows.append(row)
             print(json.dumps(row), flush=True)
-        print(json.dumps({"bitwise": bitwise}), flush=True)
 
         zoo = TransformerEncoder(causal=True, lm_head=True, use_kernels=True,
                                  seed=cs.GEN_SEED, **cs.GEN_MODEL)
@@ -289,13 +502,14 @@ def ab_decode(torch, args) -> int:
     finally:
         use("new")
     print(json.dumps({
-        "card": cs.nvidia_smi_line(), "kernel": name, "bitwise": bitwise,
+        "card": cs.nvidia_smi_line(), "kernel": name,
+        "within_tolerance": ok, "bitwise": bitwise,
         "engine_tokens_per_s_old": quartiles(tps["old"]),
         "engine_tokens_per_s_new": quartiles(tps["new"]),
         "engine_new_wins": sum(t_new > t_old for t_old, t_new
                                in zip(tps["old"], tps["new"])),
         "pairs": args.pairs}), flush=True)
-    return 0
+    return 0 if ok else 1
 
 
 def ab_flash(torch, args) -> int:

@@ -39,9 +39,12 @@ Phases, in order; any failure exits non-zero:
    and the loss falls over 10 steps on the repeated batch. Then the
    default (unfused) ResNet-50 trains 2 steps at batch 8 through
    ``matmul_bias_act`` and its backward, against ``use_kernels=False``;
-8. training timings: ``matmul_stats`` per shape beside its plain version,
-   ``F.linear`` (the matmul part alone: no single PyTorch call also sums
-   the columns) and the bound, and the train step at batch 32, kernel
+8. training timings: ``matmul_stats`` per shape (CUDA events around the
+   wrapper, and the kernel's device time from ``torch.profiler``) beside
+   its plain version, ``F.linear`` (the matmul part alone: no single
+   PyTorch call also sums the columns), the stock composite that computes
+   the same function (``F.linear``, then ``y.sum(0)`` and
+   ``(y*y).sum(0)``) and the bound, and the train step at batch 32, kernel
    route against stock;
 9. ``flash_attention`` against its plain version on the card: every
    (join bucket 1/2/4/8, prompt bucket 8..1024) at 12 heads x 64, causal
@@ -52,8 +55,10 @@ Phases, in order; any failure exits non-zero:
    a fully masked row included; a CUDA input that requires grad gets its
    gradient from the backward kernels;
 10. ``paged_decode_attention`` against its plain version at 8 rows x 12
-   heads x 64, each cache length of the KV ladder (64..1024), positions 0,
-   63, 64, S-1 and S (the whole cache) among them; float32 and bfloat16;
+   heads, head sizes 64 (the path's), 32, 128 and 256, each cache length
+   of the KV ladder (64..1024), positions 0, 63, 64, S-1 and S (the whole
+   cache) among them; float32 and bfloat16; position -1 gives zeros, and a
+   row decoded alone gives the same bits as inside a batch;
 11. the generation path: a causal LM at GPT-2 small's widths (vocab 50257,
    768 wide, 12 heads, 12 layers, max_len 1024, seeded weights, float32,
    ``use_kernels=True``) served by ``GenerationEngine(max_batch=8,
@@ -66,7 +71,9 @@ Phases, in order; any failure exits non-zero:
    only at a near tie of the reference's logits), and prefill logits
    against the stock route;
 12. generation timings: both attention kernels at the engine run's shapes
-   beside their plain versions, SDPA and the bound, and the engine's
+   (the decode kernel's device time from ``torch.profiler`` beside its
+   CUDA-event time, which a launch this short leaves to the wrapper's host
+   work) beside their plain versions, SDPA and the bound, and the engine's
    tokens/s, TTFT and per-token latency, kernel route against stock;
 13. the flash backward kernels (dq, dk/dv) against
    ``flash_attention_bwd_plain`` on the card: 8 x 1024 causal unmasked and
@@ -206,6 +213,7 @@ STATS_SOURCE = "deeplearning4j_tpu_torch/csrc/matmul_stats.cu"
 GEN_MODEL = dict(vocab_size=50257, embed_dim=768, n_heads=12, n_layers=12,
                  max_len=1024)
 GEN_HEAD_DIM = 64
+DECODE_HEAD_DIMS = (GEN_HEAD_DIM, 32, 128, 256)  # [10]: the path's, then others
 GEN_CONFIG = dict(max_batch=8, fused_steps=4, kv_bucket_min=64,
                   prompt_bucket_min=8)
 GEN_PROMPT_LADDER = (8, 16, 32, 64, 128, 256, 512, 1024)
@@ -528,9 +536,10 @@ def ptxas_report(log: str) -> list:
 PTXAS_OF = {
     "matmul_bias_act": ("matmul_bias_act", ("mm_bias_act_kernel",)),
     "probe": ("matmul_bias_act", ("probe_kernel",)),
-    "matmul_stats": ("matmul_stats", ("mm_stats_kernel",)),
+    "matmul_stats": ("matmul_stats", ("tc_stats_kernel",)),
     "flash_attention": ("flash_attention", ("",)),
-    "paged_decode_attention": ("paged_decode_attention", ("",)),
+    "paged_decode_attention": ("paged_decode_attention",
+                               ("cluster_decode_kernel",)),
     "flash_attention_bwd_dq": ("flash_attention_bwd", ("mma_dq", "ffma_dq")),
     "flash_attention_bwd_dkv": ("flash_attention_bwd",
                                 ("mma_dkv", "ffma_dkv")),
@@ -613,6 +622,35 @@ def check_matmul(torch, impls, Activation, dev, shapes) -> dict:
     return worst
 
 
+def stats_errors(torch, got, ref, dtype: str) -> tuple:
+    """[6]'s measures of matmul_stats' ``(y, s, q)`` against the plain
+    version's: y's largest |error| and its elements outside KERNEL_TOL (or
+    not finite), and the statistics' largest error per column relative to
+    sum|y| (s) and sum(y^2) (q), against the plain version and against f64
+    sums of the kernel's own y. Returns (errors, whether all hold)."""
+    (y, s, q), (ry, rs, rq) = got, ref
+    atol, rtol = KERNEL_TOL[dtype]
+    yf, ryf = y.float(), ry.float()
+    bad = int(((yf - ryf).abs() > atol + rtol * ryf.abs()).sum())
+    bad += int((~torch.isfinite(yf)).sum())
+    y64 = y.double()
+    abs_sum, sq_sum = y64.abs().sum(0), (y64 * y64).sum(0)
+
+    def col_err(got_, ref_, scale):
+        return float(((got_.double() - ref_.double()).abs() / scale).max())
+
+    errs = {"y": float((yf - ryf).abs().max()), "y_outside": bad,
+            "own_s": col_err(s, y64.sum(0), abs_sum),
+            "own_q": col_err(q, sq_sum, sq_sum),
+            "plain_s": col_err(s, rs, abs_sum),
+            "plain_q": col_err(q, rq, sq_sum)}
+    tol_s, tol_q = ((STATS_RTOL[dtype],) * 2 if dtype == "float32"
+                    else STATS_RTOL[dtype])
+    ok = (bad == 0 and max(errs["own_s"], errs["own_q"]) <= STATS_RTOL["own"]
+          and errs["plain_s"] <= tol_s and errs["plain_q"] <= tol_q)
+    return errs, ok
+
+
 def check_matmul_stats(torch, impls, dev, shapes) -> dict:
     """matmul_stats vs its plain version at every shape and dtype: y, the
     column statistics (against the plain version and against f64 sums of
@@ -624,9 +662,6 @@ def check_matmul_stats(torch, impls, dev, shapes) -> dict:
     def note(key, v):
         worst[key] = max(worst.get(key, 0.0), v)
 
-    def col_err(got, ref, scale):
-        return float(((got.double() - ref.double()).abs() / scale).max())
-
     for (m, k, n) in list(shapes) + list(RAGGED):
         x32 = torch.randn((m, k), generator=gen, device=dev)
         w32 = torch.randn((n, k), generator=gen, device=dev) / math.sqrt(k)
@@ -636,33 +671,17 @@ def check_matmul_stats(torch, impls, dev, shapes) -> dict:
         for dtype, tdt in (("float32", torch.float32),
                            ("bfloat16", torch.bfloat16)):
             x, w = x32.to(tdt), w32.to(tdt)
-            y, s, q = impls.matmul_stats(x, w)
-            ry, rs, rq = impls.matmul_stats_plain(x, w)
+            got = impls.matmul_stats(x, w)
+            ref = impls.matmul_stats_plain(x, w)
             torch.cuda.synchronize()
-            atol, rtol = KERNEL_TOL[dtype]
-            yf, ryf = y.float(), ry.float()
-            bad = int(((yf - ryf).abs() > atol + rtol * ryf.abs()).sum())
-            note(f"y_{dtype}", float((yf - ryf).abs().max()))
-            if bad or not torch.isfinite(yf).all():
+            errs, ok = stats_errors(torch, got, ref, dtype)
+            note(f"y_{dtype}", errs["y"])
+            note("stats_own", max(errs["own_s"], errs["own_q"]))
+            note(f"stats_{dtype}", max(errs["plain_s"], errs["plain_q"]))
+            if not ok:
                 raise AssertionError(
-                    f"matmul_stats y m={m} k={k} n={n} {dtype}: {bad} "
-                    f"elements outside atol={atol} rtol={rtol}")
-            y64 = y.double()
-            abs_sum, sq_sum = y64.abs().sum(0), (y64 * y64).sum(0)
-            own_s = col_err(s, y64.sum(0), abs_sum)
-            own_q = col_err(q, sq_sum, sq_sum)
-            plain_s = col_err(s, rs, abs_sum)
-            plain_q = col_err(q, rq, sq_sum)
-            tol_s, tol_q = ((STATS_RTOL[dtype],) * 2 if dtype == "float32"
-                            else STATS_RTOL[dtype])
-            note("stats_own", max(own_s, own_q))
-            note(f"stats_{dtype}", max(plain_s, plain_q))
-            if max(own_s, own_q) > STATS_RTOL["own"] or plain_s > tol_s \
-                    or plain_q > tol_q:
-                raise AssertionError(
-                    f"matmul_stats sums m={m} k={k} n={n} {dtype}: vs own y "
-                    f"{own_s:.2e}/{own_q:.2e} (tol {STATS_RTOL['own']}), vs "
-                    f"plain {plain_s:.2e}/{plain_q:.2e} (tol {tol_s}/{tol_q})")
+                    f"matmul_stats m={m} k={k} n={n} {dtype}: {errs} (y tol "
+                    f"{KERNEL_TOL[dtype]}; stats tol {STATS_RTOL})")
             # the backward, with cotangents on all three outputs
             grads = []
             for fn in (impls.matmul_stats, impls.matmul_stats_plain):
@@ -1022,9 +1041,17 @@ def train_unfused(torch, dev, seed: int = 1) -> dict:
     return {"launches": launches, **cmp}
 
 
+def stock_stats(F, x, w):
+    """Row 2's function from stock PyTorch calls: ``F.linear``, then the
+    column sums of y and of y * y."""
+    y = F.linear(x, w)
+    return y, y.sum(0), (y * y).sum(0)
+
+
 def time_stats_kernel(torch, impls, F, dev, shapes) -> list:
     """Per-shape timings of matmul_stats at the training path's float32
-    shapes."""
+    shapes, beside ``F.linear`` (the product alone) and the stock composite
+    that computes the same function (``stock_stats``)."""
     gen = torch.Generator(device=dev).manual_seed(98)
     counts = {}
     for sh in shapes:
@@ -1041,6 +1068,9 @@ def time_stats_kernel(torch, impls, F, dev, shapes) -> list:
             "ms": cuda_time_ms(lambda: impls.matmul_stats(x, w)),
             "plain_ms": cuda_time_ms(lambda: impls.matmul_stats_plain(x, w)),
             "library_ms": cuda_time_ms(lambda: F.linear(x, w)),
+            "composite_ms": cuda_time_ms(lambda: stock_stats(F, x, w)),
+            "device_ms": device_ms(lambda: impls.matmul_stats(x, w),
+                                   ["stats_kernel"]),
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_tc_ms": tc_bound_ms(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -1123,10 +1153,14 @@ def stats_report(rows, launches, worst) -> dict:
         "bound_tc_ms": tc_bound_ms(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": _total(rows, "library_ms"),
+        "composite_ms": _total(rows, "composite_ms"),
+        "device_ms": (None if any(r["device_ms"] is None for r in rows)
+                      else _total(rows, "device_ms")),
         "scope": (f"one ResNet-50 training step at batch {BATCH}: the 36 "
                   "fused 1x1 conv + BN statistics sites (forward), float32; "
                   "library = F.linear, the matmul part alone (no single "
-                  "PyTorch call also sums the columns)"),
+                  "PyTorch call also sums the columns); composite = "
+                  "F.linear, y.sum(0) and (y*y).sum(0), the same function"),
         "checked": worst,
         "shapes": rows,
     }
@@ -1380,29 +1414,54 @@ def decode_positions(torch, gen, dev, s: int):
 
 
 def check_decode(torch, att, dev) -> dict:
-    """paged_decode_attention vs its plain version at B 8, H 12, D 64 and
-    each cache length of the KV ladder, float32 and bfloat16."""
+    """paged_decode_attention vs its plain version at B 8, H 12, each head
+    size of DECODE_HEAD_DIMS (the path's 64 first; the cluster kernel has
+    a variant per padded head size) and each cache length of the KV ladder,
+    float32 and bfloat16; then a negative position (zeros) and one row
+    decoded alone and inside a batch of 8 (the same bits: the split of a
+    row's pages depends on its position only)."""
     gen = torch.Generator(device=dev).manual_seed(2025)
     worst = {}
-    h, d = GEN_MODEL["n_heads"], GEN_HEAD_DIM
-    for s in GEN_KV_LADDER:
-        pos = decode_positions(torch, gen, dev, s)
-        for dtype, tdt in (("float32", torch.float32),
-                           ("bfloat16", torch.bfloat16)):
-            q = torch.randn((8, h, d), generator=gen, device=dev).to(tdt)
-            kc, vc = (torch.randn((8, s, h, d), generator=gen,
-                                  device=dev).to(tdt) for _ in range(2))
-            o = att.paged_decode_attention(q, kc, vc, pos)
-            ref = att.paged_decode_attention_plain(q, kc, vc, pos)
-            torch.cuda.synchronize()
-            err, bad = _within(torch, o, ref, DECODE_TOL[dtype])
-            worst[dtype] = max(worst.get(dtype, 0.0), err)
-            if bad or not torch.isfinite(o.float()).all():
-                raise AssertionError(
-                    f"paged_decode_attention S={s} {dtype}: {bad} elements "
-                    f"outside {DECODE_TOL[dtype]} (max |err| {err})")
-        log(f"[10] paged_decode_attention S={s} positions "
-            f"{pos.tolist()}: f32 and bf16 within tolerance")
+    h = GEN_MODEL["n_heads"]
+
+    def check(label, o, ref, dtype):
+        torch.cuda.synchronize()
+        err, bad = _within(torch, o, ref, DECODE_TOL[dtype])
+        worst[dtype] = max(worst.get(dtype, 0.0), err)
+        if bad or not torch.isfinite(o.float()).all():
+            raise AssertionError(
+                f"paged_decode_attention {label} {dtype}: {bad} elements "
+                f"outside {DECODE_TOL[dtype]} (max |err| {err})")
+
+    for d in DECODE_HEAD_DIMS:
+        for s in GEN_KV_LADDER:
+            pos = decode_positions(torch, gen, dev, s)
+            for dtype, tdt in (("float32", torch.float32),
+                               ("bfloat16", torch.bfloat16)):
+                q = torch.randn((8, h, d), generator=gen, device=dev).to(tdt)
+                kc, vc = (torch.randn((8, s, h, d), generator=gen,
+                                      device=dev).to(tdt) for _ in range(2))
+                check(f"D={d} S={s}", att.paged_decode_attention(q, kc, vc, pos),
+                      att.paged_decode_attention_plain(q, kc, vc, pos), dtype)
+            log(f"[10] paged_decode_attention D={d} S={s} positions "
+                f"{pos.tolist()}: f32 and bf16 within tolerance")
+    s, d = GEN_KV_LADDER[-1], GEN_HEAD_DIM
+    pos = torch.tensor([-1, 700, 0, s], dtype=torch.int32, device=dev)
+    q = torch.randn((4, h, d), generator=gen, device=dev)
+    kc, vc = (torch.randn((4, s, h, d), generator=gen, device=dev)
+              for _ in range(2))
+    o = att.paged_decode_attention(q, kc, vc, pos)
+    check("negative position", o, att.paged_decode_attention_plain(
+        q, kc, vc, pos), "float32")
+    if not bool((o[0] == 0).all()):
+        raise AssertionError("paged_decode_attention: a negative position "
+                             "did not give zeros")
+    alone = att.paged_decode_attention(q[1:2], kc[1:2], vc[1:2], pos[1:2])
+    if not torch.equal(alone, o[1:2]):
+        raise AssertionError("paged_decode_attention: a row decoded alone "
+                             "differs from the same row in a batch")
+    log(f"[10] position -1 gives zeros; a row at position 700 decoded alone "
+        f"and in a batch of 4: identical bits")
     log(f"[10] worst |kernel - plain|: {json.dumps(worst)} (tol "
         f"{json.dumps(DECODE_TOL)})")
     return worst
@@ -1658,6 +1717,9 @@ def time_attention(torch, F, att, dev, stats, n_layers) -> tuple:
             "max_abs_err": err,
             "ms": cuda_time_ms(
                 lambda: att.paged_decode_attention(q, kc, vc, pos)),
+            "device_ms": device_ms(
+                lambda: att.paged_decode_attention(q, kc, vc, pos),
+                ["decode"]),
             "plain_ms": cuda_time_ms(
                 lambda: att.paged_decode_attention_plain(q, kc, vc, pos)),
             "library_ms": cuda_time_ms(
@@ -1684,6 +1746,8 @@ def attention_report(rows, launches, worst, name, source, replaces,
         "library_ms": _weighted(rows, "library_ms"),
         "scope": scope, "checked": worst, "shapes": rows,
     }
+    if all(r.get("device_ms") is not None for r in rows):
+        row["device_ms"] = _weighted(rows, "device_ms")
     row["max_err"], row["time_ms"] = row["max_abs_err"], row["ms"]
     return row
 
@@ -2479,7 +2543,9 @@ def main() -> int:
         log(f"[8] matmul_stats m={r['m']} k={r['k']} n={r['n']} "
             f"x{r['count']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, F.linear {r['library_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"stock composite {r['composite_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, FFMA), "
+            f"{r['bound_tc_ms']:.4f} ms (3xTF32)")
     train_line = train_throughput(torch, trained, smi)
     for key in ("grad", "loss_rel_err", "state_rel_err", "losses"):
         train_line[key] = trained[key]
@@ -2498,7 +2564,12 @@ def main() -> int:
         f"[{smi}]")
     log(f"[8] per training step: matmul_stats {st['ms']:.3f} ms, plain "
         f"{st['plain_ms']:.3f} ms, F.linear {st['library_ms']:.3f} ms, "
-        f"bound {st['bound_ms']:.3f} ms ({st['bound_by']}); train step "
+        f"stock composite {st['composite_ms']:.3f} ms, kernel device time "
+        f"{st['device_ms']} ms, bound "
+        f"{st['bound_ms']:.3f} ms ({st['bound_by']}, FFMA), "
+        f"{st['bound_tc_ms']:.3f} ms (3xTF32); ptxas "
+        f"{json.dumps(ptxas_rows(ptxas, 'matmul_stats', 'tc_stats'))}; "
+        f"train step "
         f"{train_line['step_ms_kernel']:.2f} ms kernel route, "
         f"{train_line['step_ms_stock']:.2f} ms stock [{smi}]")
     del trained, unfused
@@ -2525,7 +2596,8 @@ def main() -> int:
             f"({r['bound_by']}, FFMA), {r['bound_tc_ms']:.4f} ms (3xTF32)")
     for r in decode_rows:
         log(f"[12] paged_decode_attention S={r['s']} x{r['count']}: kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+            f"{r['ms']:.4f} ms (device {r['device_ms']} ms), plain "
+            f"{r['plain_ms']:.4f} ms, SDPA "
             f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")
     report["kernels"] += [
@@ -2552,7 +2624,8 @@ def main() -> int:
     log(f"[12] per launch: flash_attention {fl['ms']:.4f} ms (plain "
         f"{fl['plain_ms']:.4f}, SDPA {fl['library_ms']:.4f}, bound "
         f"{fl['bound_ms']:.4f} {fl['bound_by']}); paged_decode_attention "
-        f"{pd['ms']:.4f} ms (plain {pd['plain_ms']:.4f}, SDPA "
+        f"{pd['ms']:.4f} ms (device {pd.get('device_ms')}, plain "
+        f"{pd['plain_ms']:.4f}, SDPA "
         f"{pd['library_ms']:.4f}, bound {pd['bound_ms']:.4f} "
         f"{pd['bound_by']}) [{smi}]")
     log(f"[12] engine, {gen_line['requests']} requests x "

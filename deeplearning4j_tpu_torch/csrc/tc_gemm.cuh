@@ -1,7 +1,7 @@
 // The tensor-core main loop of the port's float GEMM kernels
-// (matmul_bias_act.cu): one block accumulates a BM x BN tile of
-// x[M,K] . w[N,K]^T in f32 registers, and each kernel runs its own epilogue on
-// the accumulator fragments.
+// (matmul_bias_act.cu, matmul_stats.cu): one block accumulates a BM x BN tile
+// of x[M,K] . w[N,K]^T in f32 registers, and each kernel runs its own
+// epilogue on the accumulator fragments.
 //
 // Warps: (BM / WM) x (BN / WN) warps, each owning a WM x WN sub-tile as
 // (WM / 16) x (WN / 8) m16n8 accumulator fragments (layouts in mma_tiles.cuh).
@@ -13,13 +13,17 @@
 // fragment split in registers where it is loaded; bfloat16 takes one m16n8k16
 // bf16 MMA, f32 accumulation.
 //
-// Each output sums its K products in one f32 accumulator, in k order by steps
-// of 8 (tf32) or 16 (bf16); the order depends on the output's row and column
-// data and on K only, never on the tile or on M: no split-K, so a row's output
-// is the same in every batch bucket it is served in. The tensor cores round
-// each accumulation toward zero, which costs up to 3 K / 8 roundings of the
-// sum's size in float32; at ResNet-50's K <= 2048 that stays within a third
-// of the 1e-4 + 1e-4 |y| the kernel is held to.
+// Each output sums its K products in k order by steps of 8 (tf32) or 16
+// (bf16); the order depends on the output's row and column data and on K
+// only, never on the tile or on M: no split-K, so a row's output is the same
+// in every batch bucket it is served in. The tensor cores round each
+// accumulation toward zero. Straight (kFresh false) every output lives in one
+// accumulator, which costs up to 3 K / 8 roundings of the sum's size in
+// float32: at ResNet-50's K <= 2048 that stays within a third of the
+// 1e-4 + 1e-4 |y| matmul_bias_act is held to, but it biases every |y| low, and
+// sum(y^2) by twice as much. With kFresh each BK step's products are summed
+// into a zeroed fragment and added to the accumulator with an ordinary
+// (round-to-nearest) f32 add, so the bias is that of 32-term sums, whatever K.
 #pragma once
 
 #include <type_traits>
@@ -108,8 +112,9 @@ __device__ __forceinline__ void warp_mma(float (&d)[MT][NTL][4],
 // give 0) for the calling warp's fragments: warp wm = warp / kWarpsN owns
 // rows wm * WM + [0, WM) of the tile, wn = warp % kWarpsN columns
 // wn * WN + [0, WN). `smem` holds G::kSmem bytes (dynamic shared memory);
-// vec: 16-byte aligned x and w with K * sizeof(T) a multiple of 16.
-template <typename G, typename T>
+// vec: 16-byte aligned x and w with K * sizeof(T) a multiple of 16. kFresh:
+// each K step summed fresh, then added to acc (see the top of the file).
+template <typename G, bool kFresh = false, typename T>
 __device__ __forceinline__ void gemm_tile(const T* __restrict__ x,
                                           const T* __restrict__ w, int M, int N,
                                           int K, int row0, int col0, bool vec,
@@ -145,8 +150,20 @@ __device__ __forceinline__ void gemm_tile(const T* __restrict__ x,
     if (i + S - 1 < nk) load(i + S - 1);  // into step i - 1's stage
     mma::cp_async_commit();
     const T* xs = smem + (i % S) * G::kStage;
-    warp_mma<T, G::MT, G::NTL, BK, LD>(acc, xs + wm * G::WM * LD,
-                                       xs + (BM + wn * G::WN) * LD, lane);
+    if constexpr (kFresh) {
+      float part[G::MT][G::NTL][4] = {};
+      warp_mma<T, G::MT, G::NTL, BK, LD>(part, xs + wm * G::WM * LD,
+                                         xs + (BM + wn * G::WN) * LD, lane);
+#pragma unroll
+      for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < G::NTL; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
+    } else {
+      warp_mma<T, G::MT, G::NTL, BK, LD>(acc, xs + wm * G::WM * LD,
+                                         xs + (BM + wn * G::WN) * LD, lane);
+    }
   }
 }
 

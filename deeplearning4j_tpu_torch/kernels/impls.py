@@ -260,17 +260,18 @@ def _matmul_stats_cuda(x, w):
     if bm <= 0:
         raise_on_error("matmul_stats", -bm)
     rows = -(-m // bm)
-    s_part = torch.empty((rows, n), dtype=torch.float32, device=x.device)
-    q_part = torch.empty((rows, n), dtype=torch.float32, device=x.device)
+    # the sum and sum-of-squares partials, [rows, N] each, in one buffer
+    parts = torch.empty((2, rows, n), dtype=torch.float32, device=x.device)
     rc = lib.dl4j_matmul_stats(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), s_part.data_ptr(),
-        q_part.data_ptr(), m, n, k, DTYPE_IDS[x.dtype], x.device.index,
-        stream(x))
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), parts.data_ptr(),
+        parts.data_ptr() + rows * n * parts.element_size(), m, n, k,
+        DTYPE_IDS[x.dtype], x.device.index, stream(x))
     raise_on_error("matmul_stats", rc)
     count(matmul_stats)
-    # the [rows, N] partials reduce in a fixed order, as the JAX package
-    # reduces its [row blocks, 1, N] partials in XLA
-    return y, s_part.sum(0), q_part.sum(0)
+    # both partials reduce over their rows in one fixed-order launch, as the
+    # JAX package reduces its [row blocks, 1, N] partials in XLA
+    s, q = parts.sum(1)
+    return y, s, q
 
 
 class _MatmulStats(torch.autograd.Function):
