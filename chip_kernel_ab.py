@@ -59,6 +59,17 @@ both versions against ``flash_attention_bwd_plain`` at every case of
 dk/dv timed apart at the LM's shape ([8, 12, 1024, 64], causal, float32)
 beside autograd through causal SDPA in the same pairs; end to end, the
 GPT-2-small-width LM's ``fit_batch`` at 8 x 1024 tokens (ms a step).
+``--kernel matmul_bias_act_int8``: both versions against
+``matmul_bias_act_int8_plain`` at chip_smoke's [16] shapes (AlexNet's two
+sites at every serving bucket, ResNet-50's 15 1x1 shapes, the ragged
+ones): the int32 sums (identity, scale 1, bias 0) bit for bit, identity and
+relu within ``INT8_MAX_ULP`` (the exit code's gate); per shape, CUDA-event
+and device times, the AlexNet sites with the weights rotated through
+>150 MB of copies as [18] does; end to end, the quantized AlexNet's forward
+at batch 32 on the card and its images/s through ``InferenceEngine``. OLD.cu
+may also have PR 8's interface (``dl4j_matmul_int8_splits`` and a split-K
+workspace the caller allocates): that side then runs PR 8's wrapper, so the
+event times carry each version's own host work.
 
 ``--variant NAME=VALUE`` (repeatable) takes the place of OLD.cu: the "old"
 side is then the checkout's source with the one ``constexpr int`` (or
@@ -90,7 +101,7 @@ def quartiles(v):
 
 # the --kernel modes, each named after its source csrc/<kernel>.cu
 KERNELS = ("matmul_bias_act", "matmul_stats", "paged_decode_attention",
-           "flash_attention", "flash_attention_bwd")
+           "flash_attention", "flash_attention_bwd", "matmul_bias_act_int8")
 
 
 def variant_source(csrc: Path, name: str, settings, out_dir: Path) -> Path:
@@ -148,6 +159,8 @@ def main() -> int:
         return ab_flash(torch, args)
     if args.kernel == "flash_attention_bwd":
         return ab_flash_bwd(torch, args)
+    if args.kernel == "matmul_bias_act_int8":
+        return ab_int8(torch, args)
     import chip_smoke as cs
     from deeplearning4j_tpu_torch.conf.activations import Activation
     from deeplearning4j_tpu_torch.kernels import build, impls
@@ -791,6 +804,197 @@ def ab_flash_bwd(torch, args) -> int:
         "lm_step_new_ms": quartiles(steps["new"]),
         "lm_step_new_wins": sum(n < o_ for o_, n in zip(steps["old"],
                                                         steps["new"])),
+        "pairs": args.pairs}), flush=True)
+    return 0 if ok else 1
+
+
+# PR 8's interface of csrc/matmul_bias_act_int8.cu: the split count, then the
+# launch with an int32 [S, M, N] workspace the caller allocates
+_INT8_WORKSPACE_SIGNATURES = {
+    "dl4j_matmul_int8_splits": (
+        ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]),
+    "dl4j_matmul_bias_act_int8": (
+        ctypes.c_int,
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+}
+
+
+def ab_int8(torch, args) -> int:
+    """The A/B of ``matmul_bias_act_int8``. A version with the checkout's
+    interface is swapped in through the loaded-library table (each side
+    keeps its own plan cache); one with PR 8's workspace interface runs
+    through PR 8's wrapper, which ``impls.matmul_bias_act_int8`` is set to
+    while that side serves."""
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.conf.activations import Activation
+    from deeplearning4j_tpu_torch.kernels import build, impls
+    from deeplearning4j_tpu_torch.nn import inference_opt as iopt
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel.batcher import (
+        BatchingConfig,
+        InferenceEngine,
+    )
+    from deeplearning4j_tpu_torch.zoo.graphs import ResNet50
+    from deeplearning4j_tpu_torch.zoo.models import AlexNet
+
+    name = impls.INT8_SOURCE
+    workspace = "dl4j_matmul_int8_splits" in args.old.read_text()
+    old_lib = _build_old(build, name, args.old, _INT8_WORKSPACE_SIGNATURES
+                         if workspace else impls._INT8_SIGNATURES)
+    new_lib = build.load(name, impls._INT8_SIGNATURES)
+    new = impls.matmul_bias_act_int8
+    plans = {"old": {}, "new": {}}
+
+    def old_workspace(xq, wq, scale, b, act):  # PR 8's wrapper
+        impls._check_int8(xq, wq, scale, b, act)
+        (m, k), n = xq.shape, wq.shape[1]
+        y = torch.empty((m, n), dtype=torch.float32, device=xq.device)
+        splits = old_lib.dl4j_matmul_int8_splits(m, n, k, xq.device.index)
+        work = (torch.empty((splits, m, n), dtype=torch.int32,
+                            device=xq.device) if splits > 1 else None)
+        rc = old_lib.dl4j_matmul_bias_act_int8(
+            xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), b.data_ptr(),
+            y.data_ptr(), None if work is None else work.data_ptr(), m, n,
+            k, impls.ACTIVATION_IDS[act.value], xq.device.index,
+            impls.stream(xq))
+        impls.raise_on_error("old matmul_bias_act_int8", rc)
+        return y
+
+    def use(side):
+        impls._INT8_PLANS = plans[side]
+        if workspace:
+            impls.matmul_bias_act_int8 = (old_workspace if side == "old"
+                                          else new)
+        else:
+            build._LIBS[name] = old_lib if side == "old" else new_lib
+
+    def order(i):
+        return ("old", "new") if i % 2 == 0 else ("new", "old")
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    kernels = ["int8_kernel", "splitk_epilogue_kernel"]
+    ok, worst, rows = True, {"old": 0, "new": 0}, []
+    shapes = ([(m, k, n) for (k, n) in cs.INT8_SITES for m in cs.INT8_BUCKETS]
+              + sorted(set(cs.path_shapes(ResNet50().conf(), cs.BATCH)))
+              + list(cs.INT8_RAGGED))
+    ident, relu = Activation("identity"), Activation("relu")
+    try:
+        # 1. both versions against the plain version
+        for (m, k, n) in shapes:
+            xq, wq, scale, b = cs._int8_operands(torch, gen, dev, m, k, n)
+            ones = torch.ones(n, device=dev)
+            zeros = torch.zeros(n, device=dev)
+            sums = impls.matmul_bias_act_int8_plain(xq, wq, ones, zeros, ident)
+            refs = {a: impls.matmul_bias_act_int8_plain(xq, wq, scale, b, a)
+                    for a in (ident, relu)}
+            shape = {"m": m, "k": k, "n": n}
+            for side in ("old", "new"):
+                use(side)
+                exact = torch.equal(impls.matmul_bias_act_int8(
+                    xq, wq, ones, zeros, ident), sums)
+                ulps = max(cs._ulps(torch, impls.matmul_bias_act_int8(
+                    xq, wq, scale, b, a), ref) for a, ref in refs.items())
+                ok &= exact and ulps <= cs.INT8_MAX_ULP
+                worst[side] = max(worst[side], ulps)
+                shape[side] = {"sums_bitwise": exact, "max_ulps": ulps}
+            print(json.dumps(shape), flush=True)
+            del xq, wq, scale, b, sums, refs
+        print(json.dumps({"within_tolerance": ok, "max_ulps": worst,
+                          "tol_ulps": cs.INT8_MAX_ULP}), flush=True)
+
+        # 2. per shape: AlexNet's sites with the weights from device memory,
+        # then ResNet-50's 1x1 shapes and the ragged ones
+        for (m, k, n) in shapes:
+            copies = (max(2, -(-150 * 2 ** 20 // (k * n)))
+                      if (k, n) in cs.INT8_SITES else 1)
+            xq, wq, scale, b = cs._int8_operands(torch, gen, dev, m, k, n)
+            wqs = [wq] + [torch.randint(-128, 128, (k, n), generator=gen,
+                                        device=dev, dtype=torch.int8)
+                          for _ in range(copies - 1)]
+            turn = iter(range(10 ** 9))
+
+            def call():
+                return impls.matmul_bias_act_int8(
+                    xq, wqs[next(turn) % copies], scale, b, relu)
+
+            times = {"old": [], "new": []}
+            for i in range(args.pairs):
+                for side in order(i):
+                    use(side)
+                    times[side].append(cs.cuda_time_ms(call, samples=5))
+            device = {}
+            for side in ("old", "new"):
+                use(side)
+                device[side] = cs.device_ms(call, kernels)
+            ops_ms, bytes_ms = cs.int8_bound_ms(m, k, n)
+            row = {"m": m, "k": k, "n": n,
+                   "old_ms": quartiles(times["old"]),
+                   "new_ms": quartiles(times["new"]),
+                   "old_device_ms": device["old"],
+                   "new_device_ms": device["new"],
+                   "bound_ms": max(ops_ms, bytes_ms),
+                   "new_wins": sum(t_new < t_old for t_old, t_new
+                                   in zip(times["old"], times["new"]))}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+            del xq, wq, wqs, scale, b
+
+        # 3. end to end: the quantized AlexNet at batch 32
+        zoo = AlexNet()
+        image = (zoo.height, zoo.width, zoo.channels)
+        net = MultiLayerNetwork(dataclasses.replace(zoo.conf(),
+                                                    use_kernels=True),
+                                dev).init()
+        rng = np.random.default_rng(cs.INT8_SEED)
+        cal = [rng.random((cs.BATCH,) + image, np.float32)
+               for _ in range(cs.INT8_CAL_BATCHES)]
+        q = iopt.quantize_for_inference(net, iopt.calibrate(net, cal))
+        x = rng.random((cs.BATCH,) + image, np.float32)
+        ends = {"forward_old": [], "forward_new": [], "images_per_s_old": [],
+                "images_per_s_new": []}
+        with InferenceEngine(q, BatchingConfig(max_batch=cs.BATCH)) as engine:
+            with torch.inference_mode():
+                x_dev = q._prepare(x)
+            for i in range(args.pairs):
+                for side in order(i):
+                    use(side)
+                    with torch.inference_mode():
+                        ends[f"forward_{side}"].append(cs.cuda_time_ms(
+                            lambda: q._forward(q._fwd_params(), x_dev),
+                            samples=3))
+                    engine.predict(x)
+                    t0 = time.monotonic()
+                    for _ in range(10):
+                        engine.predict(x)
+                    ends[f"images_per_s_{side}"].append(
+                        10 * cs.BATCH / (time.monotonic() - t0))
+    finally:
+        use("new")
+        impls._INT8_PLANS = {}
+    main = [r for r in rows if r["m"] == cs.BATCH and (r["k"], r["n"])
+            in cs.INT8_SITES]
+
+    def per_forward(key):
+        return sum(r[key][1] if isinstance(r[key], list) else r[key]
+                   for r in main)
+
+    print(json.dumps({
+        "card": cs.nvidia_smi_line(), "kernel": name,
+        "old_interface": "workspace" if workspace else "plan",
+        "within_tolerance": ok, "max_ulps": worst,
+        "per_forward_old_ms": per_forward("old_ms"),
+        "per_forward_new_ms": per_forward("new_ms"),
+        "per_forward_old_device_ms": per_forward("old_device_ms"),
+        "per_forward_new_device_ms": per_forward("new_device_ms"),
+        "per_forward_bound_ms": per_forward("bound_ms"),
+        "shapes_new_wins": sum(r["new_wins"] for r in rows),
+        "shapes_pairs": len(rows) * args.pairs,
+        **{f"{key}": quartiles(v) for key, v in ends.items()},
+        "forward_new_wins": sum(n_ < o_ for o_, n_ in zip(
+            ends["forward_old"], ends["forward_new"])),
         "pairs": args.pairs}), flush=True)
     return 0 if ok else 1
 

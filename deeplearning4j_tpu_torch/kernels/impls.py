@@ -64,12 +64,12 @@ _STATS_SIGNATURES = {
          ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
 }
 _INT8_SIGNATURES = {
-    "dl4j_matmul_int8_splits": (
+    "dl4j_matmul_int8_plan": (
         ctypes.c_int, [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]),
     "dl4j_matmul_bias_act_int8": (
         ctypes.c_int,
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
 }
 
@@ -318,20 +318,24 @@ matmul_stats.launches = 0
 # int8 matmul + f32 scale/bias + activation (quantized dense / 1x1 conv)
 # --------------------------------------------------------------------------
 
-def _check_int8(xq, wq, scale, b, act):
-    if not elementwise(act):
+def _check_int8(xq, wq, scale, b, act) -> int:
+    """Raises on what the kernel does not take; returns the activation's
+    id. Every serving call passes here, so each property is read once."""
+    act_id = ACTIVATION_IDS.get(act.value)
+    if act_id is None:
         raise ValueError(f"matmul_bias_act_int8 needs an elementwise "
                          f"activation, got {act.value}")
-    if xq.ndim != 2 or wq.ndim != 2 or scale.ndim != 1 or b.ndim != 1:
+    xs, ws = xq.shape, wq.shape
+    if len(xs) != 2 or len(ws) != 2 or scale.dim() != 1 or b.dim() != 1:
         raise ValueError(
             f"matmul_bias_act_int8 takes xq [M,K], wq [K,N], scale [N], b [N]; "
-            f"got {tuple(xq.shape)}, {tuple(wq.shape)}, {tuple(scale.shape)}, "
+            f"got {tuple(xs)}, {tuple(ws)}, {tuple(scale.shape)}, "
             f"{tuple(b.shape)}")
-    n = wq.shape[1]
-    if wq.shape[0] != xq.shape[1] or scale.shape[0] != n or b.shape[0] != n:
+    n = ws[1]
+    if ws[0] != xs[1] or scale.shape[0] != n or b.shape[0] != n:
         raise ValueError(
-            f"matmul_bias_act_int8 shape mismatch: xq {tuple(xq.shape)}, wq "
-            f"{tuple(wq.shape)}, scale {tuple(scale.shape)}, b {tuple(b.shape)}")
+            f"matmul_bias_act_int8 shape mismatch: xq {tuple(xs)}, wq "
+            f"{tuple(ws)}, scale {tuple(scale.shape)}, b {tuple(b.shape)}")
     if (xq.dtype, wq.dtype, scale.dtype, b.dtype) != (
             torch.int8, torch.int8, torch.float32, torch.float32):
         raise ValueError(
@@ -340,12 +344,13 @@ def _check_int8(xq, wq, scale, b, act):
     if not (xq.device == wq.device == scale.device == b.device):
         raise ValueError(f"matmul_bias_act_int8 operands on different devices: "
                          f"{xq.device}, {wq.device}, {scale.device}, {b.device}")
-    if xq.device.type not in ("cpu", "cuda"):
+    if not (xq.is_cuda or xq.is_cpu):
         raise ValueError(f"matmul_bias_act_int8 runs on cpu or cuda, not "
                          f"{xq.device}")
-    if xq.shape[1] > INT8_K_MAX:
-        raise ValueError(f"matmul_bias_act_int8: K = {xq.shape[1]} could "
+    if xs[1] > INT8_K_MAX:
+        raise ValueError(f"matmul_bias_act_int8: K = {xs[1]} could "
                          f"overflow the int32 sums (K <= {INT8_K_MAX})")
+    return act_id
 
 
 def matmul_bias_act_int8_plain(xq: torch.Tensor, wq: torch.Tensor,
@@ -363,7 +368,25 @@ def matmul_bias_act_int8_plain(xq: torch.Tensor, wq: torch.Tensor,
     return act.apply(acc.float() * scale + b)
 
 
-def _matmul_bias_act_int8_cuda(xq, wq, scale, b, act):
+# (m, n, k, device) -> (the launch function, its plan): the kernel's tile
+# config and cluster split depend on the shape and the card only, so each
+# shape asks the library once
+_INT8_PLANS: dict = {}
+
+
+def _int8_plan(m: int, n: int, k: int, device: int):
+    key = (m, n, k, device)
+    plan = _INT8_PLANS.get(key)
+    if plan is None:
+        lib = _int8_library()
+        code = lib.dl4j_matmul_int8_plan(m, n, k, device)
+        if code < 0:
+            raise_on_error("matmul_bias_act_int8", -code)
+        plan = _INT8_PLANS[key] = (lib.dl4j_matmul_bias_act_int8, code)
+    return plan
+
+
+def _matmul_bias_act_int8_cuda(xq, wq, scale, b, act_id):
     if not (xq.is_contiguous() and wq.is_contiguous() and scale.is_contiguous()
             and b.is_contiguous()):
         raise ValueError("matmul_bias_act_int8 needs contiguous operands")
@@ -374,18 +397,13 @@ def _matmul_bias_act_int8_cuda(xq, wq, scale, b, act):
     y = torch.empty((m, n), dtype=torch.float32, device=xq.device)
     if m == 0 or n == 0:
         return y  # nothing to launch
-    lib = _int8_library()
-    splits = lib.dl4j_matmul_int8_splits(m, n, k, xq.device.index)
-    if splits <= 0:
-        raise_on_error("matmul_bias_act_int8", -splits)
-    # split K: the int32 partial sums of each K chunk, added by the kernel's
-    # second pass (the allocator keeps the block for this stream's launches)
-    work = (torch.empty((splits, m, n), dtype=torch.int32, device=xq.device)
-            if splits > 1 else None)
-    rc = lib.dl4j_matmul_bias_act_int8(
-        xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), b.data_ptr(),
-        y.data_ptr(), None if work is None else work.data_ptr(), m, n, k,
-        ACTIVATION_IDS[act.value], xq.device.index, stream(xq))
+    device = xq.get_device()
+    launch, plan = _int8_plan(m, n, k, device)
+    # one launch, no workspace; the raw stream handle skips building a
+    # torch.cuda.Stream object on every call
+    rc = launch(xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), b.data_ptr(),
+                y.data_ptr(), m, n, k, act_id, plan, device,
+                torch._C._cuda_getCurrentRawStream(device))
     raise_on_error("matmul_bias_act_int8", rc)
     count(matmul_bias_act_int8)
     return y
@@ -399,10 +417,10 @@ def matmul_bias_act_int8(xq: torch.Tensor, wq: torch.Tensor,
     layout), scale and b [N] float32 (``nn.inference_opt``'s effective
     scale and bias). ``act`` is an elementwise :class:`Activation`. Forward
     only: quantized layers never train."""
-    _check_int8(xq, wq, scale, b, act)
-    if xq.device.type == "cpu":
-        return matmul_bias_act_int8_plain(xq, wq, scale, b, act)
-    return _matmul_bias_act_int8_cuda(xq, wq, scale, b, act)
+    act_id = _check_int8(xq, wq, scale, b, act)
+    if xq.is_cuda:
+        return _matmul_bias_act_int8_cuda(xq, wq, scale, b, act_id)
+    return matmul_bias_act_int8_plain(xq, wq, scale, b, act)
 
 
 matmul_bias_act_int8.launches = 0
