@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with one NVIDIA Hopper card::
 
-    python3 chip_gen_profile.py [--windows 5]
+    python3 chip_gen_profile.py [--windows 5] [--decode-features]
 
 Builds ``chip_smoke.py``'s causal LM (GPT-2 small's widths, seeded
 weights, float32), prefills 8 of its seeded prompts into a full running
@@ -15,7 +15,13 @@ JSON line per (route, phase): the wall time per prefill or per decode step,
 the device time (the sum of all kernel durations), the device's idle share
 (1 - device time / wall time, kernels counted as if they never overlap),
 the kernel launches per step, and the kernels with the most device time,
-by name. Exits non-zero without a CUDA card.
+by name. ``--decode-features`` instead traces single iterations of
+``GenerationEngine`` (use_kernels route) with the decode loop held: a cold
+prefill of 8 of ``chip_smoke.py``'s [19] prompts with the prefix cache on
+(page insertion included), a prefill of 8 prefix-cache hits (the suffix
+path: page assembly, suffix prefill, attach and join), a plain decode
+window, and a speculative window (draft window and verify step) with the
+oracle draft of [20]. Exits non-zero without a CUDA card.
 """
 
 from __future__ import annotations
@@ -28,11 +34,13 @@ import time
 import numpy as np
 
 
-def trace(torch, fn, reps: int) -> dict:
-    """Profile ``reps`` calls of ``fn`` (warmed once first)."""
+def trace(torch, fn, reps: int, warm: bool = True) -> dict:
+    """Profile ``reps`` calls of ``fn``, warmed once first unless ``warm``
+    is False (an engine step changes the engine's state)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -55,6 +63,71 @@ def trace(torch, fn, reps: int) -> dict:
             "top": [[name[:90], us / 1e3] for name, us in top]}
 
 
+def decode_features(torch, cs, dec, card) -> None:
+    """One JSON line per traced engine iteration (see the module
+    docstring)."""
+    from deeplearning4j_tpu_torch.nn.decoding import TransformerDecoder
+    from deeplearning4j_tpu_torch.parallel.generation import (
+        GenerationConfig,
+        GenerationEngine,
+    )
+
+    cold, hot = cs.prefix_requests(dec.vocab_size, cs.PREFIX_SEED)
+    new_users = hot[1::2]
+    bp = cs.GEN_CONFIG["max_batch"]
+
+    def step(eng, prompts):
+        for p in prompts:
+            eng.submit(p, max_new_tokens=cs.GEN_MAX_NEW)
+        with eng._cond:
+            joins = eng._pick_joins_locked()
+        return joins
+
+    def retire(eng):
+        with eng._cond:
+            for r in list(eng._rows):
+                if r is not None:
+                    eng._finish_locked(r, time.monotonic())
+            eng._n_active = 0
+
+    def emit(phase, row, **extra):
+        print(json.dumps({"route": "kernel", "phase": phase, "card": card,
+                          **extra, **row}), flush=True)
+
+    dec.warmup(prompt_buckets=cs.SUFFIX_BUCKETS + (512, 1024),
+               join_buckets=(bp,), kv_buckets=(1024,),
+               fused_steps=(cs.GEN_CONFIG["fused_steps"],), prefix=True)
+    cfg = dict(cs.GEN_CONFIG, **cs.PREFIX_CONFIG)
+    with GenerationEngine(dec, GenerationConfig(**cfg)) as eng:
+        eng._ensure_thread = lambda: None
+        joins = step(eng, cold[:bp])
+        row = trace(torch, lambda: eng._do_prefill(joins), 1, warm=False)
+        emit("prefill_cold_prefix_cache", row, rows=len(joins),
+             pages=eng.stats()["prefix_cache"]["pages"])
+        retire(eng)
+        joins = step(eng, new_users[:bp])
+        row = trace(torch, lambda: eng._do_prefill(joins), 1, warm=False)
+        emit("prefill_hits", row, rows=len(joins),
+             suffix_prefills=eng.stats()["suffix_prefills"])
+        row = trace(torch, eng._do_decode, 1, warm=False)
+        emit("decode_window_plain", row, rows=bp,
+             k=cs.GEN_CONFIG["fused_steps"])
+        retire(eng)
+    oracle = TransformerDecoder(dec.net, max_len=dec.max_len,
+                                **{k: cs.GEN_CONFIG[k] for k in (
+                                    "max_batch", "kv_bucket_min",
+                                    "prompt_bucket_min")})
+    cfg = dict(cs.GEN_CONFIG, draft_conf=oracle, spec_tokens=cs.SPEC_TOKENS)
+    with GenerationEngine(dec, GenerationConfig(**cfg)) as eng:
+        eng._ensure_thread = lambda: None
+        eng._do_prefill(step(eng, cold[:bp]))
+        eng._do_decode()  # one untraced window: the traced one is steady
+        row = trace(torch, eng._do_decode, 1, warm=False)
+        emit("decode_window_speculative", row, rows=bp, k=cs.SPEC_TOKENS,
+             draft_layers=len(oracle._attn))
+        retire(eng)
+
+
 def per(row: dict, n: int) -> dict:
     out = {k: (v / n if k in ("wall_ms", "device_ms", "launches") else v)
            for k, v in row.items()}
@@ -65,6 +138,7 @@ def per(row: dict, n: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--windows", type=int, default=5)
+    ap.add_argument("--decode-features", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -90,6 +164,10 @@ def main() -> int:
     lengths = np.asarray([len(p) for p in prompts])
     ones = np.ones((bp,), np.int64)
     card = cs.nvidia_smi_line()
+    if args.decode_features:
+        decode_features(torch, cs, TransformerDecoder(net, max_len=zoo.max_len,
+                                                      **kw), card)
+        return 0
     for route in ("kernel", "stock"):
         dec = TransformerDecoder(net, max_len=zoo.max_len, **kw)
         dec.use_kernels = route == "kernel"

@@ -51,7 +51,10 @@ Phases, in order; any failure exits non-zero:
    with a prompt-length mask (a length-0 padding row included), ragged T
    333 and 1000, one bidirectional unmasked case, Tq < Tk, and head sizes
    32, 33 (rows off 16 bytes) and 128 (the tensor-core kernel) and 256
-   (the FFMA kernel); float32 and bfloat16; o, l and m, every row finite,
+   (the FFMA kernel); the suffix prefill of the prefix cache: 8 rows x Tq
+   16/32/64/128 against Tk = 512 or 1024 + Tq keys with a holed key mask
+   (each row's prefix valid to its length, padding, its suffix) and a
+   group-padding row; float32 and bfloat16; o, l and m, every row finite,
    a fully masked row included; a CUDA input that requires grad gets its
    gradient from the backward kernels;
 10. ``paged_decode_attention`` against its plain version at 8 rows x 12
@@ -75,6 +78,7 @@ Phases, in order; any failure exits non-zero:
    CUDA-event time, which a launch this short leaves to the wrapper's host
    work) beside their plain versions, SDPA and the bound, and the engine's
    tokens/s, TTFT and per-token latency, kernel route against stock;
+   then, on the same model, [19] and [20] (below);
 13. the flash backward kernels (dq, dk/dv) against
    ``flash_attention_bwd_plain`` on the card: 8 x 1024 causal unmasked and
    masked, ragged T 333 and 1000, 8 x 512 bidirectional masked, Tq < Tk,
@@ -114,10 +118,35 @@ Phases, in order; any failure exits non-zero:
 18. int8 timings: the kernel at both sites and every bucket beside its
    plain version, ``torch._int_mm`` and the bound (weights read from device
    memory), and served images/s at batch 32 for the int8 kernel route, the
-   int8 stock route and the float32 AlexNet, in turns.
+   int8 stock route and the float32 AlexNet, in turns;
+19. the prefix cache on [11]'s model: ``GenerationEngine`` with
+   ``prefix_cache=True, prefix_page=16, prefix_cache_pages=256``; a cold
+   sweep (16 greedy requests: one seeded 512-token shared prefix and
+   distinct 16-128-token tails, 32 new tokens each), then a hot sweep (8
+   follow-up turns extending cold prompts and 8 new tails of the shared
+   prefix); at least 16 hot-sweep hits and no pin left after close; the
+   kernels' launches counted over the hot sweep alone (12 flash per
+   prefill or suffix prefill, 12 paged per decode step), flash launches
+   printed by (Tq, Tk); every stream held against sequential ``generate``
+   and against the same engine with ``use_kernels=False`` (near-tie rule);
+   TTFT p50/p95 cold against hot, pages held; the flash kernel at the hot
+   sweep's suffix geometries beside its plain version, SDPA and the bound;
+20. speculative decoding on [11]'s model, ``spec_tokens=4``, with an oracle
+   draft (the target's configuration and seed) and a DistilGPT2-width
+   draft (6 layers, 768 wide, 12 heads, seeded):
+   [11]'s 16 prompts, one decoding to the 1024 context edge (the fallback
+   window), two sampled requests (temperature 0.8, fixed seeds); launches
+   counted per run (the draft's prefills and decode steps through the
+   kernels); greedy streams held against sequential ``generate`` (near-tie
+   rule), sampled streams against the sequential sampler with the same
+   seed; the oracle's acceptance above 0 (the seeded draft's reported:
+   random LMs of unrelated weights rarely agree); the decode kernel at the
+   draft windows' KV buckets; tokens/s against the plain engine in turns;
+   then both features at once over [19]'s sweeps, streams held.
 
 Then one ``{"kernels": [...]}`` line with every kernel, the served,
-trained, generated, trained_lm and served_int8 lines, and last
+trained, generated, trained_lm, served_int8, prefix_cached and speculative
+lines, and last
 ``{"ok": true, "device": {...}}``. The whole run takes a few minutes on an H100, the
 parallel build included.
 Without a CUDA card, or without the repository around it, the script exits
@@ -224,6 +253,30 @@ GEN_MAX_NEW = 32
 GEN_PROMPT_RANGE = (5, 896)
 GEN_EOS_REQUEST = 3  # this request stops at an eos_id (its 6th token)
 GEN_SEED = 0
+# [9] / [19] suffix prefill against cached prefix pages: Tq = ts suffix
+# tokens against Tk = tpre + ts keys, tpre the prefix bucket
+SUFFIX_BUCKETS = (16, 32, 64, 128)
+SUFFIX_PREFIX_BUCKETS = (512, 1024)
+# [19] the prefix cache: one seeded shared prefix (a system prompt) and
+# seeded tails; the hot sweep's follow-up turns extend cold prompts
+PREFIX_LEN = 512
+PREFIX_TAIL = (16, 128)
+PREFIX_FOLLOW_UP = (8, 48)
+PREFIX_CONFIG = dict(prefix_cache=True, prefix_page=16,
+                     prefix_cache_pages=256)
+PREFIX_SEED = 5
+# [20] speculative decoding: K drafted tokens a window; the drafts: the
+# target's own configuration and seed (an oracle), and DistilGPT2's
+# published widths (huggingface.co/distilbert/distilgpt2 config.json:
+# n_layer 6, n_embd 768, n_head 12, vocab 50257, n_positions 1024),
+# seeded: two random LMs of unrelated weights agree on about one token in
+# 50257, so its acceptance is reported and only the oracle's must be > 0
+DRAFT_SEED = 1
+SPEC_TOKENS = 4
+DRAFT_MODEL = dict(vocab_size=50257, embed_dim=768, n_heads=12, n_layers=6,
+                   max_len=1024)
+SPEC_SAMPLED = ((0.8, 17), (0.8, 29))  # (temperature, seed)
+SPEC_SAMPLED_NEW = 24
 # flash_attention vs its plain version on the same inputs, per output:
 # float32 — o: both sum <= 1024 products p.v in f32 in other orders (the
 # kernel's running-max rescaling vs one softmax), |p v| <= |v| ~ 1; l: a sum
@@ -1220,6 +1273,34 @@ def flash_cases():
                     (2, 256, 256, 256, True, True)]
 
 
+def suffix_flash_cases():
+    """(B, Tq, Tk, D, causal, masked) of [9]'s suffix-prefill cases: a
+    group of 8 suffixes of bucket ts against Tpre + ts keys (the prefix
+    bucket's pages, then the suffix), causal (off = Tk - Tq: every prefix
+    key visible), with the holed key mask of :func:`_suffix_mask`."""
+    return [(8, ts, tpre + ts, GEN_HEAD_DIM, True, True)
+            for tpre in SUFFIX_PREFIX_BUCKETS for ts in SUFFIX_BUCKETS]
+
+
+def _suffix_mask(torch, gen, dev, b, ts, tpre, lens=None):
+    """[B, Tpre + ts] key mask of a suffix-prefill group: each row's prefix
+    valid to its length (< Tpre: the hole), padding to Tpre, then its
+    suffix valid to its length. ``lens`` = (prefix lengths, suffix
+    lengths) of an engine's group (its padding rows 0 and 0); without it
+    they are drawn, prefixes in [Tpre/2, Tpre), and the last row is group
+    padding (no valid key)."""
+    if lens is not None:
+        plen, slen = (torch.as_tensor(x, device=dev) for x in lens)
+    else:
+        plen = torch.randint(tpre // 2, tpre, (b,), generator=gen,
+                             device=dev)
+        slen = torch.randint(1, ts + 1, (b,), generator=gen, device=dev)
+        plen[-1] = slen[-1] = 0
+    pre = torch.arange(tpre, device=dev)[None, :] < plen[:, None]
+    suf = torch.arange(ts, device=dev)[None, :] < slen[:, None]
+    return torch.cat([pre, suf], dim=1).float()
+
+
 def _attention_inputs(torch, gen, dev, b, t, masked, dtype, tk=None,
                       d=GEN_HEAD_DIM):
     """q [B, 12, T, D], k, v [B, 12, Tk, D] (Tk = T unless given) and a
@@ -1249,43 +1330,57 @@ def _within(torch, got, ref, tol):
 
 def check_flash(torch, att, dev) -> dict:
     """flash_attention vs flash_attention_plain on the card at every case
-    of :func:`flash_cases`, float32 and bfloat16: o, l and m on the rows
-    with a valid key, and every row finite. Also: a CUDA input that
-    requires grad gets its gradient through the backward kernels."""
+    of :func:`flash_cases` and :func:`suffix_flash_cases`, float32 and
+    bfloat16: o, l and m on the rows with a valid key, and every row
+    finite. Also: a CUDA input that requires grad gets its gradient
+    through the backward kernels."""
     gen = torch.Generator(device=dev).manual_seed(2024)
     worst = {}
+
+    def check(b, tq, tk, d, causal, q, k, v, km, dtype):
+        o, l, m = att.flash_attention(q, k, v, km, causal, return_stats=True)
+        ro, rl, rm = att.flash_attention_plain(q, k, v, km, causal)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(o.float()).all() and torch.isfinite(l).all()
+                and torch.isfinite(m).all()):
+            raise AssertionError(f"flash_attention B={b} Tq={tq} Tk={tk} "
+                                 f"D={d} {dtype}: non-finite output")
+        rows = (km.sum(-1) > 0) if km is not None else \
+            torch.ones(b, dtype=torch.bool, device=dev)
+        for key, got, ref in (("o", o[rows], ro[rows]),
+                              ("l", l[rows], rl[rows]),
+                              ("m", m[rows], rm[rows])):
+            tol = ATTN_TOL[dtype][key]
+            err, bad = _within(torch, got, ref, tol)
+            worst[f"{dtype}.{key}"] = max(worst.get(f"{dtype}.{key}", 0.0),
+                                          err)
+            if bad:
+                raise AssertionError(
+                    f"flash_attention B={b} Tq={tq} Tk={tk} D={d} "
+                    f"causal={causal} {dtype} {key}: {bad} elements "
+                    f"outside atol={tol[0]} rtol={tol[1]} (max |err| "
+                    f"{err})")
+
     for b, tq, tk, d, causal, masked in flash_cases():
         for dtype, tdt in (("float32", torch.float32),
                            ("bfloat16", torch.bfloat16)):
             q, k, v, km = _attention_inputs(torch, gen, dev, b, tq, masked,
                                             tdt, tk=tk, d=d)
-            o, l, m = att.flash_attention(q, k, v, km, causal,
-                                          return_stats=True)
-            ro, rl, rm = att.flash_attention_plain(q, k, v, km, causal)
-            torch.cuda.synchronize()
-            if not (torch.isfinite(o.float()).all() and torch.isfinite(l).all()
-                    and torch.isfinite(m).all()):
-                raise AssertionError(f"flash_attention B={b} Tq={tq} Tk={tk} "
-                                     f"D={d} {dtype}: non-finite output")
-            rows = (km.sum(-1) > 0) if km is not None else \
-                torch.ones(b, dtype=torch.bool, device=dev)
-            for key, got, ref in (("o", o[rows], ro[rows]),
-                                  ("l", l[rows], rl[rows]),
-                                  ("m", m[rows], rm[rows])):
-                tol = ATTN_TOL[dtype][key]
-                err, bad = _within(torch, got, ref, tol)
-                worst[f"{dtype}.{key}"] = max(worst.get(f"{dtype}.{key}", 0.0),
-                                              err)
-                if bad:
-                    raise AssertionError(
-                        f"flash_attention B={b} Tq={tq} Tk={tk} D={d} "
-                        f"causal={causal} {dtype} {key}: {bad} elements "
-                        f"outside atol={tol[0]} rtol={tol[1]} (max |err| "
-                        f"{err})")
+            check(b, tq, tk, d, causal, q, k, v, km, dtype)
         zero = "" if not masked or b < 2 else ", a fully masked row finite"
         log(f"[9] flash_attention B={b} Tq={tq} Tk={tk} D={d} "
             f"causal={causal} masked={masked}: f32 and bf16 o, l, m within "
             f"tolerance{zero}")
+    for b, tq, tk, d, causal, _ in suffix_flash_cases():
+        for dtype, tdt in (("float32", torch.float32),
+                           ("bfloat16", torch.bfloat16)):
+            q, k, v, _ = _attention_inputs(torch, gen, dev, b, tq, False,
+                                           tdt, tk=tk, d=d)
+            km = _suffix_mask(torch, gen, dev, b, tq, tk - tq)
+            check(b, tq, tk, d, causal, q, k, v, km, dtype)
+        log(f"[9] flash_attention suffix prefill B={b} Tq={tq} Tk={tk} "
+            f"(prefix bucket {tk - tq}, holed mask, a group-padding row): "
+            f"f32 and bf16 o, l, m within tolerance, every row finite")
     # a CUDA input that requires grad gets its gradient from the kernels
     q = torch.randn((1, 2, 8, 64), device=dev, requires_grad=True)
     before = att.flash_attention_bwd.dq_launches
@@ -1483,7 +1578,18 @@ def _first_divergence(a, b):
     return None if len(a) == len(b) else min(len(a), len(b))
 
 
-def compare_streams(torch, ref_dec, got, ref, prompts, label) -> dict:
+def _last_logits(torch, dec, seq):
+    """``dec``'s prefill logits after the tokens ``seq`` (its stock or
+    kernel route, as configured)."""
+    with torch.inference_mode():
+        logits, _ = dec._run_prompt(
+            dec.params, torch.tensor([seq], device=dec.device),
+            torch.tensor([len(seq)], device=dec.device))
+    return logits[0].float()
+
+
+def compare_streams(torch, ref_dec, got, ref, prompts, label,
+                    phase="[11]") -> dict:
     """Greedy streams: identical, or the first divergence at a step where
     the reference's top-2 logit gap (its own prefill of the prompt and the
     tokens before that step) is below 2 * GEN_LOGIT_ATOL; the gap is
@@ -1494,15 +1600,10 @@ def compare_streams(torch, ref_dec, got, ref, prompts, label) -> dict:
         if i is None:
             out["identical"] += 1
             continue
-        seq = list(p) + list(r[:i])
-        with torch.inference_mode():
-            logits, _ = ref_dec._run_prompt(
-                ref_dec.params,
-                torch.tensor([seq], device=ref_dec.device),
-                torch.tensor([len(seq)], device=ref_dec.device))
-        top2 = torch.topk(logits[0].float(), 2).values
+        top2 = torch.topk(_last_logits(torch, ref_dec, list(p) + list(r[:i])),
+                          2).values
         gap = float(top2[0] - top2[1])
-        log(f"[11] {label}: request {j} diverges at step {i}: reference "
+        log(f"{phase} {label}: request {j} diverges at step {i}: reference "
             f"top-2 logit gap {gap:.3e} (limit {2 * GEN_LOGIT_ATOL:.1e})")
         if gap >= 2 * GEN_LOGIT_ATOL:
             raise AssertionError(f"{label}: request {j} diverges at step {i}"
@@ -1511,22 +1612,48 @@ def compare_streams(torch, ref_dec, got, ref, prompts, label) -> dict:
     return out
 
 
-def _engine_run(torch, dec, prompts, max_new, eos=None):
-    """One engine over the requests, all submitted at once: outputs and
-    the host-clock latencies."""
-    from deeplearning4j_tpu_torch.parallel.generation import (
-        GenerationConfig,
-        GenerationEngine,
-    )
+def compare_sampled(torch, ref_dec, got, ref, prompt, temp, seed,
+                    label) -> dict:
+    """A seeded sampled stream against the sequential sampler's: identical,
+    or parting at a step where the reference's Gumbel-perturbed scores
+    ``logits / temp - log(-log u)`` (u replayed from the request's
+    generator: draw i picks token i) have a top-2 gap below
+    2 * GEN_LOGIT_ATOL / temp. Otherwise the run fails."""
+    from deeplearning4j_tpu_torch.nn.decoding import request_generator
 
-    eos = eos or {}
-    with GenerationEngine(dec, GenerationConfig(**GEN_CONFIG)) as eng:
-        t0 = time.monotonic()
-        reqs = [eng.submit(p, max_new_tokens=max_new, eos_id=eos.get(j))
-                for j, p in enumerate(prompts)]
-        outs = [eng.result(r) for r in reqs]
-        wall = time.monotonic() - t0
-        stats = eng.stats()
+    i = _first_divergence(got, ref)
+    if i is None:
+        return {"identical": True}
+    logits = _last_logits(torch, ref_dec, list(prompt) + list(ref[:i]))
+    g = request_generator(seed, ref_dec.device)
+    for _ in range(i + 1):
+        u = torch.rand(logits.shape[-1], generator=g, device=logits.device)
+    z = logits / temp - torch.log(-torch.log(
+        u.clamp_min(torch.finfo(torch.float32).tiny)))
+    top2 = torch.topk(z, 2).values
+    gap, limit = float(top2[0] - top2[1]), 2 * GEN_LOGIT_ATOL / temp
+    log(f"[20] {label}: diverges at step {i}: perturbed top-2 gap "
+        f"{gap:.3e} (limit {limit:.1e})")
+    if gap >= limit:
+        raise AssertionError(f"{label}: diverges at step {i} with a "
+                             f"perturbed top-2 gap of {gap:.3e}")
+    return {"identical": False, "step": i, "gap": gap}
+
+
+def _sweep(eng, prompts, max_new, eos=None, extra=None):
+    """Submit every request to ``eng`` at once and wait for all: outputs,
+    the requests and the host-clock latencies. ``max_new`` is one count or
+    one per request; ``extra`` maps a request index to more ``submit``
+    arguments (temperature, seed)."""
+    eos, extra = eos or {}, extra or {}
+    counts = (max_new if isinstance(max_new, (list, tuple))
+              else [max_new] * len(prompts))
+    t0 = time.monotonic()
+    reqs = [eng.submit(p, max_new_tokens=counts[j], eos_id=eos.get(j),
+                       **extra.get(j, {}))
+            for j, p in enumerate(prompts)]
+    outs = [eng.result(r) for r in reqs]
+    wall = time.monotonic() - t0
     ttft = sorted((r.t_first - r.t0) * 1e3 for r in reqs)
     per_tok = sorted((r.t_done - r.t_first) / (len(r.out) - 1) * 1e3
                      for r in reqs if len(r.out) > 1)
@@ -1537,7 +1664,24 @@ def _engine_run(torch, dec, prompts, max_new, eos=None):
         "ttft_ms_p95": ttft[min(len(ttft) - 1,
                                 math.ceil(0.95 * len(ttft)) - 1)],
         "token_ms_p50": statistics.median(per_tok),
-    }, stats
+    }
+
+
+def _engine_run(torch, dec, prompts, max_new, eos=None, extra=None,
+                **config):
+    """One engine (GEN_CONFIG, updated by ``config``) over the requests,
+    all submitted at once: outputs, the host-clock latencies and the
+    engine's stats."""
+    from deeplearning4j_tpu_torch.parallel.generation import (
+        GenerationConfig,
+        GenerationEngine,
+    )
+
+    with GenerationEngine(dec, GenerationConfig(**dict(GEN_CONFIG,
+                                                       **config))) as eng:
+        outs, timing = _sweep(eng, prompts, max_new, eos, extra)
+        stats = eng.stats()
+    return outs, timing, stats
 
 
 def serve_gpt2(torch, dev, model_kw=None, n_requests=GEN_REQUESTS,
@@ -1638,6 +1782,7 @@ def serve_gpt2(torch, dev, model_kw=None, n_requests=GEN_REQUESTS,
     if not logit_err <= GEN_LOGIT_ATOL:
         raise AssertionError(f"prefill logits differ by {logit_err}")
     return {"net": net, "dec": dec, "stock": stock, "prompts": prompts,
+            "seq": seq, "eos": eos, "zoo": zoo,
             "max_new": max_new, "params": n_params, "launches": launches,
             "stats": stats, "timing": timing, "logit_err": logit_err,
             "engine_vs_sequential": engine_vs_seq,
@@ -1666,6 +1811,40 @@ def decode_bound_ms(pos, s, h, d, size, page=64):
 def _weighted(rows, key):
     n = sum(r["count"] for r in rows)
     return sum(r[key] * r["count"] for r in rows) / n
+
+
+def _decode_row(torch, F, att, dev, gen, s, count) -> dict:
+    """One decode-kernel timing row at KV bucket ``s``: 8 rows x 12 heads x
+    64 at seeded positions in [S/2, S), the kernel (CUDA events and device
+    time), its plain version, SDPA with a live-slot mask and the bound;
+    ``count`` is the launches the engine run made at this bucket."""
+    h, d = GEN_MODEL["n_heads"], GEN_HEAD_DIM
+    pos = torch.randint(s // 2, s, (8,), generator=gen,
+                        device=dev).to(torch.int32)
+    q = torch.randn((8, h, d), generator=gen, device=dev)
+    kc, vc = (torch.randn((8, s, h, d), generator=gen, device=dev)
+              for _ in range(2))
+    live = (torch.arange(s, device=dev)[None, :]
+            <= pos[:, None])[:, None, None, :]
+    qs, ks, vs = q[:, :, None], kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
+    err = float((att.paged_decode_attention(q, kc, vc, pos)
+                 - att.paged_decode_attention_plain(q, kc, vc, pos))
+                .abs().max())
+    ops_ms, bytes_ms = decode_bound_ms(pos.tolist(), s, h, d, 4)
+    return {
+        "s": s, "positions": pos.tolist(), "count": count,
+        "max_abs_err": err,
+        "ms": cuda_time_ms(lambda: att.paged_decode_attention(q, kc, vc, pos)),
+        "device_ms": device_ms(
+            lambda: att.paged_decode_attention(q, kc, vc, pos), ["decode"]),
+        "plain_ms": cuda_time_ms(
+            lambda: att.paged_decode_attention_plain(q, kc, vc, pos)),
+        "library_ms": cuda_time_ms(
+            lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                   attn_mask=live)),
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_tc_ms": tc_bound_ms(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def time_attention(torch, F, att, dev, stats, n_layers) -> tuple:
@@ -1698,55 +1877,32 @@ def time_attention(torch, F, att, dev, stats, n_layers) -> tuple:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
         del q, k, v, km, keep
     for key, n in stats["windows"].items():
-        s = int(key)
-        pos = torch.randint(s // 2, s, (8,), generator=gen,
-                            device=dev).to(torch.int32)
-        q = torch.randn((8, h, d), generator=gen, device=dev)
-        kc, vc = (torch.randn((8, s, h, d), generator=gen, device=dev)
-                  for _ in range(2))
-        live = (torch.arange(s, device=dev)[None, :]
-                <= pos[:, None])[:, None, None, :]
-        qs, ks, vs = q[:, :, None], kc.permute(0, 2, 1, 3), \
-            vc.permute(0, 2, 1, 3)
-        err = float((att.paged_decode_attention(q, kc, vc, pos)
-                     - att.paged_decode_attention_plain(q, kc, vc, pos))
-                    .abs().max())
-        ops_ms, bytes_ms = decode_bound_ms(pos.tolist(), s, h, d, 4)
-        decode_rows.append({
-            "s": s, "positions": pos.tolist(),
-            "count": n * GEN_CONFIG["fused_steps"] * n_layers,
-            "max_abs_err": err,
-            "ms": cuda_time_ms(
-                lambda: att.paged_decode_attention(q, kc, vc, pos)),
-            "device_ms": device_ms(
-                lambda: att.paged_decode_attention(q, kc, vc, pos),
-                ["decode"]),
-            "plain_ms": cuda_time_ms(
-                lambda: att.paged_decode_attention_plain(q, kc, vc, pos)),
-            "library_ms": cuda_time_ms(
-                lambda: F.scaled_dot_product_attention(qs, ks, vs,
-                                                       attn_mask=live)),
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_tc_ms": tc_bound_ms(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
-        del q, kc, vc, live, qs, ks, vs
+        decode_rows.append(_decode_row(
+            torch, F, att, dev, gen, int(key),
+            n * GEN_CONFIG["fused_steps"] * n_layers))
     return flash_rows, decode_rows
+
+
+def shape_summary(rows, launches, scope) -> dict:
+    """A kernel's timings at one phase's shapes, weighted by the phase's
+    launches at each."""
+    return {"launches": launches, "scope": scope,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": _weighted(rows, "ms"),
+            "plain_ms": _weighted(rows, "plain_ms"),
+            "library_ms": _weighted(rows, "library_ms"),
+            "bound_ms": _weighted(rows, "bound_ms"),
+            "bound_tc_ms": _weighted(rows, "bound_tc_ms"),
+            "bound_by": max(("operations", "bytes"), key=lambda k: sum(
+                r["count"] for r in rows if r["bound_by"] == k)),
+            "shapes": rows}
 
 
 def attention_report(rows, launches, worst, name, source, replaces,
                      scope) -> dict:
-    row = {
-        "name": name, "route": "cuda", "source": source,
-        "replaces": replaces, "launches": launches[name],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": _weighted(rows, "ms"), "plain_ms": _weighted(rows, "plain_ms"),
-        "bound_ms": _weighted(rows, "bound_ms"),
-        "bound_tc_ms": _weighted(rows, "bound_tc_ms"),
-        "bound_by": max(("operations", "bytes"), key=lambda k: sum(
-            r["count"] for r in rows if r["bound_by"] == k)),
-        "library_ms": _weighted(rows, "library_ms"),
-        "scope": scope, "checked": worst, "shapes": rows,
-    }
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces,
+           **shape_summary(rows, launches[name], scope), "checked": worst}
     if all(r.get("device_ms") is not None for r in rows):
         row["device_ms"] = _weighted(rows, "device_ms")
     row["max_err"], row["time_ms"] = row["max_abs_err"], row["ms"]
@@ -1777,6 +1933,554 @@ def generation_throughput(torch, served, smi: str) -> dict:
                     "token_ms_p50"):
             out[f"{key}_{side}"] = statistics.median(r[key] for r in v)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the decode features: the prefix cache and speculative decoding
+# ---------------------------------------------------------------------------
+
+def prefix_requests(vocab: int, seed: int):
+    """[19]'s traffic: a seeded PREFIX_LEN-token shared prefix (a system
+    prompt). The cold sweep: 16 requests, the prefix and a distinct tail
+    of PREFIX_TAIL tokens each. The hot sweep: 8 follow-up turns (a cold
+    prompt and PREFIX_FOLLOW_UP more tokens: multi-turn chat, hitting the
+    cold prompt's own pages) and 8 new users (the prefix and a new tail),
+    interleaved, so one suffix group mixes prefix lengths."""
+    rng = np.random.default_rng(seed)
+
+    def draw(lo, hi):
+        return [int(t) for t in rng.integers(0, vocab, int(rng.integers(
+            lo, hi + 1)))]
+
+    shared = draw(PREFIX_LEN, PREFIX_LEN)
+    cold = [shared + draw(*PREFIX_TAIL) for _ in range(GEN_REQUESTS)]
+    follow = [cold[j] + draw(*PREFIX_FOLLOW_UP)
+              for j in range(GEN_REQUESTS // 2)]
+    new = [shared + draw(*PREFIX_TAIL) for _ in range(GEN_REQUESTS // 2)]
+    hot = [r for pair in zip(follow, new) for r in pair]
+    return cold, hot
+
+
+def _pinned(cache) -> int:
+    """Pins held on the prefix cache's pages (0 when every request has
+    released its path)."""
+    with cache._lock:
+        total, stack = 0, [cache._root]
+        while stack:
+            node = stack.pop()
+            for child in node.children.values():
+                stack.append(child)
+                total += child.refs
+        return total
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: n - before.get(k, 0) for k, n in after.items()
+            if n - before.get(k, 0)}
+
+
+def _kernel_launches(att) -> dict:
+    return {"flash_attention": att.flash_attention.launches,
+            "paged_decode_attention": att.paged_decode_attention.launches}
+
+
+def _group_spy(dec, groups):
+    """A stand-in for ``dec.suffix_prompt_fn`` that runs the decoder's own
+    and notes each suffix prefill's geometry and per-row prefix and suffix
+    lengths (padding rows 0 and 0) in ``groups``, so the kernel can be
+    timed under the masks the engine built."""
+    def make(ts, tpre, bp):
+        fn = type(dec).suffix_prompt_fn(dec, ts, tpre, bp)
+
+        def call(params, suffix, suf_lens, prefix_kv, prefix_lens, *rest):
+            groups.append({"ts": ts, "tpre": tpre,
+                           "plens": [int(x) for x in prefix_lens],
+                           "slens": [int(x) for x in suf_lens]})
+            return fn(params, suffix, suf_lens, prefix_kv, prefix_lens,
+                      *rest)
+        return call
+    return make
+
+
+def serve_prefix(torch, dev, gen) -> dict:
+    """[19] The prefix cache on [11]'s GPT-2-small-width LM (kernel route):
+    a cold sweep, then a hot sweep, through one GenerationEngine with
+    PREFIX_CONFIG; launches counted over the hot sweep alone (12 flash per
+    prefill or suffix prefill, 12 paged per decode step); every stream held
+    against sequential generate and against the same engine on the stock
+    route (use_kernels=False), under the near-tie rule; at least 16 hits
+    in the hot sweep and no pin left after close."""
+    from deeplearning4j_tpu_torch.parallel.generation import (
+        GenerationConfig,
+        GenerationEngine,
+    )
+    from deeplearning4j_tpu_torch.ops import attention as att
+
+    dec, stock, n_layers = gen["dec"], gen["stock"], GEN_MODEL["n_layers"]
+    cold, hot = prefix_requests(gen["zoo"].vocab_size, PREFIX_SEED)
+    cfg = GenerationConfig(**dict(GEN_CONFIG, **PREFIX_CONFIG))
+    page_mb = (PREFIX_CONFIG["prefix_page"] * n_layers * 2
+               * GEN_MODEL["embed_dim"] * 4 / 1e6)  # k and v, float32
+    t0 = time.monotonic()
+    warm = dec.warmup(
+        prompt_buckets=(8,) + SUFFIX_BUCKETS + SUFFIX_PREFIX_BUCKETS,
+        join_buckets=(GEN_CONFIG["max_batch"],),
+        kv_buckets=(GEN_KV_LADDER[0],), fused_steps=(), prefix=True)
+    log(f"[19] warmup: {len(warm['prefix'])} suffix-prefill geometries "
+        f"(prefix bucket, suffix bucket) in {time.monotonic() - t0:.1f} s")
+    groups = []  # the kernel engine's hot-sweep suffix prefills
+    out = {"requests": {"cold": len(cold), "hot": len(hot)},
+           "prefix_len": PREFIX_LEN, "config": dict(GEN_CONFIG,
+                                                   **PREFIX_CONFIG),
+           "suffix_groups": groups}
+    for side, d in (("kernel", dec), ("stock", stock)):
+        with GenerationEngine(d, dataclasses.replace(cfg)) as eng:
+            outs_c, t_cold = _sweep(eng, cold, GEN_MAX_NEW)
+            st0 = eng.stats()
+            if side == "kernel":
+                for fn in (att.flash_attention, att.paged_decode_attention):
+                    fn.launches = 0
+                d.suffix_prompt_fn = _group_spy(d, groups)
+            try:
+                outs_h, t_hot = _sweep(eng, hot, GEN_MAX_NEW)
+            finally:
+                vars(d).pop("suffix_prompt_fn", None)
+            torch.cuda.synchronize()
+            launches = _kernel_launches(att)
+            st1 = eng.stats()
+            cache = eng._prefix
+        if _pinned(cache):
+            raise AssertionError(f"[19] {side}: {_pinned(cache)} prefix "
+                                 "pins left after close")
+        pc0, pc1 = st0["prefix_cache"], st1["prefix_cache"]
+        hot_stats = {
+            "prefill_s": st1["prefill_seconds"] - st0["prefill_seconds"],
+            "decode_s": st1["decode_seconds"] - st0["decode_seconds"],
+            "hits": pc1["hits"] - pc0["hits"],
+            "misses": pc1["misses"] - pc0["misses"],
+            "pages": pc1["pages"], "evictions": pc1["evictions"],
+            "prefills": _delta(st1["prefills"], st0["prefills"]),
+            "suffix_prefills": _delta(st1["suffix_prefills"],
+                                      st0["suffix_prefills"]),
+            "windows": _delta(st1["windows"], st0["windows"])}
+        cold_stats = {"prefill_s": st0["prefill_seconds"],
+                      "decode_s": st0["decode_seconds"],
+                      "prefills": st0["prefills"], "windows": st0["windows"]}
+        out[side] = {"cold": t_cold, "hot": t_hot, "hot_stats": hot_stats,
+                     "cold_stats": cold_stats, "cold_hits": pc0["hits"],
+                     "outs": outs_c + outs_h}
+        log(f"[19] {side} route: cold sweep TTFT p50/p95 "
+            f"{t_cold['ttft_ms_p50']:.1f} / {t_cold['ttft_ms_p95']:.1f} ms, "
+            f"{t_cold['tokens_per_s']:.1f} tokens/s ({pc0['hits']} hits); "
+            f"hot sweep {t_hot['ttft_ms_p50']:.1f} / "
+            f"{t_hot['ttft_ms_p95']:.1f} ms, {t_hot['tokens_per_s']:.1f} "
+            f"tokens/s, {hot_stats['hits']} hits, {hot_stats['misses']} "
+            f"misses; {pc1['pages']} pages held ({pc1['pages'] * page_mb:.1f}"
+            f" MB on the card), "
+            f"{pc1['evictions']} evicted, no pins left after close; "
+            f"prefill / decode seconds cold {cold_stats['prefill_s']:.3f} / "
+            f"{cold_stats['decode_s']:.3f} (prefills "
+            f"{json.dumps(st0['prefills'])}), hot {hot_stats['prefill_s']:.3f}"
+            f" / {hot_stats['decode_s']:.3f} (suffix prefills "
+            f"{json.dumps(hot_stats['suffix_prefills'])})")
+        if hot_stats["hits"] < len(hot):
+            raise AssertionError(f"[19] {side}: {hot_stats['hits']} hits in "
+                                 f"the hot sweep, expected {len(hot)}")
+        if side == "kernel":
+            by_shape = {}
+            for key, n in hot_stats["suffix_prefills"].items():
+                ts, tpre = (int(v) for v in key.split("x"))
+                by_shape[f"{ts}x{tpre + ts}"] = n * n_layers
+            for key, n in hot_stats["prefills"].items():
+                tp = int(key.split("x")[0])
+                by_shape[f"{tp}x{tp}"] = (by_shape.get(f"{tp}x{tp}", 0)
+                                          + n * n_layers)
+            steps = sum(hot_stats["windows"].values()) \
+                * GEN_CONFIG["fused_steps"]
+            log(f"[19] hot sweep launches {json.dumps(launches)}: flash by "
+                f"(Tq x Tk) {json.dumps(by_shape)}, {steps} decode steps")
+            if launches["flash_attention"] != sum(by_shape.values()) \
+                    or not launches["flash_attention"]:
+                raise AssertionError(
+                    f"[19] flash_attention launched "
+                    f"{launches['flash_attention']} times, expected "
+                    f"{sum(by_shape.values())}")
+            if launches["paged_decode_attention"] != n_layers * steps \
+                    or not steps:
+                raise AssertionError(
+                    f"[19] paged_decode_attention launched "
+                    f"{launches['paged_decode_attention']} times, expected "
+                    f"{n_layers * steps}")
+            out["launches"] = launches
+            out["flash_by_shape"] = by_shape
+    prompts = cold + hot
+    t0 = time.monotonic()
+    seq = [dec.generate(p, GEN_MAX_NEW) for p in prompts]
+    out["engine_vs_sequential"] = compare_streams(
+        torch, dec, out["kernel"]["outs"], seq, prompts,
+        "prefix-cache engine vs sequential generate", phase="[19]")
+    out["kernel_vs_stock"] = compare_streams(
+        torch, stock, out["kernel"]["outs"], out["stock"]["outs"], prompts,
+        "prefix-cache engine, kernel vs use_kernels=False", phase="[19]")
+    log(f"[19] streams: engine vs sequential "
+        f"{out['engine_vs_sequential']['identical']}/{len(prompts)} "
+        f"identical, kernel vs stock engine "
+        f"{out['kernel_vs_stock']['identical']}/{len(prompts)} identical "
+        f"(sequential references in {time.monotonic() - t0:.1f} s)")
+    out["prompts"], out["seq"] = prompts, seq
+    return out
+
+
+def suffix_flash_bound_ms(plens, slens, tq, tk, h, d, size):
+    """(operations ms, bytes ms) of one suffix-prefill flash launch at a
+    group's own lengths: row b's live query i (i < slens[b]) sees its
+    plens[b] valid prefix keys and suffix keys 0..i (causal), 4·D
+    operations a (query, key) pair per head; the live q rows and the live
+    K and V rows read once, the key mask read once, o written whole
+    (padding rows and prefix padding need no work)."""
+    pairs = sum(s * p + s * (s + 1) / 2 for p, s in zip(plens, slens))
+    rows_kv = sum(p + s for p, s in zip(plens, slens))
+    b = len(plens)
+    ops = 4.0 * h * pairs * d
+    nbytes = (h * d * (sum(slens) + 2 * rows_kv + b * tq) * size
+              + b * tk * 4)
+    return (ops / PEAK_OPS_PER_S["float32"] * 1e3,
+            nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def time_suffix_flash(torch, F, att, dev, groups, n_layers) -> list:
+    """[19] The flash kernel at each of the hot sweep's suffix prefills, as
+    the engine ran it: 8 rows x 12 heads x Tq = ts against Tk = tpre + ts
+    keys, f32, seeded q, k, v under the group's own holed key mask (its
+    prefix and suffix lengths, its padding rows); the kernel, its plain
+    version, SDPA with the boolean causal (off = Tk - Tq) + key mask, and
+    the bound of the group's live work."""
+    gen = torch.Generator(device=dev).manual_seed(78)
+    h, d = GEN_MODEL["n_heads"], GEN_HEAD_DIM
+    rows = []
+    for g in groups:
+        ts, tpre, b = g["ts"], g["tpre"], len(g["plens"])
+        tk = tpre + ts
+        q, k, v, _ = _attention_inputs(torch, gen, dev, b, ts, False,
+                                       torch.float32, tk=tk)
+        km = _suffix_mask(torch, gen, dev, b, ts, tpre,
+                          lens=(g["plens"], g["slens"]))
+        keep = ((torch.arange(tk, device=dev)[None, :]
+                 <= torch.arange(ts, device=dev)[:, None] + tpre)[None, None]
+                & (km > 0)[:, None, None, :])
+        valid = km.sum(-1) > 0
+        err = float((att.flash_attention(q, k, v, km, True)
+                     - att.flash_attention_plain(q, k, v, km, True)[0])
+                    [valid].abs().max())
+        ops_ms, bytes_ms = suffix_flash_bound_ms(g["plens"], g["slens"], ts,
+                                                 tk, h, d, 4)
+        rows.append({
+            "b": b, "tq": ts, "tk": tk, "count": n_layers,
+            "prefix_lens": g["plens"], "suffix_lens": g["slens"],
+            "max_abs_err": err,
+            "ms": cuda_time_ms(lambda: att.flash_attention(q, k, v, km,
+                                                           True)),
+            "plain_ms": cuda_time_ms(
+                lambda: att.flash_attention_plain(q, k, v, km, True)),
+            "library_ms": cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=keep)),
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_tc_ms": tc_bound_ms(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"})
+        del q, k, v, km, keep
+    return rows
+
+
+def _spec_decoders(torch, dev, gen):
+    """[20]'s drafts, use_kernels, with the target's bucket geometry: an
+    oracle (the target's configuration and seed, built anew: its weights
+    must equal the target's) and a DistilGPT2-width draft (DRAFT_MODEL,
+    DRAFT_SEED)."""
+    from deeplearning4j_tpu_torch.zoo.graphs import TransformerEncoder
+
+    dec_kw = {k: GEN_CONFIG[k] for k in ("max_batch", "kv_bucket_min",
+                                         "prompt_bucket_min")}
+    oracle = TransformerEncoder(causal=True, lm_head=True, use_kernels=True,
+                                seed=GEN_SEED, **GEN_MODEL).decoder(
+        device=dev, **dec_kw)
+    tp, op = gen["dec"].params, oracle.params
+    if not all(torch.equal(tp[n][k], op[n][k]) for n in tp for k in tp[n]):
+        raise AssertionError("[20] the oracle draft's weights differ from "
+                             "the target's")
+    distil = TransformerEncoder(causal=True, lm_head=True, use_kernels=True,
+                                seed=DRAFT_SEED, **DRAFT_MODEL).decoder(
+        device=dev, **dec_kw)
+    return {"oracle": oracle, "distilgpt2": distil}
+
+
+def spec_requests(gen):
+    """[20]'s traffic: [11]'s 16 greedy prompts (its eos request too), one
+    prompt of max_len - K tokens decoding to the context edge (while it
+    runs, max_pos + K + 1 > max_len: every window is the plain fallback),
+    and two sampled requests (SPEC_SAMPLED, prompts of 16 to max_len / 4
+    tokens)."""
+    rng = np.random.default_rng(GEN_SEED + 20)
+    vocab, max_len = gen["zoo"].vocab_size, GEN_MODEL["max_len"]
+    prompts = list(gen["prompts"])
+    max_new = [gen["max_new"]] * len(prompts)
+    edge = max_len - SPEC_TOKENS
+    prompts.append([int(t) for t in rng.integers(0, vocab, edge)])
+    max_new.append(max_len - edge)
+    extra = {}
+    for temp, seed in SPEC_SAMPLED:
+        extra[len(prompts)] = {"temperature": temp, "seed": seed}
+        prompts.append([int(t) for t in rng.integers(
+            0, vocab, int(rng.integers(16, max_len // 4 + 1)))])
+        max_new.append(SPEC_SAMPLED_NEW)
+    return prompts, max_new, extra
+
+
+def serve_spec(torch, dev, gen, drafts) -> dict:
+    """[20] Speculative decoding: [11]'s target (kernel route) with
+    spec_tokens=SPEC_TOKENS and each draft in turn, over
+    :func:`spec_requests`; launches counted over each run alone (12 flash
+    per target prefill and draft-layers per draft prefill; 12 paged per
+    fallback step and draft-layers per draft step); greedy streams held
+    against sequential generate (near-tie rule), sampled streams against
+    the sequential sampler with the same seed; the oracle's acceptance above
+    0 (the seeded draft's is reported); the fallback window used."""
+    from deeplearning4j_tpu_torch.ops import attention as att
+
+    dec, n_layers = gen["dec"], GEN_MODEL["n_layers"]
+    prompts, max_new, extra = spec_requests(gen)
+    n_greedy = len(gen["prompts"])
+    t0 = time.monotonic()
+    ref = list(gen["seq"]) + [dec.generate(prompts[n_greedy],
+                                           max_new[n_greedy])]
+    for j, kw in extra.items():
+        ref.append(dec.generate(prompts[j], max_new[j],
+                                temperature=kw["temperature"],
+                                seed=kw["seed"]))
+    log(f"[20] sequential references of the edge and sampled requests in "
+        f"{time.monotonic() - t0:.1f} s")
+    out = {"requests": len(prompts), "spec_tokens": SPEC_TOKENS,
+           "draft_models": {"oracle": dict(GEN_MODEL, seed=GEN_SEED),
+                            "distilgpt2": dict(DRAFT_MODEL,
+                                               seed=DRAFT_SEED)}}
+    for name, draft in drafts.items():
+        dl = len(draft._attn)
+        t0 = time.monotonic()
+        draft.warmup(fused_steps=(), spec_draft=(SPEC_TOKENS,))
+        dec.warmup(prompt_buckets=dec.prompt_ladder[:1], join_buckets=(1,),
+                   fused_steps=(), spec_steps=(SPEC_TOKENS,))
+        log(f"[20] {name} draft ({dl} layers): warmup in "
+            f"{time.monotonic() - t0:.1f} s")
+        for fn in (att.flash_attention, att.paged_decode_attention):
+            fn.launches = 0
+        outs, timing, stats = _engine_run(
+            torch, dec, prompts, max_new, gen["eos"], extra,
+            draft_conf=draft, spec_tokens=SPEC_TOKENS)
+        torch.cuda.synchronize()
+        launches = _kernel_launches(att)
+        sp = stats["speculative"]
+        fallback = sum(stats["windows"].values()) * GEN_CONFIG["fused_steps"]
+        verify = sum(sp["verify_windows"].values())
+        want = {"flash_attention": n_layers * sum(stats["prefills"].values())
+                + dl * sp["draft_prefills"],
+                "paged_decode_attention": n_layers * fallback
+                + dl * SPEC_TOKENS * verify}
+        log(f"[20] {name} draft: {timing['tokens']} tokens in "
+            f"{timing['wall_s']:.2f} s ({timing['tokens_per_s']:.1f} "
+            f"tokens/s), acceptance {sp['acceptance']:.4f} "
+            f"({sp['accepted']}/{sp['drafted']} drafted tokens over "
+            f"{sp['windows']} row windows), {verify} verify steps "
+            f"{json.dumps(sp['verify_windows'])}, {fallback} fallback "
+            f"steps, {sp['draft_prefills']} draft prefills; launches "
+            f"{json.dumps(launches)} (the draft's paged decode "
+            f"{dl * SPEC_TOKENS * verify})")
+        if launches != want or not all(launches.values()):
+            raise AssertionError(f"[20] {name}: launches {launches}, "
+                                 f"expected {want}")
+        if name == "oracle" and not sp["acceptance"] > 0:
+            raise AssertionError("[20] the oracle draft: acceptance 0")
+        if not fallback:
+            raise AssertionError(f"[20] {name}: the edge request ran no "
+                                 "fallback window")
+        greedy = list(range(n_greedy + 1))
+        row = {"timing": timing, "speculative": sp, "launches": launches,
+               "fallback_steps": fallback,
+               "draft_paged_launches": dl * SPEC_TOKENS * verify,
+               "greedy_vs_sequential": compare_streams(
+                   torch, dec, [outs[j] for j in greedy],
+                   [ref[j] for j in greedy], [prompts[j] for j in greedy],
+                   f"{name} draft vs sequential generate", phase="[20]"),
+               "sampled_vs_sequential": [compare_sampled(
+                   torch, dec, outs[j], ref[j], prompts[j],
+                   kw["temperature"], kw["seed"],
+                   f"{name} draft, sampled request {j}")
+                   for j, kw in extra.items()]}
+        log(f"[20] {name} draft: greedy streams "
+            f"{row['greedy_vs_sequential']['identical']}/{len(greedy)} "
+            f"identical to sequential generate; sampled "
+            f"{sum(r['identical'] for r in row['sampled_vs_sequential'])}"
+            f"/{len(extra)} identical to the sequential sampler")
+        out[name] = row
+    return out
+
+
+def spec_throughput(torch, gen, drafts, smi: str) -> dict:
+    """[20] Tokens/s over [11]'s 16 greedy requests: [11]'s plain engine
+    and the speculating engine with each draft, in turns (plain, oracle,
+    distilgpt2, distilgpt2, oracle, plain); medians per engine."""
+    turns = ["plain"] + list(drafts) + list(drafts)[::-1] + ["plain"]
+    runs = {t: [] for t in turns}
+    for t in turns:
+        cfg = {} if t == "plain" else {"draft_conf": drafts[t],
+                                       "spec_tokens": SPEC_TOKENS}
+        _, timing, _ = _engine_run(torch, gen["dec"], gen["prompts"],
+                                   gen["max_new"], **cfg)
+        runs[t].append(timing)
+    out = {"card": smi, "turns": turns}
+    for t, v in runs.items():
+        for key in ("tokens_per_s", "ttft_ms_p50", "token_ms_p50"):
+            out[f"{key}_{t}"] = statistics.median(r[key] for r in v)
+    return out
+
+
+def serve_prefix_spec(torch, gen, pre, drafts) -> dict:
+    """[20] Both features at once: [19]'s cold and hot sweeps through one
+    engine with PREFIX_CONFIG and the oracle draft (the seeded DistilGPT2
+    width accepts nothing: with it no drafted token would follow a prefix
+    hit); streams held against [19]'s sequential references; the hot
+    sweep must hit the cache for every request and accept drafted tokens
+    (the draft prefilled the whole prompt of a hit row and synced behind
+    its attached pages); no pin left after close."""
+    from deeplearning4j_tpu_torch.parallel.generation import (
+        GenerationConfig,
+        GenerationEngine,
+    )
+
+    cfg = GenerationConfig(**dict(GEN_CONFIG, **PREFIX_CONFIG),
+                           draft_conf=drafts["oracle"],
+                           spec_tokens=SPEC_TOKENS)
+    half = len(pre["prompts"]) // 2
+    with GenerationEngine(gen["dec"], cfg) as eng:
+        outs, t_cold = _sweep(eng, pre["prompts"][:half], GEN_MAX_NEW)
+        st0 = eng.stats()
+        hot, t_hot = _sweep(eng, pre["prompts"][half:], GEN_MAX_NEW)
+        st1 = eng.stats()
+        cache = eng._prefix
+    if _pinned(cache):
+        raise AssertionError("[20] prefix + spec: pins left after close")
+    same = compare_streams(torch, gen["dec"], outs + hot, pre["seq"],
+                           pre["prompts"],
+                           "prefix cache + oracle draft vs sequential",
+                           phase="[20]")
+    hits = st1["prefix_cache"]["hits"] - st0["prefix_cache"]["hits"]
+    sp0, sp1 = st0["speculative"], st1["speculative"]
+    accepted = sp1["accepted"] - sp0["accepted"]
+    drafted = sp1["drafted"] - sp0["drafted"]
+    log(f"[20] prefix cache + oracle draft: {same['identical']}/"
+        f"{len(pre['prompts'])} streams identical to sequential generate; "
+        f"hot sweep {hits} hits, {accepted}/{drafted} drafted tokens "
+        f"accepted (whole run {sp1['acceptance']:.4f}); hot sweep TTFT "
+        f"p50 {t_hot['ttft_ms_p50']:.1f} ms (cold "
+        f"{t_cold['ttft_ms_p50']:.1f}), {t_hot['tokens_per_s']:.1f} "
+        f"tokens/s")
+    if hits < len(pre["prompts"]) - half:
+        raise AssertionError(f"[20] prefix + spec: {hits} hits in the hot "
+                             f"sweep, expected {len(pre['prompts']) - half}")
+    if not accepted > 0:
+        raise AssertionError("[20] prefix + spec: no drafted token "
+                             "accepted after the hot sweep's prefix hits")
+    return {"draft": "oracle", "streams": same,
+            "prefix_cache": st1["prefix_cache"],
+            "speculative": sp1, "hot_hits": hits,
+            "hot_accepted": accepted, "hot_drafted": drafted,
+            "cold": t_cold, "hot": t_hot}
+
+
+def decode_features(torch, F, att, dev, gen, fl, pd, smi) -> tuple:
+    """[19] and [20] on [11]'s model ``gen``: the phases, the kernels'
+    timings at their shapes (added to the flash row ``fl`` and the decode
+    row ``pd`` of the kernels line) and the two result lines."""
+    n_layers = GEN_MODEL["n_layers"]
+
+    # 19. the prefix cache, on [11]'s model
+    pre = serve_prefix(torch, dev, gen)
+    groups = pre["suffix_groups"]
+    if len(groups) != sum(pre["kernel"]["hot_stats"]["suffix_prefills"]
+                          .values()):
+        raise AssertionError(
+            f"[19] {len(groups)} suffix prefills seen, the engine's stats "
+            f"count {pre['kernel']['hot_stats']['suffix_prefills']}")
+    suffix_rows = time_suffix_flash(torch, F, att, dev, groups, n_layers)
+    for r in suffix_rows:
+        log(f"[19] flash_attention suffix prefill B={r['b']} Tq={r['tq']} "
+            f"Tk={r['tk']} x{r['count']} (prefix lengths "
+            f"{r['prefix_lens']}, suffix lengths {r['suffix_lens']}): "
+            f"kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, FFMA), "
+            f"{r['bound_tc_ms']:.4f} ms (3xTF32)")
+    fl["suffix_prefill"] = shape_summary(
+        suffix_rows, pre["launches"]["flash_attention"],
+        "one launch of the hot sweep's suffix prefills (8 rows x 12 heads x "
+        "Tq = suffix bucket against Tk = prefix bucket + Tq keys, causal, "
+        "each group's own holed key mask and padding rows), float32; bound "
+        "of the live (query, key) pairs and K/V rows; launches = the hot "
+        "sweep's (suffix and cold prefills); library = SDPA with the "
+        "boolean causal + key mask")
+    sf = fl["suffix_prefill"]
+    log(f"[19] per suffix-prefill launch: flash_attention {sf['ms']:.4f} ms "
+        f"(plain {sf['plain_ms']:.4f}, SDPA {sf['library_ms']:.4f}, bound "
+        f"{sf['bound_ms']:.4f} {sf['bound_by']}, 3xTF32 "
+        f"{sf['bound_tc_ms']:.4f}) [{smi}]")
+
+    # 20. speculative decoding, on [11]'s model
+    drafts = _spec_decoders(torch, dev, gen)
+    spec = serve_spec(torch, dev, gen, drafts)
+    dgen = torch.Generator(device=dev).manual_seed(79)
+    dl = DRAFT_MODEL["n_layers"]
+    spec_rows = [_decode_row(torch, F, att, dev, dgen, int(key),
+                             n * SPEC_TOKENS * dl)
+                 for key, n in spec["distilgpt2"]["speculative"][
+                     "verify_windows"].items()]
+    for r in spec_rows:
+        log(f"[20] paged_decode_attention in the distilgpt2 draft's windows "
+            f"S={r['s']} x{r['count']}: kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']} ms), plain {r['plain_ms']:.4f} ms, SDPA "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    pd["spec_draft"] = shape_summary(
+        spec_rows, spec["distilgpt2"]["launches"]["paged_decode_attention"],
+        "one launch of the distilgpt2 draft's decode steps (8 rows x 12 "
+        "heads x 64 against [8, S, 12, 64] caches, seeded positions in "
+        "[S/2, S)), float32, by KV bucket; launches = the whole [20] run's "
+        "(draft steps and the target's fallback steps)")
+    if all(r.get("device_ms") is not None for r in spec_rows):
+        pd["spec_draft"]["device_ms"] = _weighted(spec_rows, "device_ms")
+    spec_line = spec_throughput(torch, gen, drafts, smi)
+    both = serve_prefix_spec(torch, gen, pre, drafts)
+    log(f"[20] {GEN_REQUESTS} greedy requests x {GEN_MAX_NEW} tokens, in "
+        f"turns: plain engine {spec_line['tokens_per_s_plain']:.1f} "
+        f"tokens/s, oracle draft {spec_line['tokens_per_s_oracle']:.1f}, "
+        f"distilgpt2 draft {spec_line['tokens_per_s_distilgpt2']:.1f} "
+        f"[{smi}]")
+    prefix_line = {
+        "card": smi, "config": pre["config"], "requests": pre["requests"],
+        "prefix_len": pre["prefix_len"], "launches": pre["launches"],
+        "flash_by_shape": pre["flash_by_shape"],
+        "engine_vs_sequential": pre["engine_vs_sequential"],
+        "kernel_vs_stock": pre["kernel_vs_stock"]}
+    for side in ("kernel", "stock"):
+        prefix_line[side] = {k: pre[side][k] for k in (
+            "cold", "hot", "hot_stats", "cold_stats", "cold_hits")}
+    spec_line.update({k: spec[k] for k in ("requests", "spec_tokens",
+                                           "draft_models")})
+    for name in drafts:
+        spec_line[name] = {k: spec[name][k] for k in (
+            "timing", "speculative", "launches", "fallback_steps",
+            "draft_paged_launches", "greedy_vs_sequential",
+            "sampled_vs_sequential")}
+    spec_line["prefix_and_spec"] = both
+    return prefix_line, spec_line
 
 
 # ---------------------------------------------------------------------------
@@ -2646,6 +3350,10 @@ def main() -> int:
         f"{gen_line['ttft_ms_p50_kernel']:.1f} ms), stock "
         f"{gen_line['tokens_per_s_stock']:.1f} tokens/s (TTFT p50 "
         f"{gen_line['ttft_ms_p50_stock']:.1f} ms) [{smi}]")
+
+    # 19-20. the prefix cache and speculative decoding, on [11]'s model
+    prefix_line, spec_line = decode_features(torch, F, att, dev, gen, fl, pd,
+                                             smi)
     del gen
     torch.cuda.empty_cache()
 
@@ -2727,6 +3435,8 @@ def main() -> int:
     log(json.dumps({"generated": gen_line}))
     log(json.dumps({"trained_lm": lm_line}))
     log(json.dumps({"served_int8": int8_line}))
+    log(json.dumps({"prefix_cached": prefix_line}))
+    log(json.dumps({"speculative": spec_line}))
     log(f"[18] total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

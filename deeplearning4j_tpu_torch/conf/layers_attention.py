@@ -21,8 +21,9 @@ time]`` (valid where ``> 0``).
 The KV-cached decode path (``init_kv_cache`` / ``prefill`` /
 ``decode_step``) keeps caches ``[max_batch, max_len, n_heads, head_size]``
 and writes them IN PLACE (the JAX package donates them into its compiled
-step for the same effect). ``decode_chunk`` and ``prefill_suffix``
-(speculative decoding, prefix cache) are not ported yet.
+step for the same effect); ``decode_chunk`` scores a window of tokens
+against them (the speculative verifier) and ``prefill_suffix`` prefills a
+prompt's suffix against cached prefix pages (the prefix cache).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from deeplearning4j_tpu_torch.conf import inputs as it
 from deeplearning4j_tpu_torch.conf.layers import BaseLayer
 from deeplearning4j_tpu_torch.ops.attention import (
     cache_update,
+    chunk_decode_attention,
     decode_attention,
     dot_product_attention,
 )
@@ -102,6 +104,11 @@ class SelfAttentionLayer(BaseLayer):
     attention_impl: str = "auto"  # auto|flash|blockwise|reference
 
     uses_mask = True
+
+    def streaming_safe(self) -> bool:
+        # attention needs the WHOLE sequence; per-segment rnn_time_step
+        # calls would attend only within each call's window
+        return False
 
     def _head_size(self, n_in):
         if not self.project_input:
@@ -228,3 +235,62 @@ class SelfAttentionLayer(BaseLayer):
             o = decode_attention(q, cache["k"], cache["v"], positions)
         y = F.linear(o.reshape(b, nh * hs), params["Wo"], params["bo"])
         return self.activation.apply(y), cache
+
+    def decode_chunk(self, params, x, cache, positions):
+        """A ``t``-token window of causal attention against the KV cache,
+        the multi-token twin of :meth:`decode_step` (the speculative
+        verifier). ``x [batch, t, features]``; token ``i`` of row ``b``
+        occupies slot ``positions[b] + i``. Writes the window's k/v block
+        into ``cache`` IN PLACE (clamped as :func:`ops.attention
+        .cache_update` says), attends through
+        :func:`ops.attention.chunk_decode_attention` and returns ``(y
+        [batch, t, features_out], cache)``. Stays on the stock core under
+        ``use_kernels``, as in the JAX package: the window's per-row cache
+        offsets do not fit the flash kernel's single ``Tk - Tq`` causal
+        rule."""
+        self._decode_check()
+        b, t, _ = x.shape
+        nh = self.n_heads
+        hs = params["Wk"].shape[0] // nh
+        q = F.linear(x, params["Wq"], params["bq"]).reshape(b, t, nh, hs)
+        k_new = F.linear(x, params["Wk"], params["bk"]).reshape(b, t, nh, hs)
+        v_new = F.linear(x, params["Wv"], params["bv"]).reshape(b, t, nh, hs)
+        cache_update(cache["k"], k_new, positions)
+        cache_update(cache["v"], v_new, positions)
+        o = chunk_decode_attention(q, cache["k"], cache["v"], positions)
+        y = F.linear(o.reshape(b, t, nh * hs), params["Wo"], params["bo"])
+        return self.activation.apply(y), cache
+
+    def prefill_suffix(self, params, x, prefix_k, prefix_v, prefix_mask,
+                       key_mask=None, use_kernels=False):
+        """Prompt-suffix prefill against an already-projected prefix, the
+        prefix-cache twin of :meth:`prefill`. ``x [batch, t_suffix,
+        features]``; ``prefix_k/prefix_v [batch, t_prefix, n_heads,
+        head_size]`` are the cached pages (padding masked by ``prefix_mask
+        [batch, t_prefix]``). The suffix queries attend ``[prefix ;
+        suffix]`` with the key mask ``[prefix_mask ; key_mask]`` and the
+        causal rule ``j <= i + (Tk - Tq)``: every prefix key is visible to
+        every suffix query, the suffix is causal within itself. The core
+        goes through the flash kernel under ``use_kernels``. Returns ``(y,
+        k, v)`` with ``y`` zeroed on masked suffix rows and ``k/v`` the
+        SUFFIX blocks only (cache layout)."""
+        self._decode_check()
+        b, t, _ = x.shape
+        nh = self.n_heads
+        hs = params["Wk"].shape[0] // nh
+        q = F.linear(x, params["Wq"], params["bq"])
+        k = F.linear(x, params["Wk"], params["bk"]).reshape(b, t, nh, hs)
+        v = F.linear(x, params["Wv"], params["bv"]).reshape(b, t, nh, hs)
+        k_full = torch.cat([prefix_k.to(k.dtype), k], dim=1)
+        v_full = torch.cat([prefix_v.to(v.dtype), v], dim=1)
+        if key_mask is None:
+            key_mask = torch.ones((b, t), dtype=x.dtype, device=x.device)
+        mask = torch.cat([prefix_mask.to(x.dtype), key_mask.to(x.dtype)],
+                         dim=1)
+        o = _attn_core(_split_heads(q, nh), k_full.permute(0, 2, 1, 3),
+                       v_full.permute(0, 2, 1, 3), mask, True,
+                       self.attention_impl, False, use_kernels)
+        y = self.activation.apply(F.linear(_merge_heads(o), params["Wo"],
+                                           params["bo"]))
+        y = y * key_mask.to(y.dtype)[:, :, None]
+        return y, k, v

@@ -15,6 +15,14 @@ head) gets the two phases of a serving decoder:
   with EOS / max-token masking, so rows that finish inside the window
   become no-ops.
 
+Two serving features ride on these: speculative decoding (``spec_draft_fn``
+runs a draft decoder's window from the target's cursor, ``spec_verify_fn``
+scores the K drafted tokens in one wide step and emits what the target's
+own sampling rule gives) and the prefix cache (``prefix_attach_fn`` copies
+cached KV pages into a row, ``suffix_prompt_fn`` prefills only the
+prompt's suffix against them, ``suffix_join_fn`` writes the suffix behind
+the prefix).
+
 Eager PyTorch has no compiled executables: the ``*_fn`` factories keep the
 JAX package's names and bucket arguments and return plain callables, and
 ``warmup()`` runs one prefill and one window per bucket instead of
@@ -33,7 +41,10 @@ Semantics kept from the JAX package where torch differs:
   ``jnp.argmax`` does;
 - sampling: each request draws from its own ``torch.Generator`` (seeded
   per request; ``jax.random`` bits cannot be matched), one draw per
-  emitted token, so a row's tokens never depend on its co-tenants.
+  emitted token, so a row's tokens never depend on its co-tenants; the
+  verifier draws for each of its K+1 positions and then puts the
+  generator back to its state after the emitted ones, so a speculated
+  stream is the sequential one.
 
 Scheduling lives in ``parallel.generation``; :meth:`TransformerDecoder
 .generate` is the sequential one-request reference the engine is held to.
@@ -283,6 +294,73 @@ class TransformerDecoder:
             acts[name] = y
         return logits, kv
 
+    def _run_chunk(self, params, tokens, positions, caches):
+        """A ``[B, T]`` window of tokens through the graph against the
+        caches in one wide step: token ``i`` of row ``b`` sits at slot
+        ``positions[b] + i``. Returns (per-position logits ``[B, T, V]``,
+        caches updated in place); the speculative verifier scores every
+        drafted position from one call."""
+        t = tokens.shape[1]
+        acts = {self._input: tokens}
+        logits = None
+        for kind, name, spec in self._plan:
+            xs = [acts[src] for src in spec.inputs]
+            if kind == "attn":
+                y, caches[name] = self._layer(name).decode_chunk(
+                    params[name], xs[0], caches[name], positions)
+            elif kind == "pos":
+                idx = (positions[:, None]
+                       + torch.arange(t, device=positions.device)[None, :])
+                y = xs[0] + params[name]["P"][idx.clamp(0, self.max_len - 1)]
+            elif kind == "head":
+                logits = self._layer(name).pre_output(params[name], xs[0])
+                continue
+            else:
+                y, _ = spec.vertex.forward(params.get(name, {}), {}, xs)
+            acts[name] = y
+        return logits, caches
+
+    def _run_suffix(self, params, suffix, suf_lens, prefix_kv, prefix_lens):
+        """Prompt-suffix prefill walk against cached prefix KV pages:
+        ``suffix [Bp, Ts]`` holds each prompt's uncached tail,
+        ``prefix_kv[name]{k,v} [Bp, Tpre, heads, hd]`` the pages (valid up
+        to ``prefix_lens[b]``). Position embeddings are gathered at the
+        suffix tokens' true positions (``prefix_lens + i``) and every
+        attention layer attends ``[prefix ; suffix]``. Returns (logits at
+        each row's last valid suffix position ``[Bp, V]``, suffix-only kv
+        blocks)."""
+        ts = suffix.shape[1]
+        tpre = next(iter(prefix_kv.values()))["k"].shape[1]
+        dev = suffix.device
+        key_mask = (torch.arange(ts, device=dev)[None, :]
+                    < suf_lens[:, None]).to(self._dtype)
+        prefix_mask = (torch.arange(tpre, device=dev)[None, :]
+                       < prefix_lens[:, None]).to(self._dtype)
+        acts = {self._input: suffix}
+        kv = {}
+        logits = None
+        for kind, name, spec in self._plan:
+            xs = [acts[src] for src in spec.inputs]
+            if kind == "attn":
+                y, k, v = self._layer(name).prefill_suffix(
+                    params[name], xs[0], prefix_kv[name]["k"],
+                    prefix_kv[name]["v"], prefix_mask, key_mask,
+                    use_kernels=self.use_kernels)
+                kv[name] = {"k": k, "v": v}
+            elif kind == "pos":
+                idx = (prefix_lens[:, None]
+                       + torch.arange(ts, device=dev)[None, :])
+                y = xs[0] + params[name]["P"][idx.clamp(0, self.max_len - 1)]
+            elif kind == "head":
+                idx = (suf_lens - 1).clamp_min(0)
+                last = xs[0][torch.arange(xs[0].shape[0], device=dev), idx]
+                logits = self._layer(name).pre_output(params[name], last)
+                continue
+            else:
+                y, _ = spec.vertex.forward(params.get(name, {}), {}, xs)
+            acts[name] = y
+        return logits, kv
+
     # --- steps ----------------------------------------------------------------
     def _tensor(self, a, dtype):
         return torch.as_tensor(np.asarray(a)).to(device=self.device,
@@ -343,16 +421,31 @@ class TransformerDecoder:
     @_inference
     def _join(self, state, kv, rows, tok, lengths, max_new, eos, temps, rng,
               active, tp):
-        rows = np.asarray(rows).reshape(-1)
-        keep = np.nonzero(rows < self.max_batch)[0]
+        rows, keep, dst, src = self._kept_rows(rows)
         if keep.size == 0:
             return state
-        dst = torch.as_tensor(rows[keep], dtype=torch.long, device=self.device)
-        src = torch.as_tensor(keep, dtype=torch.long, device=self.device)
         for name, c in state["caches"].items():
             for key in ("k", "v"):
                 c[key][dst, :tp] = kv[name][key][src].to(c[key].dtype)
                 c[key][dst, tp:] = 0
+        return self._seed_rows(state, rows, keep, dst, src, tok, lengths,
+                               max_new, eos, temps, rng, active)
+
+    def _kept_rows(self, rows):
+        """Host row indices, the kept group slots (rows ``>= max_batch``
+        are padding and dropped, as the JAX scatter's ``mode="drop"``), and
+        both as device index tensors (``dst`` rows, ``src`` slots)."""
+        rows = np.asarray(rows).reshape(-1)
+        keep = np.nonzero(rows < self.max_batch)[0]
+        dst = torch.as_tensor(rows[keep], dtype=torch.long, device=self.device)
+        src = torch.as_tensor(keep, dtype=torch.long, device=self.device)
+        return rows, keep, dst, src
+
+    def _seed_rows(self, state, rows, keep, dst, src, tok, lengths, max_new,
+                   eos, temps, rng, active):
+        """Seed the joined rows' scheduler arrays: the first token, the
+        position and prompt length (the whole prompt's), max_new, eos,
+        liveness, temperature and generator."""
         lengths_t = self._tensor(lengths, torch.long)[src]
         state["tokens"][dst] = torch.as_tensor(tok, device=self.device)[src]
         state["positions"][dst] = lengths_t
@@ -395,18 +488,184 @@ class TransformerDecoder:
         state["active"] &= self._tensor(keep, torch.bool)
         return state
 
+    # --- speculative decoding (draft K, verify K+1 in one step) -----------
+    def spec_draft_fn(self, s: int, k: int):
+        """The draft side of a speculative iteration: ``fn(params, state,
+        tokens, positions, active) -> (state, drafts [K, B], emitted)``
+        sets the draft's cursor to the target's (``tokens``, ``positions``,
+        ``active`` come from the target's state and are copied, never
+        aliased) and runs the K-step window from there. The draft's k/v
+        for accepted slots are already right (an accepted draft token is
+        the emitted token), so the sync is pure bookkeeping."""
+        return functools.partial(self._spec_draft, k=int(k))
+
+    @_inference
+    def _spec_draft(self, params, state, tokens, positions, active, k):
+        self._spec_sync(state, tokens, positions, active)
+        return self._decode_window(params, state, k)
+
+    def spec_sync_fn(self, s: int):
+        """Set a draft state's cursor to the target's: ``fn(state, tokens,
+        positions, active) -> state`` (copies; caches untouched)."""
+        return self._spec_sync
+
+    @_inference
+    def _spec_sync(self, state, tokens, positions, active):
+        state["tokens"] = tokens.clone()
+        state["positions"] = positions.clone()
+        state["active"] = active.clone()
+        return state
+
+    def spec_verify_fn(self, s: int, k: int):
+        """The verifier: ``fn(params, state, drafts [K, B]) -> (state,
+        tokens [K+1, B], emitted [K+1, B], accepted [B])``. The window
+        ``[current token ; drafts]`` goes through :meth:`_run_chunk` in one
+        step; position ``i`` emits the token the TARGET samples there
+        (greedy, or a draw from the row's own generator, the rule
+        sequential decode applies), and emission goes on only while the
+        draft agreed at every earlier position and the row is live, so the
+        stream is the non-speculative one at any acceptance rate. All K+1
+        k/v blocks are written; ``positions`` advances by the emitted
+        count, and a sampled row's generator is set back to its state after
+        exactly that many draws. ``accepted`` counts the drafted tokens
+        that survived (emitted less the always-emitted first)."""
+        return functools.partial(self._spec_verify, k=int(k))
+
+    @_inference
+    def _spec_verify(self, params, state, drafts, k):
+        w = k + 1
+        active, p0 = state["active"], state["positions"]
+        drafts = torch.as_tensor(drafts, device=self.device).long()
+        window = torch.cat([state["tokens"][:, None], drafts.t()], dim=1)
+        logits, _ = self._run_chunk(params, window, p0, state["caches"])
+        temps, gens = state["temps_host"], state["rng"]
+        sampled = [b for b, (t, g) in enumerate(zip(temps, gens))
+                   if t > 0 and g is not None]
+        # one draw per position, one position at a time: a single draw of
+        # (K+1)·V uniforms would not reproduce K+1 separate draws
+        snaps = {b: [gens[b].get_state()] for b in sampled}
+        tstar = []
+        for i in range(w):
+            tstar.append(_sample_tokens(logits[:, i], temps, gens))
+            for b in sampled:
+                snaps[b].append(gens[b].get_state())
+        tstar = torch.stack(tstar)  # [K+1, B]
+        a = torch.cumprod((drafts == tstar[:k]).long(), dim=0).sum(dim=0)
+        emit, emits = active, []
+        for i in range(w):
+            if i > 0:
+                gen_prev = p0 + i + 1 - state["prompt_lens"]
+                emit = (emit & (a >= i) & (tstar[i - 1] != state["eos"])
+                        & (gen_prev < state["max_new"]))
+            emits.append(emit)
+        emitted = torch.stack(emits)  # [K+1, B]
+        e = emitted.long().sum(dim=0)
+        positions = p0 + e
+        last = tstar.gather(0, (e - 1).clamp_min(0)[None])[0]
+        tokens = torch.where(e > 0, last, state["tokens"])
+        gen_now = positions - state["prompt_lens"] + 1
+        state["active"] = ((e > 0) & (tokens != state["eos"])
+                           & (gen_now < state["max_new"]))
+        state["tokens"], state["positions"] = tokens, positions
+        if sampled:
+            e_host = e.cpu()
+            for b in sampled:
+                gens[b].set_state(snaps[b][int(e_host[b])])
+        return state, tstar, emitted, (e - 1).clamp_min(0)
+
+    # --- prefix cache -------------------------------------------------------
+    def prefix_attach_fn(self, s: int, tpre: int, bp: int):
+        """Copy cached prefix pages into joining rows: ``fn(state,
+        prefix_kv, rows, prefix_lens) -> state`` writes ``prefix_kv[name]
+        {k,v} [bp, tpre, heads, hd]`` into slots ``[0, tpre)`` of each kept
+        row (a copy: the cache keeps its pages) and sets the row's position
+        to its prefix length."""
+        return functools.partial(self._prefix_attach, tpre=int(tpre))
+
+    @_inference
+    def _prefix_attach(self, state, prefix_kv, rows, prefix_lens, tpre):
+        rows, keep, dst, src = self._kept_rows(rows)
+        if keep.size == 0:
+            return state
+        for name, c in state["caches"].items():
+            for key in ("k", "v"):
+                c[key][dst, :tpre] = prefix_kv[name][key][src].to(c[key].dtype)
+        state["positions"][dst] = self._tensor(prefix_lens, torch.long)[src]
+        return state
+
+    def suffix_prompt_fn(self, ts: int, tpre: int, bp: int):
+        """Suffix-only prefill of a prefix-cache hit group: like
+        :meth:`prompt_fn` over ``[bp, ts]`` suffix tokens attending the
+        prefix pages (:meth:`_run_suffix`): ``fn(params, suffix, suf_lens,
+        prefix_kv, prefix_lens, max_new, eos, temps, rng) -> (suffix kv,
+        first tokens, active, rng)``."""
+        return self._suffix_prompt
+
+    @_inference
+    def _suffix_prompt(self, params, suffix, suf_lens, prefix_kv,
+                       prefix_lens, max_new, eos, temps, rng):
+        logits, kv = self._run_suffix(
+            params, self._tensor(suffix, torch.long),
+            self._tensor(suf_lens, torch.long), prefix_kv,
+            self._tensor(prefix_lens, torch.long))
+        tok = _sample_tokens(logits, [float(t) for t in np.asarray(temps)],
+                             list(rng))
+        active = ((tok != self._tensor(eos, torch.long))
+                  & (self._tensor(max_new, torch.long) > 1))
+        return kv, tok, active, rng
+
+    def suffix_join_fn(self, s: int, ts: int, bp: int):
+        """Join a suffix-prefilled group behind its attached prefix:
+        ``fn(state, kv, rows, tok, prefix_lens, lengths, max_new, eos,
+        temps, rng, active) -> state`` writes row ``i``'s suffix block at
+        its own offset ``prefix_lens[i]`` (clamped to ``[0, s - ts]``, as
+        ``dynamic_update_slice``) and seeds the row as :meth:`join_fn` does,
+        with the position at the whole prompt's length. Padding slots
+        (rows ``>= max_batch``) are dropped."""
+        return functools.partial(self._suffix_join, ts=int(ts))
+
+    @_inference
+    def _suffix_join(self, state, kv, rows, tok, prefix_lens, lengths,
+                     max_new, eos, temps, rng, active, ts):
+        rows, keep, dst, src = self._kept_rows(rows)
+        if keep.size == 0:
+            return state
+        s = next(iter(state["caches"].values()))["k"].shape[1]
+        off = self._tensor(np.asarray(prefix_lens).reshape(-1)[keep],
+                           torch.long).clamp(0, s - ts)
+        slots = off[:, None] + torch.arange(ts, device=self.device)[None, :]
+        for name, c in state["caches"].items():
+            for key in ("k", "v"):
+                c[key][dst[:, None], slots] = kv[name][key][src].to(
+                    c[key].dtype)
+        return self._seed_rows(state, rows, keep, dst, src, tok, lengths,
+                               max_new, eos, temps, rng, active)
+
     # --- warmup -------------------------------------------------------------
+    def _ladder_floor(self, ladder: List[int], b: int) -> int:
+        """Smallest real length that maps to bucket ``b`` (one past the
+        previous ladder entry; 1 for the first)."""
+        i = ladder.index(b)
+        return 1 if i == 0 else ladder[i - 1] + 1
+
     def warmup(self, prompt_buckets=None, join_buckets=None, kv_buckets=None,
-               fused_steps=(1,)) -> dict:
+               fused_steps=(1,), spec_steps=(), spec_draft=(),
+               prefix=False) -> dict:
         """Run one prefill per (prompt bucket, join bucket) and one decode
         window per (KV bucket, K) on zero prompts, so the first request of
         each shape finds the kernel libraries built and cuBLAS's workspaces
         allocated (eager PyTorch has no executables to compile). The
-        defaults are every bucket of the ladders."""
+        defaults are every bucket of the ladders. ``spec_steps`` adds one
+        verify window per KV bucket that holds K+1 slots, ``spec_draft`` one
+        draft window per KV bucket, and ``prefix`` one suffix prefill per
+        feasible (prefix bucket, suffix bucket) pair of the prompt buckets
+        (some real prefix and suffix lengths map to it within ``max_len``),
+        padded to ``max_batch`` rows as the engine pads them."""
         pbs = list(prompt_buckets or self.prompt_ladder)
         jbs = list(join_buckets or self.join_ladder)
         kbs = list(kv_buckets or self.kv_ladder)
         params = self._net.params
+        nb = self.max_batch
         for tp in pbs:
             for bp in jbs:
                 ones = np.ones((bp,), np.int64)
@@ -417,10 +676,47 @@ class TransformerDecoder:
             state = self.new_state(s)
             for k in fused_steps:
                 self.decode_fn(s, int(k))(params, state)
+            for k in spec_steps:
+                if s >= int(k) + 1:  # the engine never verifies past S
+                    self.spec_verify_fn(s, int(k))(
+                        params, state, torch.zeros((int(k), nb),
+                                                   dtype=torch.long,
+                                                   device=self.device))
+            for k in spec_draft:
+                self.spec_draft_fn(s, int(k))(
+                    params, state, state["tokens"], state["positions"],
+                    state["active"])
+        pairs = []
+        if prefix:
+            ones = np.ones((nb,), np.int64)
+            for tpre in pbs:
+                m = self._ladder_floor(self.prompt_ladder, tpre)
+                pkv = {name: {key: torch.zeros(
+                    (nb, tpre, self._layer(name).n_heads,
+                     self._layer(name)._head_size(n_in)),
+                    dtype=self._dtype, device=self.device)
+                    for key in ("k", "v")}
+                    for name, n_in in self._attn.items()}
+                for ts in pbs:
+                    if m + self._ladder_floor(self.prompt_ladder, ts) \
+                            > self.max_len:
+                        continue
+                    self.suffix_prompt_fn(ts, tpre, nb)(
+                        params, np.full((nb, ts), self.pad_id, np.int64),
+                        ones * ts, pkv, ones * m, ones * 2, -ones,
+                        np.zeros((nb,)), [None] * nb)
+                    pairs.append((tpre, ts))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return {"prompt_buckets": pbs, "join_buckets": jbs, "kv_buckets": kbs,
-                "fused_steps": [int(k) for k in fused_steps]}
+        out = {"prompt_buckets": pbs, "join_buckets": jbs, "kv_buckets": kbs,
+               "fused_steps": [int(k) for k in fused_steps]}
+        if spec_steps:
+            out["spec_steps"] = [int(k) for k in spec_steps]
+        if spec_draft:
+            out["spec_draft"] = [int(k) for k in spec_draft]
+        if prefix:
+            out["prefix"] = pairs  # (prefix bucket, suffix bucket)
+        return out
 
     # --- sequential reference ----------------------------------------------
     def validate_request(self, tokens, max_new: int):

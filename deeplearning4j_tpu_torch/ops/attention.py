@@ -7,6 +7,8 @@ the same functions, signatures and semantics:
 - ``blockwise_attention``: online softmax over key blocks, a Python loop in
   place of ``lax.scan`` (differentiable through autograd);
 - ``decode_attention`` / ``cache_update``: the KV-cached single-token step;
+- ``chunk_decode_attention``: a window of tokens against the KV cache (the
+  speculative verifier; plain, as in the JAX package);
 - ``flash_attention``: an autograd Function over the forward kernel
   ``csrc/flash_attention.cu`` (replacing the Pallas ``_fwd_kernel``, with
   ``flash_attention_plain``) and the backward kernels
@@ -122,6 +124,22 @@ def decode_attention(q, k_cache, v_cache, positions, scale=None):
     s = s.masked_fill(~live[:, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhs,bshd->bhd", p, v_cache)
+
+
+def chunk_decode_attention(q, k_cache, v_cache, positions, scale=None):
+    """A ``t``-token window of causal attention against a preallocated KV
+    cache (the speculative verifier's read): ``q [batch, t, heads,
+    head_dim]``; query ``i`` of row ``b`` sits at slot ``positions[b] + i``
+    (its own k/v already written) and attends slots ``0 .. positions[b] +
+    i`` inclusive, the rest masked to ``NEG_INF``. Plain PyTorch: the JAX
+    package computes it in plain jnp, not in a kernel."""
+    s = torch.einsum("bthd,bshd->bhts", q, k_cache) * _scale(q, scale)
+    slot = torch.arange(k_cache.shape[1], device=q.device)[None, None, :]
+    qpos = (positions[:, None, None]
+            + torch.arange(q.shape[1], device=q.device)[None, :, None])
+    s = s.masked_fill(~(slot <= qpos)[:, None], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhts,bshd->bthd", p, v_cache)
 
 
 def cache_update(cache, new, positions):

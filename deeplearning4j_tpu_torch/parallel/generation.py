@@ -27,8 +27,24 @@ prefill at another join-bucket size runs cuBLAS at another row count,
 which may round differently; a greedy stream can then take the other side
 of a near tie.)
 
-The JAX package's prefix cache and draft-model speculation are not ported
-yet; configuring either raises ``NotImplementedError``.
+Two features ride on top, both off by default and composable:
+
+- **Radix-tree prefix caching** (``prefix_cache=True``): finished prefills
+  donate page-aligned KV blocks to a refcounted
+  :class:`~deeplearning4j_tpu_torch.parallel.prefix_cache.PrefixCache`
+  (pages stay on the card); a request pins the longest cached prefix at
+  submit, the engine copies the pinned pages into its row and prefills
+  only the suffix. Pins are released on every terminal edge (finish,
+  queue expiry, mid-generation deadline, dispatch failure, close).
+- **Draft-model speculative decoding** (``draft_conf=...``): a smaller
+  same-vocabulary draft decoder proposes ``spec_tokens`` tokens per
+  iteration with its own window; the target scores all K+1 positions in
+  one wide step and emits the accepted prefix plus one token of its own.
+  Emission replays the target's own sampling rule, so the output is the
+  non-speculative stream at any acceptance rate (greedy, and seeded
+  sampling through the row's generator). Near the context limit
+  (``pos + K + 1 > max_len``) the iteration falls back to the plain
+  window.
 """
 
 from __future__ import annotations
@@ -41,6 +57,7 @@ from collections import Counter, deque
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from deeplearning4j_tpu_torch import telemetry
 from deeplearning4j_tpu_torch.nn.decoding import (
@@ -53,6 +70,7 @@ from deeplearning4j_tpu_torch.parallel.batcher import (
     DeadlineExpiredError,
     ServerOverloadedError,
 )
+from deeplearning4j_tpu_torch.parallel.prefix_cache import PrefixCache
 from deeplearning4j_tpu_torch.resilience import faults
 from deeplearning4j_tpu_torch.resilience.breaker import (
     CircuitBreaker,
@@ -62,14 +80,12 @@ from deeplearning4j_tpu_torch.resilience.retry import SERVING_RETRY
 from deeplearning4j_tpu_torch.telemetry import tracing
 
 _ENGINE_SEQ = itertools.count(1)
-_LATER = "the prefix-cache and speculative-decoding slice"
 
 
 @dataclasses.dataclass
 class GenerationConfig:
-    """Scheduler policy knobs (the generation twin of ``BatchingConfig``).
-    ``draft_conf`` / ``spec_tokens`` and ``prefix_cache`` keep the JAX
-    package's fields; setting them raises until their slice lands."""
+    """Scheduler policy knobs (the generation twin of
+    ``BatchingConfig``)."""
 
     max_batch: int = 8          # KV-cache rows (running-batch capacity)
     fused_steps: int = 4        # K decode steps per window
@@ -78,15 +94,22 @@ class GenerationConfig:
     kv_bucket_min: int = 32     # smallest KV length bucket
     prompt_bucket_min: int = 8  # smallest prompt padding bucket
     max_new_default: int = 64   # max_new_tokens when the caller omits it
+    # speculative decoding: a smaller same-vocabulary causal LM (decoder /
+    # initialized graph / zoo config) that drafts spec_tokens tokens per
+    # iteration for the target to verify in one step. None = off.
     draft_conf: object = None
-    spec_tokens: Optional[int] = None
+    spec_tokens: Optional[int] = None  # draft window K (default fused_steps)
+    # radix-tree prompt-prefix KV cache: page size in tokens (the trie's
+    # granularity) and the LRU eviction budget in pages
     prefix_cache: bool = False
+    prefix_page: int = 16
+    prefix_cache_pages: int = 256
 
 
 class _GenRequest:
     __slots__ = ("tokens", "n", "max_new", "eos", "temp", "rng", "deadline",
                  "event", "out", "error", "t0", "t_first", "t_done", "row",
-                 "trace")
+                 "prefix_len", "prefix_nodes", "trace")
 
     def __init__(self, tokens, max_new, eos, temp, rng, deadline, t0,
                  trace=None):
@@ -104,6 +127,8 @@ class _GenRequest:
         self.t_first: Optional[float] = None  # first-token wall clock
         self.t_done: Optional[float] = None   # last-token wall clock
         self.row: Optional[int] = None
+        self.prefix_len = 0          # tokens served from the prefix cache
+        self.prefix_nodes: list = []  # pinned trie nodes (one pin each)
         self.trace = trace           # request trace (None when disabled)
 
 
@@ -129,11 +154,6 @@ class GenerationEngine:
                  retry=..., name: Optional[str] = None):
         self.config = config or GenerationConfig()
         cfg = self.config
-        if cfg.draft_conf is not None or cfg.spec_tokens is not None:
-            raise NotImplementedError(
-                f"draft-model speculative decoding lands with {_LATER}")
-        if cfg.prefix_cache:
-            raise NotImplementedError(f"the prefix cache lands with {_LATER}")
         self.name = name
         self._fault_site = (f"decode.launch:{name}" if name
                             else "decode.launch")
@@ -155,6 +175,18 @@ class GenerationEngine:
                 "ComputationGraph, or a zoo config with .decoder()")
         if self._dec.max_batch != cfg.max_batch:
             cfg.max_batch = self._dec.max_batch
+        self._draft_dec: Optional[TransformerDecoder] = None
+        self._draft_state = None
+        self._spec_k = int(cfg.spec_tokens or cfg.fused_steps)
+        if cfg.draft_conf is not None:
+            self._draft_dec = self._coerce_draft(cfg.draft_conf)
+        self._prefix = (PrefixCache(cfg.prefix_page, cfg.prefix_cache_pages)
+                        if cfg.prefix_cache else None)
+        self._spec_windows = 0   # per-row verify windows
+        self._spec_drafted = 0
+        self._spec_accepted = 0
+        self._verify_windows: Counter = Counter()  # KV bucket -> verify steps
+        self._draft_prefills = 0
         self._breaker = (CircuitBreaker(
             name=(f"serving:{name}" if name
                   else f"decode-{next(_ENGINE_SEQ)}"))
@@ -177,8 +209,50 @@ class GenerationEngine:
         self._prefill_seconds = 0.0
         self._decode_seconds = 0.0
         self._prefills: Counter = Counter()  # (prompt bucket, join bucket)
+        self._suffix_prefills: Counter = Counter()  # (suffix, prefix bucket)
         self._windows: Counter = Counter()   # KV bucket -> decode windows
         telemetry.register_generation_engine(self)
+
+    def _coerce_draft(self, model) -> TransformerDecoder:
+        """Build the draft decoder with the TARGET's bucket geometry, on the
+        target's device, and reject mismatches up front: the verifier
+        feeds the draft's proposals straight into the target's window, so
+        the two must agree on vocabulary, row count, context length and
+        every ladder."""
+        cfg = self.config
+        if isinstance(model, TransformerDecoder):
+            draft = model
+        elif hasattr(model, "params"):
+            draft = TransformerDecoder(
+                model, max_batch=cfg.max_batch, max_len=self._dec.max_len,
+                kv_bucket_min=cfg.kv_bucket_min,
+                prompt_bucket_min=cfg.prompt_bucket_min)
+        elif hasattr(model, "decoder"):
+            draft = model.decoder(
+                device=self._dec.device, max_batch=cfg.max_batch,
+                kv_bucket_min=cfg.kv_bucket_min,
+                prompt_bucket_min=cfg.prompt_bucket_min)
+        else:
+            raise TypeError(
+                "draft_conf must be a TransformerDecoder, a causal-LM "
+                "ComputationGraph, or a zoo config with .decoder()")
+        if draft.vocab_size != self._dec.vocab_size:
+            raise ValueError(
+                f"draft vocab {draft.vocab_size} != target "
+                f"{self._dec.vocab_size}: speculative tokens would be "
+                "meaningless to the verifier")
+        if (draft.max_batch != self._dec.max_batch
+                or draft.max_len != self._dec.max_len
+                or list(draft.kv_ladder) != list(self._dec.kv_ladder)
+                or list(draft.prompt_ladder) != list(
+                    self._dec.prompt_ladder)):
+            raise ValueError(
+                "draft/target bucket geometry must match (max_batch, "
+                "max_len, kv and prompt ladders)")
+        if draft.device != self._dec.device:
+            raise ValueError(f"draft on {draft.device}, target on "
+                             f"{self._dec.device}")
+        return draft
 
     # --- submit / wait ------------------------------------------------------
     def submit(self, tokens: Sequence[int], max_new_tokens: int = None,
@@ -215,27 +289,56 @@ class GenerationEngine:
         req = _GenRequest(toks, int(max_new_tokens),
                           -1 if eos_id is None else int(eos_id),
                           float(temperature), rng, deadline, t0, trace=trace)
-        with self._cond:
-            if self._stop:
-                tracing.finish_trace(trace, "shutdown")
-                raise RuntimeError("generation engine is closed")
-            if len(self._queue) >= self.config.max_queue:
-                telemetry.record_decode_request("rejected", model=self.name)
-                tracing.finish_trace(trace, "rejected")
-                raise ServerOverloadedError(
-                    f"generation queue full "
-                    f"({self.config.max_queue} waiting)")
-            if self._breaker is not None and not self._breaker.allow():
-                telemetry.record_decode_request("shed", model=self.name)
-                tracing.finish_trace(trace, "shed")
-                raise CircuitOpenError(
-                    f"circuit breaker {self._breaker.name!r} is "
-                    f"{self._breaker.state}; request shed")
-            self._queue.append(req)
-            tracing.trace_event(trace, "queued")
-            self._cond.notify_all()
+        if self._prefix is not None:
+            # pin the longest cached prefix now (refcounts on the whole
+            # path), so eviction cannot free its pages before the join;
+            # fits() rejects matches whose padded suffix bucket would push
+            # the row past max_len (the suffix join writes a ts-wide block
+            # at offset m, so m + bucket(n - m) must fit)
+            ladder = self._dec.prompt_ladder
+            m, nodes = self._prefix.match(
+                req.tokens, limit=req.n - 1,
+                fits=lambda mm: mm + bucket_for(
+                    req.n - mm, ladder) <= self._dec.max_len)
+            req.prefix_len = m
+            req.prefix_nodes = list(nodes)
+        try:
+            with self._cond:
+                if self._stop:
+                    tracing.finish_trace(trace, "shutdown")
+                    raise RuntimeError("generation engine is closed")
+                if len(self._queue) >= self.config.max_queue:
+                    telemetry.record_decode_request("rejected",
+                                                    model=self.name)
+                    tracing.finish_trace(trace, "rejected")
+                    raise ServerOverloadedError(
+                        f"generation queue full "
+                        f"({self.config.max_queue} waiting)")
+                if self._breaker is not None and not self._breaker.allow():
+                    telemetry.record_decode_request("shed", model=self.name)
+                    tracing.finish_trace(trace, "shed")
+                    raise CircuitOpenError(
+                        f"circuit breaker {self._breaker.name!r} is "
+                        f"{self._breaker.state}; request shed")
+                self._queue.append(req)
+                tracing.trace_event(
+                    trace, "queued",
+                    {"prefix_len": req.prefix_len} if req.prefix_len
+                    else None)
+                self._cond.notify_all()
+        except BaseException:
+            self._release_prefix(req)
+            raise
         self._ensure_thread()
         return req
+
+    def _release_prefix(self, req: _GenRequest):
+        """Drop the request's pins on its prefix-cache path. Called on
+        every terminal edge exactly once (the list is cleared), so the
+        tree's refcounts always return to steady state."""
+        nodes, req.prefix_nodes = req.prefix_nodes, []
+        if nodes and self._prefix is not None:
+            self._prefix.release(nodes)
 
     def result(self, req: _GenRequest) -> List[int]:
         """Block until ``req`` completes; returns its generated token ids
@@ -255,9 +358,22 @@ class GenerationEngine:
         """Run one prefill per (prompt bucket, join bucket) and one window
         per KV bucket at K = 1 and K = ``fused_steps`` (see
         ``TransformerDecoder.warmup``; ``kw`` narrows the buckets to those
-        the traffic will use)."""
+        the traffic will use). With a draft model every KV bucket's verify
+        window runs too and the draft warms its prefills and draft windows;
+        with the prefix cache every feasible suffix-prefill geometry
+        runs."""
         kw.setdefault("fused_steps", (1, self.config.fused_steps))
+        narrow = {key: kw[key] for key in ("prompt_buckets", "join_buckets",
+                                           "kv_buckets") if key in kw}
+        if self._draft_dec is not None:
+            kw.setdefault("spec_steps", (self._spec_k,))
+        if self._prefix is not None:
+            kw.setdefault("prefix", True)
         out = self._dec.warmup(**kw)
+        if self._draft_dec is not None:
+            out["draft"] = self._draft_dec.warmup(
+                fused_steps=(1, self.config.fused_steps),
+                spec_draft=(self._spec_k,), **narrow)
         out["kernels"] = {"enabled": self._dec.use_kernels}
         return out
 
@@ -267,7 +383,9 @@ class GenerationEngine:
     def stats(self) -> dict:
         """Scheduler counters: running-batch occupancy, rows in use,
         join / retire / token totals, the current KV bucket, the time
-        spent in prefill and decode, and the breaker's state."""
+        spent in prefill and decode, launches by geometry, the prefix
+        cache's and the speculation's counters where on, and the breaker's
+        state."""
         with self._cond:
             in_use = sum(r is not None for r in self._rows)
             out = {
@@ -283,16 +401,36 @@ class GenerationEngine:
                 "prefill_seconds": round(self._prefill_seconds, 4),
                 "decode_seconds": round(self._decode_seconds, 4),
                 # launches by geometry: "<prompt bucket>x<join bucket>"
-                # prefills and "<kv bucket>" windows of fused_steps steps
+                # prefills, "<suffix bucket>x<prefix bucket>" suffix
+                # prefills (max_batch rows each) and "<kv bucket>" plain
+                # windows of fused_steps steps
                 "prefills": {f"{tp}x{bp}": n for (tp, bp), n
                              in sorted(self._prefills.items())},
+                "suffix_prefills": {f"{ts}x{tpre}": n for (ts, tpre), n
+                                    in sorted(self._suffix_prefills.items())},
                 "windows": {str(s): n for s, n
                             in sorted(self._windows.items())},
             }
+            if self._draft_dec is not None:
+                drafted = self._spec_drafted
+                out["speculative"] = {
+                    "windows": self._spec_windows,
+                    "drafted": drafted,
+                    "accepted": self._spec_accepted,
+                    "acceptance": (self._spec_accepted / drafted
+                                   if drafted else 0.0),
+                    # verify steps (the whole batch's) by KV bucket
+                    "verify_windows": {str(s): n for s, n in sorted(
+                        self._verify_windows.items())},
+                    "draft_prefills": self._draft_prefills,
+                    "k": self._spec_k,
+                }
         out["buckets"] = {"kv": list(self._dec.kv_ladder),
                           "prompt": list(self._dec.prompt_ladder),
                           "join": list(self._dec.join_ladder)}
         out["kernels"] = {"enabled": self._dec.use_kernels}
+        if self._prefix is not None:
+            out["prefix_cache"] = self._prefix.stats()
         if self._breaker is not None:
             out["circuit_breaker"] = self._breaker.status()
         return out
@@ -327,7 +465,7 @@ class GenerationEngine:
                 joins = self._pick_joins_locked()
             try:
                 if joins:
-                    self._prefill_cold(joins)
+                    self._do_prefill(joins)
                 if self._n_active:
                     self._do_decode()
             except Exception as e:  # noqa: BLE001 — the loop must survive
@@ -345,6 +483,7 @@ class GenerationEngine:
                 telemetry.record_decode_request("expired", now - req.t0,
                                                 model=self.name)
                 tracing.finish_trace(req.trace, "expired")
+                self._release_prefix(req)
                 req.event.set()
             else:
                 live.append(req)
@@ -370,15 +509,56 @@ class GenerationEngine:
         if self._state is None:
             self._S = max(self._S, s2)
             self._state = self._dec.new_state(self._S)
+            if self._draft_dec is not None:
+                self._draft_state = self._draft_dec.new_state(self._S)
             return
         if s2 > self._S:
             self._state = self._dec.grow_fn(self._S, s2)(self._state)
+            if self._draft_dec is not None:
+                self._draft_state = self._draft_dec.grow_fn(
+                    self._S, s2)(self._draft_state)
             self._S = s2
 
+    def _dispatch(self, fn, joins):
+        """Run a prefill launch, retried once on a transient failure (a
+        prefill writes no state)."""
+        def once():
+            faults.fault_point(self._fault_site)
+            return fn()
+
+        if self._retry is None:
+            return once()
+        deadlines = [r.deadline for r in joins if r.deadline is not None]
+        return self._retry.call(
+            once, deadline=min(deadlines) if deadlines else None,
+            op=self._fault_site)
+
+    @torch.inference_mode()
+    def _do_prefill(self, joins: List[_GenRequest]):
+        """Prompt ingestion for this iteration's joins: cold prompts
+        prefill in one pass (and donate their KV pages to the prefix
+        cache); prefix-cache hits prefill only their suffix, grouped by
+        suffix bucket; with a draft model every join also prefills the
+        draft's cache (the whole prompt: the draft does not ride the
+        prefix cache), so speculation starts on the next window."""
+        cold = [r for r in joins if not r.prefix_len]
+        hits = [r for r in joins if r.prefix_len]
+        if cold:
+            self._prefill_cold(cold)
+        if hits:
+            groups = {}
+            for r in hits:
+                ts = bucket_for(r.n - r.prefix_len, self._dec.prompt_ladder)
+                groups.setdefault(ts, []).append(r)
+            for ts in sorted(groups):
+                self._prefill_suffix_group(groups[ts], ts)
+        if self._draft_dec is not None:
+            self._draft_prefill(joins)
+
     def _prefill_cold(self, joins: List[_GenRequest]):
-        """Prompt ingestion for this iteration's joins, in one pass padded
-        to the (prompt bucket, join bucket); padding rows have length 0
-        and target row ``max_batch`` (dropped by the join)."""
+        """One pass over the joins padded to the (prompt bucket, join
+        bucket); padding rows have length 0 and target row ``max_batch``
+        (dropped by the join)."""
         cfg = self.config
         t0 = time.monotonic()
         tp = bucket_for(max(r.n for r in joins), self._dec.prompt_ladder)
@@ -399,29 +579,150 @@ class GenerationEngine:
             eos[i] = r.eos
             temps[i] = r.temp
             rng[i] = r.rng
-
-        def once():
-            faults.fault_point(self._fault_site)
-            return self._dec.prompt_fn(tp, bp)(
-                self._dec.params, prompts, lengths, max_new, eos, temps, rng)
-
-        if self._retry is None:
-            kv, tok, active, rng2 = once()
-        else:
-            deadlines = [r.deadline for r in joins if r.deadline is not None]
-            kv, tok, active, rng2 = self._retry.call(
-                once, deadline=min(deadlines) if deadlines else None,
-                op=self._fault_site)
+        kv, tok, active, rng2 = self._dispatch(
+            lambda: self._dec.prompt_fn(tp, bp)(
+                self._dec.params, prompts, lengths, max_new, eos, temps,
+                rng), joins)
         self._state = self._dec.join_fn(self._S, tp, bp)(
             self._state, kv, rows, tok, lengths, max_new, eos, temps, rng2,
             active)
+        if self._prefix is not None:
+            self._insert_pages(joins, kv, offset=0)
         for r in joins:
             tracing.trace_event(r.trace, "prefill",
                                 {"prompt_bucket": tp, "rows": bp})
+        self._prefills[(tp, bp)] += 1
         self._account_prefill(joins, tok.cpu().numpy(),
-                              active.cpu().numpy(), tp, bp, t0)
+                              active.cpu().numpy(), bp, t0)
 
-    def _account_prefill(self, joins, tok, active, tp, bp, t0):
+    def _prefill_suffix_group(self, joins: List[_GenRequest], ts: int):
+        """One prefix-hit join group (shared suffix bucket ``ts``): the
+        pinned pages are assembled on the card into one padded ``[bp,
+        tpre, width]`` block (one copy per row), the suffix prefills
+        against per-layer views of it in one pass, then the pages are
+        copied into the rows (``prefix_attach``) and the
+        suffix kv lands at each row's own offset (``suffix_join``). Every
+        member passed the submit-time ``fits`` check for this ``ts``, so
+        ``prefix_len + ts <= max_len`` holds row by row. The group pads to
+        ``max_batch`` rows (one width per (ts, tpre) geometry); padding rows
+        have no valid key and are dropped by the joins."""
+        cfg = self.config
+        t0 = time.monotonic()
+        max_m = max(r.prefix_len for r in joins)
+        tpre = bucket_for(max_m, self._dec.prompt_ladder)
+        bp = cfg.max_batch
+        self._grow_to(max(max_m + ts, self._S))
+        suffix = np.full((bp, ts), self._dec.pad_id, np.int64)
+        suf_lens = np.zeros((bp,), np.int64)
+        plens = np.zeros((bp,), np.int64)
+        lengths = np.zeros((bp,), np.int64)
+        rows = np.full((bp,), cfg.max_batch, np.int64)  # padding: dropped
+        max_new = np.ones((bp,), np.int64)
+        eos = np.full((bp,), -1, np.int64)
+        temps = np.zeros((bp,), np.float64)
+        rng = [None] * bp
+        page = joins[0].prefix_nodes[0].kv
+        block = page.new_zeros((bp, tpre, page.shape[1]))
+        for i, r in enumerate(joins):
+            self._prefix.assemble(r.prefix_nodes, block[i])
+            suffix[i, :r.n - r.prefix_len] = r.tokens[r.prefix_len:]
+            suf_lens[i] = r.n - r.prefix_len
+            plens[i] = r.prefix_len
+            lengths[i] = r.n
+            rows[i] = r.row
+            max_new[i] = r.max_new
+            eos[i] = r.eos
+            temps[i] = r.temp
+            rng[i] = r.rng
+        # the decoder's per-layer views of the block: [bp, tpre, heads, hd]
+        pkv, col = {}, 0
+        for name, c in self._state["caches"].items():
+            shape = tuple(c["k"].shape[2:])  # (heads, hd)
+            w = shape[0] * shape[1]
+            pkv[name] = {key: block[:, :, col + j * w:col + (j + 1) * w]
+                         .unflatten(-1, shape)
+                         for j, key in enumerate(("k", "v"))}
+            col += 2 * w
+        kv, tok, active, rng2 = self._dispatch(
+            lambda: self._dec.suffix_prompt_fn(ts, tpre, bp)(
+                self._dec.params, suffix, suf_lens, pkv, plens, max_new,
+                eos, temps, rng), joins)
+        self._state = self._dec.prefix_attach_fn(self._S, tpre, bp)(
+            self._state, pkv, rows, plens)
+        self._state = self._dec.suffix_join_fn(self._S, ts, bp)(
+            self._state, kv, rows, tok, plens, lengths, max_new, eos, temps,
+            rng2, active)
+        # extend the trie with the hit requests' own suffix pages, so a
+        # longer shared prefix hits next time
+        self._insert_pages(joins, kv, offset="prefix")
+        for r in joins:
+            tracing.trace_event(r.trace, "prefix_attach",
+                                {"prefix_len": r.prefix_len,
+                                 "suffix_bucket": ts})
+        self._suffix_prefills[(ts, tpre)] += 1
+        self._account_prefill(joins, tok.cpu().numpy(),
+                              active.cpu().numpy(), bp, t0)
+
+    def _insert_pages(self, joins, kv, offset):
+        """Donate a prefill's kv to the prefix cache: the full pages of
+        each request's prompt that the trie lacks, each cut on the card out
+        of ``kv`` (the ``[bp, t, heads, hd]`` block per layer) into one new
+        ``[page, width]`` tensor in one copy (columns: each layer's k then
+        v, flattened, in the caches' order). ``offset`` is 0 for a cold
+        prefill, or ``"prefix"`` when ``kv`` holds only the
+        suffix (page starts shift down by the row's prefix length; the
+        prefix's pages are in the tree already and pinned, so the slicer is
+        never asked for them). The inserted path's pins join the request's
+        node list, so its own pages cannot be evicted before it retires and
+        every pin releases on the usual terminal edges."""
+        names = list(self._state["caches"])
+
+        def make_slicer(i, off):
+            def slicer(start, stop):
+                return torch.cat(
+                    [kv[name][key][i, start - off:stop - off].flatten(1)
+                     for name in names for key in ("k", "v")], dim=1)
+            return slicer
+
+        for i, r in enumerate(joins):
+            off = r.prefix_len if offset == "prefix" else 0
+            nodes = self._prefix.insert(r.tokens, r.n, make_slicer(i, off))
+            r.prefix_nodes = list(r.prefix_nodes) + list(nodes)
+
+    def _draft_prefill(self, joins: List[_GenRequest]):
+        """Prefill the DRAFT's cache for every join (the whole prompt, one
+        pass) and seed its rows with the TARGET's first token: the draft
+        row greedily extends the target's stream, never its own (eos -1,
+        max_new max_len, greedy: the draft never stops a row; the verifier
+        decides all emission)."""
+        d = self._draft_dec
+        cfg = self.config
+        tp = bucket_for(max(r.n for r in joins), d.prompt_ladder)
+        bp = bucket_for(len(joins), d.join_ladder)
+        prompts = np.full((bp, tp), d.pad_id, np.int64)
+        lengths = np.zeros((bp,), np.int64)
+        rows = np.full((bp,), cfg.max_batch, np.int64)
+        max_new = np.full((bp,), d.max_len, np.int64)
+        eos = np.full((bp,), -1, np.int64)
+        temps = np.zeros((bp,), np.float64)
+        tok = np.zeros((bp,), np.int64)
+        active = np.zeros((bp,), bool)
+        with self._cond:
+            for i, r in enumerate(joins):
+                prompts[i, :r.n] = r.tokens
+                lengths[i] = r.n
+                rows[i] = r.row
+                tok[i] = r.out[0]
+                active[i] = self._rows[r.row] is r
+        kv, _tok, _act, rng2 = self._dispatch(
+            lambda: d.prompt_fn(tp, bp)(d.params, prompts, lengths, max_new,
+                                        eos, temps, [None] * bp), joins)
+        self._draft_state = d.join_fn(self._S, tp, bp)(
+            self._draft_state, kv, rows, tok, lengths, max_new, eos, temps,
+            rng2, active)
+        self._draft_prefills += 1
+
+    def _account_prefill(self, joins, tok, active, bp, t0):
         now = time.monotonic()
         n_live = 0
         with self._cond:
@@ -439,7 +740,6 @@ class GenerationEngine:
             self._joined_total += len(joins)
             self._tokens_total += len(joins)
             self._prefill_seconds += now - t0
-            self._prefills[(tp, bp)] += 1
         telemetry.record_decode_prefill(len(joins), bp, now - t0)
         if self._breaker is not None:
             self._breaker.on_success()
@@ -451,13 +751,35 @@ class GenerationEngine:
         with self._cond:
             max_pos = max((self._positions[r.row] for r in self._rows
                            if r is not None), default=0)
-        self._grow_to(min(max_pos + k, self._dec.max_len))
+        # a speculative window needs K+1 cache slots past the deepest row
+        # (K drafts and the bonus position); past that the iteration falls
+        # back to the plain window (the clamped cache write would otherwise
+        # overwrite valid slots). The fallback can leave the draft's cache
+        # with unwritten slots, which lowers the draft's agreement but
+        # never changes the output (the verifier replays the target's own
+        # sampling rule)
+        ks = self._spec_k
+        spec = (self._draft_dec is not None
+                and max_pos + ks + 1 <= self._dec.max_len)
+        self._grow_to(min(max_pos + (ks + 1 if spec else k),
+                          self._dec.max_len))
         # no retry on decode windows: the state is updated in place, so a
         # failure mid-window may have consumed it — _on_dispatch_failure
         # resets instead
         faults.fault_point(self._fault_site)
-        self._state, toks, emitted = self._dec.decode_fn(self._S, k)(
-            self._dec.params, self._state)
+        accepted = None
+        if spec:
+            k = ks
+            d = self._draft_dec
+            self._draft_state, drafts, _ = d.spec_draft_fn(self._S, k)(
+                d.params, self._draft_state, self._state["tokens"],
+                self._state["positions"], self._state["active"])
+            self._state, toks, emitted, accepted = self._dec.spec_verify_fn(
+                self._S, k)(self._dec.params, self._state, drafts)
+            accepted = accepted.cpu().numpy()
+        else:
+            self._state, toks, emitted = self._dec.decode_fn(self._S, k)(
+                self._dec.params, self._state)
         toks = toks.cpu().numpy()
         emitted = emitted.cpu().numpy()
         now = time.monotonic()
@@ -465,11 +787,19 @@ class GenerationEngine:
         released = []
         with self._cond:
             occupancy = sum(r is not None for r in self._rows)
+            if spec:
+                self._verify_windows[self._S] += 1
             for b, req in enumerate(self._rows):
                 if req is None:
                     continue
+                if accepted is not None and emitted[0, b]:
+                    telemetry.record_spec_window(
+                        int(accepted[b]), k, int(emitted[:, b].sum()))
+                    self._spec_windows += 1
+                    self._spec_drafted += k
+                    self._spec_accepted += int(accepted[b])
                 tracing.trace_event(req.trace, "decode_window", {
-                    "k": k, "kv_bucket": self._S,
+                    "k": k, "kv_bucket": self._S, "speculative": spec,
                     "tokens": int(emitted[:, b].sum()),
                     "ms": round((now - t0) * 1000.0, 3)})
                 done = False
@@ -493,13 +823,15 @@ class GenerationEngine:
                                                     model=self.name)
                     tracing.finish_trace(req.trace, "expired",
                                          {"tokens": len(req.out)})
+                    self._release_prefix(req)
                     req.event.set()
                     self._rows[b] = None
                     self._n_active -= 1
                     released.append(b)
             self._tokens_total += n_emitted
             self._decode_seconds += now - t0
-            self._windows[self._S] += 1
+            if not spec:
+                self._windows[self._S] += 1
             rows_in_use = sum(r is not None for r in self._rows)
         if released:
             keep = np.ones((cfg.max_batch,), bool)
@@ -516,12 +848,13 @@ class GenerationEngine:
         self._retired_total += 1
         telemetry.record_decode_request("ok", now - req.t0, model=self.name)
         tracing.finish_trace(req.trace, "done", {"tokens": len(req.out)})
+        self._release_prefix(req)
         req.event.set()
 
     def _on_dispatch_failure(self, e: BaseException):
         """A prefill or decode raised. The state may be half-updated, so
         every in-flight request fails (the batcher fails its batch the same
-        way), the state is reset to zeros, and the breaker counts the
+        way), the states are reset to zeros, and the breaker counts the
         failure — persistent failure trips it open and submits shed."""
         with self._cond:
             for b, req in enumerate(self._rows):
@@ -531,30 +864,35 @@ class GenerationEngine:
                 telemetry.record_decode_request("error", model=self.name)
                 tracing.finish_trace(req.trace, "rollback",
                                      {"error": type(e).__name__})
+                self._release_prefix(req)
                 req.event.set()
                 self._rows[b] = None
             self._n_active = 0
             self._positions = [0] * self.config.max_batch
         self._state = self._dec.new_state(self._S)
+        if self._draft_dec is not None:
+            self._draft_state = self._draft_dec.new_state(self._S)
         if self._breaker is not None:
             self._breaker.on_failure()
 
     # --- lifecycle ----------------------------------------------------------
     def close(self):
         """Stop the decode loop; queued and in-flight requests fail with a
-        shutdown error. Idempotent."""
+        shutdown error and drop their prefix pins. Idempotent."""
         with self._cond:
             self._stop = True
             err = RuntimeError("generation engine closed")
             for req in self._queue:
                 req.error = err
                 tracing.finish_trace(req.trace, "shutdown")
+                self._release_prefix(req)
                 req.event.set()
             self._queue.clear()
             for b, req in enumerate(self._rows):
                 if req is not None:
                     req.error = err
                     tracing.finish_trace(req.trace, "shutdown")
+                    self._release_prefix(req)
                     req.event.set()
                     self._rows[b] = None
             self._n_active = 0
@@ -565,6 +903,7 @@ class GenerationEngine:
             t.join(timeout=30)
         self._thread = None
         self._state = None
+        self._draft_state = None
         return self
 
     def __enter__(self):

@@ -137,6 +137,50 @@ def record_decode_first_token(seconds: float) -> None:
                        help="submit-to-first-token latency").observe(seconds)
 
 
+def record_prefix_cache(hits: int = 0, misses: int = 0, evictions: int = 0,
+                        pages: int = None, hit_tokens: int = 0) -> None:
+    """Radix prefix-cache accounting: lookups that matched at least one
+    page vs cold misses, refcount-0 pages LRU-evicted, live page count
+    after the operation, and prompt tokens whose prefill was skipped."""
+    if hits:
+        REGISTRY.counter("dl4j_prefix_cache_hits_total",
+                         help="prompt lookups matching >=1 cached "
+                              "page").inc(hits)
+    if misses:
+        REGISTRY.counter("dl4j_prefix_cache_misses_total",
+                         help="prompt lookups with no cached "
+                              "prefix").inc(misses)
+    if evictions:
+        REGISTRY.counter("dl4j_prefix_cache_evictions_total",
+                         help="refcount-0 KV pages LRU-evicted").inc(
+            evictions)
+    if pages is not None:
+        REGISTRY.gauge("dl4j_prefix_cache_pages",
+                       help="live KV pages in the radix tree").set(pages)
+    if hit_tokens:
+        REGISTRY.counter("dl4j_prefix_cache_hit_tokens_total",
+                         help="prompt tokens served from cached KV "
+                              "(prefill skipped)").inc(hit_tokens)
+
+
+def record_spec_window(accepted: int, k: int, emitted: int) -> None:
+    """One speculative verify window of one row: drafted tokens accepted
+    out of the K proposed, plus the tokens emitted (accepted drafts and
+    the verifier's own bonus token)."""
+    REGISTRY.histogram("dl4j_spec_accepted_tokens",
+                       help="draft tokens accepted per verify "
+                            "window").observe(accepted)
+    REGISTRY.counter("dl4j_spec_draft_tokens_total",
+                     help="draft tokens proposed to the "
+                          "verifier").inc(k)
+    REGISTRY.counter("dl4j_spec_accepted_tokens_total",
+                     help="draft tokens accepted by the "
+                          "verifier").inc(accepted)
+    REGISTRY.counter("dl4j_spec_emitted_tokens_total",
+                     help="tokens emitted from verify windows "
+                          "(accepted + bonus)").inc(emitted)
+
+
 _SERVING_ENGINES = weakref.WeakSet()
 _GENERATION_ENGINES = weakref.WeakSet()
 

@@ -518,10 +518,34 @@ def test_engine_failure_fails_requests_then_recovers():
 
 
 def test_engine_refuses_unported_features_and_closes():
-    with pytest.raises(NotImplementedError):
-        GenerationEngine(_decoder(), GenerationConfig(prefix_cache=True))
-    with pytest.raises(NotImplementedError):
-        GenerationEngine(_decoder(), GenerationConfig(draft_conf=object()))
+    """The one decode-path feature the port still lacks is refused before
+    an engine exists: an MoE LM (its blocks wait for the expert-parallel
+    slice) raises NotImplementedError at its configuration. A closed
+    engine refuses later submits."""
+    with pytest.raises(NotImplementedError, match="MoE"):
+        TransformerEncoder(vocab_size=VOCAB, lm_head=True, causal=True,
+                           moe_experts=4)
+    eng = _engine()
+    eng.close()
+    with pytest.raises(RuntimeError):
+        eng.submit([1], max_new_tokens=1)
+
+
+def test_engine_close_fails_queued_and_refuses_submit():
+    """The prefix cache and draft-model speculation construct (their
+    behaviour is in test_torch_prefix_spec.py); a draft whose bucket
+    geometry differs from the target's is refused; close fails a queued
+    request and refuses later submits."""
+    GenerationEngine(_decoder(), GenerationConfig(
+        max_batch=MAX_BATCH, prefix_cache=True)).close()
+    GenerationEngine(_decoder(), GenerationConfig(
+        max_batch=MAX_BATCH, kv_bucket_min=16, prompt_bucket_min=4,
+        draft_conf=_decoder(), spec_tokens=4)).close()
+    other = TransformerDecoder(_port_net(), max_len=MAX_LEN,
+                               **dict(DEC_KW, kv_bucket_min=32))
+    with pytest.raises(ValueError, match="geometry"):
+        GenerationEngine(_decoder(), GenerationConfig(
+            max_batch=MAX_BATCH, draft_conf=other))  # another KV ladder
     eng = _engine()
     eng._ensure_thread = lambda: None
     req = eng.submit([1, 2], max_new_tokens=3)
