@@ -13,9 +13,10 @@ Phases, in order; any failure exits non-zero:
    sm_90a), print each kernel's registers and spills as ptxas reports
    them, and hold the probe kernel against its plain version;
 3. ``matmul_bias_act`` against its plain PyTorch version on the card: the
-   15 distinct (M, K, N) of ResNet-50's 36 1x1 convolutions at batch 32
-   plus two ragged shapes, float32 and bfloat16, activations identity,
-   relu and gelu;
+   15 distinct (M, K, N) of ResNet-50's 36 1x1 convolutions at batch 32,
+   [21]'s dense shapes (LeNet's 2450 -> 500 at M 64 and 256, SimpleCNN's
+   9216 -> 128 at M 32, and M 37) plus two ragged shapes, float32 and
+   bfloat16, activations identity, relu and gelu;
 4. the main path: full-width ResNet-50 (224x224x3, 1000 classes, seeded
    weights, ``use_kernels=True``) served by ``InferenceServer`` on
    127.0.0.1 with warmup, concurrent ``/predict`` requests (one uint8),
@@ -142,11 +143,29 @@ Phases, in order; any failure exits non-zero:
    seed; the oracle's acceptance above 0 (the seeded draft's reported:
    random LMs of unrelated weights rarely agree); the decode kernel at the
    draft windows' KV buckets; tokens/s against the plain engine in turns;
-   then both features at once over [19]'s sweeps, streams held.
+   then both features at once over [19]'s sweeps, streams held;
+21. MultiLayerNetwork training: LeNet (28x28x1, 1,256,080 params, the
+   zoo's configuration with Adam(2e-3)) trained by ``fit`` on the seeded
+   synthetic MNIST set (8192 examples, batch 64, 2 epochs: 256 steps) and
+   evaluated on 2048 test examples at batch 256, ``use_kernels=True``
+   against ``use_kernels=False`` from the same seed: the first 10 step
+   scores agree, both reach test accuracy 0.85 within 2 points of each
+   other, and ``matmul_bias_act`` launches exactly once per step and
+   evaluation batch over the kernel route's fit and evaluate; the trained
+   net written as the ModelSerializer zip and restored on the card (params,
+   updater state, counters and output bit for bit with cuDNN's
+   deterministic algorithms) and 5 more steps on both from the same
+   batches, params bit for bit; step time and examples/s per route in
+   turns, device time and idle share of 20 steps under ``torch.profiler``;
+   SimpleCNN (48x48x3, batch 32) 5 steps kernel route against stock
+   (step-1 gradients, scores, BN state), then its BN-folded serving copy
+   against ``fold_bn=False``; row 1 timed at the dense shapes beside its
+   plain version, ``F.linear`` + relu and the bound.
 
-Then one ``{"kernels": [...]}`` line with every kernel, the served,
-trained, generated, trained_lm, served_int8, prefix_cached and speculative
-lines, and last
+Then the ``{"trained_mln": ...}`` line, one ``{"kernels": [...]}`` line
+with every kernel (row 1 with its [21] shapes and launches), the served,
+trained, generated, trained_lm, served_int8, prefix_cached and
+speculative lines, and last
 ``{"ok": true, "device": {...}}``. The whole run takes a few minutes on an H100, the
 parallel build included.
 Without a CUDA card, or without the repository around it, the script exits
@@ -372,6 +391,35 @@ INT8_MAX_ULP = 1
 INT8_SERVED_TOL = (1e-6, 1e-3)
 # the kernel's CUDA function (split K and epilogue in the one launch)
 INT8_KERNEL_NAMES = ("mma_int8_kernel",)
+
+# [21] MultiLayerNetwork training. LeNet (the zoo's reference topology,
+# 28x28x1, 1,256,080 params) on the seeded synthetic MNIST: 8192 training
+# examples at batch 64 for 2 epochs (256 steps), 2048 test examples at
+# batch 256; Adam(2e-3) as tests/test_mnist_e2e.py trains it, whose
+# accuracy bar (0.85) both routes must reach, within 2 points of each
+# other. The first 10 step scores of the two routes are held to
+# TRAIN_LOSS_RTOL (the dense layer's 3xTF32 sums against cuBLAS's f32
+# sums, then Adam's sign-like first steps).
+LENET_TRAIN = dict(batch=64, num_examples=8192, seed=123)
+LENET_TEST = dict(batch=256, num_examples=2048)
+LENET_LR = 2e-3
+LENET_EPOCHS = 2
+LENET_COMPARE = 10
+LENET_MIN_ACC = 0.85
+LENET_ACC_GAP = 0.02
+LENET_PROFILE_STEPS = 20
+LENET_RESUME_STEPS = 5
+# SimpleCNN (48x48x3, three 3x3 conv + BN blocks, dense 128): 5 steps at
+# batch 32 on a seeded synthetic batch, kernel route against stock
+SIMPLECNN_BATCH = 32
+SIMPLECNN_STEPS = 5
+SIMPLECNN_SEED = 21
+# row 1 at [21]'s dense shapes (M, K, N): LeNet's 2450 -> 500 in training
+# (M 64) and evaluation (M 256), SimpleCNN's 9216 -> 128 (M 32), and a
+# ragged M; K = 2450 is no multiple of the kernel's 32-wide K step and
+# N = 500 no multiple of its 64-wide tile
+MLN_SHAPES = ((64, 2450, 500), (256, 2450, 500), (32, 9216, 128),
+              (37, 2450, 500))
 
 
 def log(msg: str) -> None:
@@ -656,9 +704,11 @@ def check_matmul(torch, impls, Activation, dev, shapes) -> dict:
                 err = float((y - ref).abs().max())
                 bad = int(((y - ref).abs() > atol + rtol * ref.abs()).sum())
                 worst[dtype] = max(worst.get(dtype, 0.0), err)
-                worst[f"{dtype}_of_tol"] = max(
-                    worst.get(f"{dtype}_of_tol", 0.0),
-                    float(((y - ref).abs() / (atol + rtol * ref.abs())).max()))
+                share = float(((y - ref).abs()
+                               / (atol + rtol * ref.abs())).max())
+                if share >= worst.get(f"{dtype}_of_tol", 0.0):
+                    worst[f"{dtype}_of_tol"] = share
+                    worst[f"{dtype}_of_tol_at"] = [m, k, n, act_name]
                 if bad or not torch.isfinite(y).all():
                     raise AssertionError(
                         f"matmul_bias_act m={m} k={k} n={n} {dtype} "
@@ -671,8 +721,9 @@ def check_matmul(torch, impls, Activation, dev, shapes) -> dict:
         f" bfloat16 {worst['bfloat16']:.3e} (tol atol="
         f"{KERNEL_TOL['bfloat16'][0]} rtol={KERNEL_TOL['bfloat16'][1]}); the "
         f"largest |kernel - plain| / (atol + rtol |plain|): float32 "
-        f"{worst['float32_of_tol']:.3f}, bfloat16 "
-        f"{worst['bfloat16_of_tol']:.3f}")
+        f"{worst['float32_of_tol']:.3f} (at {worst['float32_of_tol_at']}), "
+        f"bfloat16 {worst['bfloat16_of_tol']:.3f} (at "
+        f"{worst['bfloat16_of_tol_at']})")
     return worst
 
 
@@ -928,9 +979,10 @@ def _synthetic_batch(zoo_model, batch, seed):
 def _grad_errors(ga, gb, skip=()) -> dict:
     """Errors of gradients ``ga`` against ``gb``: the relative L2 error of
     all tensors together and the worst tensors by relative L2 error and by
-    max |ga - gb| / max |gb|. ``skip``: param names (``bk``) whose gradient
-    is zero in exact arithmetic, so rounding noise on both sides: counted
-    in the global error only."""
+    max |ga - gb| / max |gb|. ``skip``: param names (``bk``) or
+    ``key.name`` entries (``0.b``) whose gradient is zero in exact
+    arithmetic, so rounding noise on both sides: counted in the global
+    error only."""
     l2, maxrel = [], []
     num = den = 0.0
     for k in gb:
@@ -938,7 +990,7 @@ def _grad_errors(ga, gb, skip=()) -> dict:
             a, b = ga[k][p].double(), gb[k][p].double()
             d2, b2 = float(((a - b) ** 2).sum()), float((b * b).sum())
             num, den = num + d2, den + b2
-            if p in skip:
+            if p in skip or f"{k}.{p}" in skip:
                 continue
             l2.append(((d2 / max(b2, 1e-300)) ** 0.5, f"{k}.{p}"))
             maxrel.append((float((a - b).abs().max()
@@ -3162,6 +3214,406 @@ def int8_served_throughput(torch, served, smi: str, reps: int = 20) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [21] MultiLayerNetwork training: LeNet on synthetic MNIST, the zip, and
+# SimpleCNN
+# ---------------------------------------------------------------------------
+
+def mln_expected_launches(conf, forwards: int) -> int:
+    """``matmul_bias_act`` launches of ``forwards`` routed forwards of the
+    MultiLayerNetwork ``conf``: one per plain dense layer with an
+    elementwise activation (the routing's rule; the softmax head is not
+    routed)."""
+    from deeplearning4j_tpu_torch.conf.layers import DenseLayer
+    from deeplearning4j_tpu_torch.kernels import impls
+
+    routed = sum(1 for layer in conf.layers
+                 if isinstance(layer, DenseLayer)
+                 and type(layer).forward is DenseLayer.forward
+                 and impls.elementwise(layer.activation))
+    return routed * forwards
+
+
+def _lenet_net(torch, dev, use_kernels: bool):
+    from deeplearning4j_tpu_torch.conf.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    conf = dataclasses.replace(
+        LeNet(updater=Adam(learning_rate=LENET_LR)).conf(),
+        use_kernels=use_kernels)
+    return MultiLayerNetwork(conf, dev).init()
+
+
+def _profile_steps(torch, net, ds, steps: int) -> dict:
+    """Host time per ``fit_batch`` step and the device's kernel time over
+    ``steps`` steps under ``torch.profiler``; the idle share is 1 - device
+    time / wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    net.fit_batch(ds)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(steps):
+            net._fit_batch(ds)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) / steps * 1e3
+    kernels, launches = {}, 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA \
+                and evt.device_time > 0:
+            kernels[evt.name] = kernels.get(evt.name, 0.0) + evt.device_time
+            launches += 1
+    device_ms = sum(kernels.values()) / steps / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    host = sorted(((e.key, e.self_cpu_time_total)
+                   for e in prof.key_averages()), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+            "kernel_launches_per_step": launches / steps,
+            "top": [[name[:80], us / steps / 1e3] for name, us in top],
+            "host_top": [[name[:60], us / steps / 1e3] for name, us in host]}
+
+
+def mln_step_times(torch, nets: dict, ds, pairs: int = 5,
+                   steps: int = 20) -> dict:
+    """ms per ``fit_batch`` step (host clock around ``steps`` steps and a
+    synchronize), the routes in alternating turns on copies of the trained
+    nets, and examples/s."""
+    times = {side: [] for side in nets}
+    sides = list(nets)
+    for i in range(pairs):
+        for side in (sides if i % 2 == 0 else sides[::-1]):
+            net = nets[side]
+            net._fit_batch(ds)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for _ in range(steps):
+                net._fit_batch(ds)
+            torch.cuda.synchronize()
+            times[side].append((time.monotonic() - t0) / steps * 1e3)
+    batch = ds.num_examples()
+    out = {"pairs": pairs, "steps_per_turn": steps, "batch": batch}
+    for side, v in times.items():
+        out[f"step_ms_{side}"] = statistics.median(v)
+        out[f"examples_per_s_{side}"] = batch / statistics.median(v) * 1e3
+    return out
+
+
+def train_lenet(torch, impls, dev) -> dict:
+    """[21] LeNet (the reference topology, 1,256,080 params) trained by
+    ``MultiLayerNetwork.fit`` on synthetic MNIST, ``use_kernels=True``
+    against ``use_kernels=False`` from the same seed; evaluated on the
+    test set; launch counts over the kernel route's fit and evaluate."""
+    from deeplearning4j_tpu_torch.datasets.mnist import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresListener,
+    )
+
+    from deeplearning4j_tpu_torch.datasets.iterators import (
+        ArrayDataSetIterator,
+    )
+
+    nets, scores, accs, stats, launches = {}, {}, {}, {}, {}
+    t_data = time.monotonic()
+    train = MnistDataSetIterator(batch=LENET_TRAIN["batch"], train=True,
+                                 num_examples=LENET_TRAIN["num_examples"],
+                                 seed=LENET_TRAIN["seed"])
+
+    def batches():
+        """The training batches from epoch 0, as a fresh iterator (its
+        shuffle is seeded by seed + epoch)."""
+        return ArrayDataSetIterator(train.features, train.labels,
+                                    LENET_TRAIN["batch"], shuffle=True,
+                                    seed=LENET_TRAIN["seed"])
+
+    test = MnistDataSetIterator(batch=LENET_TEST["batch"], train=False,
+                                num_examples=LENET_TEST["num_examples"],
+                                shuffle=False)
+    data_s = time.monotonic() - t_data
+    if not (train.synthetic and test.synthetic):
+        raise AssertionError("[21] MNIST resolved to cached files, not the "
+                             "seeded synthetic set")
+    # one step on a throwaway net per route first, so the timed fits do
+    # not pay the process's first cuDNN / cuBLAS / kernel-library loads
+    for use_kernels in (True, False):
+        _lenet_net(torch, dev, use_kernels).fit_batch(next(iter(batches())))
+    for side, use_kernels in (("kernel", True), ("stock", False)):
+        net = _lenet_net(torch, dev, use_kernels)
+        collect = CollectScoresListener()
+        net.set_listeners(collect)
+        torch.cuda.synchronize()
+        impls.matmul_bias_act.launches = 0
+        t0 = time.monotonic()
+        net.fit(batches(), epochs=LENET_EPOCHS)
+        torch.cuda.synchronize()
+        fit_s = time.monotonic() - t0
+        ev = net.evaluate(test)
+        launches[side] = impls.matmul_bias_act.launches
+        net.set_listeners()
+        nets[side], scores[side], accs[side] = net, collect.scores, \
+            ev.accuracy()
+        stats[side] = {"fit_s": fit_s, "accuracy": ev.accuracy(),
+                       "f1": ev.f1(), "steps": net.iteration}
+        log(f"[21] LeNet {side} route: {net.iteration} steps in "
+            f"{fit_s:.2f} s, test accuracy {ev.accuracy():.4f}, score "
+            f"{scores[side][0]:.5f} -> {scores[side][-1]:.5f}")
+    steps = nets["kernel"].iteration
+    n_eval = -(-LENET_TEST["num_examples"] // LENET_TEST["batch"])
+    expected = mln_expected_launches(nets["kernel"].conf, steps + n_eval)
+    log(f"[21] matmul_bias_act launches over the kernel route's fit + "
+        f"evaluate: {launches['kernel']} counted, {expected} expected "
+        f"({steps} steps + {n_eval} eval batches); stock route "
+        f"{launches['stock']}")
+    if launches["kernel"] != expected or launches["stock"] != 0:
+        raise AssertionError(f"[21] matmul_bias_act launched "
+                             f"{launches['kernel']} times, expected "
+                             f"{expected} (stock route {launches['stock']})")
+    rel = [abs(a - b) / abs(b) for a, b in
+           zip(scores["kernel"][:LENET_COMPARE], scores["stock"])]
+    log(f"[21] first {LENET_COMPARE} step scores, kernel vs stock: max "
+        f"relative difference {max(rel):.3e} (step 1 {rel[0]:.3e}; tol "
+        f"{TRAIN_LOSS_RTOL})")
+    if not (rel[0] <= TRAIN_LOSS_RTOL[0] and max(rel) <= TRAIN_LOSS_RTOL[1]
+            and all(math.isfinite(v) for v in scores["kernel"])):
+        raise AssertionError(f"[21] step scores differ: {rel} (tol "
+                             f"{TRAIN_LOSS_RTOL})")
+    if min(accs.values()) < LENET_MIN_ACC or \
+            abs(accs["kernel"] - accs["stock"]) > LENET_ACC_GAP:
+        raise AssertionError(f"[21] test accuracy {accs} (each must reach "
+                             f"{LENET_MIN_ACC}, within {LENET_ACC_GAP})")
+    return {"nets": nets, "train": batches(), "test": test,
+            "scores": scores,
+            "rel": rel, "stats": stats, "launches": launches,
+            "expected": expected, "data_s": data_s}
+
+
+def check_zip_resume(torch, dev, net, train) -> dict:
+    """[21] the ModelSerializer zip on the card: write the trained net,
+    restore it, hold params, updater state, layer state, counters and
+    output bit for bit, then train both 5 more steps on the same batches
+    and hold the params as closely as the output."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.util import serializer
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/lenet.zip"
+            serializer.write_model(net, path)
+            size = len(open(path, "rb").read())
+            back = serializer.restore_multi_layer_network(path, device=dev)
+
+        def tree_diff(a, b):
+            return max((float((a[k][p] - b[k][p]).abs().max())
+                        for k in a for p in a[k]), default=0.0)
+
+        def opt_diff(a, b):
+            return max((float((a[k][p][s] - b[k][p][s]).abs().max())
+                        for k in a for p in a[k] for s in a[k][p]),
+                       default=0.0)
+
+        batches = [ds for _, ds in zip(range(LENET_RESUME_STEPS), train)]
+        x = batches[0].features
+        out = {
+            "zip_bytes": size,
+            "params": tree_diff(net.params, back.params),
+            "updater_state": opt_diff(net.opt_state, back.opt_state),
+            "counters": [[net.iteration, net.epoch],
+                         [back.iteration, back.epoch]],
+            "output": float(np.abs(net.output(x) - back.output(x)).max()),
+        }
+        for ds in batches:
+            net.fit_batch(ds)
+            back.fit_batch(ds)
+        out["params_after_resume"] = tree_diff(net.params, back.params)
+        out["updater_state_after_resume"] = opt_diff(net.opt_state,
+                                                     back.opt_state)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    log(f"[21] zip ({out['zip_bytes']} bytes) restored on the card: params "
+        f"{out['params']}, updater state {out['updater_state']}, counters "
+        f"{out['counters']}, output {out['output']} max |diff|; after "
+        f"{LENET_RESUME_STEPS} more steps on both: params "
+        f"{out['params_after_resume']}, updater state "
+        f"{out['updater_state_after_resume']}")
+    if out["params"] or out["updater_state"] or out["output"] or \
+            out["counters"][0] != out["counters"][1]:
+        raise AssertionError(f"[21] the restored net differs: {out}")
+    if out["params_after_resume"] > out["output"] or \
+            out["updater_state_after_resume"] > out["output"]:
+        raise AssertionError(f"[21] the resumed training differs: {out}")
+    return out
+
+
+def train_simplecnn(torch, impls, dev) -> dict:
+    """[21] SimpleCNN (48x48x3, three conv + BN blocks, dense 128) trained
+    5 steps at batch 32, kernel route against stock (``matmul_bias_act``
+    launches counted over the kernel route's gradient and steps); then the
+    BN-folded serving copy against the unfolded one."""
+    from deeplearning4j_tpu_torch.nn.inference_opt import (
+        optimize_for_inference,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import SimpleCNN
+
+    zoo = SimpleCNN()
+    zoo_conf = zoo.conf()
+    nets = [MultiLayerNetwork(dataclasses.replace(zoo_conf, use_kernels=k),
+                              dev).init()
+            for k in (True, False)]
+    ds = _synthetic_batch(zoo, SIMPLECNN_BATCH, SIMPLECNN_SEED)
+    # a convolution's bias feeding a batch norm has a zero gradient in
+    # exact arithmetic (the BN removes each channel's mean): rounding noise
+    before_bn = tuple(f"{i}.b" for i, layer in enumerate(zoo_conf.layers[:-1])
+                      if type(zoo_conf.layers[i + 1]).__name__
+                      == "BatchNormalization")
+    impls.matmul_bias_act.launches = 0
+    out = _compare_training(torch, nets[0], nets[1], ds, SIMPLECNN_STEPS,
+                            "21", skip=before_bn)
+    launches = impls.matmul_bias_act.launches
+    expected = mln_expected_launches(nets[0].conf, 1 + SIMPLECNN_STEPS)
+    log(f"[21] SimpleCNN matmul_bias_act launches: {launches} counted, "
+        f"{expected} expected (one gradient + {SIMPLECNN_STEPS} steps)")
+    if launches != expected:
+        raise AssertionError(f"[21] SimpleCNN launched matmul_bias_act "
+                             f"{launches} times, expected {expected}")
+    folded = optimize_for_inference(nets[0])
+    unfolded = optimize_for_inference(nets[0], fold_bn=False)
+    n_bn = [sum(type(layer).__name__ == "BatchNormalization"
+                for layer in m.conf.layers) for m in (folded, unfolded)]
+    a, b = folded.output(ds.features), unfolded.output(ds.features)
+    atol, rtol = SERVED_TOL
+    err = float(np.abs(a - b).max())
+    bad = int((np.abs(a - b) > atol + rtol * np.abs(b)).sum())
+    log(f"[21] SimpleCNN BN-folded ({n_bn[0]} BN left) vs unfolded "
+        f"({n_bn[1]} BN) serving copies: max |diff| {err:.3e} (tol "
+        f"atol={atol} rtol={rtol})")
+    if bad or n_bn[0] != 0 or n_bn[1] != 3:
+        raise AssertionError(f"[21] folded SimpleCNN differs: {bad} outputs "
+                             f"outside tolerance, BN layers {n_bn}")
+    out.update(fold_max_abs_err=err, nets=nets, ds=ds, launches=launches)
+    return out
+
+
+def time_mln_kernels(torch, impls, Activation, F, dev, launches) -> list:
+    """Row 1 at [21]'s dense shapes: LeNet's 2450 -> 500 relu in training
+    (M 64) and evaluation (M 256), SimpleCNN's 9216 -> 128 relu (M 32),
+    beside the plain version, F.linear and the bound; ``count``: the
+    launches per shape in [21]'s runs."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    act = Activation("relu")
+    rows = []
+    for (m, k, n), count in zip(MLN_SHAPES[:3], launches):
+        x = torch.randn((m, k), generator=gen, device=dev)
+        w = torch.randn((n, k), generator=gen, device=dev) / math.sqrt(k)
+        b = 0.1 * torch.randn((n,), generator=gen, device=dev)
+        err = float((impls.matmul_bias_act(x, w, b, act)
+                     - impls.matmul_bias_act_plain(x, w, b, act)).abs().max())
+        ops_ms, bytes_ms = matmul_bound_ms(m, k, n, "float32")
+        rows.append({
+            "m": m, "k": k, "n": n, "count": count, "max_abs_err": err,
+            "ms": cuda_time_ms(lambda: impls.matmul_bias_act(x, w, b, act)),
+            "plain_ms": cuda_time_ms(
+                lambda: impls.matmul_bias_act_plain(x, w, b, act)),
+            "library_ms": cuda_time_ms(
+                lambda: torch.relu(F.linear(x, w, b))),
+            "device_ms": device_ms(
+                lambda: impls.matmul_bias_act(x, w, b, act),
+                ("mm_bias_act",)),
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_tc_ms": tc_bound_ms(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        })
+    return rows
+
+
+def mln_training(torch, impls, Activation, F, dev, smi) -> tuple:
+    """Phase [21]; returns (the ``trained_mln`` line, row 1's [21]
+    shapes)."""
+    lenet = train_lenet(torch, impls, dev)
+    nets, test = lenet["nets"], lenet["test"]
+    zip_out = check_zip_resume(torch, dev, nets["kernel"], lenet["train"])
+    bench_ds = next(iter(test)).split_test_and_train(
+        LENET_TRAIN["batch"])[0].migrate(dev)
+    times = mln_step_times(torch, {side: net.clone()
+                                   for side, net in nets.items()}, bench_ds)
+    profiles = {side: _profile_steps(torch, net.clone(), bench_ds,
+                                     LENET_PROFILE_STEPS)
+                for side, net in nets.items()}
+    log(f"[21] LeNet train step at batch {LENET_TRAIN['batch']}: kernel "
+        f"route {times['step_ms_kernel']:.3f} ms "
+        f"({times['examples_per_s_kernel']:.0f} examples/s), stock "
+        f"{times['step_ms_stock']:.3f} ms "
+        f"({times['examples_per_s_stock']:.0f} examples/s); under "
+        f"torch.profiler ({LENET_PROFILE_STEPS} steps): device "
+        f"{profiles['kernel']['device_ms']:.3f} / "
+        f"{profiles['stock']['device_ms']:.3f} ms a step, idle share "
+        f"{profiles['kernel']['idle_share']:.3f} / "
+        f"{profiles['stock']['idle_share']:.3f} [{smi}]")
+    n_params = nets["kernel"].num_params()
+    del nets, lenet["nets"]
+    torch.cuda.empty_cache()
+    cnn = train_simplecnn(torch, impls, dev)
+    cnn_times = mln_step_times(torch, {"kernel": cnn["nets"][0],
+                                       "stock": cnn["nets"][1]},
+                               cnn["ds"].migrate(dev), steps=10)
+    cnn_prof = {side: _profile_steps(torch, net, cnn["ds"],
+                                     LENET_PROFILE_STEPS)
+                for side, net in zip(("kernel", "stock"), cnn["nets"])}
+    log(f"[21] SimpleCNN train step at batch {SIMPLECNN_BATCH}: kernel "
+        f"route {cnn_times['step_ms_kernel']:.3f} ms, stock "
+        f"{cnn_times['step_ms_stock']:.3f} ms; device "
+        f"{cnn_prof['kernel']['device_ms']:.3f} / "
+        f"{cnn_prof['stock']['device_ms']:.3f} ms, idle share "
+        f"{cnn_prof['kernel']['idle_share']:.3f} / "
+        f"{cnn_prof['stock']['idle_share']:.3f} [{smi}]")
+    steps = lenet["stats"]["kernel"]["steps"]
+    n_eval = lenet["expected"] - steps
+    rows = time_mln_kernels(torch, impls, Activation, F, dev,
+                            (steps, n_eval, cnn["launches"]))
+    for r in rows:
+        log(f"[21] matmul_bias_act m={r['m']} k={r['k']} n={r['n']} "
+            f"x{r['count']}: kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']} ms), plain {r['plain_ms']:.4f} ms, "
+            f"F.linear + relu {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, FFMA), "
+            f"{r['bound_tc_ms']:.4f} ms (3xTF32) [{smi}]")
+    line = {
+        "card": smi,
+        "lenet": {
+            "params": n_params,
+            "train_examples": LENET_TRAIN["num_examples"],
+            "test_examples": LENET_TEST["num_examples"],
+            "batch": LENET_TRAIN["batch"], "epochs": LENET_EPOCHS,
+            "lr": LENET_LR, "data_s": lenet["data_s"],
+            "routes": lenet["stats"],
+            "score_rel_err_first_steps": lenet["rel"],
+            "scores_kernel_first": lenet["scores"]["kernel"][:LENET_COMPARE],
+            "scores_stock_first": lenet["scores"]["stock"][:LENET_COMPARE],
+            "matmul_bias_act_launches": lenet["launches"],
+            "matmul_bias_act_expected": lenet["expected"],
+            "step_times": times, "profile": profiles,
+        },
+        "zip": zip_out,
+        "simplecnn": {
+            "batch": SIMPLECNN_BATCH, "steps": SIMPLECNN_STEPS,
+            "grad": cnn["grad"], "loss_rel_err": cnn["loss_rel_err"],
+            "losses_kernel": cnn["losses_kernel"],
+            "losses_stock": cnn["losses_stock"],
+            "state_rel_err": cnn["state_rel_err"],
+            "fold_max_abs_err": cnn["fold_max_abs_err"],
+            "matmul_bias_act_launches": cnn["launches"],
+            "step_times": cnn_times, "profile": cnn_prof,
+        },
+    }
+    return line, rows
+
+
 def main() -> int:
     try:
         import torch
@@ -3209,7 +3661,8 @@ def main() -> int:
     if len(shapes) != 36 or len(set(shapes)) != 15:
         return fail(f"expected 36 1x1 convs / 15 distinct shapes, got "
                     f"{len(shapes)} / {len(set(shapes))}")
-    worst = check_matmul(torch, impls, Activation, dev, sorted(set(shapes)))
+    worst = check_matmul(torch, impls, Activation, dev,
+                         sorted(set(shapes)) + list(MLN_SHAPES))
 
     # 4. the serving path
     served = serve_resnet50(torch, dev, ResNet50())
@@ -3421,6 +3874,17 @@ def main() -> int:
         prof = int8_line[f"profile_{name}"]
         log(f"[18] {name} forward, device time {prof['device_ms']:.3f} ms: "
             + "; ".join(f"{k} {v:.3f}" for k, v in prof["top"]))
+    # 21. MultiLayerNetwork training
+    mln_line, mln_rows = mln_training(torch, impls, Activation, F, dev, smi)
+    mm = report["kernels"][0]
+    mm["launches_mln"] = mln_line["lenet"]["matmul_bias_act_launches"][
+        "kernel"]
+    mm["mln_scope"] = (f"[21]: LeNet's dense 2450 -> 500 relu, "
+                       f"{mln_rows[0]['count']} training steps at M 64 and "
+                       f"{mln_rows[1]['count']} evaluation batches at M "
+                       f"256, and SimpleCNN's 9216 -> 128 relu at M 32; "
+                       f"library = F.linear then relu")
+    mm["mln_shapes"] = mln_rows
     for row in report["kernels"]:
         source, prefixes = PTXAS_OF[row["name"]]
         row["ptxas"] = [r for prefix in prefixes
@@ -3429,6 +3893,7 @@ def main() -> int:
     q8["registers"] = {r["kernel"]: r["registers"] for r in q8["ptxas"]}
     q8["spills"] = {r["kernel"]: r["spill_stores"] + r["spill_loads"]
                     for r in q8["ptxas"]}
+    log(json.dumps({"trained_mln": mln_line}))
     log(json.dumps(report))
     log(json.dumps({"served": served_line}))
     log(json.dumps({"trained": train_line}))
@@ -3437,7 +3902,7 @@ def main() -> int:
     log(json.dumps({"served_int8": int8_line}))
     log(json.dumps({"prefix_cached": prefix_line}))
     log(json.dumps({"speculative": spec_line}))
-    log(f"[18] total {time.monotonic() - t_start:.1f} s")
+    log(f"[21] total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0

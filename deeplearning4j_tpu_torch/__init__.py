@@ -14,14 +14,20 @@ Package map (the serving and training slices):
 
 - ``conf``      — config DSL: layers, vertices, builder, losses, updaters,
                   schedules, regularization
-- ``nn``        — ``ComputationGraph`` (inference and ``fit``)
+- ``nn``        — ``ComputationGraph`` and ``MultiLayerNetwork`` (inference
+                  and ``fit``), inference optimization, int8 quantization
 - ``optimize``  — the solver step and training listeners
-- ``datasets``  — ``DataSet`` / ``MultiDataSet`` and iterators
-- ``ops``       — fused 1x1 conv + BN statistics on the kernels
+- ``datasets``  — ``DataSet`` / ``MultiDataSet``, iterators, the synthetic
+                  MNIST set, normalizers
+- ``eval``      — ``Evaluation`` and the other evaluation accumulators
+- ``ops``       — fused 1x1 conv + BN statistics, attention
 - ``kernels``   — the hand-written CUDA kernels, their build and routing
-- ``parallel``  — dynamic-batching ``InferenceEngine`` + ``InferenceServer``
-- ``zoo``       — ``ResNet50`` (with ``fused_conv_bn``)
-- ``util``      — weight and updater-state conversion from the JAX package
+- ``parallel``  — dynamic-batching ``InferenceEngine``, ``InferenceServer``
+                  and the ``GenerationEngine``
+- ``zoo``       — ``ResNet50``, ``TransformerEncoder``, ``LeNet``,
+                  ``SimpleCNN``, ``AlexNet``
+- ``util``      — conversion from and to the JAX package's layouts, the
+                  flat params vector and the ModelSerializer zip
 """
 
 __version__ = "0.1.0"

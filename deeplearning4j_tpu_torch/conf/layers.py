@@ -276,3 +276,22 @@ class CnnToFeedForwardPreProcessor(Layer):
 
     def forward(self, params, state, x, train=False, gen=None):
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1), state
+
+
+@serde.register
+@dataclasses.dataclass
+class FeedForwardToCnnPreProcessor(Layer):
+    """Reference ``FeedForwardToCnnPreProcessor``: flat [batch, hwc] in the
+    JAX package's NHWC element order -> a logical NCHW image in
+    ``channels_last`` memory (the same bytes, so the permute is a view)."""
+
+    height: int = 0
+    width: int = 0
+    channels: int = 0
+
+    def output_type(self, input_type):
+        return it.Convolutional(self.height, self.width, self.channels)
+
+    def forward(self, params, state, x, train=False, gen=None):
+        y = x.reshape(x.shape[0], self.height, self.width, self.channels)
+        return y.permute(0, 3, 1, 2), state

@@ -22,7 +22,13 @@ from deeplearning4j_tpu_torch.conf.layers import (
     BaseLayer,
     CnnToFeedForwardPreProcessor,
     DenseLayer,
+    FeedForwardToCnnPreProcessor,
     Layer,
+)
+from deeplearning4j_tpu_torch.conf.regularization import (
+    L1Regularization,
+    L2Regularization,
+    Regularization,
 )
 from deeplearning4j_tpu_torch.conf.updaters import IUpdater, Sgd
 from deeplearning4j_tpu_torch.conf.weights import WeightInit
@@ -45,9 +51,11 @@ class MultiLayerConfiguration:
     forwards through the hand-written kernels (``kernels.routing``);
     ``quantization``: the ``conf.layers_quant.QuantizationSpec`` stamped by
     ``nn.inference_opt.quantize_for_inference`` on the artifact it emits,
-    never set by the builder. ``backprop_type``, the tBPTT lengths and
-    ``gradient_checkpointing`` are carried for the JSON contract; training
-    a MultiLayerNetwork lands with a later slice."""
+    never set by the builder. ``gradient_checkpointing`` recomputes each
+    layer's activations in the backward (``torch.utils.checkpoint``);
+    ``backprop_type`` and the tBPTT lengths round-trip through the JSON, and
+    ``fit`` refuses ``TRUNCATED_BPTT`` until the recurrent layers are
+    ported."""
 
     layers: Tuple[Layer, ...] = ()
     input_type: Optional[object] = None
@@ -108,6 +116,7 @@ class Builder:
         self._updater: IUpdater = Sgd()
         self._weight_init: Optional[WeightInit] = None
         self._activation = None
+        self._regularization: List[Regularization] = []
         self._dropout: Optional[float] = None
         self._dtype = "float32"
         self._compute_dtype: Optional[str] = None
@@ -127,6 +136,16 @@ class Builder:
 
     def activation(self, a) -> "Builder":
         self._activation = a
+        return self
+
+    def l2(self, v: float) -> "Builder":
+        """L2 weight regularization for every layer that sets none."""
+        self._regularization.append(L2Regularization(l2=v))
+        return self
+
+    def l1(self, v: float) -> "Builder":
+        """L1 weight regularization for every layer that sets none."""
+        self._regularization.append(L1Regularization(l1=v))
         return self
 
     def dropout(self, retain_prob: float) -> "Builder":
@@ -176,6 +195,8 @@ def apply_builder_defaults(b: Builder, layer: Layer) -> Layer:
     if b._activation is not None and layer.activation == cls_defaults.get(
             "activation"):
         layer.activation = b._activation
+    if b._regularization and not layer.regularization:
+        layer.regularization = tuple(b._regularization)
     if b._dropout is not None and layer.dropout == 0.0:
         layer.dropout = b._dropout
     return layer
@@ -188,6 +209,10 @@ class ListBuilder:
         self._base = base
         self._layers: List[Layer] = []
         self._input_type = None
+        self._backprop_type = BackpropType.STANDARD
+        self._grad_checkpoint = False
+        self._tbptt_fwd = 20
+        self._tbptt_back = 20
 
     def layer(self, conf: Layer) -> "ListBuilder":
         self._layers.append(conf)
@@ -195,6 +220,19 @@ class ListBuilder:
 
     def set_input_type(self, input_type) -> "ListBuilder":
         self._input_type = input_type
+        return self
+
+    def gradient_checkpointing(self, enabled: bool = True) -> "ListBuilder":
+        """Recompute per-layer activations during the backward instead of
+        storing them."""
+        self._grad_checkpoint = bool(enabled)
+        return self
+
+    def backprop_type(self, bp: BackpropType, fwd: int = 20,
+                      back: int = 20) -> "ListBuilder":
+        self._backprop_type = bp
+        self._tbptt_fwd = fwd
+        self._tbptt_back = back
         return self
 
     def build(self) -> MultiLayerConfiguration:
@@ -210,17 +248,21 @@ class ListBuilder:
         b = self._base
         return MultiLayerConfiguration(
             layers=tuple(layers), input_type=self._input_type, seed=b._seed,
-            updater=b._updater, dtype=b._dtype,
+            updater=b._updater, backprop_type=self._backprop_type,
+            gradient_checkpointing=self._grad_checkpoint,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_back_length=self._tbptt_back, dtype=b._dtype,
             compute_dtype=b._compute_dtype, use_kernels=b._use_kernels)
 
 
 def _insert_preprocessors(layers: List[Layer], input_type) -> List[Layer]:
     """Insert a ``CnnToFeedForwardPreProcessor`` where a dense layer
-    follows CNN-shaped input (reference ``InputType#getPreProcessorForInputType``
-    in setInputType); flat CNN input feeds any other layer as feed-forward.
-    The preprocessors that turn flat input into an image
-    (``FeedForwardToCnnPreProcessor``) and 3-D input into feed-forward are
-    not ported yet: a configuration that needs one raises."""
+    follows CNN-shaped input and a ``FeedForwardToCnnPreProcessor`` where a
+    convolution or pooling layer follows flat image input
+    (``InputType.convolutional_flat``), as the reference's
+    ``InputType#getPreProcessorForInputType`` in setInputType does; flat
+    image input feeds any other layer as feed-forward. The 3-D CNN flatten
+    is not ported yet: a configuration that needs it raises."""
     from deeplearning4j_tpu_torch.conf.layers_cnn import (
         ConvolutionLayer,
         SubsamplingLayer,
@@ -240,9 +282,12 @@ def _insert_preprocessors(layers: List[Layer], input_type) -> List[Layer]:
                 "Cnn3DToFeedForwardPreProcessor is not ported yet")
         if isinstance(cur, it.ConvolutionalFlat):
             if isinstance(layer, (ConvolutionLayer, SubsamplingLayer)):
-                raise NotImplementedError(
-                    "FeedForwardToCnnPreProcessor is not ported yet")
-            cur = it.FeedForward(size=cur.arity())
+                pre = FeedForwardToCnnPreProcessor(
+                    height=cur.height, width=cur.width, channels=cur.channels)
+                out.append(pre)
+                cur = pre.output_type(cur)
+            else:
+                cur = it.FeedForward(size=cur.arity())
         out.append(layer)
         cur = layer.output_type(cur)
     return out

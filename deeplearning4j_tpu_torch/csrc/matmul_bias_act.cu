@@ -24,6 +24,13 @@
 // each SM (tc::wide_tiles), else 64 x 64 (4 warps of 32 x 32). Both sum each
 // output in the same order, so a row's output does not depend on the batch it
 // is served in.
+//
+// Accumulation: float32 sums straight (one accumulator per output) up to
+// K = kStraightMaxK, ResNet-50's largest K, and each 32-deep K step fresh
+// above it (tc_gemm.cuh's kFresh): the tensor cores round every accumulation
+// toward zero, and straight sums over SimpleCNN's K = 9216 drifted to 0.996 of
+// the 1e-4 + 1e-4 |y| tolerance (LeNet's K = 2450 and AlexNet's 6400 sit
+// between). bfloat16 sums straight: its tolerance is 80 times wider.
 
 #include <atomic>
 #include <cstdint>
@@ -39,6 +46,8 @@ using dl4j::apply_act;
 using dl4j::kNumActs;
 namespace mma = dl4j::mma;
 namespace tc = dl4j::tc;
+
+constexpr int kStraightMaxK = 2048;  // float32 sums K steps fresh above it
 
 // the bias and activation of a warp's fragments, stored as T. ACT: the
 // activation id when it is known at compile time, else -1 (act at run time)
@@ -74,7 +83,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[G::MT][G::NTL][4],
   }
 }
 
-template <typename T, int BM, int BN, int WM, int WN>
+template <typename T, int BM, int BN, int WM, int WN, bool kFresh>
 __global__ void __launch_bounds__(tc::Gemm<T, BM, BN, WM, WN>::NT)
     mm_bias_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
                        const T* __restrict__ b, T* __restrict__ y, int M, int N,
@@ -84,8 +93,8 @@ __global__ void __launch_bounds__(tc::Gemm<T, BM, BN, WM, WN>::NT)
   const int row0 = blockIdx.x * G::BM;
   const int col0 = blockIdx.y * G::BN;
   float acc[G::MT][G::NTL][4];
-  tc::gemm_tile<G>(x, w, M, N, K, row0, col0, vec != 0,
-                   reinterpret_cast<T*>(smem), acc);
+  tc::gemm_tile<G, kFresh>(x, w, M, N, K, row0, col0, vec != 0,
+                           reinterpret_cast<T*>(smem), acc);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = row0 + (warp / G::kWarpsN) * G::WM + (lane >> 2);
@@ -105,11 +114,11 @@ __global__ void __launch_bounds__(tc::Gemm<T, BM, BN, WM, WN>::NT)
   }
 }
 
-template <typename T, int BM, int BN, int WM, int WN>
+template <typename T, int BM, int BN, int WM, int WN, bool kFresh>
 cudaError_t launch(const void* x, const void* w, const void* b, void* y, int m,
                    int n, int k, int act, int device, cudaStream_t stream) {
   using G = tc::Gemm<T, BM, BN, WM, WN>;
-  auto* const kernel = mm_bias_act_kernel<T, BM, BN, WM, WN>;
+  auto* const kernel = mm_bias_act_kernel<T, BM, BN, WM, WN, kFresh>;
   static std::atomic<unsigned long long> done{0};
   cudaError_t err = mma::allow_smem(kernel, G::kSmem, device, done);
   if (err != cudaSuccess) return err;
@@ -125,13 +134,27 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* y, int m,
   return cudaGetLastError();
 }
 
+template <typename T, bool kFresh>
+cudaError_t dispatch_tiles(const void* x, const void* w, const void* b, void* y,
+                           int m, int n, int k, int act, int num_sms, int device,
+                           cudaStream_t stream) {
+  return tc::wide_tiles(m, n, num_sms)
+             ? launch<T, 128, 64, 64, 32, kFresh>(x, w, b, y, m, n, k, act,
+                                                  device, stream)
+             : launch<T, 64, 64, 32, 32, kFresh>(x, w, b, y, m, n, k, act,
+                                                 device, stream);
+}
+
 template <typename T>
 cudaError_t dispatch(const void* x, const void* w, const void* b, void* y, int m,
                      int n, int k, int act, int num_sms, int device,
                      cudaStream_t stream) {
-  return tc::wide_tiles(m, n, num_sms)
-             ? launch<T, 128, 64, 64, 32>(x, w, b, y, m, n, k, act, device, stream)
-             : launch<T, 64, 64, 32, 32>(x, w, b, y, m, n, k, act, device, stream);
+  if (std::is_same<T, float>::value && k > kStraightMaxK) {
+    return dispatch_tiles<T, true>(x, w, b, y, m, n, k, act, num_sms, device,
+                                   stream);
+  }
+  return dispatch_tiles<T, false>(x, w, b, y, m, n, k, act, num_sms, device,
+                                  stream);
 }
 
 __global__ void probe_kernel(float* x, int n) {

@@ -6,7 +6,8 @@ traces the topological walk once into one XLA program; PyTorch runs eagerly,
 so here the walk runs on every forward, and in eval mode an activation is
 released as soon as its last consumer has run.
 
-Training (``fit``, ``fit_batch``, ``compute_gradient_and_score``): one step
+Training (``fit``, ``fit_batch``, ``compute_gradient_and_score``,
+``evaluate``; ``params_flat`` is the JAX package's flat vector): one step
 is the train-mode forward up to the output vertices, the output vertices'
 loss on the pre-activations (on the storage-dtype params), ``backward()``,
 then under ``torch.no_grad()`` each layer's gradient normalization,
@@ -58,11 +59,17 @@ from deeplearning4j_tpu_torch.conf.graph import (
     LayerVertex,
 )
 from deeplearning4j_tpu_torch.conf.layers import EmbeddingSequenceLayer
-from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.datasets.dataset import (
+    DataSet,
+    MultiDataSet,
+    host_array,
+)
 from deeplearning4j_tpu_torch.datasets.iterators import DataSetIterator
+from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn import io as nn_io
 from deeplearning4j_tpu_torch.optimize import solver
 from deeplearning4j_tpu_torch.optimize.listeners import TrainingListener
+from deeplearning4j_tpu_torch.util import params as params_util
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
@@ -85,6 +92,15 @@ def _vertex_seed(seed: int, index: int) -> int:
     vertex's weights (and a step's dropout draws) depend only on the seed
     and its topo index."""
     return (int(seed) * 1_000_003 + index) % (2 ** 63)
+
+
+def dropout_gen(layer, seed, index) -> Optional[torch.Generator]:
+    """A layer's dropout generator for one step, seeded from the step seed
+    and the layer's index (None without dropout or without a step
+    seed)."""
+    if seed is None or not 0.0 < getattr(layer, "dropout", 0.0) < 1.0:
+        return None
+    return torch.Generator().manual_seed(_vertex_seed(seed, index))
 
 
 def _place(t: torch.Tensor, device, dtype=None) -> torch.Tensor:
@@ -111,8 +127,9 @@ def _as_multi(ds) -> MultiDataSet:
 
 class ComputationGraph:
     """DAG network (reference ``ComputationGraph``): ``init``, ``output``,
-    ``feed_forward``, ``fit``, ``fit_batch``, ``score``,
-    ``compute_gradient_and_score``, ``clone``."""
+    ``feed_forward``, ``fit``, ``fit_batch``, ``score``, ``evaluate``,
+    ``compute_gradient_and_score``, ``params_flat``, ``summary``,
+    ``clone``."""
 
     def __init__(self, conf: ComputationGraphConfiguration, device="cuda"):
         self.conf = conf
@@ -233,7 +250,8 @@ class ComputationGraph:
                   and isinstance(spec.vertex, LayerVertex) else {})
             p = params.get(name, {})
             s = state.get(name, {})
-            gen = self._dropout_gen(spec.vertex, seed, i) if train else None
+            gen = (dropout_gen(getattr(spec.vertex, "layer", None), seed, i)
+                   if train else None)
             routed = None
             if self.conf.use_kernels:
                 routed = kernels.maybe_vertex_forward(spec.vertex, p, s, xs,
@@ -249,15 +267,6 @@ class ComputationGraph:
                 for src in self._frees.get(i, ()):
                     del acts[src]
         return acts, new_state
-
-    @staticmethod
-    def _dropout_gen(vertex, seed, index) -> Optional[torch.Generator]:
-        """The vertex's dropout generator for one step (None without
-        dropout or without a step seed)."""
-        layer = getattr(vertex, "layer", None)
-        if seed is None or not 0.0 < getattr(layer, "dropout", 0.0) < 1.0:
-            return None
-        return torch.Generator().manual_seed(_vertex_seed(seed, index))
 
     def _cast(self, params):
         """Params in the compute dtype (mixed precision); the output
@@ -387,20 +396,14 @@ class ComputationGraph:
             x = acts[spec.inputs[0]].to(self._dtype)
             loss = loss + spec.vertex.score(params.get(spec.name, {}), x,
                                             labels[i], lmasks[i])
-        return loss + self._regularization_score(params), new_state
+        return (loss + solver.regularization_score(params, self._layer_conf),
+                new_state)
 
-    def _regularization_score(self, params):
-        total = 0.0
-        for name, vparams in params.items():
-            v = self._vmap[name].vertex
-            conf = getattr(v, "layer", None) or v
-            reg_keys = set(v.regularized_param_keys())
-            for k, p in vparams.items():
-                regs = (getattr(conf, "regularization", ()) if k in reg_keys
-                        else getattr(conf, "regularization_bias", ()))
-                for r in regs or ():
-                    total = total + r.score_term(p)
-        return total
+    def _layer_conf(self, name: str):
+        """The conf whose hyperparameters (regularization, gradient
+        normalization) apply to vertex ``name``'s params."""
+        v = self._vmap[name].vertex
+        return getattr(v, "layer", None) or v
 
     def _backward(self, ds, train_seed=None):
         """Forward + ``backward()`` on detached leaves of the params:
@@ -428,11 +431,16 @@ class ComputationGraph:
         loss, _, grads = self._backward(ds)
         return grads, float(loss)
 
-    def fit(self, data, labels=None, epochs: int = 1) -> "ComputationGraph":
+    def fit(self, data, labels=None, epochs: int = 1,
+            fused_steps: Optional[int] = None) -> "ComputationGraph":
         """Train (reference ``ComputationGraph#fit`` overloads: a
-        DataSetIterator, a (Multi)DataSet, or (features, labels) arrays)."""
+        DataSetIterator, a (Multi)DataSet, or (features, labels) arrays).
+        ``fused_steps=K`` trains identically to K = 1, as in
+        ``MultiLayerNetwork.fit``: the steps run one after another."""
         if self.params is None:
             self.init()
+        if fused_steps is not None and int(fused_steps) < 1:
+            raise ValueError(f"fused_steps must be >= 1, got {fused_steps}")
         reset = None
         if isinstance(data, (DataSet, MultiDataSet)):
             batches = [data]
@@ -466,8 +474,7 @@ class ComputationGraph:
             ds, train_seed=_vertex_seed(self.conf.seed, cur + 1_000_003))
         with torch.no_grad():
             for k in grads:
-                v = self._vmap[k].vertex
-                layer_conf = getattr(v, "layer", None) or v
+                layer_conf = self._layer_conf(k)
                 upd = self._updater_for(k)
                 g = solver.normalize_layer_gradients(layer_conf, grads[k])
                 self.params[k], self.opt_state[k] = \
@@ -494,6 +501,56 @@ class ComputationGraph:
             loss, _ = self._loss(self.params, self.state, features, labels,
                                  fmasks, lmasks, train=False)
         return float(loss)
+
+    def evaluate(self, iterator, evaluation: Optional[Evaluation] = None):
+        """Reference ``#evaluate(DataSetIterator)`` on the first output."""
+        ev = evaluation if evaluation is not None else Evaluation()
+        for ds in ([iterator] if isinstance(iterator, (DataSet, MultiDataSet))
+                   else iterator):
+            mds = _as_multi(ds)
+            out = self.output(*mds.features, fmasks=mds.features_masks)
+            if isinstance(out, list):
+                out = out[0]
+            mask = (mds.labels_masks[0] if mds.labels_masks is not None
+                    else None)
+            ev.eval(host_array(mds.labels[0]), out, mask=host_array(mask))
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        return ev
+
+    # --- params vector -----------------------------------------------------
+    def params_flat(self) -> np.ndarray:
+        """The one contiguous params vector (reference ``#params()``), in
+        the JAX package's order and layouts (``util.params``)."""
+        if self.params is None:
+            self.init()
+        return params_util.flatten_params(self.conf, self.params)
+
+    def set_params_flat(self, flat) -> "ComputationGraph":
+        """Copy ``flat`` (``params_flat``'s layout) into the params in
+        place; the updater state stays."""
+        params_util.unflatten_params(self.conf, flat, self.params)
+        self._cast_params = None
+        return self
+
+    def summary(self) -> str:
+        """Vertex table (reference ``#summary``)."""
+        lines = ["=" * 78,
+                 f"{'vertex':<24} {'type':<24} {'inputs':<18} {'params':>9}",
+                 "-" * 78]
+        total = 0
+        for name in self._topo:
+            spec = self._vmap[name]
+            n = 0
+            if self.params and name in self.params:
+                n = sum(v.numel() for v in self.params[name].values())
+            total += n
+            layer = getattr(spec.vertex, "layer", None)
+            vname = type(layer if layer is not None else spec.vertex).__name__
+            lines.append(f"{name:<24} {vname:<24} "
+                         f"{','.join(spec.inputs):<18} {n:>9,}")
+        lines += ["-" * 78, f"Total params: {total:,}", "=" * 78]
+        return "\n".join(lines)
 
     # --- misc --------------------------------------------------------------
     def num_params(self) -> int:

@@ -6,15 +6,15 @@ Counterpart of the JAX package's ``nn/inference_opt.py``.
 (a model that keeps training never changes it). For a
 ``MultiLayerNetwork`` it also transforms the layer list:
 
-- **BN fold**: a ``BatchNormalization`` (not ``use_batch_mean_in_eval``)
-  after a layer with ``fold_scale_shift`` (dense, convolution) whose
-  activation is IDENTITY folds into that layer's W/b
-  (``ops.conv_fused.bn_fold_scale_shift``); the layer takes the BN's
-  activation;
-- **FusedConvBN1x1 unfuse**: the train-fused layer becomes a plain 1x1
-  ``ConvolutionLayer`` with the BN folded in;
-- **prune**: ``DropoutLayer`` and IDENTITY ``ActivationLayer`` vanish and
-  per-layer ``dropout`` fields are zeroed;
+- **BN fold** (``fold_bn``): a ``BatchNormalization`` (not
+  ``use_batch_mean_in_eval``) after a layer with ``fold_scale_shift``
+  (dense, convolution) whose activation is IDENTITY folds into that
+  layer's W/b (``ops.conv_fused.bn_fold_scale_shift``); the layer takes
+  the BN's activation;
+- **FusedConvBN1x1 unfuse** (``fold_bn``): the train-fused layer becomes a
+  plain 1x1 ``ConvolutionLayer`` with the BN folded in;
+- **prune** (``prune``): ``DropoutLayer`` and IDENTITY ``ActivationLayer``
+  vanish and per-layer ``dropout`` fields are zeroed;
 - **bf16** (``bf16=True``): the copy serves its forward in bfloat16.
 
 A quantized artifact passes through as a copy, untouched: its transforms
@@ -95,9 +95,12 @@ def _bn_constants(layer, params, state):
                                layer.eps)
 
 
-def optimize_for_inference(model, bf16: bool = False):
+def optimize_for_inference(model, fold_bn: bool = True, prune: bool = True,
+                           bf16: bool = False):
     """Return a serving copy of ``model`` (the original is never mutated);
-    see the module docstring for the transforms."""
+    see the module docstring for the transforms. ``fold_bn=False`` /
+    ``prune=False`` turn off one pass each (the copy is still made); the
+    arguments are in the JAX package's order."""
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
     if isinstance(model, MultiLayerNetwork) \
@@ -129,10 +132,11 @@ def optimize_for_inference(model, bf16: bool = False):
     for i, layer in enumerate(model.conf.layers):
         p = model.params.get(str(i), {})
         s = model.state.get(str(i), {})
-        if _prunable(layer):
+        if prune and _prunable(layer):
             continue
-        layer = _zero_dropout(layer)
-        if isinstance(layer, FusedConvBN1x1):
+        if prune:
+            layer = _zero_dropout(layer)
+        if fold_bn and isinstance(layer, FusedConvBN1x1):
             # unfuse to a plain 1x1 conv with the BN affine baked in
             scale, shift = bn_fold_scale_shift(
                 p["gamma"], p["beta"], s["mean"], s["var"], layer.eps)
@@ -146,7 +150,7 @@ def optimize_for_inference(model, bf16: bool = False):
             append(conv, {"W": w, "b": shift.to(dt)})
             continue
         prev = new_layers[-1] if new_layers else None
-        if (_foldable_bn(layer) and prev is not None
+        if (fold_bn and _foldable_bn(layer) and prev is not None
                 and getattr(prev, "fold_scale_shift", None) is not None
                 and prev.activation is Activation.IDENTITY):
             scale, shift = _bn_constants(layer, p, s)
@@ -163,9 +167,10 @@ def optimize_for_inference(model, bf16: bool = False):
     conf = dataclasses.replace(
         model.conf, layers=tuple(new_layers),
         compute_dtype="bfloat16" if bf16 else model.conf.compute_dtype)
-    # set_params copies: the serving copy shares no tensor with the model
-    return MultiLayerNetwork(conf, model.device).set_params(new_params,
-                                                            new_state)
+    # set_params copies: the serving copy shares no tensor with the model;
+    # it never trains, so it holds no updater state
+    return MultiLayerNetwork(conf, model.device).set_params(
+        new_params, new_state, opt_state={})
 
 
 # --------------------------------------------------------------------------
@@ -415,6 +420,7 @@ def quantize_for_inference(model, calibration: CalibrationRecord):
     conf = dataclasses.replace(
         opt.conf, layers=tuple(new_layers), compute_dtype=None,
         quantization=spec)
-    out = MultiLayerNetwork(conf, opt.device).set_params(params, opt.state)
+    out = MultiLayerNetwork(conf, opt.device).set_params(params, opt.state,
+                                                         opt_state={})
     register_calibration(calibration)
     return out

@@ -1,24 +1,44 @@
-"""MultiLayerNetwork — sequential model runtime, inference.
+"""MultiLayerNetwork — sequential model runtime: inference and training.
 
 Reference: ``org.deeplearning4j.nn.multilayer.MultiLayerNetwork``;
-counterpart of the JAX package's ``deeplearning4j_tpu/nn/multilayer.py``
-for inference: ``init``, ``output``, ``feed_forward``, ``clone`` and
-``num_params``. Training (``fit``) lands with a later slice.
+counterpart of the JAX package's ``deeplearning4j_tpu/nn/multilayer.py``:
+``init``, ``fit`` (an iterator, a DataSet or arrays), ``fit_batch``,
+``output``, ``feed_forward``, ``score``, ``evaluate``,
+``compute_gradient_and_score``, the flat params vector, ``summary``,
+``clone`` and ``num_params``.
 
-Params and state are keyed ``"0".."n"`` by layer index, as in the JAX
-package. At the public boundary ``output`` takes the JAX package's arrays
-(NHWC images, numpy or torch; uint8 images are scaled by 1/255 on the
-device) and returns numpy; inside, image tensors are logical NCHW in
-``channels_last`` memory. Floating-point params are held in the storage
-dtype; integer params (a quantized layer's int8 ``Wq``) keep their dtype.
+Params, state and updater state are keyed ``"0".."n"`` by layer index, as
+in the JAX package. At the public boundary ``output`` takes the JAX
+package's arrays (NHWC images, numpy or torch; uint8 images are scaled by
+1/255 on the device) and returns numpy; inside, image tensors are logical
+NCHW in ``channels_last`` memory. Floating-point params are held in the
+storage dtype; integer params (a quantized layer's int8 ``Wq``) keep their
+dtype. ``params_flat`` is the reference's one contiguous vector in the
+JAX package's order and layouts (``util.params``), the vector the
+ModelSerializer zip holds.
+
+One training step is the train-mode forward up to the output layer, the
+output layer's loss on its pre-activations with the storage-dtype params
+plus the regularization score, ``backward()``, then under
+``torch.no_grad()`` each layer's gradient normalization, regularization
+and updater (``optimize.solver``), applied to the params in place. BN
+running statistics come back as a new state outside the autograd graph.
+Dropout draws come from a ``torch.Generator`` per layer and step, seeded
+from ``conf.seed``, the iteration and the layer index. The step's score
+stays on the device until something reads it (``score()``, a listener's
+``float(score)``), so ``fit`` launches step after step without waiting for
+the card. ``fused_steps=K`` trains K batches per group, one after another,
+identically to K = 1: eager PyTorch has no compiled multi-step program to
+fuse, and the step already launches without a host sync.
 
 ``conf.use_kernels`` sends every layer through ``kernels.maybe_forward``
-first, as the JAX package's ``_forward`` does: dense layers and 1x1
-convolutions then run ``matmul_bias_act``, the int8 layers of a quantized
-artifact ``matmul_bias_act_int8``. ``feed_forward`` runs the stock layer
-forwards, as the JAX package's does (calibration reads it).
+first, in train mode as in eval mode, as the JAX package's ``_forward``
+does: dense layers and 1x1 convolutions then run ``matmul_bias_act`` (an
+autograd Function, so the routed layer trains), the int8 layers of a
+quantized artifact ``matmul_bias_act_int8``. ``feed_forward`` runs the
+stock layer forwards, as the JAX package's does (calibration reads it).
 
-Precision as in ``nn.graph``: a network on a CUDA device serves float32 in
+Precision as in ``nn.graph``: a network on a CUDA device runs float32 in
 full float32 (TF32 off).
 """
 
@@ -30,18 +50,46 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import kernels
-from deeplearning4j_tpu_torch.conf.multilayer import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.conf import inputs as it
+from deeplearning4j_tpu_torch.conf.multilayer import (
+    BackpropType,
+    MultiLayerConfiguration,
+)
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet, host_array
+from deeplearning4j_tpu_torch.datasets.iterators import (
+    ArrayDataSetIterator,
+    DataSetIterator,
+    ListDataSetIterator,
+)
+from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn import io as nn_io
 from deeplearning4j_tpu_torch.nn.graph import (
     _place,
     _torch_dtype,
     _vertex_seed,
+    dropout_gen,
     serve_full_f32,
 )
+from deeplearning4j_tpu_torch.optimize import solver
+from deeplearning4j_tpu_torch.optimize.listeners import TrainingListener
+from deeplearning4j_tpu_torch.resilience import faults
+from deeplearning4j_tpu_torch.util import params as params_util
+
+
+def _as_iterator(data, labels=None, batch_size: Optional[int] = None):
+    if isinstance(data, DataSetIterator):
+        return data
+    if isinstance(data, DataSet):
+        return ListDataSetIterator([data])
+    if labels is not None:
+        return ArrayDataSetIterator(data, labels,
+                                    batch_size or np.asarray(data).shape[0],
+                                    drop_last=False)
+    raise TypeError(f"cannot build DataSetIterator from {type(data)}")
 
 
 class MultiLayerNetwork:
-    """Sequential network (reference ``MultiLayerNetwork``), eval mode."""
+    """Sequential network (reference ``MultiLayerNetwork``)."""
 
     def __init__(self, conf: MultiLayerConfiguration, device="cuda"):
         self.conf = conf
@@ -50,6 +98,12 @@ class MultiLayerNetwork:
             serve_full_f32()
         self.params: Optional[Dict[str, dict]] = None
         self.state: Dict[str, dict] = {}
+        self.opt_state: Dict[str, dict] = {}
+        self.iteration = 0  # steps taken (the next step's 0-based index)
+        self.epoch = 0
+        self.listeners: List[TrainingListener] = []
+        self.last_batch_size: Optional[int] = None
+        self._score: Optional[torch.Tensor] = None  # the last step's loss
         self._dtype = _torch_dtype(conf.dtype)
         self._cdtype = (_torch_dtype(conf.compute_dtype)
                         if conf.compute_dtype else None)
@@ -60,7 +114,8 @@ class MultiLayerNetwork:
     def init(self) -> "MultiLayerNetwork":
         """Draw every layer's params from a ``torch.Generator`` seeded by
         ``conf.seed`` and the layer index (on the CPU, so a seed gives the
-        same weights on every device), then place them."""
+        same weights on every device), then place them; the updater starts
+        afresh."""
         params, state = {}, {}
         for i, (layer, itype) in enumerate(zip(self.conf.layers,
                                                self.conf.input_types())):
@@ -73,13 +128,17 @@ class MultiLayerNetwork:
                 state[str(i)] = s
         return self.set_params(params, state)
 
-    def set_params(self, params: Dict[str, dict], state: Dict[str, dict]
+    def set_params(self, params: Dict[str, dict], state: Dict[str, dict],
+                   opt_state: Optional[Dict[str, dict]] = None
                    ) -> "MultiLayerNetwork":
         """Adopt ``{"i": {name: tensor}}`` params and state (e.g. from
         ``util.convert.params_from_jax``), copied onto this network's
         device: floating-point tensors in the storage dtype, integer ones
         (int8 ``Wq``) in their own; conv weights ``channels_last``, every
-        other tensor contiguous (the kernels take row-major operands)."""
+        other tensor contiguous (the kernels take row-major operands).
+        ``opt_state`` (``{"i": {param: {name: tensor}}}``, e.g. from
+        ``util.convert.opt_state_from_jax``) resumes an updater; None
+        starts each layer's updater afresh."""
         def place(tree):
             if isinstance(tree, dict):
                 return {k: place(v) for k, v in tree.items()}
@@ -90,38 +149,96 @@ class MultiLayerNetwork:
 
         self.params = place(params)
         self.state = place(state)
+        self.opt_state = (place(opt_state) if opt_state is not None else
+                          {k: {pk: self._updater_for(int(k)).init_state(v)
+                               for pk, v in vp.items()}
+                           for k, vp in self.params.items()})
         self._cast_params = None
         return self
 
+    def set_listeners(self, *listeners: TrainingListener
+                      ) -> "MultiLayerNetwork":
+        self.listeners = list(listeners)
+        return self
+
+    def _updater_for(self, index: int):
+        layer = self.conf.layers[index]
+        return getattr(layer, "updater", None) or self.conf.updater
+
     # --- forward -----------------------------------------------------------
-    def _forward(self, params, x, keep_all=False):
-        """Eval-mode forward over every layer; returns the last activation,
-        or every layer's with ``keep_all`` (stock forwards only, as the JAX
-        package's ``feed_forward``)."""
-        acts = []
+    def _run(self, params, state, x, train=False, seed=None, upto=None,
+             fmask=None, keep_all=False):
+        """The forward over layers ``[0, upto)``; returns ``(x, new_state)``
+        (``keep_all``: every layer's activation instead of the last, stock
+        forwards only, as the JAX package's ``feed_forward``). ``seed``
+        seeds the step's dropout generators; ``fmask`` ([batch, time]) goes
+        to layers with ``uses_mask`` and is propagated past each layer."""
+        n = len(self.conf.layers) if upto is None else upto
         route = self.conf.use_kernels and not keep_all
-        for i, layer in enumerate(self.conf.layers):
+        remat = train and self.conf.gradient_checkpointing
+        acts, new_state = [], {}
+        for i in range(n):
+            layer = self.conf.layers[i]
             p = params.get(str(i), {})
-            s = self.state.get(str(i), {})
-            routed = kernels.maybe_forward(layer, p, s, x) if route else None
-            x, _ = routed if routed is not None else layer.forward(p, s, x)
+            s = state.get(str(i), {})
+            kw = ({"mask": fmask} if getattr(layer, "uses_mask", False)
+                  else {})
+            routed = (kernels.maybe_forward(
+                layer, p, s, x, train, dropout_gen(layer, seed, i), **kw)
+                if route else None)
+            if routed is not None:
+                x, s2 = routed
+            elif remat and layer.has_params():
+                x, s2 = self._checkpointed(layer, p, s, x, seed, i, kw)
+            else:
+                x, s2 = layer.forward(p, s, x, train=train,
+                                      gen=dropout_gen(layer, seed, i), **kw)
+            if str(i) in state:
+                new_state[str(i)] = s2
+            fmask = nn_io.propagate_mask(fmask, x, layer)
             if keep_all:
                 acts.append(x)
-        return acts if keep_all else x
+        return (acts if keep_all else x), new_state
 
-    def _fwd_params(self):
-        """The eval forward's params: under a compute-dtype policy every
-        float param but the output layer's in the compute dtype (so logits
-        land in the storage dtype), cast once per set of params."""
+    @staticmethod
+    def _checkpointed(layer, p, s, x, seed, index, kw):
+        """A train-mode layer forward whose activations are recomputed in
+        the backward (``gradient_checkpointing``). The dropout generator is
+        made inside, so the recompute draws the same mask."""
+        from torch.utils.checkpoint import checkpoint
+
+        names = list(p)
+        holder = {}
+
+        def fwd(x, *values):
+            y, s2 = layer.forward(dict(zip(names, values)), s, x, train=True,
+                                  gen=dropout_gen(layer, seed, index), **kw)
+            holder["state"] = s2
+            return y
+
+        y = checkpoint(fwd, x, *[p[k] for k in names], use_reentrant=False)
+        return y, holder["state"]
+
+    def _forward(self, params, x, keep_all=False):
+        """Eval-mode forward over every layer; returns the last activation,
+        or every layer's with ``keep_all``."""
+        return self._run(params, self.state, x, keep_all=keep_all)[0]
+
+    def _cast(self, params):
+        """Params in the compute dtype (mixed precision); the output layer
+        keeps the storage dtype so logits land in it."""
         if self._cdtype is None:
-            return self.params
-        if self._cast_params is None:
-            last = str(len(self.conf.layers) - 1)
-            self._cast_params = {
-                k: (vp if k == last else
+            return params
+        last = str(len(self.conf.layers) - 1)
+        return {k: (vp if k == last else
                     {pk: v.to(self._cdtype) if v.is_floating_point() else v
                      for pk, v in vp.items()})
-                for k, vp in self.params.items()}
+                for k, vp in params.items()}
+
+    def _fwd_params(self):
+        """The eval forward's params, cast once per set of params."""
+        if self._cast_params is None:
+            self._cast_params = self._cast(self.params)
         return self._cast_params
 
     def _prepare(self, x) -> torch.Tensor:
@@ -131,6 +248,15 @@ class MultiLayerNetwork:
             t = t.permute(0, 3, 1, 2)
         return t
 
+    def _on_device(self, a) -> Optional[torch.Tensor]:
+        """A label or mask array on this network's device in the storage
+        dtype (None stays None; a tensor already there is not copied)."""
+        if a is None:
+            return None
+        t = a if isinstance(a, torch.Tensor) else torch.as_tensor(
+            np.asarray(a))
+        return t.to(device=self.device, dtype=self._dtype)
+
     def _to_host(self, t: torch.Tensor) -> np.ndarray:
         t = t.to(self._dtype)
         if t.ndim == 4:
@@ -139,27 +265,194 @@ class MultiLayerNetwork:
             t = t.float()
         return t.cpu().numpy()
 
-    def output(self, x) -> np.ndarray:
+    def output(self, x, batch_size: Optional[int] = None,
+               fmask=None) -> np.ndarray:
         """Forward pass, eval mode (reference ``#output``), as a host array
-        in the storage dtype."""
+        in the storage dtype; ``batch_size`` runs it in chunks of that many
+        examples, ``fmask`` is a [batch, time] feature mask."""
         if self.params is None:
             self.init()
+        n = int(x.shape[0]) if hasattr(x, "shape") else len(x)
+        step = int(batch_size) if batch_size else max(n, 1)
+        outs = []
         with torch.inference_mode():
-            return self._to_host(self._forward(self._fwd_params(),
-                                               self._prepare(x)))
+            for lo in range(0, max(n, 1), step):
+                m = (None if fmask is None
+                     else self._on_device(fmask[lo:lo + step]))
+                y, _ = self._run(self._fwd_params(), self.state,
+                                 self._prepare(x[lo:lo + step]), fmask=m)
+                outs.append(self._to_host(y))
+        return outs[0] if len(outs) == 1 else np.concatenate(outs)
 
-    def feed_forward(self, x) -> List[np.ndarray]:
+    def feed_forward(self, x, fmask=None) -> List[np.ndarray]:
         """Every layer's activation, eval mode, input excluded (reference
         ``MultiLayerNetwork#feedForward``), as host arrays in the JAX
         package's layouts."""
         if self.params is None:
             self.init()
         with torch.inference_mode():
-            acts = self._forward(self._fwd_params(), self._prepare(x),
-                                 keep_all=True)
+            acts, _ = self._run(self._fwd_params(), self.state,
+                                self._prepare(x),
+                                fmask=self._on_device(fmask),
+                                keep_all=True)
             return [self._to_host(a) for a in acts]
 
-    # --- misc --------------------------------------------------------------
+    # --- training ----------------------------------------------------------
+    def _output_layer(self):
+        last = self.conf.layers[-1]
+        if not hasattr(last, "score"):
+            raise TypeError(
+                f"last layer {type(last).__name__} is not an output layer "
+                "(reference: fit() requires an IOutputLayer)")
+        return last
+
+    def _batch_arrays(self, ds: DataSet):
+        """(features, labels, feature mask, labels mask) on this network's
+        device: features as ``output`` takes them, the rest in the storage
+        dtype."""
+        return (self._prepare(ds.features), self._on_device(ds.labels),
+                self._on_device(ds.features_mask),
+                self._on_device(ds.labels_mask))
+
+    def _loss(self, params, features, labels, fmask, lmask, train=True,
+              seed=None):
+        """The score of one batch and the forward's new state: the forward
+        up to the output layer, then the output layer's loss on its
+        pre-activations with the storage-dtype (f32 master) params, plus
+        the regularization score."""
+        last = len(self.conf.layers) - 1
+        out_layer = self._output_layer()
+        x, new_state = self._run(self._cast(params), self.state, features,
+                                 train, seed, upto=last, fmask=fmask)
+        loss = out_layer.score(params.get(str(last), {}), x.to(self._dtype),
+                               labels, lmask)
+        reg = solver.regularization_score(
+            params, lambda key: self.conf.layers[int(key)])
+        return loss + reg, new_state
+
+    def _backward(self, features, labels, fmask, lmask, seed=None):
+        """Forward + ``backward()`` on detached leaves of the params:
+        ``(loss, new_state, grads)``."""
+        leaves = {k: {pk: v.detach().requires_grad_(v.is_floating_point())
+                      for pk, v in vp.items()}
+                  for k, vp in self.params.items()}
+        loss, new_state = self._loss(leaves, features, labels, fmask, lmask,
+                                     train=True, seed=seed)
+        loss.backward()
+        grads = {k: {pk: (v.grad if v.grad is not None
+                          else torch.zeros_like(v))
+                     for pk, v in vp.items()}
+                 for k, vp in leaves.items()}
+        return loss.detach(), new_state, grads
+
+    def compute_gradient_and_score(self, ds: DataSet):
+        """``(grads, score)`` of one batch in train mode without dropout,
+        updating nothing (reference ``#computeGradientAndScore``). ``grads``
+        mirrors ``params`` (the port's layouts)."""
+        if self.params is None:
+            self.init()
+        loss, _, grads = self._backward(*self._batch_arrays(ds))
+        return grads, float(loss)
+
+    def fit(self, data, labels=None, epochs: int = 1,
+            batch_size: Optional[int] = None,
+            fused_steps: Optional[int] = None) -> "MultiLayerNetwork":
+        """Train (reference ``MultiLayerNetwork#fit`` overloads: a
+        DataSetIterator, a DataSet, or (features, labels) arrays, batched
+        by ``batch_size``). ``fused_steps=K`` groups K steps (see the
+        module docstring); it takes standard backprop only."""
+        if self.params is None:
+            self.init()
+        if self.conf.backprop_type is BackpropType.TRUNCATED_BPTT:
+            raise NotImplementedError(
+                "truncated BPTT trains recurrent layers, which are not "
+                "ported yet")
+        if fused_steps is not None and int(fused_steps) < 1:
+            raise ValueError(f"fused_steps must be >= 1, got {fused_steps}")
+        iterator = _as_iterator(data, labels, batch_size)
+        for _ in range(epochs):
+            for lst in self.listeners:
+                lst.on_epoch_start(self, self.epoch)
+            for ds in iterator:
+                self._fit_batch(ds)
+            iterator.reset()
+            for lst in self.listeners:
+                lst.on_epoch_end(self, self.epoch)
+            self.epoch += 1
+        return self
+
+    def fit_batch(self, ds: DataSet) -> float:
+        """One optimization step on one minibatch; returns its loss."""
+        if self.params is None:
+            self.init()
+        return float(self._fit_batch(ds))
+
+    def _fit_batch(self, ds: DataSet) -> torch.Tensor:
+        features, labels, fmask, lmask = self._batch_arrays(ds)
+        # injection site (raise = preemption mid-training)
+        features = faults.fault_point("train.step", features)
+        cur = self.iteration
+        loss, new_state, grads = self._backward(
+            features, labels, fmask, lmask,
+            seed=_vertex_seed(self.conf.seed, cur + 1_000_003))
+        with torch.no_grad():
+            for k in grads:
+                layer = self.conf.layers[int(k)]
+                upd = self._updater_for(int(k))
+                g = solver.normalize_layer_gradients(layer, grads[k])
+                self.params[k], self.opt_state[k] = \
+                    solver.apply_updater_to_layer(
+                        layer, upd, self.params[k], g, self.opt_state[k],
+                        upd.current_lr(cur, self.epoch), cur, self.epoch)
+        self.state.update(new_state)
+        self._cast_params = None
+        self._score = loss
+        self.last_batch_size = int(features.shape[0])
+        self.iteration += 1  # listeners see iteration == next-to-run
+        for lst in self.listeners:
+            lst.iteration_done(self, cur, self.epoch, loss)
+        return loss
+
+    def score(self, ds: Optional[DataSet] = None) -> float:
+        """The eval-mode loss of ``ds``, regularization included (reference
+        ``#score(DataSet)``); with no argument, the last training step's
+        loss."""
+        if ds is None:
+            return float("nan") if self._score is None else float(self._score)
+        if self.params is None:
+            self.init()
+        features, labels, fmask, lmask = self._batch_arrays(ds)
+        with torch.no_grad():
+            loss, _ = self._loss(self.params, features, labels, fmask, lmask,
+                                 train=False)
+        return float(loss)
+
+    def evaluate(self, iterator, evaluation: Optional[Evaluation] = None):
+        """Reference ``#evaluate(DataSetIterator)`` -> Evaluation."""
+        ev = evaluation if evaluation is not None else Evaluation()
+        iterator = _as_iterator(iterator)
+        for ds in iterator:
+            out = self.output(ds.features, fmask=ds.features_mask)
+            ev.eval(host_array(ds.labels), out,
+                    mask=host_array(ds.labels_mask))
+        iterator.reset()
+        return ev
+
+    # --- params vector -----------------------------------------------------
+    def params_flat(self) -> np.ndarray:
+        """The one contiguous params vector (reference ``#params()``), in
+        the JAX package's order and layouts."""
+        if self.params is None:
+            self.init()
+        return params_util.flatten_params(self.conf, self.params)
+
+    def set_params_flat(self, flat) -> "MultiLayerNetwork":
+        """Copy ``flat`` (``params_flat``'s layout) into the params in
+        place; the updater state stays."""
+        params_util.unflatten_params(self.conf, flat, self.params)
+        self._cast_params = None
+        return self
+
     def num_params(self) -> int:
         if self.params is None:
             self.init()
@@ -167,9 +460,37 @@ class MultiLayerNetwork:
                        for v in vp.values()))
 
     def clone(self) -> "MultiLayerNetwork":
-        """A new network on the same conf and device with copied params
-        and state."""
+        """A new network on the same conf and device with copied params,
+        state and updater state."""
         other = MultiLayerNetwork(self.conf, self.device)
         if self.params is not None:
-            other.set_params(self.params, self.state)
+            other.set_params(self.params, self.state, self.opt_state)
         return other
+
+    def summary(self) -> str:
+        """Layer table (reference ``#summary``)."""
+        lines = ["=" * 70,
+                 f"{'idx':<4} {'layer':<30} {'output':<20} {'params':>10}",
+                 "-" * 70]
+        total = 0
+        for i, (layer, itype) in enumerate(zip(self.conf.layers,
+                                               self.conf.input_types())):
+            n = 0
+            if self.params and str(i) in self.params:
+                n = sum(v.numel() for v in self.params[str(i)].values())
+            total += n
+            lines.append(f"{i:<4} {type(layer).__name__:<30} "
+                         f"{_fmt_type(layer.output_type(itype)):<20} "
+                         f"{n:>10,}")
+        lines += ["-" * 70, f"Total params: {total:,}", "=" * 70]
+        return "\n".join(lines)
+
+
+def _fmt_type(t) -> str:
+    if isinstance(t, it.Convolutional):
+        return f"[{t.height},{t.width},{t.channels}]"
+    if isinstance(t, it.Recurrent):
+        return f"[t={t.timesteps},{t.size}]"
+    if isinstance(t, it.FeedForward):
+        return f"[{t.size}]"
+    return str(t)

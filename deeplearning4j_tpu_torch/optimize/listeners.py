@@ -2,14 +2,17 @@
 
 Reference: ``org.deeplearning4j.optimize.api.TrainingListener`` and the
 impls in ``org.deeplearning4j.optimize.listeners``; copied from the JAX
-package's ``optimize/listeners.py``. ``score`` is the step's loss (a
-0-dim tensor; ``float(score)`` reads it).
+package's ``optimize/listeners.py``: score printing and collection, the
+performance and ETA listeners and periodic evaluation. ``score`` is the
+step's loss (a 0-dim tensor, on the device until a listener reads it with
+``float(score)``).
 """
 
 from __future__ import annotations
 
 import sys
-from typing import List
+import time
+from typing import Callable, List, Optional
 
 
 class TrainingListener:
@@ -39,6 +42,48 @@ class ScoreIterationListener(TrainingListener):
                   file=self.stream)
 
 
+class PerformanceListener(TrainingListener):
+    """Batches/sec + examples/sec (reference ``PerformanceListener``). The
+    timing window resets at every epoch start, so a listener kept across
+    ``fit`` calls never averages the idle time between them into its
+    rate. The rate is host wall clock between listener calls: the step it
+    reports has been launched, not necessarily finished, on the card."""
+
+    def __init__(self, frequency: int = 10, report_batch: bool = True,
+                 stream=None):
+        self.frequency = max(1, frequency)
+        self.report_batch = report_batch
+        self.stream = stream or sys.stdout
+        self._last_time = None
+        self._last_iter = None
+        self.last_batches_per_sec: Optional[float] = None
+        self.last_examples_per_sec: Optional[float] = None
+
+    def on_epoch_start(self, model, epoch):
+        self._last_time = None
+        self._last_iter = None
+
+    def iteration_done(self, model, iteration, epoch, score):
+        now = time.perf_counter()
+        if self._last_time is not None and iteration % self.frequency == 0:
+            iters = iteration - self._last_iter
+            dt = now - self._last_time
+            if dt > 0 and iters > 0:
+                bps = iters / dt
+                self.last_batches_per_sec = bps
+                batch = getattr(model, "last_batch_size", None)
+                msg = f"batches/sec: {bps:.2f}"
+                if batch and self.report_batch:
+                    self.last_examples_per_sec = bps * batch
+                    msg += f", examples/sec: {self.last_examples_per_sec:.2f}"
+                print(msg, file=self.stream)
+            self._last_time = now
+            self._last_iter = iteration
+        elif self._last_time is None:
+            self._last_time = now
+            self._last_iter = iteration
+
+
 class CollectScoresListener(TrainingListener):
     """Accumulate (iteration, score) pairs (reference
     ``CollectScoresListener``)."""
@@ -52,3 +97,60 @@ class CollectScoresListener(TrainingListener):
         if iteration % self.frequency == 0:
             self.iterations.append(iteration)
             self.scores.append(float(score))
+
+
+class TimeIterationListener(TrainingListener):
+    """ETA printout (reference ``TimeIterationListener``)."""
+
+    def __init__(self, total_iterations: int, frequency: int = 50,
+                 stream=None):
+        self.total = total_iterations
+        self.frequency = max(1, frequency)
+        self.stream = stream or sys.stdout
+        self._start = None
+
+    def iteration_done(self, model, iteration, epoch, score):
+        if self._start is None:
+            self._start = time.perf_counter()
+            return
+        if iteration % self.frequency == 0 and iteration > 0:
+            elapsed = time.perf_counter() - self._start
+            remaining = (self.total - iteration) * elapsed / iteration
+            print(f"Remaining time estimate: {remaining:.1f}s "
+                  f"(iteration {iteration}/{self.total})", file=self.stream)
+
+
+class EvaluativeListener(TrainingListener):
+    """Periodic evaluation during fit (reference ``EvaluativeListener``):
+    every ``frequency`` epochs (``unit="epoch"``) or iterations
+    (``unit="iteration"``), ``model.evaluate(iterator)``."""
+
+    def __init__(self, iterator, frequency: int = 1,
+                 unit: str = "epoch",
+                 evaluation_factory: Optional[Callable] = None,
+                 stream=None):
+        self.iterator = iterator
+        self.frequency = max(1, frequency)
+        self.unit = unit
+        self.evaluation_factory = evaluation_factory
+        self.stream = stream or sys.stdout
+        self.last_evaluation = None
+
+    def _run(self, model):
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+
+        factory = self.evaluation_factory or Evaluation
+        self.last_evaluation = model.evaluate(self.iterator,
+                                              evaluation=factory())
+        acc = getattr(self.last_evaluation, "accuracy", None)
+        if callable(acc):
+            print(f"[EvaluativeListener] accuracy: {acc():.4f}",
+                  file=self.stream)
+
+    def iteration_done(self, model, iteration, epoch, score):
+        if self.unit == "iteration" and iteration % self.frequency == 0:
+            self._run(model)
+
+    def on_epoch_end(self, model, epoch):
+        if self.unit == "epoch" and (epoch + 1) % self.frequency == 0:
+            self._run(model)

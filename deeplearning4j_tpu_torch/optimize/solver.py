@@ -65,3 +65,20 @@ def apply_updater_to_layer(layer_conf, updater, params: dict, grads: dict,
             upd = r.apply_after_updater(upd, p, lr)
         new_params[k] = p.sub_(upd)
     return new_params, new_opt
+
+
+def regularization_score(params: dict, layer_of):
+    """Total regularization penalty added to the reported score (reference
+    ``BaseLayer#calcRegularizationScore``): ``layer_of(key)`` is the layer
+    conf whose ``regularization`` / ``regularization_bias`` apply to the
+    params under ``key``."""
+    total = 0.0
+    for key, lparams in params.items():
+        conf = layer_of(key)
+        reg_keys = set(conf.regularized_param_keys())
+        for k, p in lparams.items():
+            regs = (getattr(conf, "regularization", ()) if k in reg_keys
+                    else getattr(conf, "regularization_bias", ()))
+            for r in regs or ():
+                total = total + r.score_term(p)
+    return total

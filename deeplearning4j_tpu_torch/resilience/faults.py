@@ -1,7 +1,7 @@
 """Deterministic fault injection.
 
 A minimal copy of the JAX package's ``resilience/faults.py`` for the
-serving slice. Product code carries permanent one-line ``fault_point(site)``
+serving and training slices. Product code carries permanent one-line ``fault_point(site)``
 hooks (one module-global check when no plan is armed), and a test arms a
 :class:`FaultPlan` that raises or delays on exactly the invocations it
 chose.
@@ -11,6 +11,12 @@ Named sites (the permanent hooks in product code)::
     serving.launch       parallel.batcher dispatcher, before the shared
                          forward (delay mode simulates a stuck launch —
                          the watchdog's test vector)
+    train.step           MultiLayerNetwork.fit, once per optimization step
+                         after the batch is placed (raise = preemption
+                         mid-training)
+    checkpoint.write     util.serializer.write_model, between the zip's
+                         entries (raise = a crash mid-save: the temp file
+                         is removed, the published zip never half-written)
 
 Usage::
 
@@ -31,7 +37,7 @@ import threading
 import time
 from typing import Callable, Iterable, List, Optional
 
-SITES = ("serving.launch",)
+SITES = ("serving.launch", "train.step", "checkpoint.write")
 
 
 class InjectedFault(RuntimeError):
@@ -146,12 +152,14 @@ _ARM_LOCK = threading.Lock()
 _ACTIVE: Optional[FaultPlan] = None
 
 
-def fault_point(site: str) -> None:
-    """The permanent product-code hook: a no-op when no plan is armed, else
-    routes through the armed plan (which may raise or sleep)."""
+def fault_point(site: str, value=None):
+    """The permanent product-code hook: returns ``value`` untouched when no
+    plan is armed, else routes through the armed plan (which may raise or
+    sleep) and then returns ``value``."""
     plan = _ACTIVE
     if plan is not None:
         plan._hit(site)
+    return value
 
 
 def _record_injected(site: str, action: str) -> None:

@@ -20,6 +20,9 @@ This module imports neither package's JAX code: it takes the JAX network's
 ``params``/``state`` as nested dicts of numpy arrays
 (``{vertex: {"W": ..., "b": ...}}`` for a graph, ``{"0": {...}, ...}`` by
 layer index for a MultiLayerNetwork; e.g. ``np.asarray`` of each leaf).
+``params_to_jax`` / ``opt_state_to_jax`` go the other way, to numpy in the
+JAX package's layouts (the flat vector of ``util.params`` is built on
+them).
 
 A MultiLayerNetwork's 6400-wide dense layer after AlexNet's flatten keeps
 its rows: the port's ``CnnToFeedForwardPreProcessor`` flattens in the JAX
@@ -47,23 +50,49 @@ from deeplearning4j_tpu_torch.conf.layers_cnn import (
 _ATTN_WEIGHTS = ("Wq", "Wk", "Wv", "Wo")
 
 
+def layout_perm(layer, key: str, ndim: int):
+    """The axes permutation that takes ``layer``'s param ``key`` from the
+    port's layout to the JAX package's (``np.transpose(v, perm)``), or None
+    where the two layouts agree."""
+    if isinstance(layer, SelfAttentionLayer) and key in _ATTN_WEIGHTS:
+        return (1, 0)  # [out, in] -> [in, out]
+    if key != "W":
+        return None
+    if isinstance(layer, (ConvolutionLayer, FusedConvBN1x1)):
+        return (2, 3, 1, 0)  # OIHW -> HWIO
+    if isinstance(layer, DenseLayer):
+        return (1, 0)  # [nOut, nIn] -> [nIn, nOut]
+    if isinstance(layer, EmbeddingSequenceLayer):
+        return None
+    raise ValueError(f"no weight layout rule for {type(layer).__name__}")
+
+
 def convert_layer_params(layer, params: Dict[str, object]) -> Dict[str, torch.Tensor]:
     """One layer's JAX-package params (``{"W": ..., "b": ...}``, numpy) in
     the port's layouts, as CPU tensors."""
     out = {}
     for key, v in params.items():
         v = np.asarray(v)
-        if isinstance(layer, SelfAttentionLayer) and key in _ATTN_WEIGHTS:
-            v = np.transpose(v)  # [in, out] -> [out, in]
-        elif key == "W":
-            if isinstance(layer, (ConvolutionLayer, FusedConvBN1x1)):
-                v = np.transpose(v, (3, 2, 0, 1))  # HWIO -> OIHW
-            elif isinstance(layer, DenseLayer):
-                v = np.transpose(v)  # [nIn, nOut] -> [nOut, nIn]
-            elif not isinstance(layer, EmbeddingSequenceLayer):
-                raise ValueError(
-                    f"no weight layout rule for {type(layer).__name__}")
+        perm = layout_perm(layer, key, v.ndim)
+        if perm is not None:
+            v = np.transpose(v, np.argsort(perm))
         out[key] = torch.tensor(v)
+    return out
+
+
+def layer_params_to_jax(layer, params: Dict[str, torch.Tensor]
+                        ) -> Dict[str, np.ndarray]:
+    """One layer's port params in the JAX package's layouts, as C-ordered
+    numpy arrays (the inverse of :func:`convert_layer_params`)."""
+    out = {}
+    for key, v in params.items():
+        a = v.detach().cpu()
+        if a.dtype == torch.bfloat16:  # numpy has no bfloat16
+            a = a.float()
+        a = a.numpy()
+        perm = layout_perm(layer, key, a.ndim)
+        out[key] = np.ascontiguousarray(
+            a if perm is None else np.transpose(a, perm))
     return out
 
 
@@ -89,16 +118,41 @@ def params_from_jax(conf, params: Dict[str, dict], state: Dict[str, dict]
 
 
 def opt_state_from_jax(conf, opt_state: Dict[str, dict]) -> Dict[str, dict]:
-    """Map the JAX graph's updater state (``{vertex: {param: {"m": ...,
-    "v": ...}}}``, numpy) onto the port's layouts, so training resumes in
-    the port: pass the result to ``ComputationGraph.set_params`` (and carry
-    the JAX graph's ``iteration``, which Adam's bias correction reads)."""
-    vmap = conf.vertex_map()
+    """Map the JAX network's updater state (``{key: {param: {"m": ...,
+    "v": ...}}}``, numpy; keys are a graph's vertex names or a
+    MultiLayerNetwork's layer indices) onto the port's layouts, so training
+    resumes in the port: pass the result to ``set_params`` of either
+    network (and carry the JAX network's ``iteration``, which Adam's bias
+    correction reads)."""
     out = {}
     for name, vp in opt_state.items():
-        layer = getattr(vmap[name].vertex, "layer", None)
+        layer = _layer_of(conf, name)
         out[name] = {
             pk: {sk: convert_layer_params(layer, {pk: v})[pk]
+                 for sk, v in leaf.items()}
+            for pk, leaf in vp.items()}
+    return out
+
+
+def params_to_jax(conf, params: Dict[str, dict], state: Dict[str, dict]
+                  ) -> Tuple[Dict[str, dict], Dict[str, dict]]:
+    """The port network's ``params``/``state`` in the JAX package's layouts,
+    as numpy (the inverse of :func:`params_from_jax`)."""
+    out_p = {name: layer_params_to_jax(_layer_of(conf, name), vp)
+             for name, vp in params.items()}
+    out_s = {name: layer_params_to_jax(None, vs)
+             for name, vs in state.items()}
+    return out_p, out_s
+
+
+def opt_state_to_jax(conf, opt_state: Dict[str, dict]) -> Dict[str, dict]:
+    """The port network's updater state in the JAX package's layouts, as
+    numpy (the inverse of :func:`opt_state_from_jax`)."""
+    out = {}
+    for name, vp in opt_state.items():
+        layer = _layer_of(conf, name)
+        out[name] = {
+            pk: {sk: layer_params_to_jax(layer, {pk: v})[pk]
                  for sk, v in leaf.items()}
             for pk, leaf in vp.items()}
     return out

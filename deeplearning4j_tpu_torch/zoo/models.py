@@ -1,4 +1,6 @@
-"""Model zoo: the SPI and the sequential (MultiLayerNetwork) models.
+"""Model zoo: the SPI and the sequential (MultiLayerNetwork) models:
+``LeNet``, ``SimpleCNN`` and ``AlexNet``, each the JAX package's
+configuration.
 
 Reference: ``org.deeplearning4j.zoo.ZooModel``: ``conf()`` builds the
 configuration and ``init()`` the network. Pretrained-weight loading lands
@@ -11,6 +13,7 @@ from deeplearning4j_tpu_torch.conf.activations import Activation
 from deeplearning4j_tpu_torch.conf.inputs import InputType
 from deeplearning4j_tpu_torch.conf.layers import DenseLayer, OutputLayer
 from deeplearning4j_tpu_torch.conf.layers_cnn import (
+    BatchNormalization,
     ConvolutionLayer,
     ConvolutionMode,
     LocalResponseNormalization,
@@ -22,7 +25,7 @@ from deeplearning4j_tpu_torch.conf.multilayer import (
     MultiLayerConfiguration,
     NeuralNetConfiguration,
 )
-from deeplearning4j_tpu_torch.conf.updaters import IUpdater, Nesterovs
+from deeplearning4j_tpu_torch.conf.updaters import Adam, IUpdater, Nesterovs
 from deeplearning4j_tpu_torch.conf.weights import WeightInit
 
 
@@ -35,6 +38,92 @@ class ZooModel:
 
     def conf(self):
         raise NotImplementedError
+
+
+class LeNet(ZooModel):
+    """Reference ``org.deeplearning4j.zoo.model.LeNet`` topology:
+    conv5x5(20) SAME -> maxpool2 -> conv5x5(50) SAME -> maxpool2 ->
+    dense(500, relu) -> softmax output; 28x28xC input (MNIST by default),
+    1,256,080 params at the defaults."""
+
+    def __init__(self, num_classes: int = 10, height: int = 28,
+                 width: int = 28, channels: int = 1, seed: int = 123,
+                 updater: IUpdater | None = None):
+        self.num_classes = num_classes
+        self.height, self.width, self.channels = height, width, channels
+        self.seed = seed
+        self.updater = updater or Adam(learning_rate=1e-3)
+
+    def conf(self) -> MultiLayerConfiguration:
+        def conv(n):
+            return ConvolutionLayer(n_out=n, kernel_size=(5, 5),
+                                    stride=(1, 1),
+                                    convolution_mode=ConvolutionMode.SAME,
+                                    activation=Activation.IDENTITY)
+
+        def pool():
+            return SubsamplingLayer(pooling_type=PoolingType.MAX,
+                                    kernel_size=(2, 2), stride=(2, 2))
+
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed)
+                .updater(self.updater)
+                .weight_init(WeightInit.XAVIER)
+                .list()
+                .layer(conv(20)).layer(pool())
+                .layer(conv(50)).layer(pool())
+                .layer(DenseLayer(n_out=500, activation=Activation.RELU))
+                .layer(OutputLayer(n_out=self.num_classes,
+                                   activation=Activation.SOFTMAX,
+                                   loss_fn=LossMCXENT()))
+                .set_input_type(InputType.convolutional(
+                    self.height, self.width, self.channels))
+                .build())
+
+    def init(self, device="cuda"):
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+        return MultiLayerNetwork(self.conf(), device).init()
+
+
+class SimpleCNN(ZooModel):
+    """Reference ``org.deeplearning4j.zoo.model.SimpleCNN``: three 3x3 SAME
+    convolutions (16, 32, 64), each followed by a relu batch norm, max-pools
+    after the second and third, dense(128, relu), softmax; 48x48x3 input,
+    ``Nesterovs(0.01, 0.9)``."""
+
+    def __init__(self, num_classes: int = 10, height: int = 48,
+                 width: int = 48, channels: int = 3, seed: int = 123):
+        self.num_classes = num_classes
+        self.height, self.width, self.channels = height, width, channels
+        self.seed = seed
+
+    def conf(self) -> MultiLayerConfiguration:
+        b = (NeuralNetConfiguration.builder()
+             .seed(self.seed)
+             .updater(Nesterovs(learning_rate=0.01, momentum=0.9))
+             .weight_init(WeightInit.RELU)
+             .list())
+        for n_out, pool in [(16, False), (32, True), (64, True)]:
+            b.layer(ConvolutionLayer(n_out=n_out, kernel_size=(3, 3),
+                                     convolution_mode=ConvolutionMode.SAME,
+                                     activation=Activation.IDENTITY))
+            b.layer(BatchNormalization(activation=Activation.RELU))
+            if pool:
+                b.layer(SubsamplingLayer(pooling_type=PoolingType.MAX,
+                                         kernel_size=(2, 2), stride=(2, 2)))
+        b.layer(DenseLayer(n_out=128, activation=Activation.RELU))
+        b.layer(OutputLayer(n_out=self.num_classes,
+                            activation=Activation.SOFTMAX,
+                            loss_fn=LossMCXENT()))
+        b.set_input_type(InputType.convolutional(self.height, self.width,
+                                                 self.channels))
+        return b.build()
+
+    def init(self, device="cuda"):
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+        return MultiLayerNetwork(self.conf(), device).init()
 
 
 class AlexNet(ZooModel):

@@ -33,7 +33,7 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(count) >= 52  # every module of the port, int8 serving included
+    assert int(count) >= 59  # every module of the port, MLN training included
     assert bad == "[]"
 
 
@@ -73,8 +73,25 @@ QUANT_MODULES = [
 ]
 
 
+# the MultiLayerNetwork training slice's modules (datasets, normalizers,
+# evaluation, listeners, the flat params vector and the serializer)
+MLN_TRAINING_MODULES = [
+    "deeplearning4j_tpu_torch.datasets.dataset",
+    "deeplearning4j_tpu_torch.datasets.iterators",
+    "deeplearning4j_tpu_torch.datasets.mnist",
+    "deeplearning4j_tpu_torch.datasets.normalizers",
+    "deeplearning4j_tpu_torch.eval.evaluation",
+    "deeplearning4j_tpu_torch.optimize.listeners",
+    "deeplearning4j_tpu_torch.util.params",
+    "deeplearning4j_tpu_torch.util.serializer",
+    "deeplearning4j_tpu_torch.conf.losses",
+    "deeplearning4j_tpu_torch.conf.updaters",
+    "deeplearning4j_tpu_torch.resilience.faults",
+]
+
+
 @pytest.mark.parametrize("module", GENERATION_MODULES + TRAINING_MODULES
-                         + QUANT_MODULES)
+                         + QUANT_MODULES + MLN_TRAINING_MODULES)
 def test_generation_module_alone_loads_no_jax(module):
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "

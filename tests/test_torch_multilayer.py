@@ -38,6 +38,7 @@ from deeplearning4j_tpu.conf.layers import ActivationLayer as JActLayer
 from deeplearning4j_tpu.conf.layers import DenseLayer as JDense
 from deeplearning4j_tpu.conf.layers import DropoutLayer as JDrop
 from deeplearning4j_tpu.conf.layers import OutputLayer as JOut
+from deeplearning4j_tpu.conf.layers_cnn import BatchNormalization as JBN
 from deeplearning4j_tpu.conf.layers_cnn import ConvolutionLayer as JConv
 from deeplearning4j_tpu.conf.layers_cnn import ConvolutionMode as JMode
 from deeplearning4j_tpu.conf.layers_cnn import (
@@ -197,8 +198,13 @@ def test_list_builder_inserts_the_flatten_and_refuses_the_unported():
     flat = (NeuralNetConfiguration.builder().list()
             .layer(ConvolutionLayer(n_out=4, kernel_size=(3, 3)))
             .set_input_type(InputType.convolutional_flat(5, 5, 2)))
-    with pytest.raises(NotImplementedError, match="FeedForwardToCnn"):
-        flat.build()
+    assert [type(lyr).__name__ for lyr in flat.build().layers] == [
+        "FeedForwardToCnnPreProcessor", "ConvolutionLayer"]
+    cube = (NeuralNetConfiguration.builder().list()
+            .layer(DenseLayer(n_out=5))
+            .set_input_type(InputType.convolutional_3d(2, 3, 3, 2)))
+    with pytest.raises(NotImplementedError, match="Cnn3DToFeedForward"):
+        cube.build()
 
 
 # --------------------------------------------------------------------------
@@ -368,6 +374,51 @@ def test_prune_matches_jax():
     np.testing.assert_allclose(opt.output(x), net.output(x), **F32_TOL)
     np.testing.assert_allclose(opt.output(x), np.asarray(jopt.output(x)),
                                **F32_TOL)
+
+
+@pytest.mark.parametrize("args,kwargs", [
+    ((), {}),
+    ((), {"fold_bn": False}),
+    ((), {"prune": False}),
+    ((True,), {}),  # positional: fold_bn, as in the JAX package
+    ((True, True, True), {}),
+    ((), {"fold_bn": False, "prune": False, "bf16": True}),
+], ids=["defaults", "no_fold", "no_prune", "positional_fold",
+        "positional_bf16", "keywords_bf16"])
+def test_optimize_for_inference_flags_match_jax(args, kwargs):
+    """``optimize_for_inference(model, fold_bn, prune, bf16)`` takes the JAX
+    package's arguments in its order, each gating its own pass: the
+    serving copy's configuration, compute dtype and outputs match the JAX
+    package's for an MLN with a foldable BN (seeded running statistics)
+    and dropout."""
+    conf = (JNNC.builder().seed(6).list()
+            .layer(JDense(n_out=8, activation=JAct.IDENTITY))
+            .layer(JBN(activation=JAct.RELU))
+            .layer(JDrop(dropout=0.5))
+            .layer(JDense(n_out=6, activation=JAct.TANH, dropout=0.9))
+            .layer(JOut(n_out=3, activation=JAct.SOFTMAX, loss_fn=JMCXENT()))
+            .set_input_type(JIT.feed_forward(5)).build())
+    jnet = JMLN(conf).init()
+    rng = np.random.default_rng(8)
+    jnet.state["1"] = {
+        "mean": jax.numpy.asarray(rng.normal(size=8).astype(np.float32)),
+        "var": jax.numpy.asarray(rng.uniform(0.5, 2.0, 8).astype(np.float32))}
+    net = _pair(jnet)
+    opt = iopt.optimize_for_inference(net, *args, **kwargs)
+    jopt = jiopt.optimize_for_inference(jnet, *args, **kwargs)
+    assert opt.conf.to_json() == jopt.conf.to_json()
+    assert opt.conf.compute_dtype == jopt.conf.compute_dtype
+    names = [type(lyr).__name__ for lyr in opt.conf.layers]
+    fold = kwargs.get("fold_bn", args[0] if args else True)
+    prune = kwargs.get("prune", args[1] if len(args) > 1 else True)
+    assert ("BatchNormalization" in names) != fold
+    assert ("DropoutLayer" in names) != prune
+    x = rng.normal(size=(4, 5)).astype(np.float32)
+    tol = (dict(rtol=0, atol=2e-2) if opt.conf.compute_dtype == "bfloat16"
+           else F32_TOL)
+    np.testing.assert_allclose(opt.output(x), np.asarray(jopt.output(x)),
+                               **tol)
+    np.testing.assert_allclose(opt.output(x), net.output(x), **tol)
 
 
 def test_dropout_layer_is_inverted_dropout_in_train_only():
