@@ -2,10 +2,18 @@
 
 Reference: ``org.deeplearning4j.nn.conf.ComputationGraphConfiguration``
 (+ ``#graphBuilder``) and the vertex confs in
-``org.deeplearning4j.nn.conf.graph``. Fields and ``@type`` tags are the JAX
-package's, so ``ResNet50().conf()`` JSON written there loads here. The
-serving slice carries ``LayerVertex`` and ``ElementWiseVertex``; the other
-vertex kinds land with the slices whose models use them.
+``org.deeplearning4j.nn.conf.graph``: ``LayerVertex``, ``AttentionVertex``,
+``ElementWiseVertex``, ``MergeVertex``, ``SubsetVertex``, ``ScaleVertex``,
+``ShiftVertex``, ``L2NormalizeVertex``, ``StackVertex``, ``UnstackVertex``,
+``ReshapeVertex`` and ``PreprocessorVertex``. Fields and ``@type`` tags are
+the JAX package's, so a configuration written by either package loads in
+the other.
+
+Axes are the reference's. The port's images are logical NCHW, so the
+feature axis of ``MergeVertex`` and ``SubsetVertex`` is dim 1 for a 4-D
+input and the last dim otherwise (the JAX package's last NHWC axis either
+way), and ``ReshapeVertex`` reshapes in the JAX package's NHWC element
+order.
 
 Vertex contract (multi-input generalization of ``conf.layers.Layer``):
 - ``output_type(input_types: list) -> InputType``
@@ -13,6 +21,7 @@ Vertex contract (multi-input generalization of ``conf.layers.Layer``):
 - ``init_state(input_types, dtype) -> state dict``
 - ``forward(params, state, inputs: list) -> (y, state)`` (eval mode); a
   ``LayerVertex`` also takes the feature ``mask`` the graph propagates
+- ``param_order()``: the flat-params order (serializer parity)
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import enum
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch import serde
 from deeplearning4j_tpu_torch.conf import inputs as it
@@ -32,6 +42,7 @@ from deeplearning4j_tpu_torch.conf.layers import (
 )
 from deeplearning4j_tpu_torch.conf.multilayer import BackpropType
 from deeplearning4j_tpu_torch.conf.updaters import IUpdater, Sgd
+from deeplearning4j_tpu_torch.conf.weights import WeightInit
 
 
 @dataclasses.dataclass
@@ -116,6 +127,114 @@ class LayerVertex(GraphVertex):
         return hasattr(self.layer, "score")
 
 
+@serde.register
+@dataclasses.dataclass
+class AttentionVertex(GraphVertex):
+    """Multi-head dot-product attention vertex (reference
+    ``org.deeplearning4j.nn.conf.graph.AttentionVertex``). Inputs
+    ``[queries, keys, values]`` or ``[queries, keys, values, key_mask]``:
+    sequences ``[batch, time, size]``, the mask ``[batch, time_k]`` (valid
+    where > 0; a ``[batch, time_k, 1]`` mask is squeezed). The port keeps
+    the projections in torch's ``nn.Linear`` layout, ``Wq/Wk/Wv: [nHeads *
+    headSize, nIn*]`` and ``Wo: [nOut, nHeads * headSize]`` (the JAX
+    package's ``[nIn*, nHeads * headSize]`` / ``[nHeads * headSize, nOut]``
+    transposed; ``util.convert`` maps them). The softmax(QK^T)V core runs
+    the stock tier of :func:`ops.attention.dot_product_attention`, or, with
+    ``use_kernels`` (``kernels.routing``), the flash kernel, as the JAX
+    package's ``attention_impl="auto"`` dispatches to its flash kernel.
+
+    ``streaming_window > 0`` streams through ``rnn_time_step``, which the
+    port has not ported yet: such a vertex is refused when it is built."""
+
+    n_out: int = 0
+    n_heads: int = 1
+    head_size: int = 0
+    project_input: bool = True
+    weight_init: WeightInit = None  # set in __post_init__
+    attention_impl: str = "auto"
+    causal: bool = False
+    streaming_window: int = 0
+
+    def __post_init__(self):
+        if self.weight_init is None:
+            self.weight_init = WeightInit.XAVIER
+        if self.streaming_window and not self.causal:
+            raise ValueError(
+                "AttentionVertex: streaming_window requires causal=True "
+                "(non-causal attention reads future keys and cannot "
+                "stream)")
+        if self.streaming_window:
+            raise NotImplementedError(
+                "AttentionVertex(streaming_window > 0) streams through "
+                "rnn_time_step, which is not ported yet")
+
+    def _head_size(self, nq):
+        return self.head_size or (self.n_out // self.n_heads)
+
+    def output_type(self, input_types):
+        tq = input_types[0]
+        ts = tq.timesteps if isinstance(tq, it.Recurrent) else -1
+        # unprojected attention emits a weighted sum of the VALUES
+        n = self.n_out if self.project_input else input_types[2].size
+        return it.Recurrent(size=n, timesteps=ts)
+
+    def init(self, gen, input_types, dtype=torch.float32):
+        if not self.project_input:
+            if self.n_heads != 1:
+                raise ValueError("project_input=False requires n_heads == 1")
+            return {}
+        nq, nk, nv = (t.size for t in input_types[:3])
+        e = self.n_heads * self._head_size(nq)
+        wi = self.weight_init
+
+        def w(n_o, n_i):
+            return wi.init(gen, (n_o, n_i), n_i, n_o, dtype)
+
+        return {
+            "Wq": w(e, nq), "Wk": w(e, nk), "Wv": w(e, nv),
+            "Wo": w(self.n_out, e),
+            "bq": torch.zeros((e,), dtype=dtype),
+            "bk": torch.zeros((e,), dtype=dtype),
+            "bv": torch.zeros((e,), dtype=dtype),
+            "bo": torch.zeros((self.n_out,), dtype=dtype),
+        }
+
+    def param_order(self):
+        if not self.project_input:
+            return []
+        return ["Wq", "bq", "Wk", "bk", "Wv", "bv", "Wo", "bo"]
+
+    def regularized_param_keys(self):
+        return ["Wq", "Wk", "Wv", "Wo"] if self.project_input else []
+
+    def forward(self, params, state, inputs, train=False, gen=None,
+                use_kernels=False):
+        from deeplearning4j_tpu_torch.conf.layers_attention import (
+            _attn_core,
+            _merge_heads,
+            _split_heads,
+        )
+
+        q_in, k_in, v_in = inputs[0], inputs[1], inputs[2]
+        mask = inputs[3] if len(inputs) > 3 else None
+        if mask is not None and mask.ndim == 3:
+            mask = mask[:, :, 0]
+        if self.project_input:
+            q = F.linear(q_in, params["Wq"], params["bq"])
+            k = F.linear(k_in, params["Wk"], params["bk"])
+            v = F.linear(v_in, params["Wv"], params["bv"])
+        else:
+            q, k, v = q_in, k_in, v_in
+        o = _attn_core(_split_heads(q, self.n_heads),
+                       _split_heads(k, self.n_heads),
+                       _split_heads(v, self.n_heads), mask, self.causal,
+                       self.attention_impl, train, use_kernels)
+        y = _merge_heads(o)
+        if self.project_input:
+            y = F.linear(y, params["Wo"], params["bo"])
+        return y, state
+
+
 @serde.register_enum
 class ElementWiseOp(enum.Enum):
     """Reference ``ElementWiseVertex.Op``."""
@@ -153,6 +272,164 @@ class ElementWiseVertex(GraphVertex):
             for x in inputs[1:]:
                 y = torch.maximum(y, x)
         return y, state
+
+
+def _feature_dim(x) -> int:
+    """The reference's feature axis in the port's layout: channels (dim 1)
+    of a logical NCHW image, else the last dim."""
+    return 1 if x.ndim == 4 else x.ndim - 1
+
+
+@serde.register
+@dataclasses.dataclass
+class MergeVertex(GraphVertex):
+    """Reference ``MergeVertex``: concatenation along the feature axis
+    (channels of an image, features of a dense or sequence input)."""
+
+    def output_type(self, input_types):
+        t0 = input_types[0]
+        if isinstance(t0, it.Convolutional):
+            return it.Convolutional(t0.height, t0.width,
+                                    sum(t.channels for t in input_types))
+        if isinstance(t0, it.Recurrent):
+            return it.Recurrent(size=sum(t.size for t in input_types),
+                                timesteps=t0.timesteps)
+        return it.FeedForward(size=sum(t.arity() for t in input_types))
+
+    def forward(self, params, state, inputs, train=False, gen=None):
+        return torch.cat(inputs, dim=_feature_dim(inputs[0])), state
+
+
+@serde.register
+@dataclasses.dataclass
+class SubsetVertex(GraphVertex):
+    """Reference ``SubsetVertex``: features ``from_idx..to_idx``
+    INCLUSIVE (the reference's interval) along the feature axis."""
+
+    from_idx: int = 0
+    to_idx: int = 0
+
+    def output_type(self, input_types):
+        n = self.to_idx - self.from_idx + 1
+        t0 = input_types[0]
+        if isinstance(t0, it.Convolutional):
+            return it.Convolutional(t0.height, t0.width, n)
+        if isinstance(t0, it.Recurrent):
+            return it.Recurrent(size=n, timesteps=t0.timesteps)
+        return it.FeedForward(size=n)
+
+    def forward(self, params, state, inputs, train=False, gen=None):
+        x = inputs[0]
+        return x.narrow(_feature_dim(x), self.from_idx,
+                        self.to_idx - self.from_idx + 1), state
+
+
+@serde.register
+@dataclasses.dataclass
+class ScaleVertex(GraphVertex):
+    """Reference ``ScaleVertex``: ``y = scale_factor * x``."""
+
+    scale_factor: float = 1.0
+
+    def forward(self, params, state, inputs, train=False, gen=None):
+        return inputs[0] * self.scale_factor, state
+
+
+@serde.register
+@dataclasses.dataclass
+class ShiftVertex(GraphVertex):
+    """Reference ``ShiftVertex``: ``y = x + shift_factor``."""
+
+    shift_factor: float = 0.0
+
+    def forward(self, params, state, inputs, train=False, gen=None):
+        return inputs[0] + self.shift_factor, state
+
+
+@serde.register
+@dataclasses.dataclass
+class L2NormalizeVertex(GraphVertex):
+    """Reference ``L2NormalizeVertex``: ``x / max(||x||_2, eps)`` over all
+    non-batch dims of each example."""
+
+    eps: float = 1e-8
+
+    def forward(self, params, state, inputs, train=False, gen=None):
+        x = inputs[0]
+        dims = tuple(range(1, x.ndim))
+        norm = torch.sqrt(torch.sum(x * x, dim=dims, keepdim=True))
+        return x / torch.clamp(norm, min=self.eps), state
+
+
+@serde.register
+@dataclasses.dataclass
+class StackVertex(GraphVertex):
+    """Reference ``StackVertex``: concatenation along the BATCH axis (the
+    dual of ``UnstackVertex``, for weight-shared towers)."""
+
+    def forward(self, params, state, inputs, train=False, gen=None):
+        return torch.cat(inputs, dim=0), state
+
+
+@serde.register
+@dataclasses.dataclass
+class UnstackVertex(GraphVertex):
+    """Reference ``UnstackVertex``: slice ``from_idx`` of ``stack_size``
+    equal chunks along the batch axis."""
+
+    from_idx: int = 0
+    stack_size: int = 1
+
+    def forward(self, params, state, inputs, train=False, gen=None):
+        x = inputs[0]
+        step = x.shape[0] // self.stack_size
+        return x[self.from_idx * step:(self.from_idx + 1) * step], state
+
+
+@serde.register
+@dataclasses.dataclass
+class ReshapeVertex(GraphVertex):
+    """Reference ``ReshapeVertex``: reshape to ``new_shape`` (its first
+    entry the batch placeholder -1) in the JAX package's element order: an
+    image input is read in NHWC order and a 4-D ``new_shape`` is
+    ``[-1, height, width, channels]``, returned as the port's logical NCHW
+    image."""
+
+    new_shape: Tuple[int, ...] = ()
+
+    def output_type(self, input_types):
+        s = self.new_shape
+        if len(s) == 2:
+            return it.FeedForward(size=s[1])
+        if len(s) == 3:
+            return it.Recurrent(size=s[2], timesteps=s[1])
+        if len(s) == 4:
+            return it.Convolutional(height=s[1], width=s[2], channels=s[3])
+        raise ValueError(f"cannot infer InputType for reshape to {s}")
+
+    def forward(self, params, state, inputs, train=False, gen=None):
+        x = inputs[0]
+        if x.ndim == 4:  # logical NCHW -> the reference's NHWC order
+            x = x.permute(0, 2, 3, 1)
+        y = x.reshape(tuple(self.new_shape))
+        if y.ndim == 4:
+            y = y.permute(0, 3, 1, 2)
+        return y, state
+
+
+@serde.register
+@dataclasses.dataclass
+class PreprocessorVertex(GraphVertex):
+    """Reference ``PreprocessorVertex``: a standalone InputPreProcessor."""
+
+    preprocessor: Optional[Layer] = None
+
+    def output_type(self, input_types):
+        return self.preprocessor.output_type(input_types[0])
+
+    def forward(self, params, state, inputs, train=False, gen=None):
+        return self.preprocessor.forward({}, {}, inputs[0], train=train,
+                                         gen=gen)
 
 
 @serde.register
@@ -259,6 +536,9 @@ class GraphBuilder:
         self._input_types: List[object] = []
         self._specs: List[VertexSpec] = []
         self._outputs: List[str] = []
+        self._backprop_type = BackpropType.STANDARD
+        self._tbptt_fwd = 20
+        self._tbptt_back = 20
 
     def add_inputs(self, *names: str) -> "GraphBuilder":
         self._inputs.extend(names)
@@ -283,6 +563,16 @@ class GraphBuilder:
         self._outputs = list(names)
         return self
 
+    def backprop_type(self, bp: BackpropType, fwd: int = 20,
+                      back: int = 20) -> "GraphBuilder":
+        """Reference ``GraphBuilder#backpropType`` (+ the tBPTT lengths).
+        The configuration carries ``TRUNCATED_BPTT``; ``fit`` refuses it
+        until the recurrent layers are ported."""
+        self._backprop_type = bp
+        self._tbptt_fwd = fwd
+        self._tbptt_back = back
+        return self
+
     def build(self) -> ComputationGraphConfiguration:
         from deeplearning4j_tpu_torch.conf.multilayer import (
             apply_builder_defaults,
@@ -305,6 +595,9 @@ class GraphBuilder:
             input_types=tuple(self._input_types),
             seed=self._base._seed,
             updater=self._base._updater,
+            backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_back_length=self._tbptt_back,
             dtype=self._base._dtype,
             compute_dtype=self._base._compute_dtype,
             use_kernels=self._base._use_kernels,

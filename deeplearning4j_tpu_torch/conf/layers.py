@@ -212,6 +212,63 @@ class OutputLayer(DenseLayer):
 
 @serde.register
 @dataclasses.dataclass
+class LossLayer(BaseLayer):
+    """Reference ``LossLayer``: a loss without params (input size == label
+    size): the activation, and the loss on the un-activated input."""
+
+    loss_fn: ILossFunction = dataclasses.field(default_factory=LossMCXENT)
+
+    def forward(self, params, state, x, train=False, gen=None):
+        return self.activation.apply(x), state
+
+    def score(self, params, x, labels, mask=None):
+        return self.loss_fn.score(labels, x, self.activation, mask)
+
+    def regularized_param_keys(self):
+        return []
+
+
+@serde.register
+@dataclasses.dataclass
+class EmbeddingLayer(BaseLayer):
+    """Reference ``EmbeddingLayer``: integer ids ``[batch]`` or ``[batch,
+    1]`` -> ``[batch, nOut]`` rows of W ``[nIn, nOut]`` (the JAX package's
+    layout, one row per id), plus the bias when ``has_bias``. The gradient
+    of W is a scatter-add of the output gradient into the looked-up rows
+    (``F.embedding``'s backward). An out-of-range id raises, as in
+    ``EmbeddingSequenceLayer`` (a jnp gather would clamp it)."""
+
+    n_in: int = 0
+    n_out: int = 0
+    has_bias: bool = False
+
+    def output_type(self, input_type):
+        return it.FeedForward(size=self.n_out)
+
+    def init(self, gen, input_type, dtype=torch.float32):
+        w = self.weight_init.init(gen, (self.n_in, self.n_out), self.n_in,
+                                  self.n_out, dtype, self.distribution)
+        params = {"W": w}
+        if self.has_bias:
+            params["b"] = torch.full((self.n_out,), self.bias_init,
+                                     dtype=dtype)
+        return params
+
+    def param_order(self):
+        return ["W", "b"] if self.has_bias else ["W"]
+
+    def forward(self, params, state, x, train=False, gen=None):
+        idx = x.long()
+        if idx.ndim == 2 and idx.shape[-1] == 1:
+            idx = idx[:, 0]
+        y = F.embedding(idx, params["W"])
+        if self.has_bias:
+            y = y + params["b"]
+        return self.activation.apply(y), state
+
+
+@serde.register
+@dataclasses.dataclass
 class EmbeddingSequenceLayer(BaseLayer):
     """Reference ``EmbeddingSequenceLayer``: token ids [batch, time] ->
     [batch, time, nOut]. W: [nIn, nOut] (one row per token id, the JAX

@@ -2,8 +2,8 @@
 
 Reference confs: ``ConvolutionLayer``, ``SubsamplingLayer``,
 ``BatchNormalization``, ``LocalResponseNormalization``,
-``GlobalPoolingLayer`` and the JAX package's
-``FusedConvBN1x1`` (``org.deeplearning4j.nn.conf.layers``). Fields and
+``GlobalPoolingLayer``, ``ZeroPaddingLayer``, ``SpaceToDepthLayer`` and the
+JAX package's ``FusedConvBN1x1`` (``org.deeplearning4j.nn.conf.layers``). Fields and
 ``@type`` tags are the JAX package's. Tensors are logical NCHW in
 ``channels_last`` memory; weights are OIHW.
 
@@ -437,3 +437,56 @@ class GlobalPoolingLayer(Layer):
         if self.pooling_type is PoolingType.AVG:
             return torch.mean(x, dim=dims), state
         return torch.sum(torch.abs(x) ** 2.0, dim=dims) ** 0.5, state
+
+
+def _channels_last(y):
+    """A logical NCHW result in the port's ``channels_last`` memory."""
+    return y.contiguous(memory_format=torch.channels_last)
+
+
+@serde.register
+@dataclasses.dataclass
+class ZeroPaddingLayer(Layer):
+    """Reference ``ZeroPaddingLayer``: zero rows and columns around the
+    image. ``padding`` is the reference's ``(top, bottom, left, right)``
+    (``F.pad`` takes the last dimension first: ``(left, right, top,
+    bottom)``)."""
+
+    padding: Tuple[int, int, int, int] = (1, 1, 1, 1)  # t, b, l, r
+
+    def output_type(self, input_type):
+        t, b, l, r = self.padding
+        return it.Convolutional(input_type.height + t + b,
+                                input_type.width + l + r, input_type.channels)
+
+    def forward(self, params, state, x, train=False, gen=None):
+        t, b, l, r = self.padding
+        return _channels_last(F.pad(x, (l, r, t, b))), state
+
+
+@serde.register
+@dataclasses.dataclass
+class SpaceToDepthLayer(Layer):
+    """Reference ``SpaceToDepthLayer``: each ``block_size`` x
+    ``block_size`` block of pixels becomes one pixel with ``block_size**2``
+    times the channels, in the JAX package's channel order: output channel
+    ``(a * block_size + b) * C + ch`` holds input pixel ``(bs*i + a, bs*j +
+    b)``, channel ``ch`` (the NHWC reshape/transpose of the reference, so a
+    weight written for the JAX package applies unchanged)."""
+
+    block_size: int = 2
+
+    def output_type(self, input_type):
+        bs = self.block_size
+        return it.Convolutional(input_type.height // bs,
+                                input_type.width // bs,
+                                input_type.channels * bs * bs)
+
+    def forward(self, params, state, x, train=False, gen=None):
+        n, c, h, w = x.shape
+        bs = self.block_size
+        y = x.permute(0, 2, 3, 1).reshape(n, h // bs, bs, w // bs, bs, c)
+        y = y.permute(0, 1, 3, 2, 4, 5).reshape(n, h // bs, w // bs,
+                                                bs * bs * c)
+        # NHWC-contiguous, so the NCHW view is channels_last already
+        return y.permute(0, 3, 1, 2), state

@@ -28,6 +28,11 @@ as the JAX package's ``kernels/routing.py``:
   ``flash_attention`` is an autograd Function whose backward is the dq and
   dk/dv kernels, so a routed train-mode forward trains on the card.
 
+In a graph, an ``AttentionVertex`` (``attention_impl`` auto or flash, a
+head size the kernels take) runs its own forward with the core on
+``flash_attention`` too, its fourth input the key mask: the JAX package's
+``attention_impl="auto"`` dispatches the vertex's core to its flash kernel.
+
 The generation path routes through the functional twins
 :func:`maybe_flash_attention` (prefill) and :func:`maybe_decode_attention`
 (the paged single-token kernel), called from ``SelfAttentionLayer.prefill``
@@ -241,6 +246,22 @@ def _route_self_attention(layer, params, state, x, train, gen, mask):
                          use_kernels=True)
 
 
+def _route_attention_vertex(vertex, params, state, xs, train, gen):
+    from deeplearning4j_tpu_torch.conf.graph import AttentionVertex
+    from deeplearning4j_tpu_torch.ops.attention import head_dim_supported
+
+    if type(vertex).forward is not AttentionVertex.forward:
+        return None
+    if xs[0].ndim != 3 or vertex.attention_impl not in ("auto", "flash"):
+        return None
+    hs = (vertex._head_size(xs[0].shape[-1]) if vertex.project_input
+          else xs[2].shape[-1])
+    if not head_dim_supported(hs):
+        return None
+    return vertex.forward(params, state, xs, train=train, gen=gen,
+                          use_kernels=True)
+
+
 def maybe_forward(layer, params, state, x, train=False, gen=None, mask=None):
     """Run ``layer`` through its kernel, or return ``None`` for the stock
     forward. ``mask`` (a [batch, time] feature mask) routes only a
@@ -286,9 +307,13 @@ def maybe_vertex_forward(vertex, params, state, xs, train=False, gen=None,
                          mask=None):
     """Graph-side dispatch: route a single-input ``LayerVertex``'s wrapped
     layer, applying its preprocessor first exactly as ``LayerVertex.forward``
-    does. A feature ``mask`` rides through only for SelfAttentionLayer (the
-    one routed class that consumes it). None = run the stock vertex
-    forward."""
+    does, or an ``AttentionVertex``'s core. A feature ``mask`` rides through
+    only for SelfAttentionLayer (the one routed layer that consumes it).
+    None = run the stock vertex forward."""
+    from deeplearning4j_tpu_torch.conf.graph import AttentionVertex
+
+    if isinstance(vertex, AttentionVertex):
+        return _route_attention_vertex(vertex, params, state, xs, train, gen)
     layer = getattr(vertex, "layer", None)
     if layer is None or len(xs) != 1:
         return None

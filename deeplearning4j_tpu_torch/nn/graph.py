@@ -24,7 +24,19 @@ permute at the boundary is free.
 Precision: float32 is served in full float32. Constructing a graph on a
 CUDA device turns TF32 off for cuBLAS and cuDNN (``allow_tf32 = False``);
 TF32 keeps about three decimal digits, the JAX package's CPU semantics keep
-float32's.
+float32's. It also keeps cuBLAS's bfloat16 GEMMs from reducing split-K
+partial sums in bfloat16
+(``allow_bf16_reduced_precision_reduction = False``): XLA's bfloat16 dot
+and the port's kernels accumulate in float32.
+
+Mixed precision (``conf.compute_dtype="bfloat16"``, the JAX package's
+policy): the forward and backward run in the compute dtype on a cast copy
+of the params, made anew in every step (only the eval forward caches its
+copy, dropped whenever the params change); the output vertices keep their
+float32 params, so logits and the loss are float32; BN statistics are
+taken in the state dtype, float32; gradients land in float32 on the
+float32 master params the updater steps. Params, updater state, BN state
+and every output stay float32.
 
 ``conf.use_kernels`` sends every vertex through
 ``kernels.maybe_vertex_forward`` first, exactly where the JAX package's
@@ -58,7 +70,11 @@ from deeplearning4j_tpu_torch.conf.graph import (
     ComputationGraphConfiguration,
     LayerVertex,
 )
-from deeplearning4j_tpu_torch.conf.layers import EmbeddingSequenceLayer
+from deeplearning4j_tpu_torch.conf.layers import (
+    EmbeddingLayer,
+    EmbeddingSequenceLayer,
+)
+from deeplearning4j_tpu_torch.conf.multilayer import BackpropType
 from deeplearning4j_tpu_torch.datasets.dataset import (
     DataSet,
     MultiDataSet,
@@ -82,9 +98,11 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 
 def serve_full_f32() -> None:
-    """Keep float32 matmuls and convolutions in full float32 (no TF32)."""
+    """Keep float32 matmuls and convolutions in full float32 (no TF32),
+    and bfloat16 GEMMs' partial sums in float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def _vertex_seed(seed: int, index: int) -> int:
@@ -125,7 +143,7 @@ def _as_multi(ds) -> MultiDataSet:
                       else None))
 
 
-class ComputationGraph:
+class ComputationGraph(nn_io.HealthHooks):
     """DAG network (reference ``ComputationGraph``): ``init``, ``output``,
     ``feed_forward``, ``fit``, ``fit_batch``, ``score``, ``evaluate``,
     ``compute_gradient_and_score``, ``params_flat``, ``summary``,
@@ -204,9 +222,10 @@ class ComputationGraph:
 
     def _feeds_embedding(self, name: str) -> bool:
         """Whether network input ``name`` holds token ids: some vertex
-        consuming it is an ``EmbeddingSequenceLayer``."""
+        consuming it is an embedding layer."""
         return any(name in spec.inputs and isinstance(
-            getattr(spec.vertex, "layer", None), EmbeddingSequenceLayer)
+            getattr(spec.vertex, "layer", None),
+            (EmbeddingLayer, EmbeddingSequenceLayer))
             for spec in self.conf.vertices)
 
     def set_listeners(self, *listeners: TrainingListener
@@ -439,6 +458,10 @@ class ComputationGraph:
         ``MultiLayerNetwork.fit``: the steps run one after another."""
         if self.params is None:
             self.init()
+        if self.conf.backprop_type is BackpropType.TRUNCATED_BPTT:
+            raise NotImplementedError(
+                "truncated BPTT trains recurrent layers, which are not "
+                "ported yet")
         if fused_steps is not None and int(fused_steps) < 1:
             raise ValueError(f"fused_steps must be >= 1, got {fused_steps}")
         reset = None

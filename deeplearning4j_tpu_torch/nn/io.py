@@ -10,7 +10,9 @@ holds integers exactly only up to 256). Everything else lands in the
 network dtype.
 
 ``propagate_mask`` threads a ``[batch, time]`` feature mask past one vertex,
-as the JAX package's ``nn/io.py::propagate_mask`` does.
+as the JAX package's ``nn/io.py::propagate_mask`` does. ``HealthHooks``
+gives both network classes the snapshot and restore hooks of the JAX
+package's ``nn/io.py`` that the health layer's rollback calls.
 """
 
 from __future__ import annotations
@@ -80,3 +82,19 @@ def propagate_mask(mask, y, layer_or_vertex):
             return resized if resized.shape[1] == y.shape[1] else None
         layer = getattr(layer, "layer", None)
     return None
+
+
+class HealthHooks:
+    """The health layer's rollback hooks (the JAX package's
+    ``_health_snapshot`` / ``_health_restore``): a host snapshot of the
+    training state, and its restore (``optimize.checkpoint``)."""
+
+    def _health_snapshot(self):
+        from deeplearning4j_tpu_torch.optimize import checkpoint
+
+        return checkpoint.snapshot_training_state(self)
+
+    def _health_restore(self, snap):
+        from deeplearning4j_tpu_torch.optimize import checkpoint
+
+        checkpoint.restore_training_state(self, snap)

@@ -38,8 +38,12 @@ autograd Function, so the routed layer trains), the int8 layers of a
 quantized artifact ``matmul_bias_act_int8``. ``feed_forward`` runs the
 stock layer forwards, as the JAX package's does (calibration reads it).
 
-Precision as in ``nn.graph``: a network on a CUDA device runs float32 in
-full float32 (TF32 off).
+Precision and the mixed-precision policy (``conf.compute_dtype``) as in
+``nn.graph``: a network on a CUDA device runs float32 in full float32 (TF32
+off); under ``compute_dtype="bfloat16"`` the layers before the output layer
+run in bfloat16 on a cast copy of the params made in every step, while the
+output layer, the loss, params, updater state, BN state and outputs stay
+float32. A first layer that embeds token ids takes them as ``long``.
 """
 
 from __future__ import annotations
@@ -51,6 +55,10 @@ import torch
 
 from deeplearning4j_tpu_torch import kernels
 from deeplearning4j_tpu_torch.conf import inputs as it
+from deeplearning4j_tpu_torch.conf.layers import (
+    EmbeddingLayer,
+    EmbeddingSequenceLayer,
+)
 from deeplearning4j_tpu_torch.conf.multilayer import (
     BackpropType,
     MultiLayerConfiguration,
@@ -88,7 +96,7 @@ def _as_iterator(data, labels=None, batch_size: Optional[int] = None):
     raise TypeError(f"cannot build DataSetIterator from {type(data)}")
 
 
-class MultiLayerNetwork:
+class MultiLayerNetwork(nn_io.HealthHooks):
     """Sequential network (reference ``MultiLayerNetwork``)."""
 
     def __init__(self, conf: MultiLayerConfiguration, device="cuda"):
@@ -109,6 +117,9 @@ class MultiLayerNetwork:
                         if conf.compute_dtype else None)
         self._cast_params = None  # compute-dtype copy of params, built once
         self._image = nn_io.image_input(conf.input_type)
+        # token ids cross as integers (a bfloat16 cast would round them)
+        self._ids = bool(conf.layers) and isinstance(
+            conf.layers[0], (EmbeddingLayer, EmbeddingSequenceLayer))
 
     # --- lifecycle ---------------------------------------------------------
     def init(self) -> "MultiLayerNetwork":
@@ -243,7 +254,8 @@ class MultiLayerNetwork:
 
     def _prepare(self, x) -> torch.Tensor:
         t = nn_io.as_device(x, self.device, self._dtype,
-                            self._cdtype or self._dtype, scale=self._image)
+                            self._cdtype or self._dtype, scale=self._image,
+                            ids=self._ids)
         if t.ndim == 4:  # NHWC -> logical NCHW, channels_last memory
             t = t.permute(0, 3, 1, 2)
         return t

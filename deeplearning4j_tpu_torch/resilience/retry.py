@@ -3,7 +3,7 @@
 A copy of the JAX package's ``resilience/retry.py``: one policy object
 (max attempts, exponential backoff with deterministic jitter,
 retryable-exception classes, deadline awareness) applied at an edge that
-can fail transiently — in the serving slice, the serving dispatch.
+can fail transiently: the serving dispatch and checkpoint writes.
 
 Deterministic jitter: the k-th attempt's backoff is a pure function of
 ``(seed, name, k)`` — a chaos run replays with identical sleep points,
@@ -108,6 +108,11 @@ class RetryPolicy:
                 sleep(delay)
 
 
+#: Checkpoint writes (``optimize.checkpoint.CheckpointListener``): a short
+#: wait, since a transient local-disk failure clears in milliseconds or is
+#: permanent.
+CHECKPOINT_RETRY = RetryPolicy(max_attempts=3, base_delay_s=0.05,
+                               name="checkpoint.write")
 #: One retry only: a serving launch is the latency-critical edge, and a
 #: persistent failure should reach the circuit breaker (which sheds)
 #: rather than burn the batch's deadline on backoff.

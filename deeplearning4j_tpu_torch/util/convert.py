@@ -6,7 +6,9 @@ weights ``[nIn, nOut]``; the port keeps conv weights OIHW
 ``nn.Linear`` layout, K-contiguous for the ``matmul_bias_act`` kernel).
 ``SelfAttentionLayer``'s projections ``Wq/Wk/Wv`` ``[nIn, e]`` and ``Wo``
 ``[e, nOut]`` are transposed the same way, to ``[e, nIn]`` and
-``[nOut, e]``. Embedding tables (``EmbeddingSequenceLayer.W [vocab, nOut]``,
+``[nOut, e]``, and so are ``AttentionVertex``'s (a graph vertex with
+params of its own). Embedding tables (``EmbeddingLayer.W`` and
+``EmbeddingSequenceLayer.W [vocab, nOut]``,
 ``PositionEmbeddingLayer.P [max_len, size]``) keep their layout: a row per
 id in both packages. Biases, LayerNormalization ``gain``/``b``, BN
 ``gamma``/``beta`` and the BN running ``mean``/``var`` state are vectors in
@@ -36,8 +38,10 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.conf.graph import AttentionVertex
 from deeplearning4j_tpu_torch.conf.layers import (
     DenseLayer,
+    EmbeddingLayer,
     EmbeddingSequenceLayer,
 )
 from deeplearning4j_tpu_torch.conf.layers_attention import SelfAttentionLayer
@@ -54,7 +58,8 @@ def layout_perm(layer, key: str, ndim: int):
     """The axes permutation that takes ``layer``'s param ``key`` from the
     port's layout to the JAX package's (``np.transpose(v, perm)``), or None
     where the two layouts agree."""
-    if isinstance(layer, SelfAttentionLayer) and key in _ATTN_WEIGHTS:
+    if (isinstance(layer, (SelfAttentionLayer, AttentionVertex))
+            and key in _ATTN_WEIGHTS):
         return (1, 0)  # [out, in] -> [in, out]
     if key != "W":
         return None
@@ -62,7 +67,7 @@ def layout_perm(layer, key: str, ndim: int):
         return (2, 3, 1, 0)  # OIHW -> HWIO
     if isinstance(layer, DenseLayer):
         return (1, 0)  # [nOut, nIn] -> [nIn, nOut]
-    if isinstance(layer, EmbeddingSequenceLayer):
+    if isinstance(layer, (EmbeddingLayer, EmbeddingSequenceLayer)):
         return None
     raise ValueError(f"no weight layout rule for {type(layer).__name__}")
 
@@ -97,10 +102,14 @@ def layer_params_to_jax(layer, params: Dict[str, torch.Tensor]
 
 
 def _layer_of(conf, key: str):
-    """The layer behind a params key: a graph vertex's layer, or a
-    MultiLayerNetwork's layer by its string index."""
+    """The conf whose layout rules apply to a params key: a graph vertex's
+    layer (the vertex itself when it holds params of its own, as
+    ``AttentionVertex`` does), or a MultiLayerNetwork's layer by its string
+    index."""
     if hasattr(conf, "vertex_map"):
-        return getattr(conf.vertex_map()[key].vertex, "layer", None)
+        vertex = conf.vertex_map()[key].vertex
+        layer = getattr(vertex, "layer", None)
+        return vertex if layer is None else layer
     return conf.layers[int(key)]
 
 

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.util.convert import (
+    _layer_of,
     layer_params_to_jax,
     layout_perm,
 )
@@ -49,11 +50,11 @@ def _conf_keys(conf, params: Dict[str, dict]) -> List[str]:
 
 
 def _param_owner(conf, key: str):
-    """(the object whose ``param_order`` lists the key's params, the layer
-    whose layout rules apply)."""
+    """(the object whose ``param_order`` lists the key's params, the conf
+    whose layout rules apply: the layer, or a vertex with params of its
+    own)."""
     if hasattr(conf, "vertex_map"):
-        vertex = conf.vertex_map()[key].vertex
-        return vertex, getattr(vertex, "layer", None)
+        return conf.vertex_map()[key].vertex, _layer_of(conf, key)
     layer = conf.layers[int(key)]
     return layer, layer
 

@@ -107,7 +107,8 @@ def write_model(net, path, save_updater: bool = True) -> None:
                 "format_version": FORMAT_VERSION,
                 "iteration": net.iteration,
                 "epoch": net.epoch,
-                "model_class": type(net).__name__,
+                "model_class": getattr(net, "model_class",
+                                       type(net).__name__),
             }))
         os.replace(tmp, path)
     finally:

@@ -1,19 +1,22 @@
 """Model zoo — ComputationGraph models.
 
 Reference: ``org.deeplearning4j.zoo.model.ResNet50``; the topologies are the
-JAX package's ``zoo/graphs.py::ResNet50`` (the plain 7x7/2 stem; unfused
-conv + BN pairs, or ``fused_conv_bn``) and ``TransformerEncoder`` (the
+JAX package's ``zoo/graphs.py::ResNet50`` (the 7x7/2 stem or its
+space-to-depth rewrite; unfused conv + BN pairs, or ``fused_conv_bn``) and ``TransformerEncoder`` (the
 dense-FFN classifier and causal language model), so both packages build
 the same configuration JSON.
 """
 
 from __future__ import annotations
 
+import numpy as np
+
 from deeplearning4j_tpu_torch.conf import Activation, InputType, WeightInit
 from deeplearning4j_tpu_torch.conf.graph import (
     ComputationGraphConfiguration,
     ElementWiseOp,
     ElementWiseVertex,
+    LayerVertex,
 )
 from deeplearning4j_tpu_torch.conf.layers import (
     ActivationLayer,
@@ -29,7 +32,9 @@ from deeplearning4j_tpu_torch.conf.layers_cnn import (
     FusedConvBN1x1,
     GlobalPoolingLayer,
     PoolingType,
+    SpaceToDepthLayer,
     SubsamplingLayer,
+    ZeroPaddingLayer,
 )
 from deeplearning4j_tpu_torch.conf.layers_extra import (
     LayerNormalization,
@@ -62,6 +67,37 @@ class ResNet50(GraphZooModel):
         self.seed = seed
         self.updater = updater or Adam(learning_rate=1e-3)
 
+    stem_space_to_depth: bool = False
+    """The JAX package's exact rewrite of the 7x7/2 stem conv as
+    space-to-depth(2), zero-pad (1, 2, 1, 2) and a 4x4/1 ``TRUNCATE`` conv:
+    ``out[i, j] = sum x[2i+di-2, 2j+dj-2] * W[di, dj]`` regrouped over 2x2
+    input blocks, a stride-1 conv over 4x the channels. The same function;
+    weights map through :meth:`stem_weights_to_s2d`. Default off keeps the
+    reference's topology. Set via attribute after construction."""
+
+    @staticmethod
+    def stem_weights_to_s2d(w7):
+        """The weight remap of ``stem_space_to_depth``, in the JAX
+        package's HWIO layout (numpy): the reference stem's ``[7, 7, Cin,
+        C]`` kernel -> the rewrite's ``[4, 4, 4 * Cin, C]`` kernel,
+        ``w'[m, n, (a*2+b)*Cin + ch] = w[2m+a, 2n+b, ch]``; taps with
+        ``2m+a >= 7`` or ``2n+b >= 7`` are zero. ``util.convert`` carries
+        the result into the port's OIHW layout."""
+        k7 = np.asarray(w7)
+        cin = k7.shape[2]
+        out = np.zeros((4, 4, 4 * cin, k7.shape[-1]), k7.dtype)
+        for m in range(4):
+            for a in range(2):
+                if 2 * m + a >= 7:
+                    continue
+                for n in range(4):
+                    for b in range(2):
+                        if 2 * n + b >= 7:
+                            continue
+                        f = (a * 2 + b) * cin
+                        out[m, n, f:f + cin] = k7[2 * m + a, 2 * n + b]
+        return out
+
     fused_conv_bn: bool = False
     """Route every 1x1-conv + BN pair through ``FusedConvBN1x1`` (the same
     function, with the BN statistics fused into the conv's output pass by
@@ -70,7 +106,8 @@ class ResNet50(GraphZooModel):
     :meth:`fused_param_remap`. Default off keeps the reference's layer-pair
     topology. Set via attribute after construction."""
 
-    def _conv_bn(self, g, name, n_out, k, s, inp, act=True):
+    def _conv_bn(self, g, name, n_out, k, s, inp, act=True,
+                 mode=ConvolutionMode.SAME):
         if self.fused_conv_bn and tuple(k) == (1, 1):
             g.add_layer(f"{name}_cb", FusedConvBN1x1(
                 n_out=n_out, stride=s,
@@ -80,7 +117,7 @@ class ResNet50(GraphZooModel):
         g.add_layer(f"{name}_conv",
                     ConvolutionLayer(n_out=n_out, kernel_size=k, stride=s,
                                      activation=Activation.IDENTITY,
-                                     convolution_mode=ConvolutionMode.SAME,
+                                     convolution_mode=mode,
                                      has_bias=False), inp)
         g.add_layer(f"{name}_bn", BatchNormalization(
             activation=Activation.RELU if act else Activation.IDENTITY),
@@ -140,7 +177,15 @@ class ResNet50(GraphZooModel):
              .add_inputs("input")
              .set_input_types(InputType.convolutional(
                  self.height, self.width, self.channels)))
-        x = self._conv_bn(g, "stem", 64, (7, 7), (2, 2), "input")
+        if self.stem_space_to_depth:
+            g.add_vertex("stem_s2d", LayerVertex(
+                layer=SpaceToDepthLayer(block_size=2)), "input")
+            g.add_vertex("stem_pad", LayerVertex(
+                layer=ZeroPaddingLayer(padding=(1, 2, 1, 2))), "stem_s2d")
+            x = self._conv_bn(g, "stem", 64, (4, 4), (1, 1), "stem_pad",
+                              mode=ConvolutionMode.TRUNCATE)
+        else:
+            x = self._conv_bn(g, "stem", 64, (7, 7), (2, 2), "input")
         g.add_layer("stem_pool", SubsamplingLayer(
             pooling_type=PoolingType.MAX, kernel_size=(3, 3), stride=(2, 2),
             convolution_mode=ConvolutionMode.SAME), x)

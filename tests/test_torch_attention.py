@@ -26,6 +26,8 @@ import torch
 from deeplearning4j_tpu.ops import attention as jatt
 from deeplearning4j_tpu_torch.ops import attention as att
 
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch
 
 F32 = dict(atol=2e-5, rtol=2e-5)

@@ -23,6 +23,8 @@ from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.datasets.iterators import ArrayDataSetIterator
 from deeplearning4j_tpu_torch.eval import evaluation as pev
 
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch
 
 

@@ -28,6 +28,8 @@ import torch
 
 from deeplearning4j_tpu_torch.ops import attention as att
 
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch
 
 ROOT = Path(__file__).resolve().parent.parent

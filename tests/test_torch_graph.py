@@ -39,6 +39,8 @@ from deeplearning4j_tpu_torch.nn.inference_opt import optimize_for_inference
 from deeplearning4j_tpu_torch.util.convert import params_from_jax
 from deeplearning4j_tpu_torch.zoo.graphs import ResNet50
 
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch
 
 OUT_TOL = dict(rtol=1e-4, atol=1e-6)

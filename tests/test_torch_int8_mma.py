@@ -38,6 +38,8 @@ from deeplearning4j_tpu.kernels import impls as jimpls
 from deeplearning4j_tpu_torch.conf.activations import Activation
 from deeplearning4j_tpu_torch.kernels import impls
 
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch
 
 SOURCE = (Path(__file__).resolve().parent.parent / "deeplearning4j_tpu_torch"

@@ -10,6 +10,8 @@ from pathlib import Path
 
 import pytest
 
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -21,7 +23,8 @@ import deeplearning4j_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-import chip_gen_profile, chip_kernel_ab, chip_smoke, chip_train_profile
+import chip_gen_profile, chip_kernel_ab, chip_lenet_spread, chip_smoke
+import chip_train_profile
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))
 print(len(names), bad)
@@ -33,7 +36,9 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(count) >= 59  # every module of the port, MLN training included
+    # every module of the port, checkpointing and the gradient check
+    # included
+    assert int(count) >= 61
     assert bad == "[]"
 
 
@@ -90,8 +95,20 @@ MLN_TRAINING_MODULES = [
 ]
 
 
+# the bf16-policy training slice's modules (checkpointing, the gradient
+# check, the graph DSL's vertices and the s2d stem's layers)
+BF16_TRAINING_MODULES = [
+    "deeplearning4j_tpu_torch.optimize.checkpoint",
+    "deeplearning4j_tpu_torch.util.gradcheck",
+    "deeplearning4j_tpu_torch.conf.layers",
+    "deeplearning4j_tpu_torch.conf.layers_cnn",
+    "deeplearning4j_tpu_torch.resilience.retry",
+]
+
+
 @pytest.mark.parametrize("module", GENERATION_MODULES + TRAINING_MODULES
-                         + QUANT_MODULES + MLN_TRAINING_MODULES)
+                         + QUANT_MODULES + MLN_TRAINING_MODULES
+                         + BF16_TRAINING_MODULES)
 def test_generation_module_alone_loads_no_jax(module):
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -108,7 +125,8 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     sources = list(PKG.rglob("*.py")) + [
         ROOT / name for name in ("chip_smoke.py", "chip_kernel_ab.py",
                                  "chip_train_profile.py",
-                                 "chip_gen_profile.py")]
+                                 "chip_gen_profile.py",
+                                 "chip_lenet_spread.py")]
     offenders = [str(p.relative_to(ROOT)) for p in sources
                  if pattern.search(p.read_text())]
     assert offenders == []

@@ -26,6 +26,8 @@ from deeplearning4j_tpu.kernels.registry import MatmulEnvelope
 from deeplearning4j_tpu_torch.conf.activations import Activation
 from deeplearning4j_tpu_torch.kernels import build, impls, routing
 
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)

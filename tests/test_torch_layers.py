@@ -36,6 +36,8 @@ from deeplearning4j_tpu_torch import serde
 from deeplearning4j_tpu_torch.conf.activations import Activation
 from deeplearning4j_tpu_torch.util.convert import convert_layer_params
 
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch
 
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -25,6 +25,8 @@ from deeplearning4j_tpu_torch import serde
 from deeplearning4j_tpu_torch.conf import losses as pl
 from deeplearning4j_tpu_torch.conf.activations import Activation
 
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch
 
 TOL = dict(rtol=1e-5, atol=1e-6)

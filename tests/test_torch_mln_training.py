@@ -67,6 +67,8 @@ from deeplearning4j_tpu_torch.util.convert import (
 )
 from deeplearning4j_tpu_torch.zoo import LeNet
 
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch
 
 SCORE_RTOL = 1e-5

@@ -73,6 +73,8 @@ from deeplearning4j_tpu_torch.parallel.serving import InferenceServer
 from deeplearning4j_tpu_torch.util.convert import params_from_jax
 from deeplearning4j_tpu_torch.zoo import AlexNet
 
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch
 
 F32_TOL = dict(rtol=1e-4, atol=1e-6)

@@ -52,6 +52,8 @@ from deeplearning4j_tpu_torch.util.convert import (
 )
 from deeplearning4j_tpu_torch.zoo.graphs import TransformerEncoder
 
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch
 
 VOCAB, E, HEADS, LAYERS, MAX_LEN = 64, 32, 4, 2, 64

@@ -61,6 +61,8 @@ from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.util.convert import params_from_jax
 from deeplearning4j_tpu_torch.zoo.graphs import ResNet50
 
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch
 
 FOLD_TOL = dict(rtol=1e-5, atol=1e-6)

@@ -51,6 +51,8 @@ from deeplearning4j_tpu_torch.util import params as pparams
 from deeplearning4j_tpu_torch.util import serializer as ser
 from deeplearning4j_tpu_torch.util.convert import params_to_jax
 
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch
 
 SCORE_RTOL = 1e-5

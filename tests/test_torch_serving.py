@@ -45,6 +45,8 @@ from deeplearning4j_tpu_torch.resilience.breaker import CircuitBreaker
 from deeplearning4j_tpu_torch.resilience.faults import FaultPlan
 from deeplearning4j_tpu_torch.util.convert import params_from_jax
 
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch
 
 TOL = dict(rtol=1e-4, atol=1e-6)

@@ -31,6 +31,8 @@ from deeplearning4j_tpu_torch.conf.activations import Activation
 from deeplearning4j_tpu_torch.kernels import impls
 from deeplearning4j_tpu_torch.ops import attention as att
 
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch
 
 ROOT = Path(__file__).resolve().parent

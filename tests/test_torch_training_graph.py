@@ -75,6 +75,8 @@ from deeplearning4j_tpu_torch.util.convert import (
 )
 from deeplearning4j_tpu_torch.zoo.graphs import ResNet50
 
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch
 
 LOSS_RTOL = 1e-5

@@ -33,6 +33,8 @@ from deeplearning4j_tpu_torch.conf.activations import Activation
 from deeplearning4j_tpu_torch.kernels import build, impls
 from deeplearning4j_tpu_torch.ops import conv_fused
 
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch
 
 TOL = dict(rtol=1e-5, atol=1e-5)

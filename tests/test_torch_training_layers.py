@@ -34,6 +34,8 @@ from deeplearning4j_tpu_torch.conf.layers import GradientNormalization
 from deeplearning4j_tpu_torch.kernels import routing
 from deeplearning4j_tpu_torch.optimize import solver
 
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch
 
 TOL = dict(rtol=1e-4, atol=1e-5)

@@ -57,6 +57,8 @@ from deeplearning4j_tpu_torch.util.convert import (
     params_from_jax,
 )
 
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch
 
 VOCAB, E, HEADS, LAYERS, MAX_LEN = 37, 32, 4, 2, 16

@@ -44,6 +44,8 @@ from deeplearning4j_tpu_torch.util.convert import (
     params_to_jax,
 )
 
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401
+
 pytestmark = pytest.mark.torch
 
 RTOL = 1e-5
