@@ -176,7 +176,7 @@ def main() -> int:
         rc = lib.dl4j_matmul_bias_act(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
             x.shape[0], w.shape[0], x.shape[1], dtype_ids[x.dtype],
-            impls.ACTIVATION_IDS[act.value], x.device.index,
+            impls.ACTIVATION_IDS[act.value], 0, 0, x.device.index,
             torch.cuda.current_stream(x.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"old kernel launch failed: CUDA error {rc}")

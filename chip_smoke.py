@@ -193,11 +193,33 @@ Phases, in order; any failure exits non-zero:
    and 2 in bf16, each against ``use_kernels=False``; rows 6-8 launch once
    a forward and backward.
 
+25. the kernel registry and the per-shape tuner, last (every phase above
+   runs each kernel at its default tiling): the envelopes
+   ``plan_envelopes`` gives ResNet-50 served at batch 32 (the 1x1 sites,
+   ``matmul_bias_act``), the fused ResNet-50 train step at batch 32 in
+   float32 and bf16 (``conv_bn_act``) and the int8 AlexNet at batch 32,
+   and those ``decoder_envelopes`` gives [11]'s LM (``paged_decode_attention``
+   per KV bucket, ``flash_attention`` per prompt and join bucket); every
+   candidate tiling of each against the plain version (the default among
+   them) and against the default's bits; ``autotune_model`` for the three
+   ResNet-50 / AlexNet confs and ``GenerationEngine.warmup(autotune_kernels=
+   True)`` for the LM, each envelope's candidates, default, winner and
+   times logged; then a served batch of ResNet-50 and of the int8 AlexNet
+   against the stock route, one train step's loss per dtype, and [11]'s
+   greedy requests against sequential ``generate`` and the stock route;
+   every planned envelope resolves a tuned winner
+   (``dl4j_kernel_selected_total``) and no routed envelope is unplanned; the
+   tag changes; the cache saved and bound fresh (same digests), then
+   corrupted: ``TuningCacheCorruptError`` names the file and the routes run
+   the default tilings' bits; forward ms, tokens/s and decode step ms at
+   the default tilings and tuned, and the tuner's seconds, for the record.
+
 Then the ``{"trained_mln": ...}`` and ``{"trained_bf16": ...}`` lines, one
 ``{"kernels": [...]}`` line with every kernel (row 1 with its [21] shapes
 and launches; rows 2 and 6-8 with their bf16 numbers under
-``bf16_training``), the served, trained, generated, trained_lm,
-served_int8, prefix_cached and speculative lines, and last
+``bf16_training``; rows 1, 2, 4, 5, 6 with [25]'s numbers under
+``tuning``), the served, trained, generated, trained_lm, served_int8,
+prefix_cached, speculative and tuned lines, and last
 ``{"ok": true, "device": {...}}``. The whole run takes a few minutes on an H100, the
 parallel build included.
 Without a CUDA card, or without the repository around it, the script exits
@@ -4517,6 +4539,572 @@ def bf16_training(torch, impls, F, att, dev, smi, f32_lm_losses) -> tuple:
     return line, {"matmul_stats": stats, **attn}
 
 
+# [25] the kernel registry and the per-shape tuner: every candidate tiling
+# of every planned envelope against the kernel's plain version, at the
+# tolerances above; the tuned routes against the stock routes as in [4],
+# [17] and [11]; the tuning cache saved, bound and corrupted on the card.
+# The bf16 training step's tuned-vs-default loss difference may be at most
+# the bf16 stock route's own distance from float32 on the same batch: a
+# tiling regroups the statistics' float32 partial sums, which bf16
+# activations round into.
+TUNE_CACHE = "deeplearning4j_tpu_torch/_build/tuning_cache_smoke.json"
+# the kernels line's rows by the registry's kernel id (rows 7-8 and the
+# probe keep their fixed tiles)
+TUNED_ID = {"matmul_bias_act": "matmul_bias_act",
+            "matmul_stats": "conv_bn_act",
+            "matmul_bias_act_int8": "matmul_bias_act_int8",
+            "flash_attention": "flash_attention",
+            "paged_decode_attention": "paged_decode_attention"}
+TUNE_SEED = 25
+
+
+def _candidate_error(torch, kid, dtype, got, ref) -> tuple:
+    """(error, holds) of one candidate's output against the plain
+    version's, at the kernel's tolerance: KERNEL_TOL (row 1), stats_errors
+    (row 2), INT8_MAX_ULP ulps (row 4), ATTN_TOL's o (row 6), DECODE_TOL
+    (row 5)."""
+    if kid == "conv_bn_act":
+        errs, ok = stats_errors(torch, got, ref, dtype)
+        return max(errs["y"], errs["plain_s"], errs["plain_q"]), ok
+    if kid == "matmul_bias_act_int8":
+        ulps = _ulps(torch, got, ref)
+        return ulps, ulps <= INT8_MAX_ULP and bool(torch.isfinite(got).all())
+    tol = {"matmul_bias_act": KERNEL_TOL[dtype],
+           "flash_attention": ATTN_TOL[dtype]["o"],
+           "paged_decode_attention": DECODE_TOL[dtype]}[kid]
+    err, bad = _within(torch, got, ref, tol)
+    return err, bad == 0 and bool(torch.isfinite(got.float()).all())
+
+
+def _same_bits(torch, a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(_same_bits(torch, x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def check_candidates(torch, kernels, planned) -> dict:
+    """[25] every candidate tiling of every planned envelope against the
+    plain version on the same seeded inputs; the default must be a
+    candidate, and every candidate's output is also compared bit for bit
+    with the default's. A candidate whose launch is refused is logged and
+    left out of the tuning (the tuner records it so too); a refused
+    default fails the run."""
+    out = {}
+    for kid, env in planned:
+        kernel = kernels.REGISTRY.get(kid)
+        if not kernel.supports(env):
+            raise AssertionError(f"[25] {kid} does not support its planned "
+                                 f"envelope {env.key}")
+        cands = kernel.candidates(env)
+        default = tuple(kernel.default_tiling(env))
+        if default not in cands:
+            raise AssertionError(f"[25] {kid} {env.key}: default {default} "
+                                 f"not among the candidates {cands}")
+        args = kernel.make_inputs(env, seed=TUNE_SEED)
+        ref = kernel.reference(env)(*args)
+        base, rows = None, []
+        for tiling in [default] + [c for c in cands if c != default]:
+            try:
+                got = kernel.build(env, tiling)(*args)
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                if tiling == default:
+                    raise
+                rows.append({"tiling": list(tiling), "refused": str(e)})
+                continue
+            err, ok = _candidate_error(torch, kid, env.dtype, got, ref)
+            if not ok:
+                raise AssertionError(f"[25] {kid} {env.key} tiling {tiling}: "
+                                     f"error {err} outside the tolerance")
+            base = got if base is None else base
+            rows.append({"tiling": list(tiling), "err": err,
+                         "same_bits_as_default": _same_bits(torch, got,
+                                                            base)})
+        k = out.setdefault(kid, {"envelopes": 0, "candidates": 0,
+                                 "refused": 0, "max_err": 0.0,
+                                 "bit_identical_to_default": True})
+        k["envelopes"] += 1
+        k["candidates"] += len(cands)
+        k["refused"] += sum("refused" in r for r in rows)
+        k["max_err"] = max([k["max_err"]] + [r["err"] for r in rows
+                                             if "err" in r])
+        k["bit_identical_to_default"] &= all(
+            r.get("same_bits_as_default", True) for r in rows)
+        log(f"[25] {kid} {env.key}: default {list(default)}; "
+            + "; ".join(f"{r['tiling']} " + (
+                f"refused ({r['refused'][:80]})" if "refused" in r else
+                f"err {r['err']:.3e}"
+                f"{'' if r['same_bits_as_default'] else ' (other bits)'}")
+                for r in rows))
+        del args, ref, base
+    return out
+
+
+def check_refusals(torch, impls, att, dev) -> list:
+    """[25] each tuned launcher refuses a tiling it does not take with
+    cudaErrorInvalidValue, raised by its wrapper (the decode wrapper
+    refuses a page over 64 before the launch)."""
+    from deeplearning4j_tpu_torch.conf.activations import Activation
+
+    gen = torch.Generator(device=dev).manual_seed(TUNE_SEED)
+    x = torch.randn((64, 64), generator=gen, device=dev)
+    b = torch.zeros((64,), device=dev)
+    xq = torch.ones((8, 64), dtype=torch.int8, device=dev)
+    wq = torch.ones((64, 64), dtype=torch.int8, device=dev)
+    q = torch.randn((1, 2, 64, 64), generator=gen, device=dev)
+    qd = torch.randn((1, 2, 64), generator=gen, device=dev)
+    kc = torch.randn((1, 128, 2, 64), generator=gen, device=dev)
+    pos = torch.zeros((1,), dtype=torch.int32, device=dev)
+    act = Activation("identity")
+    cases = {
+        "matmul_bias_act (32, 64)": lambda: impls.matmul_bias_act(
+            x, x, b, act, (32, 64)),
+        "conv_bn_act (32,)": lambda: impls.matmul_stats(x, x, (32,)),
+        "matmul_bias_act_int8 (5, 1)": lambda: impls.matmul_bias_act_int8(
+            xq, wq, b + 1, b, act, (5, 1)),
+        "matmul_bias_act_int8 (2, 3)": lambda: impls.matmul_bias_act_int8(
+            xq, wq, b + 1, b, act, (2, 3)),
+        "flash_attention (32, 32)": lambda: att.flash_attention(
+            q, q, q, None, True, tiling=(32, 32)),
+        "paged_decode_attention (128,)": lambda: att.paged_decode_attention(
+            qd, kc, kc, pos, page=128),
+    }
+    refused = []
+    for name, fn in cases.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except (RuntimeError, ValueError) as e:
+            refused.append(f"{name}: {e}")
+            continue
+        raise AssertionError(f"[25] {name} was launched")
+    log("[25] illegal tilings refused: " + "; ".join(refused))
+    return refused
+
+
+def check_sentinels(torch, kernels, planned) -> list:
+    """[25] each tuned launcher's argument 0 (the default rule) gives the
+    bits of the registry's default tiling passed explicitly, at the first
+    planned envelope of each kernel id."""
+    from deeplearning4j_tpu_torch.ops import attention as att
+
+    impls = kernels.impls
+    seen = []
+    for kid, env in planned:
+        if kid in seen:
+            continue
+        seen.append(kid)
+        kernel = kernels.REGISTRY.get(kid)
+        args = kernel.make_inputs(env, seed=TUNE_SEED)
+        explicit = kernel.build(env, kernel.default_tiling(env))(*args)
+        if kid == "matmul_bias_act_int8":
+            xq, wq, scale, b = args
+            y = torch.empty_like(explicit)
+            (m, k), n = xq.shape, wq.shape[1]
+            rc = impls._int8_library().dl4j_matmul_bias_act_int8(
+                xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), b.data_ptr(),
+                y.data_ptr(), m, n, k, impls.ACTIVATION_IDS[env.act], 0,
+                xq.device.index, impls.stream(xq))
+            impls.raise_on_error(kid, rc)
+        elif kid == "paged_decode_attention":
+            y = att.paged_decode_attention(*args, page=0)
+        elif kid == "flash_attention":
+            y = att.flash_attention(*args[:3], *args[3:], causal=env.causal)
+        elif kid == "conv_bn_act":
+            y = impls.matmul_stats(*args)
+        else:
+            from deeplearning4j_tpu_torch.conf.activations import Activation
+
+            y = impls.matmul_bias_act(*args, Activation(env.act))
+        torch.cuda.synchronize()
+        if not _same_bits(torch, y, explicit):
+            raise AssertionError(f"[25] {kid} {env.key}: argument 0 differs "
+                                 f"from the default tiling "
+                                 f"{kernel.default_tiling(env)}")
+    log(f"[25] argument 0 == the default tiling, bit for bit: {seen}")
+    return seen
+
+
+def _tuning_spy(tuner):
+    """Collect every AutotuneResult the tuner returns, with the seconds
+    each sweep took."""
+    results = []
+    real = tuner.autotune
+
+    def spy(kernel, env, **kw):
+        t0 = time.monotonic()
+        res = real(kernel, env, **kw)
+        res.seconds = time.monotonic() - t0
+        results.append((kernel.kernel_id, env, res))
+        return res
+
+    tuner.autotune = spy
+    return results, lambda: setattr(tuner, "autotune", real)
+
+
+def tuning_report(results) -> dict:
+    """Per kernel id: envelopes tuned, candidates timed, the default's and
+    the winner's summed times, and how often the winner is not the
+    default; each envelope logged."""
+    out = {}
+    for kid, env, res in results:
+        d_ms = res.default_ms
+        log(f"[25] tuned {kid} {env.key}: candidates "
+            + ", ".join(f"{t['tiling']} "
+                        + (f"{t['ms']:.4f} ms" if "ms" in t else "refused")
+                        for t in res.trials)
+            + f"; default {list(res.default)} "
+            + (f"{d_ms:.4f} ms" if d_ms is not None else "refused")
+            + f", winner {list(res.tiling)} {res.ms:.4f} ms")
+        k = out.setdefault(kid, {"envelopes": 0, "candidates": 0,
+                                 "default_ms": 0.0, "winner_ms": 0.0,
+                                 "winner_not_default": 0, "per_envelope": []})
+        k["envelopes"] += 1
+        k["candidates"] += len(res.trials)
+        k["default_ms"] += d_ms or 0.0
+        k["winner_ms"] += res.ms
+        k["winner_not_default"] += tuple(res.tiling) != tuple(res.default)
+        k["per_envelope"].append({
+            "env": env.key, "default": list(res.default), "default_ms": d_ms,
+            "winner": list(res.tiling), "winner_ms": res.ms,
+            "candidates": [t["tiling"] for t in res.trials]})
+    return out
+
+
+def _timed_ms(torch, fn, reps: int = 10) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.monotonic() - t0) / reps * 1e3
+
+
+def _tuning_models(torch, dev):
+    """[25]'s models: ResNet-50 served (kernel and stock routes, one set of
+    weights), the fused ResNet-50 train step in float32 and bf16 (kernel
+    and stock routes each), the int8 AlexNet artifact (kernel and stock
+    routes), and the GPT-2-small-width LM's kernel and stock decoders."""
+    from deeplearning4j_tpu_torch.nn import inference_opt as iopt
+    from deeplearning4j_tpu_torch.nn.decoding import TransformerDecoder
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo.graphs import (
+        ResNet50,
+        TransformerEncoder,
+    )
+    from deeplearning4j_tpu_torch.zoo.models import AlexNet
+
+    m = {}
+    zoo = ResNet50()
+    conf = dataclasses.replace(zoo.conf(), use_kernels=True)
+    m["serve"] = ComputationGraph(conf, device=dev).init()
+    randomize_bn(m["serve"], TUNE_SEED)
+    m["serve_stock"] = ComputationGraph(
+        dataclasses.replace(conf, use_kernels=False), device=dev).set_params(
+        m["serve"].params, m["serve"].state)
+    fused = ResNet50()
+    fused.fused_conv_bn = True
+    fconf = dataclasses.replace(fused.conf(), use_kernels=True)
+    m["train"] = ComputationGraph(fconf, device=dev).init()
+    condition_residual_bn(m["train"])
+    p, s = m["train"].params, m["train"].state
+    for name, cd, uk in (("train_stock", None, False),
+                         ("train_bf16", "bfloat16", True),
+                         ("train_bf16_stock", "bfloat16", False)):
+        m[name] = ComputationGraph(dataclasses.replace(
+            fconf, compute_dtype=cd, use_kernels=uk), device=dev).set_params(
+            p, s)
+    m["batch"] = _synthetic_batch(fused, BATCH, TUNE_SEED)
+    alex = AlexNet()
+    net = MultiLayerNetwork(dataclasses.replace(alex.conf(), use_kernels=True),
+                            dev).init()
+    rng = np.random.default_rng(TUNE_SEED)
+    image = (alex.height, alex.width, alex.channels)
+    cal = [rng.random((BATCH,) + image, np.float32)
+           for _ in range(INT8_CAL_BATCHES)]
+    m["int8"] = iopt.quantize_for_inference(net, iopt.calibrate(net, cal))
+    m["int8_stock"] = MultiLayerNetwork(dataclasses.replace(
+        m["int8"].conf, use_kernels=False), dev).set_params(
+        m["int8"].params, m["int8"].state)
+    m["int8_x"] = rng.random((BATCH,) + image, np.float32)
+    m["serve_x"] = rng.random((BATCH, zoo.height, zoo.width, zoo.channels),
+                              np.float32)
+    lm = TransformerEncoder(causal=True, lm_head=True, use_kernels=True,
+                            seed=GEN_SEED, **GEN_MODEL)
+    lm_net = lm.init(device=dev)
+    dec_kw = {k: GEN_CONFIG[k] for k in ("max_batch", "kv_bucket_min",
+                                         "prompt_bucket_min")}
+    m["dec"] = TransformerDecoder(lm_net, max_len=lm.max_len, **dec_kw)
+    m["dec_stock"] = TransformerDecoder(lm_net, max_len=lm.max_len, **dec_kw)
+    m["dec_stock"].use_kernels = False
+    m["prompts"] = gen_requests(GEN_REQUESTS, lm.vocab_size, GEN_SEED)
+    return m
+
+
+def _served(torch, m) -> dict:
+    """The served outputs of one batch per model and their forward ms."""
+    out = {"resnet50": m["serve"].output(m["serve_x"]),
+           "alexnet_int8": m["int8"].output(m["int8_x"])}
+    out["resnet50_ms"] = _timed_ms(torch, lambda: m["serve"].output(
+        m["serve_x"]))
+    out["alexnet_int8_ms"] = _timed_ms(torch, lambda: m["int8"].output(
+        m["int8_x"]))
+    return out
+
+
+def _train_losses(m) -> dict:
+    """One train-mode forward and backward per route: the fused sites'
+    conv_bn_act selections at batch 32, float32 and bf16."""
+    return {name: m[name].compute_gradient_and_score(m["batch"])[1]
+            for name in ("train", "train_bf16")}
+
+
+def _lm_run(torch, m, dec, autotune=False) -> tuple:
+    """[11]'s greedy requests through one GenerationEngine (warmed over
+    every bucket first; with ``autotune`` the warmup tunes the decoder):
+    outputs, timing, and the decode step's ms from the engine's stats."""
+    from deeplearning4j_tpu_torch.parallel.generation import (
+        GenerationConfig,
+        GenerationEngine,
+    )
+
+    with GenerationEngine(dec, GenerationConfig(**GEN_CONFIG)) as eng:
+        warm = eng.warmup(autotune_kernels=autotune)
+        outs, timing = _sweep(eng, m["prompts"], GEN_MAX_NEW)
+        stats = eng.stats()
+    steps = sum(stats["windows"].values()) * GEN_CONFIG["fused_steps"]
+    timing["decode_step_ms"] = stats["decode_seconds"] / max(steps, 1) * 1e3
+    return outs, timing, warm
+
+
+def check_selected(kernels, telemetry, planned) -> dict:
+    """Every planned envelope resolved a tuned winner (its registry
+    selection is tuned, and ``dl4j_kernel_selected_total`` counts its
+    shape bucket), and every envelope a route resolved since the last
+    retune is a planned, tuned one."""
+    epoch, memo = kernels.REGISTRY._selected
+    resolved = {(kid, env): sel for (kid, env), sel in memo.items()
+                if sel is not None}
+    missing = [f"{kid} {env.key}" for kid, env in planned
+               if not (kid, env) in resolved]
+    untuned = [f"{kid} {env.key}" for (kid, env), sel in resolved.items()
+               if not sel.tuned]
+    unplanned = [f"{kid} {env.key}" for (kid, env) in resolved
+                 if (kid, env) not in set(planned)]
+    counted = [line for line in telemetry.prometheus_text().splitlines()
+               if line.startswith("dl4j_kernel_selected_total{")]
+    uncounted = [f"{kid} {env.shape_bucket}" for kid, env in planned
+                 if not any(f'kernel="{kid}"' in line and
+                            f'shape_bucket="{env.shape_bucket}"' in line
+                            for line in counted)]
+    if missing or untuned or unplanned or uncounted:
+        raise AssertionError(
+            f"[25] selections: planned but not resolved {missing[:5]}, "
+            f"resolved untuned {untuned[:5]}, resolved unplanned "
+            f"{unplanned[:5]}, not counted {uncounted[:5]}")
+    return {"resolved": len(resolved), "planned": len(planned),
+            "epoch": epoch}
+
+
+def tune_phase(torch, dev, smi) -> tuple:
+    """[25] the kernel registry, the tuner and the tuning cache on the
+    card; returns the ``{"tuned": ...}`` line and the per-kernel summary
+    the kernels line carries."""
+    from deeplearning4j_tpu_torch import kernels, telemetry
+    from deeplearning4j_tpu_torch.kernels import tuner
+    from deeplearning4j_tpu_torch.ops import attention as att
+
+    t_phase = time.monotonic()
+    kernels.TUNING.clear()
+    tag_before = kernels.cache_tag()
+    check_refusals(torch, kernels.impls, att, dev)
+    t0 = time.monotonic()
+    m = _tuning_models(torch, dev)
+    log(f"[25] models built in {time.monotonic() - t0:.1f} s")
+    plans = {
+        "resnet50_serve": kernels.plan_envelopes(m["serve"].conf, BATCH),
+        "resnet50_train_f32": kernels.plan_envelopes(m["train"].conf, BATCH),
+        "resnet50_train_bf16": kernels.plan_envelopes(m["train_bf16"].conf,
+                                                      BATCH),
+        "alexnet_int8": kernels.plan_envelopes(m["int8"].conf, BATCH),
+        "lm_decoder": kernels.decoder_envelopes(m["dec"]),
+    }
+    planned = [pair for plan in plans.values() for pair in plan]
+    log(f"[25] planned envelopes: "
+        + json.dumps({k: len(v) for k, v in plans.items()})
+        + f"; tag before tuning {tag_before}")
+
+    # 1. every candidate of every planned envelope against the plain version
+    t0 = time.monotonic()
+    check_sentinels(torch, kernels, planned)
+    checked = check_candidates(torch, kernels, planned)
+    check_s = time.monotonic() - t0
+
+    # 2. the default tilings (untuned): outputs and times for the record
+    served_default = _served(torch, m)
+    losses_default = _train_losses(m)
+    losses_stock = {name: m[name].compute_gradient_and_score(m["batch"])[1]
+                    for name in ("train_stock", "train_bf16_stock")}
+    lm_default, lm_default_t, _ = _lm_run(torch, m, m["dec"])
+
+    # 3. tune: autotune_model per model, the engine's warmup for the LM
+    results, restore = _tuning_spy(tuner)
+    try:
+        t0 = time.monotonic()
+        for name in ("serve", "train", "train_bf16", "int8"):
+            kernels.autotune_model(m[name].conf, BATCH)
+        models_s = time.monotonic() - t0
+        telemetry.reset()
+        t0 = time.monotonic()
+        lm_tuned, lm_tuned_t, warm = _lm_run(torch, m, m["dec"],
+                                             autotune=True)
+        lm_s = time.monotonic() - t0
+    finally:
+        restore()
+    tag_after = kernels.cache_tag()
+    if tag_after == tag_before or warm["kernels"] != {
+            "enabled": True, "tag": tag_after}:
+        raise AssertionError(f"[25] tag {tag_before} -> {tag_after}, warmup "
+                             f"reported {warm['kernels']}")
+    tuned = tuning_report(results)
+    tuned_envs = {(kid, env) for kid, env, _ in results}
+    if tuned_envs != set(planned):
+        raise AssertionError(f"[25] tuned {len(tuned_envs)} envelopes, "
+                             f"planned {len(set(planned))}")
+
+    # 4. the tuned routes against the stock routes
+    served = _served(torch, m)
+    losses = _train_losses(m)
+    sel = check_selected(kernels, telemetry, planned)
+    want = m["serve_stock"].output(m["serve_x"])
+    np.testing.assert_allclose(served["resnet50"], want, rtol=SERVED_TOL[1],
+                               atol=SERVED_TOL[0], err_msg="[25] ResNet-50")
+    if not np.array_equal(served["resnet50"].argmax(-1), want.argmax(-1)):
+        raise AssertionError("[25] ResNet-50: top-1 differs from stock")
+    want8 = m["int8_stock"].output(m["int8_x"])
+    ulps = _ulps(torch, torch.from_numpy(served["alexnet_int8"]),
+                 torch.from_numpy(want8))
+    if ulps > INT8_MAX_ULP:
+        raise AssertionError(f"[25] int8 AlexNet: {ulps} ulps from stock")
+    f32_rel = abs(losses["train"] - losses_stock["train_stock"]) / abs(
+        losses_stock["train_stock"])
+    if not f32_rel <= TRAIN_LOSS_RTOL[0]:
+        raise AssertionError(f"[25] fused ResNet-50 f32 loss {f32_rel:.2e} "
+                             f"from stock (tol {TRAIN_LOSS_RTOL[0]})")
+    bf16_floor = abs(losses_stock["train_bf16_stock"]
+                     - losses_stock["train_stock"])
+    bf16_diff = abs(losses["train_bf16"] - losses_default["train_bf16"])
+    if not (math.isfinite(losses["train_bf16"]) and bf16_diff <= bf16_floor):
+        raise AssertionError(f"[25] bf16 loss tuned {losses['train_bf16']} "
+                             f"vs default {losses_default['train_bf16']}: "
+                             f"{bf16_diff:.3e} over the bf16 floor "
+                             f"{bf16_floor:.3e}")
+    seq = [m["dec"].generate(p, GEN_MAX_NEW) for p in m["prompts"]]
+    lm_stock, _, _ = _lm_run(torch, m, m["dec_stock"])
+    vs_seq = compare_streams(torch, m["dec"], lm_tuned, seq, m["prompts"],
+                             "tuned engine vs sequential generate", "[25]")
+    vs_stock = compare_streams(torch, m["dec_stock"], lm_tuned, lm_stock,
+                               m["prompts"], "tuned vs use_kernels=False",
+                               "[25]")
+    same = {"resnet50": bool(np.array_equal(served["resnet50"],
+                                            served_default["resnet50"])),
+            "alexnet_int8": bool(np.array_equal(
+                served["alexnet_int8"], served_default["alexnet_int8"])),
+            "lm_streams": sum(a == b for a, b in zip(lm_tuned, lm_default)),
+            "train_f32_loss": losses["train"] == losses_default["train"],
+            "train_bf16_loss": (losses["train_bf16"]
+                                == losses_default["train_bf16"])}
+    log(f"[25] tuned routes vs stock: ResNet-50 within atol={SERVED_TOL[0]} "
+        f"rtol={SERVED_TOL[1]}, top-1 equal; int8 AlexNet {ulps} ulp; fused "
+        f"ResNet-50 loss f32 {f32_rel:.2e} relative, bf16 tuned vs default "
+        f"{bf16_diff:.3e} (floor {bf16_floor:.3e}); LM streams vs sequential "
+        f"{vs_seq['identical']}/{len(seq)} identical, vs stock "
+        f"{vs_stock['identical']}/{len(seq)}; tuned vs default outputs the "
+        f"same bits: {json.dumps(same)}; selections {json.dumps(sel)}")
+
+    # 5. the cache on the card: saved, bound fresh, then corrupted
+    path = os.path.abspath(TUNE_CACHE)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    kernels.TUNING.bind(path, load=False)
+    kernels.TUNING.save()
+    fresh = kernels.KernelRegistry(kernels.TuningCache().bind(path))
+    for kid in kernels.REGISTRY.ids():
+        fresh.register(kernels.REGISTRY.get(kid))
+    digests = {kid: kernels.tuning_digest(kid)
+               for kid in kernels.REGISTRY.ids()}
+    if {kid: fresh.tuning_digest(kid) for kid in digests} != digests \
+            or fresh.cache_tag() != tag_after:
+        raise AssertionError("[25] a fresh cache bound to the saved file "
+                             "has other digests")
+    with open(path) as f:
+        text = f.read()
+    with open(path, "w") as f:
+        f.write(text.replace('"ms"', '"ms_"', 1))
+    try:
+        kernels.set_tuning_cache(path)
+        raise AssertionError("[25] the corrupted cache was accepted")
+    except kernels.TuningCacheCorruptError as e:
+        if path not in str(e):
+            raise AssertionError(f"[25] the refusal does not name the file: "
+                                 f"{e}") from e
+        refusal = str(e)
+    if kernels.TUNING.entries() != 0 or kernels.TUNING.path is not None:
+        raise AssertionError("[25] the refused cache kept winners or a path")
+    refused = _served(torch, m)
+    for key in ("resnet50", "alexnet_int8"):
+        if not np.array_equal(refused[key], served_default[key]):
+            raise AssertionError(f"[25] after the refusal {key} differs from "
+                                 f"its default-tiling output")
+    refused_lm = [m["dec"].generate(p, GEN_MAX_NEW) for p in m["prompts"][:4]]
+    compare_streams(torch, m["dec"], refused_lm, lm_default[:4],
+                    m["prompts"][:4], "refused cache vs default tilings",
+                    "[25]")
+    os.remove(path)
+    log(f"[25] cache: saved {len(text)} bytes, a fresh TuningCache bound to "
+        f"it has the same digests {json.dumps(digests)}; corrupted: "
+        f"{refusal}; the routes then run the default tilings (outputs the "
+        f"default's bits, 4 LM streams held)")
+
+    line = {
+        "card": smi, "seconds": time.monotonic() - t_phase,
+        "check_candidates_s": check_s, "tune_models_s": models_s,
+        "tune_and_warm_lm_s": lm_s,
+        "tuner_s": sum(r.seconds for _, _, r in results),
+        "tag_before": tag_before, "tag_after": tag_after,
+        "envelopes": {k: len(v) for k, v in plans.items()},
+        "resnet50_forward_ms": {"default": served_default["resnet50_ms"],
+                                "tuned": served["resnet50_ms"]},
+        "alexnet_int8_forward_ms": {
+            "default": served_default["alexnet_int8_ms"],
+            "tuned": served["alexnet_int8_ms"]},
+        "lm_tokens_per_s": {"default": lm_default_t["tokens_per_s"],
+                            "tuned": lm_tuned_t["tokens_per_s"]},
+        "lm_decode_step_ms": {"default": lm_default_t["decode_step_ms"],
+                              "tuned": lm_tuned_t["decode_step_ms"]},
+        "same_bits_as_default": same, "selections": sel,
+        "checked": checked,
+        "kernels": {kid: {k: v for k, v in row.items()
+                          if k != "per_envelope"}
+                    for kid, row in tuned.items()},
+        "per_envelope": {kid: row["per_envelope"]
+                         for kid, row in tuned.items()},
+    }
+    log(f"[25] ResNet-50 forward {line['resnet50_forward_ms']} ms, int8 "
+        f"AlexNet forward {line['alexnet_int8_forward_ms']} ms, LM "
+        f"{line['lm_tokens_per_s']} tokens/s, decode step "
+        f"{line['lm_decode_step_ms']} ms (default / tuned; not gated); "
+        f"the tuner's own {line['tuner_s']:.1f} s ({len(results)} "
+        f"envelopes; models {line['tune_models_s']:.1f} s, LM tune + warmup "
+        f"{line['tune_and_warm_lm_s']:.1f} s); phase "
+        f"{line['seconds']:.1f} s [{smi}]")
+    summary = {kid: {**line["kernels"][kid], **{
+        f"checked_{k}": v for k, v in checked.get(kid, {}).items()}}
+        for kid in line["kernels"]}
+    return line, summary
+
+
 def main() -> int:
     try:
         import torch
@@ -4802,6 +5390,14 @@ def main() -> int:
     q8["registers"] = {r["kernel"]: r["registers"] for r in q8["ptxas"]}
     q8["spills"] = {r["kernel"]: r["spill_stores"] + r["spill_loads"]
                     for r in q8["ptxas"]}
+    # 25. the kernel registry, the per-shape tuner and its cache (last: the
+    # earlier phases run the default tilings)
+    torch.cuda.empty_cache()
+    tuned_line, tuned_rows = tune_phase(torch, dev, smi)
+    for row in report["kernels"]:
+        kid = TUNED_ID.get(row["name"])
+        if kid in tuned_rows:
+            row["tuning"] = tuned_rows[kid]
     log(json.dumps({"trained_mln": mln_line}))
     log(json.dumps({"trained_bf16": bf16_line}))
     log(json.dumps(report))
@@ -4812,7 +5408,8 @@ def main() -> int:
     log(json.dumps({"served_int8": int8_line}))
     log(json.dumps({"prefix_cached": prefix_line}))
     log(json.dumps({"speculative": spec_line}))
-    log(f"[24] total {time.monotonic() - t_start:.1f} s")
+    log(json.dumps({"tuned": tuned_line}))
+    log(f"[25] total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0

@@ -369,13 +369,14 @@ class FusedConvBN1x1(BaseLayer):
             mean, var = state["mean"], state["var"]
         return self._normalize(params, y, mean, var, x.dtype), new_state
 
-    def forward_kernel(self, params, state, x):
+    def forward_kernel(self, params, state, x, tiling=None):
         """Train mode through ``matmul_stats`` (``x`` after dropout): the
-        layer's kernel path and the routed path of ``conf.use_kernels``."""
+        layer's kernel path and the routed path of ``conf.use_kernels``
+        (which passes the registry's tuned ``tiling``)."""
         from deeplearning4j_tpu_torch.ops import conv_fused
 
         y, s, q = conv_fused.conv1x1_bn_stats(x, params["W"],
-                                              _pair(self.stride))
+                                              _pair(self.stride), tiling)
         m = y.shape[0] * y.shape[2] * y.shape[3]
         sdt = state["mean"].dtype
         mean = (s / m).to(sdt)

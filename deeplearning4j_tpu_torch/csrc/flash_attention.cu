@@ -461,13 +461,30 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const float* m
   return cudaErrorInvalidValue;
 }
 
+// The (BQ, BK) pair of FlashCfg for head size D: the one tiling instantiated
+// for it (and the backward's visited-key rule), so the only one a caller may ask for.
+template <int DP>
+bool is_cfg(int bq, int bk) {
+  return bq == FlashCfg<DP>::BQ && bk == FlashCfg<DP>::BK;
+}
+
+bool tiles_ok(int D, int bq, int bk) {
+  if (bq == 0 && bk == 0) return true;  // the default: FlashCfg of D
+  if (D <= 32) return is_cfg<32>(bq, bk);
+  if (D <= 64) return is_cfg<64>(bq, bk);
+  if (D <= 128) return is_cfg<128>(bq, bk);
+  if (D <= 256) return is_cfg<256>(bq, bk);
+  return is_cfg<512>(bq, bk);
+}
+
 }  // namespace
 
 extern "C" {
 
 // q [B,H,Tq,D], k/v [B,H,Tk,D] with element strides (b, h, t) and unit D stride;
 // key_mask: float32 [B, Tk] (contiguous) or null; o [B,H,Tq,D] contiguous in the
-// input dtype; l, m [B,H,Tq] float32. dtype: 0 = float32, 1 = bfloat16. Returns a
+// input dtype; l, m [B,H,Tq] float32. dtype: 0 = float32, 1 = bfloat16.
+// (block_q, block_k): FlashCfg's pair for D, or (0, 0) for it. Returns a
 // cudaError_t (0 = launched); the launch is asynchronous on `stream`.
 int dl4j_flash_attention_fwd(const void* q, const void* k, const void* v,
                              const void* key_mask, void* o, void* l, void* m,
@@ -475,10 +492,10 @@ int dl4j_flash_attention_fwd(const void* q, const void* k, const void* v,
                              long long q_sb, long long q_sh, long long q_st,
                              long long k_sb, long long k_sh, long long k_st,
                              long long v_sb, long long v_sh, long long v_st,
-                             int causal, float scale, int dtype, int device,
-                             void* stream) {
+                             int causal, float scale, int dtype, int block_q,
+                             int block_k, int device, void* stream) {
   if (B < 0 || H < 0 || Tq < 0 || Tk < 0 || D <= 0 || D > 512 ||
-      H > 65535 || B > 65535 ||
+      !tiles_ok(D, block_q, block_k) || H > 65535 || B > 65535 ||
       static_cast<long long>(B) * H > 2147483647LL || (Tq + 63) / 64 > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

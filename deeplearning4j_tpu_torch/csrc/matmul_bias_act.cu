@@ -20,10 +20,11 @@
 // so any M, N, K is covered (the TPU kernel needed tiles that divide the
 // problem).
 //
-// Tiles: 128 x 64 (4 warps of 64 x 32) where the problem has two such tiles for
-// each SM (tc::wide_tiles), else 64 x 64 (4 warps of 32 x 32). Both sum each
-// output in the same order, so a row's output does not depend on the batch it
-// is served in.
+// Tiles: 128 x 64 (4 warps of 64 x 32) or 64 x 64 (4 warps of 32 x 32), the
+// caller's choice (the registry's tuned tiling), or by default 128 x 64 where the
+// problem has two such tiles for each SM (tc::wide_tiles), else 64 x 64. Both sum
+// each output in the same order, so the output is the same bits under either
+// tile, and a row's output does not depend on the batch it is served in.
 //
 // Accumulation: float32 sums straight (one accumulator per output) up to
 // K = kStraightMaxK, ResNet-50's largest K, and each 32-deep K step fresh
@@ -136,24 +137,23 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* y, int m,
 
 template <typename T, bool kFresh>
 cudaError_t dispatch_tiles(const void* x, const void* w, const void* b, void* y,
-                           int m, int n, int k, int act, int num_sms, int device,
+                           int m, int n, int k, int act, bool wide, int device,
                            cudaStream_t stream) {
-  return tc::wide_tiles(m, n, num_sms)
-             ? launch<T, 128, 64, 64, 32, kFresh>(x, w, b, y, m, n, k, act,
-                                                  device, stream)
-             : launch<T, 64, 64, 32, 32, kFresh>(x, w, b, y, m, n, k, act,
-                                                 device, stream);
+  return wide ? launch<T, 128, 64, 64, 32, kFresh>(x, w, b, y, m, n, k, act,
+                                                   device, stream)
+              : launch<T, 64, 64, 32, 32, kFresh>(x, w, b, y, m, n, k, act,
+                                                  device, stream);
 }
 
 template <typename T>
 cudaError_t dispatch(const void* x, const void* w, const void* b, void* y, int m,
-                     int n, int k, int act, int num_sms, int device,
+                     int n, int k, int act, bool wide, int device,
                      cudaStream_t stream) {
   if (std::is_same<T, float>::value && k > kStraightMaxK) {
-    return dispatch_tiles<T, true>(x, w, b, y, m, n, k, act, num_sms, device,
+    return dispatch_tiles<T, true>(x, w, b, y, m, n, k, act, wide, device,
                                    stream);
   }
-  return dispatch_tiles<T, false>(x, w, b, y, m, n, k, act, num_sms, device,
+  return dispatch_tiles<T, false>(x, w, b, y, m, n, k, act, wide, device,
                                   stream);
 }
 
@@ -166,28 +166,35 @@ __global__ void probe_kernel(float* x, int n) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. act: an id of apply_act. Returns a
-// cudaError_t (0 = launched); the launch is asynchronous on `stream`.
+// dtype: 0 = float32, 1 = bfloat16. act: an id of apply_act. (bm, bn): the
+// block tile, (128, 64) or (64, 64), or (0, 0) for the default rule
+// (tc::wide_tiles). Returns a cudaError_t (0 = launched); the launch is
+// asynchronous on `stream`.
 int dl4j_matmul_bias_act(const void* x, const void* w, const void* b, void* y,
-                         int m, int n, int k, int dtype, int act, int device,
-                         void* stream) {
-  if (m < 0 || n < 0 || k < 0 || act < 0 || act >= kNumActs) {
+                         int m, int n, int k, int dtype, int act, int bm, int bn,
+                         int device, void* stream) {
+  const bool chosen = bm != 0 || bn != 0;
+  if (m < 0 || n < 0 || k < 0 || act < 0 || act >= kNumActs ||
+      (chosen && !((bm == 128 || bm == 64) && bn == 64))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = dl4j::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (m == 0 || n == 0) return static_cast<int>(cudaSuccess);
-  int num_sms = 0;
-  err = dl4j::sm_count(device, &num_sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  bool wide = bm == 128;
+  if (!chosen) {
+    int num_sms = 0;
+    err = dl4j::sm_count(device, &num_sms);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    wide = tc::wide_tiles(m, n, num_sms);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      err = dispatch<float>(x, w, b, y, m, n, k, act, num_sms, device, s);
+      err = dispatch<float>(x, w, b, y, m, n, k, act, wide, device, s);
       break;
     case 1:
-      err = dispatch<__nv_bfloat16>(x, w, b, y, m, n, k, act, num_sms, device,
-                                    s);
+      err = dispatch<__nv_bfloat16>(x, w, b, y, m, n, k, act, wide, device, s);
       break;
     default:
       err = cudaErrorInvalidValue;

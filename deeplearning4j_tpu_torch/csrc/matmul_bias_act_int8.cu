@@ -532,11 +532,21 @@ int dl4j_matmul_int8_plan(int m, int n, int k, int device) {
 }
 
 // x [m, k] int8, w [k, n] int8, scale and b [n] float32, y [m, n] float32; plan:
-// dl4j_matmul_int8_plan's value for (m, n, k); act: an id of apply_act. Returns a
-// cudaError_t (0 = launched); the launch is asynchronous on `stream`.
+// a tile config times 16 plus the cluster ranks (dl4j_matmul_int8_plan's value for
+// (m, n, k), or another config and power-of-two ranks up to kMaxRanks: the
+// registry's tuned tiling), or 0 for dl4j_matmul_int8_plan's rule; act: an id of
+// apply_act. The sums are exact integers under every plan, so every plan gives
+// the same bits. Returns a cudaError_t (0 = launched); the launch is
+// asynchronous on `stream`.
 int dl4j_matmul_bias_act_int8(const void* x, const void* w, const void* scale,
                               const void* b, void* y, int m, int n, int k, int act,
                               int plan, int device, void* stream) {
+  if (plan == 0 && m > 0 && n > 0 && k >= 0) {
+    plan = dl4j_matmul_int8_plan(m, n, k, device);
+    if (plan < 0) return -plan;
+  } else if (plan == 0) {
+    plan = 1;  // nothing to launch: any legal plan
+  }
   const int cfg = plan / 16, ranks = plan % 16;
   if (m < 0 || n < 0 || k < 0 || act < 0 || act >= kNumActs || cfg < 0 ||
       cfg >= kNumConfigs || (ranks & (ranks - 1)) != 0 || ranks < 1 || ranks > kMaxRanks ||

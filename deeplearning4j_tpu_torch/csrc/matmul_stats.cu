@@ -40,10 +40,13 @@
 // fixed, so the statistics are the same bits from run to run. Rows >= M add
 // nothing and columns >= N are not written, so any M, N, K is covered.
 //
-// Tiles: 128 x 64 (4 warps of 64 x 32) where the problem has two such tiles for
-// each SM (tc::wide_tiles), else 64 x 64 (4 warps of 32 x 32); block_m below is
-// the one rule both the launch and dl4j_matmul_stats_block_m (the partials'
-// height) take.
+// Tiles: 128 x 64 (4 warps of 64 x 32) or 64 x 64 (4 warps of 32 x 32), the
+// caller's choice of block_m (the registry's tuned tiling), or by default 128 x 64
+// where the problem has two such tiles for each SM (tc::wide_tiles), else 64 x 64;
+// block_m below is the one default rule both the launch and
+// dl4j_matmul_stats_block_m (the partials' height) take. y is the same bits under
+// either tile; the statistics group their partial sums by block_m rows, so they
+// may differ in the last bits.
 
 #include <atomic>
 #include <cstdint>
@@ -207,20 +210,27 @@ int dl4j_matmul_stats_block_m(int m, int n, int device) {
   return block_m(m, n, num_sms);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. y [m, n] in the input dtype; s_part and
-// q_part [ceil(m / block_m), n] float32, block_m from dl4j_matmul_stats_block_m.
+// dtype: 0 = float32, 1 = bfloat16. block_m: 128 or 64, or 0 for the default
+// rule (dl4j_matmul_stats_block_m). y [m, n] in the input dtype; s_part and
+// q_part [ceil(m / block_m), n] float32, with the block_m the launch takes.
 // Returns a cudaError_t (0 = launched); the launch is asynchronous on `stream`.
 int dl4j_matmul_stats(const void* x, const void* w, void* y, void* s_part,
-                      void* q_part, int m, int n, int k, int dtype, int device,
-                      void* stream) {
-  if (m < 0 || n < 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
+                      void* q_part, int m, int n, int k, int dtype, int block_m_,
+                      int device, void* stream) {
+  if (m < 0 || n < 0 || k < 0 ||
+      (block_m_ != 0 && block_m_ != 128 && block_m_ != 64)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = dl4j::use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (m == 0 || n == 0) return static_cast<int>(cudaSuccess);
-  int num_sms = 0;
-  err = dl4j::sm_count(device, &num_sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int bm = block_m(m, n, num_sms);
+  int bm = block_m_;
+  if (bm == 0) {
+    int num_sms = 0;
+    err = dl4j::sm_count(device, &num_sms);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    bm = block_m(m, n, num_sms);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* sp = static_cast<float*>(s_part);
   float* qp = static_cast<float*>(q_part);

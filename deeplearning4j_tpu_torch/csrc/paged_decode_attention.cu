@@ -302,18 +302,23 @@ cudaError_t dispatch(const void* q, const void* kc, const void* vc,
   return cudaErrorInvalidValue;
 }
 
+// The default page of a cache of S slots: min(kMaxPage, S), the largest page
+// there is wherever it divides S (an S it does not divide takes the stock read).
+int default_page(int S) { return S < kMaxPage ? S : kMaxPage; }
+
 }  // namespace
 
 extern "C" {
 
 // q [B,H,D], k_cache/v_cache [B,S,H,D], o [B,H,D], all contiguous in one dtype
 // (0 = float32, 1 = bfloat16); positions int32 [B]. page divides S and is at most
-// 64; D <= 128 or a multiple of 128 up to 512. Returns a cudaError_t (0 =
-// launched); the launch is asynchronous on `stream`.
+// 64, or 0 for default_page(S); D <= 128 or a multiple of 128 up to 512. Returns
+// a cudaError_t (0 = launched); the launch is asynchronous on `stream`.
 int dl4j_paged_decode_attention(const void* q, const void* k_cache,
                                 const void* v_cache, const void* positions,
                                 void* o, int B, int S, int H, int D, int page,
                                 float scale, int dtype, int device, void* stream) {
+  if (page == 0 && S > 0) page = default_page(S);
   if (B < 0 || H < 0 || S <= 0 || D <= 0 || D > 512 ||
       (D > kThreads && D % kThreads != 0) || page <= 0 || page > kMaxPage ||
       S % page != 0 || B > 65535 || H > 65535) {

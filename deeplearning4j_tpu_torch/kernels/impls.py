@@ -5,7 +5,8 @@ CPU, and for CUDA tensors launches its hand-written kernel (built from
 ``csrc/`` at first use, see :mod:`kernels.build`) or raises: there is no
 fallback. A wrapper counts its kernel launches in ``<wrapper>.launches`` (a
 plain int, never touched by the plain path), so a run can show that its
-main path went through the kernel.
+main path went through the kernel. The tuned wrappers take a ``tiling``
+(:mod:`kernels.registry`); None passes 0, the launcher's default rule.
 
 ``matmul_bias_act`` replaces the JAX package's Pallas kernel
 ``deeplearning4j_tpu/kernels/impls.py::matmul_bias_act``; ``matmul_stats``
@@ -49,7 +50,7 @@ _SIGNATURES = {
         ctypes.c_int,
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_void_p]),
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     "dl4j_probe": (
         ctypes.c_int,
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
@@ -61,7 +62,7 @@ _STATS_SIGNATURES = {
         ctypes.c_int,
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
 }
 _INT8_SIGNATURES = {
     "dl4j_matmul_int8_plan": (
@@ -117,6 +118,9 @@ def raise_on_error(kernel: str, rc: int) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
 
 
+_INVALID_VALUE = 1  # cudaErrorInvalidValue: what a launcher returns for a bad tiling
+
+
 # --------------------------------------------------------------------------
 # matmul + bias + elementwise activation (dense / 1x1-conv forward)
 # --------------------------------------------------------------------------
@@ -151,7 +155,7 @@ def matmul_bias_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return act.apply(z).to(x.dtype)
 
 
-def _matmul_bias_act_cuda(x, w, b, act):
+def _matmul_bias_act_cuda(x, w, b, act, tiling):
     if not (x.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
         raise ValueError("matmul_bias_act needs contiguous operands")
     (m, k), n = x.shape, w.shape[0]
@@ -160,9 +164,10 @@ def _matmul_bias_act_cuda(x, w, b, act):
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return y  # nothing to launch
+    bm, bn = tiling if tiling else (0, 0)
     rc = _library().dl4j_matmul_bias_act(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), m, n, k,
-        DTYPE_IDS[x.dtype], ACTIVATION_IDS[act.value], x.device.index,
+        DTYPE_IDS[x.dtype], ACTIVATION_IDS[act.value], bm, bn, x.device.index,
         stream(x))
     raise_on_error("matmul_bias_act", rc)
     count(matmul_bias_act)
@@ -177,12 +182,12 @@ class _MatmulBiasAct(torch.autograd.Function):
     in f32."""
 
     @staticmethod
-    def forward(ctx, x, w, b, act):
+    def forward(ctx, x, w, b, act, tiling):
         ctx.act = act
         ctx.save_for_backward(x, w, b)
         if x.device.type == "cpu":
             return matmul_bias_act_plain(x, w, b, act)
-        return _matmul_bias_act_cuda(x, w, b, act)
+        return _matmul_bias_act_cuda(x, w, b, act, tiling)
 
     @staticmethod
     def backward(ctx, g):
@@ -194,24 +199,26 @@ class _MatmulBiasAct(torch.autograd.Function):
                 z = (x @ w.T + b).detach().requires_grad_()
                 (dz,) = torch.autograd.grad(ctx.act.apply(z), z,
                                             g.to(z.dtype))
-        need_x, need_w, need_b, _ = ctx.needs_input_grad
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
         dx = (dz @ w).to(x.dtype) if need_x else None
         dw = (dz.T @ x).to(w.dtype) if need_w else None
         db = dz.float().sum(0).to(b.dtype) if need_b else None
-        return dx, dw, db, None
+        return dx, dw, db, None, None
 
 
 def matmul_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                    act: Activation) -> torch.Tensor:
+                    act: Activation, tiling=None) -> torch.Tensor:
     """``act(x @ w.T + b)``: x [M, K], w [N, K] (both K-contiguous — a 1x1
     OIHW conv weight viewed as [N, K] already is), b [N]; float32 or
     bfloat16, f32 accumulation, output [M, N] in the input dtype. ``act``
     is an elementwise :class:`Activation` (softmax is refused).
-    Differentiable in x, w and b."""
+    ``tiling``: the block tile ``(BM, BN)``, (128, 64) or (64, 64), or None
+    for the kernel's default rule; the output is the same bits under
+    either. Differentiable in x, w and b."""
     _check_matmul(x, w, b, act)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"matmul_bias_act runs on cpu or cuda, not {x.device}")
-    return _MatmulBiasAct.apply(x, w, b, act)
+    return _MatmulBiasAct.apply(x, w, b, act, tiling)
 
 
 matmul_bias_act.launches = 0
@@ -245,7 +252,7 @@ def matmul_stats_plain(x: torch.Tensor, w: torch.Tensor):
     return y, y64.sum(0).float(), (y64 * y64).sum(0).float()
 
 
-def _matmul_stats_cuda(x, w):
+def _matmul_stats_cuda(x, w, tiling):
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("matmul_stats needs contiguous operands")
     (m, k), n = x.shape, w.shape[0]
@@ -256,16 +263,20 @@ def _matmul_stats_cuda(x, w):
         zeros = torch.zeros((n,), dtype=torch.float32, device=x.device)
         return y, zeros, zeros.clone()
     lib = _stats_library()
-    bm = lib.dl4j_matmul_stats_block_m(m, n, x.device.index)
-    if bm <= 0:
-        raise_on_error("matmul_stats", -bm)
+    bm = int(tiling[0]) if tiling else 0
+    if bm == 0:  # the kernel's default rule
+        bm = lib.dl4j_matmul_stats_block_m(m, n, x.device.index)
+        if bm <= 0:
+            raise_on_error("matmul_stats", -bm)
+    elif bm < 0:
+        raise_on_error("matmul_stats", _INVALID_VALUE)
     rows = -(-m // bm)
     # the sum and sum-of-squares partials, [rows, N] each, in one buffer
     parts = torch.empty((2, rows, n), dtype=torch.float32, device=x.device)
     rc = lib.dl4j_matmul_stats(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), parts.data_ptr(),
         parts.data_ptr() + rows * n * parts.element_size(), m, n, k,
-        DTYPE_IDS[x.dtype], x.device.index, stream(x))
+        DTYPE_IDS[x.dtype], bm, x.device.index, stream(x))
     raise_on_error("matmul_stats", rc)
     count(matmul_stats)
     # both partials reduce over their rows in one fixed-order launch, as the
@@ -282,11 +293,11 @@ class _MatmulStats(torch.autograd.Function):
     dtype), and ``dx = g @ w``, ``dw = g.T @ x`` in the [N, K] layout."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, tiling):
         if x.device.type == "cpu":
             y, s, q = matmul_stats_plain(x, w)
         else:
-            y, s, q = _matmul_stats_cuda(x, w)
+            y, s, q = _matmul_stats_cuda(x, w, tiling)
         ctx.save_for_backward(x, w, y)
         return y, s, q
 
@@ -295,20 +306,22 @@ class _MatmulStats(torch.autograd.Function):
         x, w, y = ctx.saved_tensors
         g = (gy.float() + gs.float()[None, :]
              + 2.0 * y.float() * gq.float()[None, :]).to(x.dtype)
-        need_x, need_w = ctx.needs_input_grad
+        need_x, need_w = ctx.needs_input_grad[:2]
         dx = (g @ w).to(x.dtype) if need_x else None
         dw = (g.T @ x).to(w.dtype) if need_w else None
-        return dx, dw
+        return dx, dw, None
 
 
-def matmul_stats(x: torch.Tensor, w: torch.Tensor):
+def matmul_stats(x: torch.Tensor, w: torch.Tensor, tiling=None):
     """``(y, s, q)``: ``y = x @ w.T`` [M, N] in the input dtype (f32
     accumulation), and per column ``s = sum(y)``, ``q = sum(y*y)`` [N] in
     f32 over the rounded y — the fused 1x1-conv + BN statistics in one pass
     over y. x [M, K], w [N, K] (K-contiguous: a 1x1 OIHW weight viewed as
-    [N, K]); float32 or bfloat16. Differentiable in x and w."""
+    [N, K]); float32 or bfloat16. ``tiling``: ``(block_m,)``, 128 or 64, or
+    None for the kernel's default rule (the statistics group their partial
+    sums by block_m rows). Differentiable in x and w."""
     _check_stats(x, w)
-    return _MatmulStats.apply(x, w)
+    return _MatmulStats.apply(x, w, tiling)
 
 
 matmul_stats.launches = 0
@@ -386,7 +399,17 @@ def _int8_plan(m: int, n: int, k: int, device: int):
     return plan
 
 
-def _matmul_bias_act_int8_cuda(xq, wq, scale, b, act_id):
+def _int8_tiling_plan(tiling) -> int:
+    """A ``(tile config, cluster ranks)`` tiling as the launcher's plan
+    code, config times 16 plus ranks; the launcher refuses a config or a
+    rank count it does not take."""
+    cfg, ranks = (int(t) for t in tiling)
+    if cfg < 0 or not 1 <= ranks < 16:
+        raise_on_error("matmul_bias_act_int8", _INVALID_VALUE)
+    return cfg * 16 + ranks
+
+
+def _matmul_bias_act_int8_cuda(xq, wq, scale, b, act_id, tiling):
     if not (xq.is_contiguous() and wq.is_contiguous() and scale.is_contiguous()
             and b.is_contiguous()):
         raise ValueError("matmul_bias_act_int8 needs contiguous operands")
@@ -399,6 +422,8 @@ def _matmul_bias_act_int8_cuda(xq, wq, scale, b, act_id):
         return y  # nothing to launch
     device = xq.get_device()
     launch, plan = _int8_plan(m, n, k, device)
+    if tiling:
+        plan = _int8_tiling_plan(tiling)
     # one launch, no workspace; the raw stream handle skips building a
     # torch.cuda.Stream object on every call
     rc = launch(xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), b.data_ptr(),
@@ -411,15 +436,18 @@ def _matmul_bias_act_int8_cuda(xq, wq, scale, b, act_id):
 
 def matmul_bias_act_int8(xq: torch.Tensor, wq: torch.Tensor,
                          scale: torch.Tensor, b: torch.Tensor,
-                         act: Activation) -> torch.Tensor:
+                         act: Activation, tiling=None) -> torch.Tensor:
     """``act(float32(int32_dot(xq, wq)) * scale + b)`` as float32 [M, N]:
     xq [M, K] int8 (already quantized), wq [K, N] int8 (the contract
     layout), scale and b [N] float32 (``nn.inference_opt``'s effective
-    scale and bias). ``act`` is an elementwise :class:`Activation`. Forward
-    only: quantized layers never train."""
+    scale and bias). ``act`` is an elementwise :class:`Activation`.
+    ``tiling``: ``(tile config, cluster ranks)`` of the kernel's ``kTiles``
+    and its K split, or None for the kernel's plan for the shape; the int32
+    sums are exact, so every tiling gives the same bits. Forward only:
+    quantized layers never train."""
     act_id = _check_int8(xq, wq, scale, b, act)
     if xq.is_cuda:
-        return _matmul_bias_act_int8_cuda(xq, wq, scale, b, act_id)
+        return _matmul_bias_act_int8_cuda(xq, wq, scale, b, act_id, tiling)
     return matmul_bias_act_int8_plain(xq, wq, scale, b, act)
 
 

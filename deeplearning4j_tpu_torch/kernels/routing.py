@@ -42,20 +42,33 @@ Dropout (train mode with a generator) masks the full input first, as the
 layer's own forward does. The float GEMM kernels are differentiable, so a
 routed forward trains; the int8 kernel serves only (quantized layers never
 train). Anything else returns ``None`` and the caller runs the
-stock forward. The JAX route takes its kernel only for a *tuned* envelope;
-this port has no tuner yet, so the route takes the kernel for every shape
-the qualifiers admit (the JAX package's tuned and stock paths agree, so no
-output changes).
+stock forward.
+
+Every route derives its concrete envelope (:mod:`kernels.registry`) and
+asks ``REGISTRY.select`` for its tiling: a tuned envelope runs the
+winner's tiling; an untuned one, or a cached winner the kernel's
+``tiling_ok`` refuses, runs the kernel at its default tiling (the
+launcher's own rule), never the stock op. The JAX route takes its kernel
+only for a *tuned* envelope and runs stock XLA otherwise; here a
+``use_kernels`` route never degrades. :func:`plan_envelopes` /
+:func:`autotune_model` and :func:`decoder_envelopes` /
+:func:`autotune_decoder` plan and tune the envelopes a model or a decoder
+will route, from its conf alone.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from deeplearning4j_tpu_torch.kernels import impls
+from deeplearning4j_tpu_torch.kernels.registry import (
+    REGISTRY,
+    AttentionEnvelope,
+    MatmulEnvelope,
+)
 
 _CAPABILITY: Dict[int, str] = {}
 _CAPABILITY_LOCK = threading.Lock()
@@ -94,6 +107,46 @@ def _zero_bias(layer, x):
     return torch.zeros((layer.n_out,), dtype=x.dtype, device=x.device)
 
 
+_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+                torch.int8: "int8", torch.float16: "float16",
+                torch.float64: "float64"}
+
+
+def _dtype_name(dtype) -> str:
+    if isinstance(dtype, str):
+        return dtype
+    return _DTYPE_NAMES.get(dtype) or str(dtype).replace("torch.", "")
+
+
+def default_mode() -> str:
+    """The backend envelopes are planned for when no ``mode`` is given:
+    ``"cuda"`` where a card is visible, else ``"cpu"``."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def _env(m: int, k: int, n: int, dtype, act: str = "identity",
+         mode: Optional[str] = None) -> MatmulEnvelope:
+    return MatmulEnvelope(int(m), int(k), int(n), _dtype_name(dtype),
+                          mode or default_mode(), act)
+
+
+def _attn_env(b: int, h: int, tq: int, tk: int, d: int, dtype,
+              causal: bool, masked: bool,
+              mode: Optional[str] = None) -> AttentionEnvelope:
+    return AttentionEnvelope(int(b), int(h), int(tq), int(tk), int(d),
+                             _dtype_name(dtype), mode or default_mode(),
+                             bool(causal), bool(masked))
+
+
+def _tuned(kernel_id: str, env) -> dict:
+    """``{"tiling": winner}`` for a tuned envelope, else ``{}``: the
+    wrapper is called as it was before the registry and its launcher runs
+    its default rule (untuned, a refused winner, or an envelope the
+    registry does not cover, where the wrapper checks the call)."""
+    sel = REGISTRY.select(kernel_id, env)
+    return {"tiling": sel.tiling} if sel is not None and sel.tuned else {}
+
+
 def _route_dense(layer, params, state, x, train, gen):
     from deeplearning4j_tpu_torch.conf.layers import DenseLayer, promote
 
@@ -104,7 +157,12 @@ def _route_dense(layer, params, state, x, train, gen):
     x = layer._dropout_input(x, train, gen)
     b = params["b"] if layer.has_bias else _zero_bias(layer, x)
     x, w, b = promote(x, params["W"], b)
-    y = impls.matmul_bias_act(x.contiguous(), w, b, layer.activation)
+    act = layer.activation
+    tuned = _tuned("matmul_bias_act",
+                   MatmulEnvelope(x.shape[0], x.shape[1], layer.n_out,
+                                  _dtype_name(x.dtype), x.device.type,
+                                  act.value))
+    y = impls.matmul_bias_act(x.contiguous(), w, b, act, **tuned)
     return y, state
 
 
@@ -136,7 +194,12 @@ def _route_conv1x1(layer, params, state, x, train, gen):
     x2 = xs.permute(0, 2, 3, 1).reshape(b_ * h_o * w_o, cin).contiguous()
     w2 = params["W"].reshape(layer.n_out, cin)
     b = params["b"] if layer.has_bias else _zero_bias(layer, x)
-    y2 = impls.matmul_bias_act(x2, w2, b, layer.activation)
+    act = layer.activation
+    tuned = _tuned("matmul_bias_act",
+                   MatmulEnvelope(x2.shape[0], cin, layer.n_out,
+                                  _dtype_name(x2.dtype), x.device.type,
+                                  act.value))
+    y2 = impls.matmul_bias_act(x2, w2, b, act, **tuned)
     return y2.view(b_, h_o, w_o, layer.n_out).permute(0, 3, 1, 2), state
 
 
@@ -151,9 +214,13 @@ def _route_quant_dense(layer, params, state, x, train, gen):
     if x.ndim != 2 or not impls.elementwise(layer.activation):
         return None
     xq = quantize_input(x, params["xs"], params["xz"])
+    act = layer.activation
+    tuned = _tuned("matmul_bias_act_int8",
+                   MatmulEnvelope(x.shape[0], x.shape[1], layer.n_out,
+                                  "int8", x.device.type, act.value))
     y = impls.matmul_bias_act_int8(xq.contiguous(), params["Wq"],
-                                   params["scale"], params["b"],
-                                   layer.activation)
+                                   params["scale"], params["b"], act,
+                                   **tuned)
     return y.to(x.dtype), state
 
 
@@ -173,9 +240,13 @@ def _route_quant_conv1x1(layer, params, state, x, train, gen):
     xs = x[:, :, ::sh, ::sw] if (sh, sw) != (1, 1) else x
     x2 = xs.permute(0, 2, 3, 1).reshape(b_ * h_o * w_o, cin)
     xq = quantize_input(x2, params["xs"], params["xz"])
+    act = layer.activation
+    tuned = _tuned("matmul_bias_act_int8",
+                   MatmulEnvelope(x2.shape[0], cin, layer.n_out, "int8",
+                                  x.device.type, act.value))
     y2 = impls.matmul_bias_act_int8(xq.contiguous(), params["Wq"],
-                                    params["scale"], params["b"],
-                                    layer.activation)
+                                    params["scale"], params["b"], act,
+                                    **tuned)
     y = y2.view(b_, h_o, w_o, layer.n_out).permute(0, 3, 1, 2)
     return y.to(x.dtype), state
 
@@ -189,8 +260,14 @@ def _route_fused_conv_bn(layer, params, state, x, train, gen):
         return None  # eval mode reads running stats: no statistics pass
     # exactly the layer's train-mode kernel path (stride subsample first,
     # statistics in the state dtype, var = max(q/m - mean^2, 0))
+    sh, sw = _pair(layer.stride)
+    b_, cin, h, wd = x.shape
+    m = b_ * -(-h // sh) * -(-wd // sw)
+    tuned = _tuned("conv_bn_act",
+                   MatmulEnvelope(m, cin, layer.n_out, _dtype_name(x.dtype),
+                                  x.device.type))
     return layer.forward_kernel(params, state,
-                                layer._dropout_input(x, train, gen))
+                                layer._dropout_input(x, train, gen), **tuned)
 
 
 def _qualifies(q) -> bool:
@@ -201,32 +278,51 @@ def _qualifies(q) -> bool:
 
 
 def maybe_flash_attention(q, k, v, key_mask=None, causal=False):
-    """Head-split ``[B, H, T, D]`` attention through the flash kernel, or
-    ``None`` for the stock tier (a dtype or head size the kernel does not
-    take). On a CUDA tensor the first call per card checks
-    :func:`capability`."""
+    """Head-split ``[B, H, T, D]`` attention through the flash kernel at
+    its selected tiling, or ``None`` for the stock tier (a dtype or head
+    size the kernel does not take). On a CUDA tensor the first call per
+    card checks :func:`capability`."""
     from deeplearning4j_tpu_torch.ops import attention
 
     if not _qualifies(q):
         return None
+    b, h, tq, d = q.shape
+    sel = REGISTRY.select(
+        "flash_attention",
+        AttentionEnvelope(b, h, tq, k.shape[2], d, _dtype_name(q.dtype),
+                          q.device.type, bool(causal), key_mask is not None))
+    if sel is None:
+        return None
     if q.is_cuda:
         capability(q.device)
+    if sel.tuned:
+        return attention.flash_attention(q, k, v, key_mask, causal,
+                                         tiling=sel.tiling)
     return attention.flash_attention(q, k, v, key_mask, causal)
 
 
 def maybe_decode_attention(q, k_cache, v_cache, positions):
     """Single-token decode attention (``q [B, H, D]`` against ``[B, S, H,
     D]`` caches valid through ``positions``) through the paged decode
-    kernel, or ``None`` for the stock masked full-cache read (a dtype or
-    head size the kernel does not take, or a cache length that
-    ``min(64, S)``-slot pages do not divide)."""
+    kernel at its selected page, or ``None`` for the stock masked
+    full-cache read (a dtype or head size the kernel does not take, or a
+    cache length that ``min(64, S)``-slot pages do not divide)."""
     from deeplearning4j_tpu_torch.ops import attention
 
-    s = k_cache.shape[1]
-    if not _qualifies(q) or s % min(64, s):
+    if not _qualifies(q):
+        return None
+    b, h, d = q.shape
+    sel = REGISTRY.select(
+        "paged_decode_attention",
+        AttentionEnvelope(b, h, 1, k_cache.shape[1], d, _dtype_name(q.dtype),
+                          q.device.type, True, False))
+    if sel is None:
         return None
     if q.is_cuda:
         capability(q.device)
+    if sel.tuned:
+        return attention.paged_decode_attention(q, k_cache, v_cache,
+                                                positions, page=sel.tiling[0])
     return attention.paged_decode_attention(q, k_cache, v_cache, positions)
 
 
@@ -322,3 +418,206 @@ def maybe_vertex_forward(vertex, params, state, xs, train=False, gen=None,
     if pre is not None:
         x, _ = pre.forward({}, {}, x)
     return maybe_forward(layer, params, state, x, train, gen, mask)
+
+
+# --------------------------------------------------------------------------
+# envelope planning + whole-model autotune
+# --------------------------------------------------------------------------
+
+def _layer_envelope(layer, itype, batch: int, dtype,
+                    mode: Optional[str]) -> Optional[Tuple[str, object]]:
+    """The ``(kernel_id, envelope)`` a routable layer at this input type
+    and batch would select against, or None: the static-shape twin of the
+    ``_route_*`` checks (the JAX package's qualifiers and geometry)."""
+    from deeplearning4j_tpu_torch.conf import inputs as it
+    from deeplearning4j_tpu_torch.conf.layers import DenseLayer, _as_ff_size
+    from deeplearning4j_tpu_torch.conf.layers_attention import (
+        SelfAttentionLayer,
+    )
+    from deeplearning4j_tpu_torch.conf.layers_cnn import (
+        ConvolutionLayer,
+        ConvolutionMode,
+        FusedConvBN1x1,
+    )
+    from deeplearning4j_tpu_torch.conf.layers_quant import (
+        QuantizedConv1x1Layer,
+        QuantizedDenseLayer,
+    )
+
+    def rows(layer):  # M of a 1x1 site: the stride subsamples first
+        sh, sw = _pair(layer.stride)
+        return batch * -(-itype.height // sh) * -(-itype.width // sw)
+
+    elementwise = (hasattr(layer, "activation")
+                   and impls.elementwise(layer.activation))
+    if isinstance(layer, QuantizedDenseLayer) \
+            and type(layer).forward is QuantizedDenseLayer.forward \
+            and elementwise:
+        try:
+            k = _as_ff_size(itype)
+        except ValueError:
+            return None
+        return ("matmul_bias_act_int8",
+                _env(batch, k, layer.n_out, "int8",
+                     act=layer.activation.value, mode=mode))
+    if isinstance(layer, QuantizedConv1x1Layer) \
+            and type(layer).forward is QuantizedConv1x1Layer.forward \
+            and isinstance(itype, it.Convolutional) and elementwise:
+        return ("matmul_bias_act_int8",
+                _env(rows(layer), itype.channels, layer.n_out, "int8",
+                     act=layer.activation.value, mode=mode))
+    if isinstance(layer, SelfAttentionLayer) \
+            and type(layer).forward is SelfAttentionLayer.forward \
+            and isinstance(itype, it.Recurrent) \
+            and itype.timesteps and itype.timesteps > 0 \
+            and layer.attention_impl in ("auto", "flash"):
+        h = layer.n_heads if layer.project_input else 1
+        t = itype.timesteps
+        # masked=False: the planned fit envelope is the no-feature-mask
+        # path; a masked fit resolves its own envelope when it runs
+        return ("flash_attention",
+                _attn_env(batch, h, t, t, layer._head_size(itype.size),
+                          dtype, causal=layer.causal, masked=False,
+                          mode=mode))
+    if isinstance(layer, FusedConvBN1x1) \
+            and type(layer).forward is FusedConvBN1x1.forward \
+            and isinstance(itype, it.Convolutional):
+        return ("conv_bn_act",
+                _env(rows(layer), itype.channels, layer.n_out, dtype,
+                     mode=mode))
+    if isinstance(layer, ConvolutionLayer) \
+            and type(layer).forward is ConvolutionLayer.forward \
+            and isinstance(itype, it.Convolutional) \
+            and _pair(layer.kernel_size) == (1, 1) \
+            and _pair(layer.dilation) == (1, 1) \
+            and (layer.convolution_mode is ConvolutionMode.SAME
+                 or _pair(layer.padding) == (0, 0)) and elementwise:
+        return ("matmul_bias_act",
+                _env(rows(layer), itype.channels, layer.n_out, dtype,
+                     act=layer.activation.value, mode=mode))
+    if isinstance(layer, DenseLayer) \
+            and type(layer).forward is DenseLayer.forward \
+            and not isinstance(itype, it.Recurrent) and elementwise:
+        try:
+            k = _as_ff_size(itype)
+        except ValueError:
+            return None
+        return ("matmul_bias_act",
+                _env(batch, k, layer.n_out, dtype,
+                     act=layer.activation.value, mode=mode))
+    return None
+
+
+def plan_envelopes(conf, batch: int,
+                   mode: Optional[str] = None) -> List[Tuple[str, object]]:
+    """The ``(kernel_id, envelope)`` list a ``use_kernels`` forward or fit
+    of this conf at ``batch`` routes: what :func:`autotune_model` tunes.
+    Derived from the conf's static shape chain, so it needs no params or
+    data. Takes a MultiLayerConfiguration (layer chain) or a
+    ComputationGraphConfiguration (DAG walk over its LayerVertex specs,
+    preprocessors applied). ``mode``: the envelopes' backend ("cuda" or
+    "cpu"; default :func:`default_mode`), so the CPU can plan the card's."""
+    dtype = getattr(conf, "compute_dtype", None) or conf.dtype
+    out: List[Tuple[str, object]] = []
+    seen = set()
+
+    def add(pair):
+        if pair is None:
+            return
+        kid, env = pair
+        if (kid, env.key) not in seen:
+            seen.add((kid, env.key))
+            out.append((kid, env))
+
+    if hasattr(conf, "vertices"):  # ComputationGraphConfiguration
+        types = conf.vertex_output_types()
+        vmap = conf.vertex_map()
+        inputs_t = dict(zip(conf.network_inputs, conf.input_types))
+        for name in conf.topo_order():
+            spec = vmap[name]
+            layer = getattr(spec.vertex, "layer", None)
+            if layer is None or len(spec.inputs) != 1:
+                continue
+            src = spec.inputs[0]
+            itype = inputs_t.get(src, types.get(src))
+            pre = getattr(spec.vertex, "preprocessor", None)
+            if pre is not None and itype is not None:
+                itype = pre.output_type(itype)
+            if itype is not None:
+                add(_layer_envelope(layer, itype, batch, dtype, mode))
+    else:
+        for layer, itype in zip(conf.layers, conf.input_types()):
+            add(_layer_envelope(layer, itype, batch, dtype, mode))
+    return out
+
+
+def _autotune_all(pairs, retune: bool, autotune_kw) -> List[object]:
+    from deeplearning4j_tpu_torch.kernels import tuner
+
+    results = []
+    for kid, env in pairs:
+        kernel = REGISTRY.get(kid)
+        if kernel is None or not kernel.supports(env):
+            continue
+        if not retune \
+                and REGISTRY.tuning.winner(kid, env.key) is not None:
+            continue
+        results.append(tuner.autotune(kernel, env, **autotune_kw))
+    return results
+
+
+def autotune_model(conf, batch: int, retune: bool = False,
+                   **autotune_kw) -> List[object]:
+    """Autotune every routable envelope of a model conf (MLN chain or
+    graph DAG) at one batch size on this process's backend
+    (already-tuned envelopes are skipped unless ``retune``). Returns the
+    :class:`tuner.AutotuneResult` list; after this, a ``use_kernels``
+    forward or fit at ``batch`` selects a tuned winner at every planned
+    site. ``autotune_kw``: :func:`tuner.autotune`'s ``warmup``,
+    ``trials``, ``max_candidates``, ``cache``, ``record``."""
+    return _autotune_all(plan_envelopes(conf, batch), retune, autotune_kw)
+
+
+def decoder_envelopes(decoder,
+                      mode: Optional[str] = None
+                      ) -> List[Tuple[str, object]]:
+    """The attention ``(kernel_id, envelope)`` list a ``use_kernels``
+    :class:`nn.decoding.TransformerDecoder` routes: one paged-decode
+    envelope per KV bucket (a decode window runs at full ``max_batch``)
+    and one flash envelope per (prompt bucket, join width); cold prefill
+    attends under the prompt-length key mask, so those are
+    ``masked=True``. Derived from the decoder's ladders and attention
+    geometry; needs no params or traffic."""
+    out: List[Tuple[str, object]] = []
+    seen = set()
+
+    def add(kid, env):
+        if (kid, env.key) not in seen:
+            seen.add((kid, env.key))
+            out.append((kid, env))
+
+    dtype = decoder._dtype
+    geoms = set()
+    for name, n_in in decoder._attn.items():
+        layer = decoder._layer(name)
+        geoms.add((layer.n_heads, layer._head_size(n_in)))
+    for h, d in sorted(geoms):
+        for s in decoder.kv_ladder:
+            add("paged_decode_attention",
+                _attn_env(decoder.max_batch, h, 1, s, d, dtype,
+                          causal=True, masked=False, mode=mode))
+        for tp in decoder.prompt_ladder:
+            for bp in decoder.join_ladder:
+                add("flash_attention",
+                    _attn_env(bp, h, tp, tp, d, dtype, causal=True,
+                              masked=True, mode=mode))
+    return out
+
+
+def autotune_decoder(decoder, retune: bool = False,
+                     **autotune_kw) -> List[object]:
+    """Autotune every attention envelope a ``use_kernels`` decoder routes
+    (paged decode per KV bucket, flash prefill per prompt / join bucket
+    pair). Selection is resolved per call, so tuning before or after the
+    decoder's warmup both take effect at the next step."""
+    return _autotune_all(decoder_envelopes(decoder), retune, autotune_kw)

@@ -231,6 +231,12 @@ class TransformerDecoder:
     def _layer(self, name):
         return self._net._vmap[name].vertex.layer
 
+    def _ktag(self) -> str:
+        """The wrapped graph's kernel-registry tag (``kernels.cache_tag``;
+        empty unless ``conf.use_kernels``): a retune changes it, and the
+        next prefill or decode step resolves the new winners."""
+        return self._net._ktag()
+
     @property
     def net(self):
         """The wrapped ComputationGraph (shares live params)."""

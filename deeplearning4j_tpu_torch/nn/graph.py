@@ -238,6 +238,17 @@ class ComputationGraph(nn_io.HealthHooks):
         return getattr(layer, "updater", None) or self.conf.updater
 
     # --- functional core ---------------------------------------------------
+    def _ktag(self) -> str:
+        """The kernel registry's ``:kern:<id>:<digest>`` tokens
+        (``kernels.cache_tag``): empty unless ``conf.use_kernels``, else
+        one token per kernel, changed by any retune. The JAX package folds
+        it into its step keys; eager PyTorch has no executables to key,
+        so it is reported (``GenerationEngine.warmup``), and each routed
+        call resolves its tiling against the tuning cache's epoch."""
+        if not getattr(self.conf, "use_kernels", False):
+            return ""
+        return kernels.cache_tag(self.conf)
+
     def _forward(self, params, state, inputs: Sequence, train=False,
                  seed=None, keep_all=False, skip=frozenset(), fmasks=None):
         """DAG forward; returns ``(activations, new_state)``. Eval mode keeps

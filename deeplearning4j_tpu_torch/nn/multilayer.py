@@ -177,6 +177,17 @@ class MultiLayerNetwork(nn_io.HealthHooks):
         return getattr(layer, "updater", None) or self.conf.updater
 
     # --- forward -----------------------------------------------------------
+    def _ktag(self) -> str:
+        """The kernel registry's ``:kern:<id>:<digest>`` tokens
+        (``kernels.cache_tag``): empty unless ``conf.use_kernels``, else
+        one token per kernel, changed by any retune. The JAX package folds
+        it into its step keys; eager PyTorch has no executables to key,
+        so it is reported (``GenerationEngine.warmup``), and each routed
+        call resolves its tiling against the tuning cache's epoch."""
+        if not getattr(self.conf, "use_kernels", False):
+            return ""
+        return kernels.cache_tag(self.conf)
+
     def _run(self, params, state, x, train=False, seed=None, upto=None,
              fmask=None, keep_all=False):
         """The forward over layers ``[0, upto)``; returns ``(x, new_state)``

@@ -47,7 +47,7 @@ _FLASH_SIGNATURES = {
         ctypes.c_int,
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 9
         + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-           ctypes.c_void_p]),
+           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
 }
 # dq kernel: q k v key_mask do o l m dq di; dk/dv kernel: q k v key_mask do
 # l m di dk dv; then B H Tq Tk D, the (b, h, t) strides of q k v do, causal,
@@ -79,6 +79,21 @@ def head_dim_supported(d: int) -> bool:
     to 512 (the JAX package's flash qualifier, capped at the largest
     register tile the CUDA kernels instantiate)."""
     return 0 < d and (d <= 128 or (d % 128 == 0 and d <= _MAX_HEAD_DIM))
+
+
+# csrc/flash_common.cuh's FlashCfg<DP>: (BQ, BK) by padded head size DP
+_FLASH_TILES = {32: (64, 64), 64: (64, 64), 128: (64, 32), 256: (32, 16),
+                512: (32, 8)}
+
+
+def flash_tiles(d: int):
+    """The flash forward's ``(block_q, block_k)`` for head size ``d``: the
+    ``FlashCfg`` of the smallest padded size that holds it, the one tiling
+    the kernel instantiates for that size."""
+    for dp, tiles in _FLASH_TILES.items():
+        if d <= dp:
+            return tiles
+    raise ValueError(f"no flash tiles for head_dim {d}")
 
 
 def _keep_mask(b, tq, tk, key_mask, causal, device):
@@ -245,7 +260,7 @@ def _check_attention(q, k, v, key_mask):
                          f"{tuple(key_mask.shape)}")
 
 
-def _flash_cuda(q, k, v, key_mask, causal, sm):
+def _flash_cuda(q, k, v, key_mask, causal, sm, tiling=None):
     # the layers import this module, and kernels/ imports the layers
     from deeplearning4j_tpu_torch.kernels import build, impls
 
@@ -261,12 +276,13 @@ def _flash_cuda(q, k, v, key_mask, causal, sm):
     if key_mask is not None:
         km = key_mask.to(device=q.device, dtype=torch.float32).contiguous()
     lib = build.load(impls.FLASH_SOURCE, _FLASH_SIGNATURES)
+    bq, bk = tiling if tiling else (0, 0)
     rc = lib.dl4j_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if km is None else km.data_ptr(), o.data_ptr(), l.data_ptr(),
         m.data_ptr(), b, h, tq, tk, d, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], int(bool(causal)), float(sm),
-        impls.DTYPE_IDS[q.dtype], q.device.index, impls.stream(q))
+        impls.DTYPE_IDS[q.dtype], bq, bk, q.device.index, impls.stream(q))
     impls.raise_on_error("flash_attention", rc)
     impls.count(flash_attention)
     return o, l, m
@@ -412,11 +428,11 @@ class _FlashAttention(torch.autograd.Function):
     VJP returns zeros for it)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_mask, causal, sm):
+    def forward(ctx, q, k, v, key_mask, causal, sm, tiling):
         if q.device.type == "cpu":
             o, l, m = flash_attention_plain(q, k, v, key_mask, causal, sm)
         else:
-            o, l, m = _flash_cuda(q, k, v, key_mask, causal, sm)
+            o, l, m = _flash_cuda(q, k, v, key_mask, causal, sm, tiling)
         ctx.save_for_backward(q, k, v, key_mask, o, l, m)
         ctx.causal, ctx.sm = causal, sm
         ctx.mark_non_differentiable(l, m)
@@ -427,18 +443,22 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, key_mask, o, l, m = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, key_mask, o, l, m, do,
                                          ctx.causal, ctx.sm)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, key_mask=None, causal=False, scale=None,
-                    return_stats: bool = False):
+                    return_stats: bool = False, tiling=None):
     """Causal/masked attention over ``[B, H, T, D]`` (float32 or bfloat16,
     f32 accumulation), through the flash kernel on the card, differentiable
     through the backward kernels. Returns ``o``, or ``(o, l, m)`` with
     ``return_stats`` (``l``, ``m``: [B,H,Tq] f32, the softmax sum and max
-    the backward recomputes p from; they carry no gradient)."""
+    the backward recomputes p from; they carry no gradient). ``tiling``:
+    the forward's ``(block_q, block_k)``, which must be
+    :func:`flash_tiles` of the head size (the one pair instantiated), or
+    None for it."""
     _check_attention(q, k, v, key_mask)
-    out = _FlashAttention.apply(q, k, v, key_mask, causal, _scale(q, scale))
+    out = _FlashAttention.apply(q, k, v, key_mask, causal, _scale(q, scale),
+                                tiling)
     return out if return_stats else out[0]
 
 
@@ -470,6 +490,9 @@ def paged_decode_attention_plain(q, k_cache, v_cache, positions, scale=None,
 
 
 def _page(page, s):
+    if int(page) == 0:  # the kernel's default rule: min(64, S)
+        _page(_MAX_PAGE, s)
+        return 0
     page = min(int(page), s)
     if page < 1 or page > _MAX_PAGE:
         raise ValueError(f"page must be in [1, {_MAX_PAGE}], got {page}")
@@ -533,7 +556,8 @@ def paged_decode_attention(q, k_cache, v_cache, positions, scale=None,
     """:func:`decode_attention` through the paged decode kernel on the
     card: ``q [B,H,D]``, caches ``[B,S,H,D]``, ``positions [B]``; the
     cache is read in ``min(page, S)``-slot pages (the page must divide S,
-    and be at most 64), and pages wholly past ``positions[b]`` are neither
+    and be at most 64; ``page=0`` passes the launcher's own rule, which
+    is ``min(64, S)``), and pages wholly past ``positions[b]`` are neither
     read nor computed. Forward only (the decoder runs under
     ``torch.inference_mode``)."""
     _check_decode(q, k_cache, v_cache, positions)

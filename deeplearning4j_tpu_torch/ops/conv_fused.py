@@ -53,22 +53,26 @@ def fusable(m: int, cin: int, cout: int) -> bool:
             and (cout <= _BN or cout % _BN == 0))
 
 
-def matmul_with_stats(x2: torch.Tensor, w2: torch.Tensor):
+def matmul_with_stats(x2: torch.Tensor, w2: torch.Tensor, tiling=None):
     """``y = x2 @ w2.T`` plus per-output-channel ``sum(y)`` / ``sum(y*y)``
-    (f32), all produced in one pass over y by the ``matmul_stats`` kernel.
+    (f32), all produced in one pass over y by the ``matmul_stats`` kernel
+    (at ``tiling``, the kernel's default when None).
 
     x2: [M, Cin]; w2: [Cout, Cin] -> (y [M, Cout] in x2.dtype, s [Cout],
     q [Cout]). Differentiable in x2 and w2."""
-    return impls.matmul_stats(x2, w2)
+    if tiling is None:
+        return impls.matmul_stats(x2, w2)
+    return impls.matmul_stats(x2, w2, tiling)
 
 
 def conv1x1_bn_stats(x: torch.Tensor, w: torch.Tensor,
-                     stride: Tuple[int, int] = (1, 1)):
+                     stride: Tuple[int, int] = (1, 1), tiling=None):
     """1x1 convolution (x NCHW, w OIHW [Cout, Cin, 1, 1], no bias) returning
     ``(y, sum, sumsq)`` with the statistics fused into the conv's output
     pass. A strided 1x1 conv is an exact spatial subsample first (VALID and
     SAME both sample positions 0, s, 2s, ...); its gradient lands back on
-    those positions through the slice."""
+    those positions through the slice. ``tiling``: the kernel's, as in
+    :func:`matmul_with_stats`."""
     sh, sw = stride
     if (sh, sw) != (1, 1):
         x = x[:, :, ::sh, ::sw]
@@ -77,7 +81,8 @@ def conv1x1_bn_stats(x: torch.Tensor, w: torch.Tensor,
     # NCHW in channels_last memory: the NHWC permute is the memory order, so
     # [M, Cin] is a view unless the stride subsample left gaps
     x2 = x.permute(0, 2, 3, 1).reshape(b * h * wd, cin).contiguous()
-    y2, s, q = matmul_with_stats(x2, w.reshape(cout, cin).contiguous())
+    y2, s, q = matmul_with_stats(x2, w.reshape(cout, cin).contiguous(),
+                                 tiling)
     return y2.view(b, h, wd, cout).permute(0, 3, 1, 2), s, q
 
 

@@ -354,14 +354,34 @@ class GenerationEngine:
         return self.result(self.submit(tokens, **kw))
 
     # --- warmup / stats -----------------------------------------------------
-    def warmup(self, **kw) -> dict:
+    def warmup(self, autotune_kernels: bool = False, retune: bool = False,
+               warmup: Optional[int] = None, trials: Optional[int] = None,
+               max_candidates: Optional[int] = None, **kw) -> dict:
         """Run one prefill per (prompt bucket, join bucket) and one window
         per KV bucket at K = 1 and K = ``fused_steps`` (see
         ``TransformerDecoder.warmup``; ``kw`` narrows the buckets to those
         the traffic will use). With a draft model every KV bucket's verify
         window runs too and the draft warms its prefills and draft windows;
         with the prefix cache every feasible suffix-prefill geometry
-        runs."""
+        runs.
+
+        ``autotune_kernels`` (with ``conf.use_kernels``) first tunes every
+        bucket-ladder attention envelope of the target decoder, and the
+        draft's where there is one (``kernels.autotune_decoder``; the
+        tuner's ``warmup`` / ``trials`` / ``max_candidates`` and ``retune``
+        pass through), so the warm runs and the traffic after them run the
+        paged-decode and flash-prefill winners. ``out["kernels"]`` reports
+        whether the kernels are on and the registry's tag."""
+        if autotune_kernels and self._dec.use_kernels:
+            from deeplearning4j_tpu_torch import kernels
+
+            tune_kw = {key: val for key, val in (
+                ("warmup", warmup), ("trials", trials),
+                ("max_candidates", max_candidates)) if val is not None}
+            kernels.autotune_decoder(self._dec, retune=retune, **tune_kw)
+            if self._draft_dec is not None:
+                kernels.autotune_decoder(self._draft_dec, retune=retune,
+                                         **tune_kw)
         kw.setdefault("fused_steps", (1, self.config.fused_steps))
         narrow = {key: kw[key] for key in ("prompt_buckets", "join_buckets",
                                            "kv_buckets") if key in kw}
@@ -374,7 +394,8 @@ class GenerationEngine:
             out["draft"] = self._draft_dec.warmup(
                 fused_steps=(1, self.config.fused_steps),
                 spec_draft=(self._spec_k,), **narrow)
-        out["kernels"] = {"enabled": self._dec.use_kernels}
+        out["kernels"] = {"enabled": self._dec.use_kernels,
+                          "tag": self._dec._ktag()}
         return out
 
     def queue_depth(self) -> int:

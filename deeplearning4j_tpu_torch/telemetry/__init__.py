@@ -185,6 +185,38 @@ _SERVING_ENGINES = weakref.WeakSet()
 _GENERATION_ENGINES = weakref.WeakSet()
 
 
+def record_kernel_selected(kernel: str, shape_bucket: str) -> None:
+    """Count one kernel-registry routing decision (``kernels.registry``):
+    a tuned winner was resolved for a concrete shape class. Counted once
+    per envelope per tuning-cache epoch (the eager counterpart of the JAX
+    package's once per trace), never per call."""
+    REGISTRY.counter("dl4j_kernel_selected_total",
+                     help="tuned kernel selections at trace time",
+                     kernel=kernel, shape_bucket=shape_bucket).inc()
+
+
+def record_autotune_trial(kernel: str) -> None:
+    """Count one autotuner candidate benchmark (``kernels.tuner``)."""
+    REGISTRY.counter("dl4j_kernel_autotune_trials_total",
+                     help="autotune candidate tilings benchmarked",
+                     kernel=kernel).inc()
+
+
+def record_autotune_winner(kernel: str) -> None:
+    """Count one autotuner winner recorded into the tuning cache."""
+    REGISTRY.counter("dl4j_kernel_autotune_winners_total",
+                     help="autotune winners recorded", kernel=kernel).inc()
+
+
+def record_tuning_cache(hits: int, entries: int) -> None:
+    """Publish the kernel tuning cache's cumulative hit count and entry
+    count (control-plane cadence: selection and autotune events)."""
+    REGISTRY.gauge("dl4j_kernel_tuning_cache_hits",
+                   help="tuning-cache winner lookups that hit").set(hits)
+    REGISTRY.gauge("dl4j_kernel_tuning_cache_entries",
+                   help="tuned envelopes in the cache").set(entries)
+
+
 def register_serving_engine(engine) -> None:
     """Track a live ``InferenceEngine``; ``dl4j_serving_queue_depth`` is
     collected at scrape time as the SUM over live engines."""

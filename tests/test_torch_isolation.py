@@ -106,9 +106,19 @@ BF16_TRAINING_MODULES = [
 ]
 
 
+# the kernel registry slice's modules (the registry, the tuner and its
+# cache, the package that binds the cache from the environment, telemetry)
+TUNING_MODULES = [
+    "deeplearning4j_tpu_torch.kernels",
+    "deeplearning4j_tpu_torch.kernels.registry",
+    "deeplearning4j_tpu_torch.kernels.tuner",
+    "deeplearning4j_tpu_torch.telemetry",
+]
+
+
 @pytest.mark.parametrize("module", GENERATION_MODULES + TRAINING_MODULES
                          + QUANT_MODULES + MLN_TRAINING_MODULES
-                         + BF16_TRAINING_MODULES)
+                         + BF16_TRAINING_MODULES + TUNING_MODULES)
 def test_generation_module_alone_loads_no_jax(module):
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
