@@ -213,13 +213,30 @@ Phases, in order; any failure exits non-zero:
    corrupted: ``TuningCacheCorruptError`` names the file and the routes run
    the default tilings' bits; forward ms, tokens/s and decode step ms at
    the default tilings and tuned, and the tuner's seconds, for the record.
+26. data-parallel training (``chip_data_parallel.py``): full-width
+   ResNet-50 ``fused_conv_bn`` with ``use_kernels``, Adam(1e-3), global
+   batch 32, through ``ParallelWrapper.fit`` in ranks of their own
+   (``parallel.launch.spawn``). [26a] NCCL at the card count: exact and
+   bucketed exact (25 MB) against ``ComputationGraph.fit`` on the same
+   batches, every step (same bits expected at one rank), at [7]'s gates;
+   [26b] two gloo ranks sharing ``cuda:0``, 16 rows each: exact against
+   ``fit`` at batch 32 and its planted control (per-rank BN statistics
+   must fail the gates), bucketed 25 / 0 MB the same bits, ZeRO the
+   bucketed bits with the gathered Adam state and a mid-fit
+   ``CheckpointListener`` zip restored to it, threshold (fixed, adaptive)
+   kernel against stock by flipped messages, averaging every 2 steps
+   (replicas the same bits after each average), kernel against stock in
+   each mode; 36 ``matmul_stats`` launches per rank per step; step ms,
+   exchange bytes, collective ms, peak memory and host-staged collectives
+   reported.
 
 Then the ``{"trained_mln": ...}`` and ``{"trained_bf16": ...}`` lines, one
 ``{"kernels": [...]}`` line with every kernel (row 1 with its [21] shapes
 and launches; rows 2 and 6-8 with their bf16 numbers under
 ``bf16_training``; rows 1, 2, 4, 5, 6 with [25]'s numbers under
-``tuning``), the served, trained, generated, trained_lm, served_int8,
-prefix_cached, speculative and tuned lines, and last
+``tuning``; row 2 with [26]'s under ``data_parallel``), the served,
+trained, generated, trained_lm, served_int8, prefix_cached, speculative,
+tuned and data_parallel lines, and last
 ``{"ok": true, "device": {...}}``. The whole run takes a few minutes on an H100, the
 parallel build included.
 Without a CUDA card, or without the repository around it, the script exits
@@ -5398,6 +5415,15 @@ def main() -> int:
         kid = TUNED_ID.get(row["name"])
         if kid in tuned_rows:
             row["tuning"] = tuned_rows[kid]
+    # 26. data-parallel training through ParallelWrapper.fit: its ranks are
+    # processes of their own on the kernels built in [2]
+    torch.cuda.empty_cache()
+    import chip_data_parallel
+
+    dp_line, dp_row = chip_data_parallel.data_parallel_phase(torch, smi)
+    for row in report["kernels"]:
+        if row["name"] == "matmul_stats":
+            row["data_parallel"] = dp_row
     log(json.dumps({"trained_mln": mln_line}))
     log(json.dumps({"trained_bf16": bf16_line}))
     log(json.dumps(report))
@@ -5409,7 +5435,8 @@ def main() -> int:
     log(json.dumps({"prefix_cached": prefix_line}))
     log(json.dumps({"speculative": spec_line}))
     log(json.dumps({"tuned": tuned_line}))
-    log(f"[25] total {time.monotonic() - t_start:.1f} s")
+    log(json.dumps({"data_parallel": dp_line}))
+    log(f"[26] total {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0

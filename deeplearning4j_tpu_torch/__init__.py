@@ -23,7 +23,11 @@ Package map (the serving and training slices):
 - ``ops``       — fused 1x1 conv + BN statistics, attention
 - ``kernels``   — the hand-written CUDA kernels, their build and routing
 - ``parallel``  — dynamic-batching ``InferenceEngine``, ``InferenceServer``
-                  and the ``GenerationEngine``
+                  and the ``GenerationEngine``; data-parallel training
+                  (``ParallelWrapper``, ``TrainingMode``, the mesh,
+                  compression, the cluster masters, ``spawn``)
+- ``comms``     — the collective scheduler and exact mode's global batch
+- ``sharding``  — ``ZeroSpec``, the ZeRO optimizer-state layout
 - ``zoo``       — ``ResNet50``, ``TransformerEncoder``, ``LeNet``,
                   ``SimpleCNN``, ``AlexNet``
 - ``util``      — conversion from and to the JAX package's layouts, the

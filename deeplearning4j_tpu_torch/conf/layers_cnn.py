@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch import serde
+from deeplearning4j_tpu_torch.comms import global_batch
 from deeplearning4j_tpu_torch.conf import inputs as it
 from deeplearning4j_tpu_torch.conf.layers import (
     BaseLayer,
@@ -272,9 +273,9 @@ class BatchNormalization(BaseLayer):
         new_state = state
         if train:
             # one pass: E[x] and E[x^2] in the same read of the activation
-            mean = x32.mean(dim=axes)
-            var = torch.clamp((x32 * x32).mean(dim=axes) - mean * mean,
-                              min=0.0)
+            # (over every rank's rows in exact data-parallel training)
+            mean, ex2 = global_batch.batch_moments(x32, axes)
+            var = torch.clamp(ex2 - mean * mean, min=0.0)
             new_state = _bn_running_update(state, mean, var, self.decay)
         elif self.use_batch_mean_in_eval:
             # reference isMinibatch=false: batch statistics at inference
@@ -360,10 +361,8 @@ class FusedConvBN1x1(BaseLayer):
         new_state = state
         if train:
             # one-pass statistics, the kernel path's formulation
-            y32 = y.to(sdt)
-            mean = y32.mean(dim=(0, 2, 3))
-            var = torch.clamp((y32 * y32).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
+            mean, ex2 = global_batch.batch_moments(y.to(sdt), (0, 2, 3))
+            var = torch.clamp(ex2 - mean * mean, min=0.0)
             new_state = _bn_running_update(state, mean, var, self.decay)
         else:
             mean, var = state["mean"], state["var"]
@@ -377,7 +376,9 @@ class FusedConvBN1x1(BaseLayer):
 
         y, s, q = conv_fused.conv1x1_bn_stats(x, params["W"],
                                               _pair(self.stride), tiling)
-        m = y.shape[0] * y.shape[2] * y.shape[3]
+        # exact data-parallel training sums s, q and the rows over ranks
+        s, q, m = global_batch.global_sums(
+            s, q, y.shape[0] * y.shape[2] * y.shape[3])
         sdt = state["mean"].dtype
         mean = (s / m).to(sdt)
         var = torch.clamp((q / m).to(sdt) - mean * mean, min=0.0)

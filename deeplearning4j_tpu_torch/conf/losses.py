@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch import serde
+from deeplearning4j_tpu_torch.comms import global_batch
 from deeplearning4j_tpu_torch.conf.activations import Activation
 
 
@@ -35,7 +36,9 @@ def _apply_weights(per_out, weights):
 
 
 def _reduce(per_pos, mask):
-    """Mean over (masked) positions. ``per_pos``: [batch] or [batch, time]."""
+    """Mean over (masked) positions. ``per_pos``: [batch] or [batch, time].
+    Inside exact data-parallel training the mean runs over every rank's
+    positions: this rank returns its share (``comms.global_batch``)."""
     if mask is not None:
         mask = torch.as_tensor(mask, dtype=per_pos.dtype,
                                device=per_pos.device)
@@ -44,9 +47,11 @@ def _reduce(per_pos, mask):
         while mask.ndim < per_pos.ndim:
             mask = mask[..., None]
         mask = torch.broadcast_to(mask, per_pos.shape)
-        denom = torch.clamp(mask.sum(), min=1.0)
-        return (per_pos * mask).sum() / denom
-    return per_pos.mean()
+        den = mask.sum()
+        local = (per_pos * mask).sum() / torch.clamp(den, min=1.0)
+    else:
+        den, local = per_pos.numel(), per_pos.mean()
+    return global_batch.loss_share(local, den)
 
 
 @dataclasses.dataclass
@@ -284,11 +289,14 @@ class LossFMeasure(ILossFunction):
                                 device=out.device).reshape(out.shape)
             out, labels = out * m, labels * m
         b2 = self.beta ** 2
-        tp = torch.sum(labels * out)
-        fp = torch.sum((1.0 - labels) * out)
-        fn = torch.sum(labels * (1.0 - out))
+        # the counts of the whole (global, in exact data-parallel
+        # training) batch; each rank then returns its share of the score
+        tp, fp, fn = global_batch.global_total(torch.stack([
+            torch.sum(labels * out), torch.sum((1.0 - labels) * out),
+            torch.sum(labels * (1.0 - out))]))
         num = (1.0 + b2) * tp
-        return 1.0 - num / (num + b2 * fn + fp + 1e-8)
+        return ((1.0 - num / (num + b2 * fn + fp + 1e-8))
+                * global_batch.world_share())
 
 
 # name -> class, as the reference's LossFunctions.LossFunction enum

@@ -66,6 +66,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import kernels
+from deeplearning4j_tpu_torch.comms import global_batch
 from deeplearning4j_tpu_torch.conf.graph import (
     ComputationGraphConfiguration,
     LayerVertex,
@@ -426,8 +427,10 @@ class ComputationGraph(nn_io.HealthHooks):
             x = acts[spec.inputs[0]].to(self._dtype)
             loss = loss + spec.vertex.score(params.get(spec.name, {}), x,
                                             labels[i], lmasks[i])
-        return (loss + solver.regularization_score(params, self._layer_conf),
-                new_state)
+        if global_batch.adds_regularization():  # once over the ranks
+            loss = loss + solver.regularization_score(params,
+                                                      self._layer_conf)
+        return loss, new_state
 
     def _layer_conf(self, name: str):
         """The conf whose hyperparameters (regularization, gradient
@@ -435,18 +438,34 @@ class ComputationGraph(nn_io.HealthHooks):
         v = self._vmap[name].vertex
         return getattr(v, "layer", None) or v
 
+    def _layer_updater(self, name: str):
+        """``(layer conf, updater)`` of vertex ``name``'s params."""
+        return self._layer_conf(name), self._updater_for(name)
+
+    def _train_seed(self, iteration: int) -> int:
+        """The dropout seed of the step at ``iteration``."""
+        return _vertex_seed(self.conf.seed, iteration + 1_000_003)
+
     def _backward(self, ds, train_seed=None):
         """Forward + ``backward()`` on detached leaves of the params:
         ``(loss, new_state, grads)``."""
         if self.params is None:
             self.init()
-        features, labels, fmasks, lmasks = self._prep_batch(ds)
+        return self._backward_arrays(*self._prep_batch(ds), seed=train_seed)
+
+    def _backward_arrays(self, features, labels, fmasks, lmasks, seed=None,
+                         on_leaves=None):
+        """The gradient pass on prepared arrays (``_prep_batch``'s):
+        ``(loss, new_state, grads)``. ``on_leaves(leaves)`` sees the
+        detached param leaves before the forward (the data-parallel
+        trainer hooks their gradients)."""
         leaves = {k: {pk: v.detach().requires_grad_(v.is_floating_point())
                       for pk, v in vp.items()}
                   for k, vp in self.params.items()}
+        if on_leaves is not None:
+            on_leaves(leaves)
         loss, new_state = self._loss(leaves, self.state, features, labels,
-                                     fmasks, lmasks, train=True,
-                                     seed=train_seed)
+                                     fmasks, lmasks, train=True, seed=seed)
         loss.backward()
         grads = {k: {pk: (v.grad if v.grad is not None
                           else torch.zeros_like(v))
@@ -505,17 +524,19 @@ class ComputationGraph(nn_io.HealthHooks):
     def _fit_batch(self, ds) -> torch.Tensor:
         cur = self.iteration
         loss, new_state, grads = self._backward(
-            ds, train_seed=_vertex_seed(self.conf.seed, cur + 1_000_003))
-        with torch.no_grad():
-            for k in grads:
-                layer_conf = self._layer_conf(k)
-                upd = self._updater_for(k)
-                g = solver.normalize_layer_gradients(layer_conf, grads[k])
-                self.params[k], self.opt_state[k] = \
-                    solver.apply_updater_to_layer(
-                        layer_conf, upd, self.params[k], g, self.opt_state[k],
-                        upd.current_lr(cur, self.epoch), cur, self.epoch)
+            ds, train_seed=self._train_seed(cur))
+        self._apply_updates(grads, cur)
         self.state.update(new_state)
+        return self._finish_step(loss, cur)
+
+    def _apply_updates(self, grads, cur: int) -> None:
+        """The update pass: each layer's gradient normalization,
+        regularization and updater, applied to the params in place."""
+        solver.apply_updates(self, grads, cur, self.epoch)
+
+    def _finish_step(self, loss, cur: int) -> torch.Tensor:
+        """Step bookkeeping after the update: the score, the counters and
+        the listeners."""
         self._cast_params = None
         self._score = loss
         self.iteration += 1  # listeners see iteration == next-to-run

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import kernels
+from deeplearning4j_tpu_torch.comms import global_batch
 from deeplearning4j_tpu_torch.conf import inputs as it
 from deeplearning4j_tpu_torch.conf.layers import (
     EmbeddingLayer,
@@ -349,16 +350,30 @@ class MultiLayerNetwork(nn_io.HealthHooks):
                                  train, seed, upto=last, fmask=fmask)
         loss = out_layer.score(params.get(str(last), {}), x.to(self._dtype),
                                labels, lmask)
-        reg = solver.regularization_score(
-            params, lambda key: self.conf.layers[int(key)])
-        return loss + reg, new_state
+        if global_batch.adds_regularization():  # once over the ranks
+            loss = loss + solver.regularization_score(
+                params, lambda key: self.conf.layers[int(key)])
+        return loss, new_state
 
-    def _backward(self, features, labels, fmask, lmask, seed=None):
+    def _layer_updater(self, key: str):
+        """``(layer conf, updater)`` of layer ``key``'s params."""
+        return self.conf.layers[int(key)], self._updater_for(int(key))
+
+    def _train_seed(self, iteration: int) -> int:
+        """The dropout seed of the step at ``iteration``."""
+        return _vertex_seed(self.conf.seed, iteration + 1_000_003)
+
+    def _backward(self, features, labels, fmask, lmask, seed=None,
+                  on_leaves=None):
         """Forward + ``backward()`` on detached leaves of the params:
-        ``(loss, new_state, grads)``."""
+        ``(loss, new_state, grads)``. ``on_leaves(leaves)`` sees the
+        detached param leaves before the forward (the data-parallel
+        trainer hooks their gradients)."""
         leaves = {k: {pk: v.detach().requires_grad_(v.is_floating_point())
                       for pk, v in vp.items()}
                   for k, vp in self.params.items()}
+        if on_leaves is not None:
+            on_leaves(leaves)
         loss, new_state = self._loss(leaves, features, labels, fmask, lmask,
                                      train=True, seed=seed)
         loss.backward()
@@ -416,21 +431,22 @@ class MultiLayerNetwork(nn_io.HealthHooks):
         features = faults.fault_point("train.step", features)
         cur = self.iteration
         loss, new_state, grads = self._backward(
-            features, labels, fmask, lmask,
-            seed=_vertex_seed(self.conf.seed, cur + 1_000_003))
-        with torch.no_grad():
-            for k in grads:
-                layer = self.conf.layers[int(k)]
-                upd = self._updater_for(int(k))
-                g = solver.normalize_layer_gradients(layer, grads[k])
-                self.params[k], self.opt_state[k] = \
-                    solver.apply_updater_to_layer(
-                        layer, upd, self.params[k], g, self.opt_state[k],
-                        upd.current_lr(cur, self.epoch), cur, self.epoch)
+            features, labels, fmask, lmask, seed=self._train_seed(cur))
+        self._apply_updates(grads, cur)
         self.state.update(new_state)
+        self.last_batch_size = int(features.shape[0])
+        return self._finish_step(loss, cur)
+
+    def _apply_updates(self, grads, cur: int) -> None:
+        """The update pass: each layer's gradient normalization,
+        regularization and updater, applied to the params in place."""
+        solver.apply_updates(self, grads, cur, self.epoch)
+
+    def _finish_step(self, loss, cur: int) -> torch.Tensor:
+        """Step bookkeeping after the update: the score, the counters and
+        the listeners."""
         self._cast_params = None
         self._score = loss
-        self.last_batch_size = int(features.shape[0])
         self.iteration += 1  # listeners see iteration == next-to-run
         for lst in self.listeners:
             lst.iteration_done(self, cur, self.epoch, loss)

@@ -47,7 +47,12 @@ def snapshot_training_state(model) -> dict:
     """Host copy of everything an exact in-process resume needs: params,
     layer state, updater state and counters, as numpy arrays in the port's
     layouts. The copies are taken now (a device copy waits for the card),
-    so a later in-place step never reaches them."""
+    so a later in-place step never reaches them. While a
+    ``ParallelWrapper`` fit owns the live trees they are gathered first
+    (a collective, as in ``serializer.write_model``)."""
+    trainer = serializer.live_trainer(model)
+    if trainer is not None:
+        trainer.sync_model()
     return {
         "params": _host_copy(model.params),
         "state": _host_copy(model.state),
@@ -94,7 +99,10 @@ class CheckpointListener(TrainingListener):
     ``keep_mod``-th checkpoint is also kept for good (reference
     ``keepLastAndEvery``). The default keeps everything. The loads build
     the network on ``device`` ("cuda" unless the caller asks for the
-    CPU)."""
+    CPU). Under a ``ParallelWrapper`` fit every rank attaches the listener
+    with the same cadence (epochs or iterations: a time cadence differs
+    between ranks): each save gathers the live trees on every rank, and
+    rank 0 writes the zip."""
 
     def __init__(self, directory: str,
                  save_every_n_epochs: Optional[int] = None,
@@ -142,6 +150,13 @@ class CheckpointListener(TrainingListener):
             CHECKPOINT_RETRY,
         )
 
+        trainer = serializer.live_trainer(model)
+        if trainer is not None:
+            # data-parallel fit: every rank gathers (a collective), rank 0
+            # writes
+            trainer.sync_model()
+            if trainer.rank != 0:
+                return
         num = self._count
         self._count += 1
         fname = f"checkpoint_{num}_iter_{iteration}_epoch_{epoch}.zip"

@@ -39,6 +39,29 @@ def normalize_layer_gradients(layer_conf, grads: dict) -> dict:
     raise ValueError(f"unhandled GradientNormalization {gn}")
 
 
+def normalize_layer_slices(layer_conf, grads: dict, sq: dict) -> dict:
+    """:func:`normalize_layer_gradients` on flat slices of the layer's
+    gradients (the ZeRO step's), with each full tensor's squared sum in
+    ``sq`` ({param key: sum of squares over every rank's slices})."""
+    gn = layer_conf.gradient_normalization
+    thr = getattr(layer_conf, "gradient_normalization_threshold", 1.0)
+    if gn is GradientNormalization.CLIP_ELEMENTWISE_ABSOLUTE_VALUE:
+        return {k: torch.clamp(g, -thr, thr) for k, g in grads.items()}
+    if gn is GradientNormalization.RENORMALIZE_L2_PER_PARAM_TYPE:
+        return {k: g / (torch.sqrt(sq[k]) + 1e-12) for k, g in grads.items()}
+    lnorm = torch.sqrt(sum(sq.values()) + 1e-24)
+    if gn is GradientNormalization.RENORMALIZE_L2_PER_LAYER:
+        return {k: g / lnorm for k, g in grads.items()}
+    if gn is GradientNormalization.CLIP_L2_PER_LAYER:
+        scale = torch.clamp(thr / lnorm, max=1.0)
+        return {k: g * scale for k, g in grads.items()}
+    if gn is GradientNormalization.CLIP_L2_PER_PARAM_TYPE:
+        return {k: g * torch.clamp(thr / (torch.sqrt(sq[k]) + 1e-12),
+                                   max=1.0)
+                for k, g in grads.items()}
+    raise ValueError(f"unhandled GradientNormalization {gn}")
+
+
 def apply_updater_to_layer(layer_conf, updater, params: dict, grads: dict,
                            opt_state: dict, lr, t, epoch=0.0):
     """Regularization (before/after the updater) + the updater transform
@@ -82,3 +105,20 @@ def regularization_score(params: dict, layer_of):
             for r in regs or ():
                 total = total + r.score_term(p)
     return total
+
+
+def apply_updates(net, grads: dict, t, epoch=0.0) -> None:
+    """The update pass of one step on a network: for each layer, its
+    gradient normalization, regularization and updater
+    (``net._layer_updater(key)`` gives the layer conf and updater),
+    applied to ``net.params`` in place. Every updater and regularizer is
+    elementwise, so the same call on flat slices of params, gradients and
+    updater state (the ZeRO step) gives the same bits element for
+    element."""
+    with torch.no_grad():
+        for k in grads:
+            layer, upd = net._layer_updater(k)
+            g = normalize_layer_gradients(layer, grads[k])
+            net.params[k], net.opt_state[k] = apply_updater_to_layer(
+                layer, upd, net.params[k], g, net.opt_state[k],
+                upd.current_lr(t, epoch), t, epoch)

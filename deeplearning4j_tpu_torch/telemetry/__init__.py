@@ -1,12 +1,13 @@
-"""Serving and generation telemetry: the metrics registry, request
-tracing, and the recording helpers the serving and generation engines
-call.
+"""Telemetry: the metrics registry, request tracing, step-trace spans, and
+the recording helpers the serving and generation engines and the
+data-parallel trainer call.
 
 A minimal counterpart of the JAX package's ``telemetry/__init__.py``: the
-same metric names and labels for what the serving slice records. Serving
-and resilience metrics record unconditionally (one registry update per
-request or control-plane event); ``prometheus_text`` is the ``/metrics``
-payload.
+same metric names and labels for what the port records. Serving,
+resilience and control-plane metrics (collective plans, shard bytes)
+record unconditionally; the per-step training and collective series, like
+the spans, are one flag check until ``enable()``. ``prometheus_text`` is
+the ``/metrics`` payload.
 """
 
 from __future__ import annotations
@@ -14,14 +15,105 @@ from __future__ import annotations
 import weakref
 
 from deeplearning4j_tpu_torch.telemetry import registry as registry  # noqa: F401
+from deeplearning4j_tpu_torch.telemetry import spans as spans  # noqa: F401
 from deeplearning4j_tpu_torch.telemetry import tracing as tracing  # noqa: F401
 from deeplearning4j_tpu_torch.telemetry.registry import REGISTRY
+from deeplearning4j_tpu_torch.telemetry.spans import (  # noqa: F401
+    PHASE_COMPUTE,
+    PHASE_GRAD_SYNC,
+    PHASE_HOST_GAP,
+    PHASE_INGEST,
+    disable,
+    enable,
+    enabled,
+    host_gap_close,
+    host_gap_open,
+    host_gap_reset,
+    host_gap_stop,
+    phase_stats,
+    span,
+)
 
 
 def reset() -> None:
-    """Clear request traces and metrics (collectors stay registered)."""
+    """Clear spans, request traces and metrics (flags and collectors
+    stay)."""
+    spans.reset()
     tracing.reset()
     REGISTRY.reset()
+
+
+# --------------------------------------------------------------------------
+# training and collective series (the JAX package's names and labels);
+# the per-step ones are one flag check while spans are disabled
+# --------------------------------------------------------------------------
+
+def record_step(path: str, examples: int = 0, steps: int = 1) -> None:
+    """Count one dispatch's optimization steps (and examples) for a
+    training path (``parallel`` for the data-parallel trainer)."""
+    if not spans._enabled:
+        return
+    REGISTRY.counter("dl4j_training_steps_total",
+                     help="optimization steps", path=path).inc(steps)
+    if examples:
+        REGISTRY.counter("dl4j_training_examples_total",
+                         help="examples consumed", path=path).inc(examples)
+
+
+def record_collective(op: str, nbytes: float, buckets: int = 1) -> None:
+    """Count one cross-rank exchange: ``nbytes`` = per-rank payload,
+    ``buckets`` = collectives issued for it."""
+    if not spans._enabled:
+        return
+    REGISTRY.counter("dl4j_collective_bytes_total",
+                     help="per-shard bytes exchanged", op=op).inc(nbytes)
+    REGISTRY.counter("dl4j_collective_ops_total",
+                     help="collectives issued", op=op).inc(buckets)
+
+
+def record_bucket_layout(op: str, bucket_bytes_list) -> None:
+    """Record a bucketed collective's layout (once per schedule): bucket
+    count gauge + per-bucket byte sizes histogram."""
+    if not spans._enabled:
+        return
+    REGISTRY.gauge("dl4j_collective_buckets",
+                   help="buckets in the collective schedule", op=op).set(
+        len(bucket_bytes_list))
+    h = REGISTRY.histogram("dl4j_collective_bucket_bytes",
+                           help="per-bucket payload bytes", op=op)
+    for b in bucket_bytes_list:
+        h.observe(b)
+
+
+def record_collective_plan(intent: str, choice: str, nbytes: float,
+                           launches: int) -> None:
+    """Record one freshly planned collective schedule
+    (``comms.scheduler``), unconditionally: plans are built once per
+    layout per process, never per step."""
+    REGISTRY.counter("dl4j_collective_plan_total",
+                     help="collective plans built by the scheduler",
+                     intent=intent, choice=choice).inc()
+    REGISTRY.gauge("dl4j_collective_plan_bytes",
+                   help="logical per-shard payload of the newest plan",
+                   intent=intent).set(nbytes)
+    REGISTRY.gauge("dl4j_collective_plan_launches",
+                   help="collectives issued per exchange by the newest "
+                        "plan", intent=intent).set(launches)
+
+
+def record_shard_bytes(param_bytes: float, opt_bytes: float,
+                       device=None) -> None:
+    """Publish this rank's parameter / optimizer-state footprint
+    (``dl4j_shard_param_bytes`` / ``dl4j_shard_opt_bytes``, labelled by
+    the rank's device), unconditionally: placement happens once per
+    ``fit``."""
+    labels = {"device": str(device)} if device is not None else {}
+    REGISTRY.gauge("dl4j_shard_param_bytes",
+                   help="per-device parameter bytes under the active "
+                        "sharding plan", **labels).set(param_bytes)
+    REGISTRY.gauge("dl4j_shard_opt_bytes",
+                   help="per-device optimizer-state bytes under the "
+                        "active sharding plan", **labels).set(opt_bytes)
 
 
 def record_serving_request(status: str, seconds: float = None) -> None:

@@ -82,8 +82,24 @@ def _read_npy(z: zipfile.ZipFile, name: str) -> np.ndarray:
         return np.load(io.BytesIO(f.read()))
 
 
+def live_trainer(net):
+    """The data-parallel trainer that owns ``net``'s live training trees
+    while its ``fit`` runs (``net._live_trainer``), or None."""
+    live = getattr(net, "_live_trainer", None)
+    return live() if live is not None else None
+
+
 def write_model(net, path, save_updater: bool = True) -> None:
-    """Reference ``ModelSerializer#writeModel(net, file, saveUpdater)``."""
+    """Reference ``ModelSerializer#writeModel(net, file, saveUpdater)``.
+
+    Gather-on-save: while a ``ParallelWrapper`` fit owns the live trees
+    (ZeRO's scattered updater state, the averaging replicas), they are
+    gathered onto ``net`` first, so the zip always holds full, current
+    trees. That gather is a collective: every rank calls ``write_model``
+    at the same point."""
+    trainer = live_trainer(net)
+    if trainer is not None:
+        trainer.sync_model()
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.tmp.{os.getpid()}")

@@ -23,8 +23,8 @@ import deeplearning4j_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-import chip_gen_profile, chip_kernel_ab, chip_lenet_spread, chip_smoke
-import chip_train_profile
+import chip_data_parallel, chip_gen_profile, chip_kernel_ab
+import chip_lenet_spread, chip_smoke, chip_train_profile
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))
 print(len(names), bad)
@@ -36,9 +36,9 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().splitlines()[-1].split(" ", 1)
-    # every module of the port, checkpointing and the gradient check
-    # included
-    assert int(count) >= 61
+    # every module of the port, checkpointing, the gradient check and the
+    # data-parallel slice's modules included
+    assert int(count) >= 76
     assert bad == "[]"
 
 
@@ -116,9 +116,33 @@ TUNING_MODULES = [
 ]
 
 
+# the data-parallel slice's modules (the process-group mesh, the
+# scheduler, compression, ZeRO, the wrapper, the masters, the launcher,
+# the prefetching iterators, spans and the health switch) and the script
+# whose ranks chip_smoke.py spawns
+DATA_PARALLEL_MODULES = [
+    "deeplearning4j_tpu_torch.parallel",
+    "deeplearning4j_tpu_torch.parallel.mesh",
+    "deeplearning4j_tpu_torch.parallel.compression",
+    "deeplearning4j_tpu_torch.parallel.wrapper",
+    "deeplearning4j_tpu_torch.parallel.cluster",
+    "deeplearning4j_tpu_torch.parallel.launch",
+    "deeplearning4j_tpu_torch.comms",
+    "deeplearning4j_tpu_torch.comms.scheduler",
+    "deeplearning4j_tpu_torch.comms.global_batch",
+    "deeplearning4j_tpu_torch.sharding",
+    "deeplearning4j_tpu_torch.sharding.zero",
+    "deeplearning4j_tpu_torch.datasets.prefetch",
+    "deeplearning4j_tpu_torch.telemetry.spans",
+    "deeplearning4j_tpu_torch.telemetry.health",
+    "chip_data_parallel",
+]
+
+
 @pytest.mark.parametrize("module", GENERATION_MODULES + TRAINING_MODULES
                          + QUANT_MODULES + MLN_TRAINING_MODULES
-                         + BF16_TRAINING_MODULES + TUNING_MODULES)
+                         + BF16_TRAINING_MODULES + TUNING_MODULES
+                         + DATA_PARALLEL_MODULES)
 def test_generation_module_alone_loads_no_jax(module):
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -133,7 +157,8 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     pattern = re.compile(
         r"^\s*(from|import)\s+(jax|jaxlib|deeplearning4j_tpu)(\s|\.|$)", re.M)
     sources = list(PKG.rglob("*.py")) + [
-        ROOT / name for name in ("chip_smoke.py", "chip_kernel_ab.py",
+        ROOT / name for name in ("chip_smoke.py", "chip_data_parallel.py",
+                                 "chip_kernel_ab.py",
                                  "chip_train_profile.py",
                                  "chip_gen_profile.py",
                                  "chip_lenet_spread.py")]
