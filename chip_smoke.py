@@ -230,11 +230,32 @@ Phases, in order; any failure exits non-zero:
    exchange bytes, collective ms, peak memory and host-staged collectives
    reported.
 
-Then the ``{"trained_mln": ...}`` and ``{"trained_bf16": ...}`` lines, one
+27. the recurrent path (``chip_sequence.py``): the zoo's
+   ``TextGenerationLSTM`` at full width (47 characters, LSTM(256) x 2,
+   seeded) trained by ``fit_batch`` with truncated BPTT 50/50 on a seeded
+   order-2 Markov character stream (batch 32, T 200): the card against
+   the port's CPU run (forward, every segment's loss, params and Adam
+   state), one-segment tBPTT against STANDARD, back 25 < fwd 50 at T 230
+   against the CPU, a planted control (carries zeroed every segment) that
+   must miss the gates, 200 greedy ``rnn_time_step`` steps after a
+   40-character prime against one ``output`` and a mid-stream get / clear
+   / set of the state resuming bit for bit; segment ms, launches, idle
+   share, characters/s, peak memory;
+28. sequence attention on rows 6-8 (``chip_sequence.py``; the kernel
+   checks at ``SEQ_ATTN_CASES`` run in [9] and [13]): LSTM(256) +
+   ``LearnedSelfAttentionLayer(attention_impl="flash")`` + RnnOutputLayer
+   over 32 x 512 masked steps, 3 steps against the reference core (one
+   launch of each kernel a step, one forward an ``output``),
+   ``RecurrentAttentionLayer`` card against CPU, and rows 6-8 timed at
+   the layer's geometry.
+
+Then the ``{"trained_text_lstm": ...}``, ``{"sequence_attention": ...}``,
+``{"trained_mln": ...}`` and ``{"trained_bf16": ...}`` lines, one
 ``{"kernels": [...]}`` line with every kernel (row 1 with its [21] shapes
 and launches; rows 2 and 6-8 with their bf16 numbers under
 ``bf16_training``; rows 1, 2, 4, 5, 6 with [25]'s numbers under
-``tuning``; row 2 with [26]'s under ``data_parallel``), the served,
+``tuning``; row 2 with [26]'s under ``data_parallel``; rows 6-8 with
+[28]'s under ``seq_attention``), the served,
 trained, generated, trained_lm, served_int8, prefix_cached, speculative,
 tuned and data_parallel lines, and last
 ``{"ok": true, "device": {...}}``. The whole run takes a few minutes on an H100, the
@@ -1582,6 +1603,12 @@ def kernel_report(rows, launches, worst, probe_row, stats_row) -> dict:
 # the generation slice: attention kernels and the GPT-2-small-width LM
 # ---------------------------------------------------------------------------
 
+# [9] / [13] at LearnedSelfAttentionLayer's geometry ([28]): (B, H, Tq, Tk,
+# D), learned queries against a sequence, non-causal, a ragged key mask
+# with lengths in [Tk/2, Tk] (chip_sequence.seq_mask)
+SEQ_ATTN_CASES = ((32, 4, 8, 512, 64), (32, 4, 1, 512, 64))
+
+
 def flash_cases():
     """(B, Tq, Tk, D, causal, masked) of [9]: every (join bucket, prompt
     bucket) of the generation path (12 heads x 64, causal, with the
@@ -1631,12 +1658,12 @@ def _suffix_mask(torch, gen, dev, b, ts, tpre, lens=None):
 
 
 def _attention_inputs(torch, gen, dev, b, t, masked, dtype, tk=None,
-                      d=GEN_HEAD_DIM):
-    """q [B, 12, T, D], k, v [B, 12, Tk, D] (Tk = T unless given) and a
-    float [B, Tk] length mask (the last row of a join group of 2 or more
-    has length 0, as padding rows do), or None."""
+                      d=GEN_HEAD_DIM, h=None):
+    """q [B, H, T, D], k, v [B, H, Tk, D] (Tk = T, H = 12 unless given)
+    and a float [B, Tk] length mask (the last row of a join group of 2 or
+    more has length 0, as padding rows do), or None."""
     tk = t if tk is None else tk
-    h = GEN_MODEL["n_heads"]
+    h = GEN_MODEL["n_heads"] if h is None else h
     q = torch.randn((b, h, t, d), generator=gen, device=dev).to(dtype)
     k, v = (torch.randn((b, h, tk, d), generator=gen, device=dev).to(dtype)
             for _ in range(2))
@@ -1657,12 +1684,15 @@ def _within(torch, got, ref, tol):
         int((diff > atol + rtol * ref.float().abs()).sum())
 
 
-def check_flash(torch, att, dev) -> dict:
+def check_flash(torch, att, dev, cases=None, suffix=True) -> dict:
     """flash_attention vs flash_attention_plain on the card at every case
-    of :func:`flash_cases` and :func:`suffix_flash_cases`, float32 and
+    of :func:`flash_cases` (or ``cases``), :func:`suffix_flash_cases`
+    (unless ``suffix`` is False) and ``SEQ_ATTN_CASES``, float32 and
     bfloat16: o, l and m on the rows with a valid key, and every row
     finite. Also: a CUDA input that requires grad gets its gradient
     through the backward kernels."""
+    import chip_sequence
+
     gen = torch.Generator(device=dev).manual_seed(2024)
     worst = {}
 
@@ -1690,7 +1720,8 @@ def check_flash(torch, att, dev) -> dict:
                     f"outside atol={tol[0]} rtol={tol[1]} (max |err| "
                     f"{err})")
 
-    for b, tq, tk, d, causal, masked in flash_cases():
+    for b, tq, tk, d, causal, masked in (flash_cases() if cases is None
+                                         else cases):
         for dtype, tdt in (("float32", torch.float32),
                            ("bfloat16", torch.bfloat16)):
             q, k, v, km = _attention_inputs(torch, gen, dev, b, tq, masked,
@@ -1700,7 +1731,17 @@ def check_flash(torch, att, dev) -> dict:
         log(f"[9] flash_attention B={b} Tq={tq} Tk={tk} D={d} "
             f"causal={causal} masked={masked}: f32 and bf16 o, l, m within "
             f"tolerance{zero}")
-    for b, tq, tk, d, causal, _ in suffix_flash_cases():
+    for b, h, tq, tk, d in SEQ_ATTN_CASES:
+        for dtype, tdt in (("float32", torch.float32),
+                           ("bfloat16", torch.bfloat16)):
+            q, k, v, _ = _attention_inputs(torch, gen, dev, b, tq, False,
+                                           tdt, tk=tk, d=d, h=h)
+            km = chip_sequence.seq_mask(torch, gen, dev, b, tk)
+            check(b, tq, tk, d, False, q, k, v, km, dtype)
+        log(f"[9] flash_attention at the learned-query geometry B={b} "
+            f"H={h} Tq={tq} Tk={tk} D={d} non-causal, lengths in "
+            f"[{tk // 2}, {tk}]: f32 and bf16 o, l, m within tolerance")
+    for b, tq, tk, d, causal, _ in (suffix_flash_cases() if suffix else ()):
         for dtype, tdt in (("float32", torch.float32),
                            ("bfloat16", torch.bfloat16)):
             q, k, v, _ = _attention_inputs(torch, gen, dev, b, tq, False,
@@ -1739,10 +1780,12 @@ def flash_bwd_cases():
             (2, 256, 256, 256, True, True)]
 
 
-def _bwd_inputs(torch, gen, dev, b, tq, tk, d, masked, zero_row=False):
-    """f32 q [B, 12, Tq, D], k, v [B, 12, Tk, D], do like q, and a [B, Tk]
-    length mask (lengths >= 1, or the last row of length 0), or None."""
-    h = GEN_MODEL["n_heads"]
+def _bwd_inputs(torch, gen, dev, b, tq, tk, d, masked, zero_row=False,
+                h=None):
+    """f32 q [B, H, Tq, D], k, v [B, H, Tk, D] (H = 12 unless given), do
+    like q, and a [B, Tk] length mask (lengths >= 1, or the last row of
+    length 0), or None."""
+    h = GEN_MODEL["n_heads"] if h is None else h
     q = torch.randn((b, h, tq, d), generator=gen, device=dev)
     k, v = (torch.randn((b, h, tk, d), generator=gen, device=dev)
             for _ in range(2))
@@ -1757,18 +1800,33 @@ def _bwd_inputs(torch, gen, dev, b, tq, tk, d, masked, zero_row=False):
     return q, k, v, do, km
 
 
-def check_flash_bwd(torch, att, dev) -> dict:
+def check_flash_bwd(torch, att, dev, cases=None) -> dict:
     """[13] flash_attention_bwd (the dq and dk/dv kernels) vs
     flash_attention_bwd_plain on the card, at every case of
-    :func:`flash_bwd_cases`, float32 and bfloat16, on the kernel forward's
-    o, l, m; a length-0 row leaves every gradient finite; then the whole
-    Function (kernel forward and backward) vs autograd of
-    reference_attention in float64."""
+    :func:`flash_bwd_cases` (or ``cases``) and ``SEQ_ATTN_CASES``, float32
+    and bfloat16, on the kernel forward's o, l, m; a length-0 row leaves
+    every gradient finite; then the whole Function (kernel forward and
+    backward) vs autograd of reference_attention in float64."""
+    import chip_sequence
+
     gen = torch.Generator(device=dev).manual_seed(2026)
     worst = {}
-    for b, tq, tk, d, causal, masked in flash_bwd_cases():
-        q32, k32, v32, do32, km = _bwd_inputs(torch, gen, dev, b, tq, tk, d,
-                                              masked)
+    # (B, H or None for 12, Tq, Tk, D, causal, masked): SEQ_ATTN_CASES with
+    # chip_sequence.seq_mask's ragged lengths
+    cases = [(b, None, tq, tk, d, causal, masked) for b, tq, tk, d, causal,
+             masked in (flash_bwd_cases() if cases is None else cases)]
+    seq = [(b, h, tq, tk, d, False, True) for b, h, tq, tk, d in
+           SEQ_ATTN_CASES]
+
+    def inputs(b, h, tq, tk, d, masked):
+        q, k, v, do, km = _bwd_inputs(torch, gen, dev, b, tq, tk, d, masked,
+                                      h=h)
+        if h is not None:
+            km = chip_sequence.seq_mask(torch, gen, dev, b, tk)
+        return q, k, v, do, km
+
+    for b, h, tq, tk, d, causal, masked in cases + seq:
+        q32, k32, v32, do32, km = inputs(b, h, tq, tk, d, masked)
         for dtype, tdt in (("float32", torch.float32),
                            ("bfloat16", torch.bfloat16)):
             q, k, v, do = (t.to(tdt) for t in (q32, k32, v32, do32))
@@ -1788,7 +1846,8 @@ def check_flash_bwd(torch, att, dev) -> dict:
                         f"causal={causal} masked={masked} {dtype} {key}: {bad}"
                         f" elements outside {ATTN_BWD_TOL[dtype]} (max |err| "
                         f"{err})")
-        log(f"[13] flash_attention_bwd B={b} Tq={tq} Tk={tk} D={d} "
+        heads = "" if h is None else f" H={h}"
+        log(f"[13] flash_attention_bwd B={b}{heads} Tq={tq} Tk={tk} D={d} "
             f"causal={causal} masked={masked}: f32 and bf16 dq, dk, dv "
             f"within tolerance")
     # a length-0 row: finite gradients (its ds is not 0; not compared)
@@ -1804,8 +1863,8 @@ def check_flash_bwd(torch, att, dev) -> dict:
                                  f"({tdt})")
     log("[13] a length-0 mask row: every gradient finite (f32 and bf16)")
     # the Function, kernel forward and backward, vs float64 autograd
-    for b, tq, tk, d, causal, masked in flash_bwd_cases()[1::3]:
-        q, k, v, do, km = _bwd_inputs(torch, gen, dev, b, tq, tk, d, masked)
+    for b, h, tq, tk, d, causal, masked in cases[1::3] + seq[:1]:
+        q, k, v, do, km = inputs(b, h, tq, tk, d, masked)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         got = torch.autograd.grad(att.flash_attention(*leaves, km, causal),
                                   leaves, do)
@@ -5424,6 +5483,25 @@ def main() -> int:
     for row in report["kernels"]:
         if row["name"] == "matmul_stats":
             row["data_parallel"] = dp_row
+    # 27-28. the sequence layers: TextGenerationLSTM trained with tBPTT and
+    # sampled; LearnedSelfAttentionLayer on rows 6-8
+    torch.cuda.empty_cache()
+    import chip_sequence
+
+    text_line = chip_sequence.text_generation(torch, dev, smi)
+    seq_line, seq_rows = chip_sequence.sequence_attention(torch, F, att, dev,
+                                                          smi)
+    for row in report["kernels"]:
+        if row["name"] in seq_rows:
+            row["seq_attention"] = {
+                "scope": ("[28]: LearnedSelfAttentionLayer's core, float32, "
+                          "32 x 4 heads x Tq (8 queries; 1) x 64 against "
+                          "512 keys, non-causal, ragged key mask; library "
+                          "= masked F.scaled_dot_product_attention (its "
+                          "autograd, dq, dk and dv together, for rows 7-8)"),
+                "shapes": seq_rows[row["name"]]}
+    log(json.dumps({"trained_text_lstm": text_line}))
+    log(json.dumps({"sequence_attention": seq_line}))
     log(json.dumps({"trained_mln": mln_line}))
     log(json.dumps({"trained_bf16": bf16_line}))
     log(json.dumps(report))
@@ -5436,7 +5514,8 @@ def main() -> int:
     log(json.dumps({"speculative": spec_line}))
     log(json.dumps({"tuned": tuned_line}))
     log(json.dumps({"data_parallel": dp_line}))
-    log(f"[26] total {time.monotonic() - t_start:.1f} s")
+    log(f"[28] total wall time of the script {time.monotonic() - t_start:.1f}"
+        f" s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)
     return 0

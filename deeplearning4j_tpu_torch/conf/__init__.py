@@ -13,5 +13,5 @@ from deeplearning4j_tpu_torch.conf.weights import WeightInit
 # works regardless of which entry point the user imported first
 from deeplearning4j_tpu_torch.conf import (  # noqa: E402,F401
     graph, layers, layers_attention, layers_cnn, layers_extra, layers_quant,
-    losses, multilayer, regularization, schedules, updaters,
+    layers_rnn, losses, multilayer, regularization, schedules, updaters,
 )

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -102,19 +103,40 @@ class LayerVertex(GraphVertex):
     def regularized_param_keys(self):
         return self.layer.regularized_param_keys()
 
-    def forward(self, params, state, inputs, train=False, gen=None,
-                mask=None):
-        """``mask``: the [batch, time] feature mask reaching this vertex;
-        handed on only to a layer with ``uses_mask`` (SelfAttentionLayer),
-        as the JAX package's LayerVertex does, so a GlobalPoolingLayer in a
-        graph pools unmasked."""
+    def _layer_input(self, inputs, mask):
+        """The layer's input (preprocessed) and its mask keywords."""
         x = inputs[0]
         if self.preprocessor is not None:
             x, _ = self.preprocessor.forward({}, {}, x)
         kw = ({"mask": mask} if mask is not None
               and getattr(self.layer, "uses_mask", False) else {})
+        return x, kw
+
+    def forward(self, params, state, inputs, train=False, gen=None,
+                mask=None):
+        """``mask``: the [batch, time] feature mask reaching this vertex;
+        handed on only to a layer with ``uses_mask`` (the recurrent and
+        attention layers), as the JAX package's LayerVertex does, so a
+        GlobalPoolingLayer in a graph pools unmasked."""
+        x, kw = self._layer_input(inputs, mask)
         return self.layer.forward(params, state, x, train=train, gen=gen,
                                   **kw)
+
+    # recurrent carry pass-through (tBPTT, rnn_time_step): a LayerVertex
+    # bears a carry iff its layer does (reference
+    # ComputationGraph#rnnUpdateStateWithTBPTTState)
+    @property
+    def has_carry(self) -> bool:
+        return getattr(self.layer, "has_carry", False)
+
+    def zero_carry(self, batch: int, dtype=torch.float32, device=None):
+        return self.layer.zero_carry(batch, dtype, device)
+
+    def forward_with_carry(self, params, carry, inputs, train=False,
+                           gen=None, mask=None):
+        x, kw = self._layer_input(inputs, mask)
+        return self.layer.forward_with_carry(params, carry, x, train=train,
+                                             gen=gen, **kw)
 
     # score hook when wrapping an output layer (reference: output vertices
     # are LayerVertex over an IOutputLayer)
@@ -143,8 +165,12 @@ class AttentionVertex(GraphVertex):
     ``use_kernels`` (``kernels.routing``), the flash kernel, as the JAX
     package's ``attention_impl="auto"`` dispatches to its flash kernel.
 
-    ``streaming_window > 0`` streams through ``rnn_time_step``, which the
-    port has not ported yet: such a vertex is refused when it is built."""
+    ``streaming_window > 0`` (requires ``causal``): the vertex streams
+    through ``rnn_time_step``, and threads across tBPTT segments, with a
+    key/value cache of the last ``streaming_window`` steps as its carry:
+    exact causal attention while the streamed history fits the window,
+    sliding-window attention beyond it. 0 = whole-sequence attention only
+    (``rnn_time_step`` refuses the vertex)."""
 
     n_out: int = 0
     n_heads: int = 1
@@ -163,13 +189,75 @@ class AttentionVertex(GraphVertex):
                 "AttentionVertex: streaming_window requires causal=True "
                 "(non-causal attention reads future keys and cannot "
                 "stream)")
-        if self.streaming_window:
-            raise NotImplementedError(
-                "AttentionVertex(streaming_window > 0) streams through "
-                "rnn_time_step, which is not ported yet")
 
     def _head_size(self, nq):
         return self.head_size or (self.n_out // self.n_heads)
+
+    def streaming_safe(self) -> bool:
+        # whole-sequence attention cannot stream; a causal KV-cache window
+        # can (exact while the history fits streaming_window)
+        return bool(self.causal and self.streaming_window > 0)
+
+    @property
+    def has_carry(self):
+        return self.streaming_safe()
+
+    def zero_carry(self, batch, dtype=torch.float32, device=None):
+        w = int(self.streaming_window)
+        e = self.n_heads * (self.head_size or self.n_out // self.n_heads)
+        return {"k": torch.zeros((batch, w, e), dtype=dtype, device=device),
+                "v": torch.zeros((batch, w, e), dtype=dtype, device=device),
+                "m": torch.zeros((batch, w), dtype=dtype, device=device)}
+
+    def forward_with_carry(self, params, carry, inputs, train=False,
+                           gen=None):
+        """Chunked causal attention over the cached and the current keys
+        and values: query i of the chunk sees every valid cached step and
+        the chunk's steps <= i; the new carry keeps the last
+        ``streaming_window`` steps. Scores materialize ``[B, H, Tc, W +
+        Tc]`` (streamed chunks are small); a query that sees no valid key
+        emits zeros."""
+        from deeplearning4j_tpu_torch.conf.layers_attention import (
+            _merge_heads,
+            _split_heads,
+        )
+
+        q_in, k_in, v_in = inputs[0], inputs[1], inputs[2]
+        mask = inputs[3] if len(inputs) > 3 else None
+        if mask is not None and mask.ndim == 3:
+            mask = mask[:, :, 0]
+        if self.project_input:
+            q = F.linear(q_in, params["Wq"], params["bq"])
+            k = F.linear(k_in, params["Wk"], params["bk"])
+            v = F.linear(v_in, params["Wv"], params["bv"])
+        else:
+            q, k, v = q_in, k_in, v_in
+        b, tc, _ = q.shape
+        w = int(self.streaming_window)
+        chunk_m = (torch.ones((b, tc), dtype=q.dtype, device=q.device)
+                   if mask is None else mask.to(q.dtype))
+        kcat = torch.cat([carry["k"].to(k.dtype), k], dim=1)
+        vcat = torch.cat([carry["v"].to(v.dtype), v], dim=1)
+        mcat = torch.cat([carry["m"].to(q.dtype), chunk_m], dim=1)
+        qh = _split_heads(q, self.n_heads)                  # [B, H, Tc, hs]
+        kh = _split_heads(kcat, self.n_heads)
+        vh = _split_heads(vcat, self.n_heads)
+        scores = (qh @ kh.transpose(-1, -2)) / math.sqrt(qh.shape[-1])
+        # the band: chunk query i sees the cached keys (j < W) and chunk
+        # keys j <= i
+        j = torch.arange(w + tc, device=q.device)[None, :]
+        i = torch.arange(tc, device=q.device)[:, None]
+        vis = (j <= w + i).to(q.dtype)[None, None] * mcat[:, None, None, :]
+        scores = scores.masked_fill(vis <= 0, -1e30)
+        any_vis = vis.amax(dim=-1, keepdim=True)
+        o = (torch.softmax(scores, dim=-1) * any_vis) @ vh
+        y = _merge_heads(o)
+        if self.project_input:
+            y = F.linear(y, params["Wo"], params["bo"])
+        new_carry = {"k": kcat[:, -w:].to(carry["k"].dtype),
+                     "v": vcat[:, -w:].to(carry["v"].dtype),
+                     "m": mcat[:, -w:].to(carry["m"].dtype)}
+        return y, new_carry
 
     def output_type(self, input_types):
         tq = input_types[0]
@@ -565,9 +653,8 @@ class GraphBuilder:
 
     def backprop_type(self, bp: BackpropType, fwd: int = 20,
                       back: int = 20) -> "GraphBuilder":
-        """Reference ``GraphBuilder#backpropType`` (+ the tBPTT lengths).
-        The configuration carries ``TRUNCATED_BPTT``; ``fit`` refuses it
-        until the recurrent layers are ported."""
+        """Reference ``GraphBuilder#backpropType`` (+ the tBPTT lengths:
+        ``fit`` trains sequence batches with truncated BPTT)."""
         self._backprop_type = bp
         self._tbptt_fwd = fwd
         self._tbptt_back = back

@@ -352,3 +352,24 @@ class FeedForwardToCnnPreProcessor(Layer):
     def forward(self, params, state, x, train=False, gen=None):
         y = x.reshape(x.shape[0], self.height, self.width, self.channels)
         return y.permute(0, 3, 1, 2), state
+
+
+@serde.register
+@dataclasses.dataclass
+class RnnToFeedForwardPreProcessor(Layer):
+    """Reference ``RnnToFeedForwardPreProcessor``: ``[b, t, f]`` kept as
+    it is; the dense layers after it apply time-distributed (the reference
+    reshapes to ``[b * t, f]``; a batched matmul is the same)."""
+
+    def forward(self, params, state, x, train=False, gen=None):
+        return x, state
+
+
+@serde.register
+@dataclasses.dataclass
+class FeedForwardToRnnPreProcessor(Layer):
+    """Reference ``FeedForwardToRnnPreProcessor``: the identity on the
+    time-distributed ``[b, t, f]`` activations (its inverse above)."""
+
+    def forward(self, params, state, x, train=False, gen=None):
+        return x, state

@@ -1,9 +1,10 @@
-"""Self-attention layer (``SelfAttentionLayer`` of the JAX package's
-``conf/layers_attention.py``: training, serving and the KV-cached decode).
+"""Attention layers (the JAX package's ``conf/layers_attention.py``):
+``SelfAttentionLayer`` (training, serving and the KV-cached decode),
+``LearnedSelfAttentionLayer`` and ``RecurrentAttentionLayer``.
 
-Reference: ``org.deeplearning4j.nn.conf.layers.SelfAttentionLayer``. The
-same fields and ``@type`` tag as the JAX package, so configurations
-round-trip. The softmax(QK^T)V core goes through
+Reference: ``org.deeplearning4j.nn.conf.layers.{SelfAttentionLayer,
+LearnedSelfAttentionLayer, RecurrentAttentionLayer}``. The same fields and
+``@type`` tags as the JAX package, so configurations round-trip. The softmax(QK^T)V core goes through
 :func:`ops.attention.dot_product_attention`, or, with ``use_kernels``,
 through the flash kernel (``kernels.routing.maybe_flash_attention``) in
 eval and train mode alike: ``flash_attention`` is an autograd Function
@@ -11,10 +12,15 @@ whose backward is the dq and dk/dv kernels. In a graph the feature mask
 reaches :meth:`SelfAttentionLayer.forward` as ``mask`` (``uses_mask``) and
 becomes the kernels' key mask.
 
-Weight layout: the port keeps every projection in torch's ``nn.Linear``
-layout, ``[out, in]``: ``Wq/Wk/Wv: [nHeads*headSize, nIn]``,
-``Wo: [nOut, nHeads*headSize]`` (the JAX package's ``[in, out]`` matrices
-transposed; ``util.convert`` does it), biases per projection. Sequence data
+Weight layout: the port keeps the projections of ``SelfAttentionLayer``
+and ``LearnedSelfAttentionLayer`` in torch's ``nn.Linear`` layout, ``[out,
+in]``: ``Wq/Wk/Wv: [nHeads*headSize, nIn]``, ``Wo: [nOut,
+nHeads*headSize]`` (the JAX package's ``[in, out]`` matrices transposed;
+``util.convert`` does it), biases per projection; the learned queries
+``Q [nQueries, nHeads*headSize]`` are rows in both packages.
+``RecurrentAttentionLayer`` is a recurrent cell and keeps the JAX
+package's ``[in, out]`` matrices, as the layers of ``conf.layers_rnn``
+do. Sequence data
 is ``[batch, time, features]``; ``mask`` / ``key_mask`` is ``[batch,
 time]`` (valid where ``> 0``).
 
@@ -29,13 +35,21 @@ prompt's suffix against cached prefix pages (the prefix cache).
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch import serde
 from deeplearning4j_tpu_torch.conf import inputs as it
+from deeplearning4j_tpu_torch.conf.activations import Activation
 from deeplearning4j_tpu_torch.conf.layers import BaseLayer
+from deeplearning4j_tpu_torch.conf.layers_rnn import (
+    _blend,
+    _emit,
+    _project,
+    _time_major_mask,
+)
 from deeplearning4j_tpu_torch.ops.attention import (
     cache_update,
     chunk_decode_attention,
@@ -294,3 +308,188 @@ class SelfAttentionLayer(BaseLayer):
                                            params["bo"]))
         y = y * key_mask.to(y.dtype)[:, :, None]
         return y, k, v
+
+
+@serde.register
+@dataclasses.dataclass
+class LearnedSelfAttentionLayer(BaseLayer):
+    """Attention with ``n_queries`` LEARNED query vectors (reference
+    ``LearnedSelfAttentionLayer``): the output is a fixed-length ``[batch,
+    n_queries, n_out]`` sequence whatever the input length, so it doubles
+    as sequence pooling. ``Q [n_queries, n_heads*head_size]`` holds the
+    queries in projected space, broadcast over the batch (its gradient is
+    the queries' gradient summed over the batch). The core goes through
+    :func:`ops.attention.dot_product_attention` with ``attention_impl``:
+    ``"flash"`` runs the flash forward kernel and, in training, the dq and
+    dk/dv kernels, with the feature mask as the key mask (non-causal)."""
+
+    n_out: int = 0
+    n_heads: int = 1
+    head_size: int = 0
+    n_queries: int = 1
+    project_input: bool = True
+    attention_impl: str = "auto"
+
+    uses_mask = True
+
+    def streaming_safe(self) -> bool:
+        # attention needs the WHOLE sequence; per-segment rnn_time_step
+        # calls would attend only within each call's window
+        return False
+
+    def _dims(self, n_in):
+        hs = self.head_size or ((self.n_out if self.project_input else n_in)
+                                // self.n_heads)
+        return hs, self.n_heads * hs
+
+    def output_type(self, input_type):
+        n = self.n_out if self.project_input else _rnn_size_static(input_type)
+        return it.Recurrent(size=n, timesteps=self.n_queries)
+
+    def init(self, gen, input_type, dtype=torch.float32):
+        n_in = _rnn_size(input_type)
+        hs, e = self._dims(n_in)
+        wi = self.weight_init
+
+        def w(n_o, n_i):
+            return wi.init(gen, (n_o, n_i), n_i, n_o, dtype, self.distribution)
+
+        p = {"Q": wi.init(gen, (self.n_queries, e), e, e, dtype,
+                          self.distribution)}
+        if not self.project_input:
+            if self.n_heads != 1:
+                raise ValueError("project_input=False requires n_heads == 1")
+            if self.head_size and self.head_size != n_in:
+                raise ValueError(
+                    f"project_input=False: learned queries attend directly "
+                    f"over the {n_in}-wide input, so head_size must be "
+                    f"{n_in} (or 0 for automatic), got {self.head_size}")
+            return p
+        p.update({
+            "Wk": w(e, n_in), "Wv": w(e, n_in), "Wo": w(self.n_out, e),
+            "bk": torch.zeros((e,), dtype=dtype),
+            "bv": torch.zeros((e,), dtype=dtype),
+            "bo": torch.full((self.n_out,), self.bias_init, dtype=dtype),
+        })
+        return p
+
+    def param_order(self):
+        if not self.project_input:
+            return ["Q"]
+        return ["Q", "Wk", "bk", "Wv", "bv", "Wo", "bo"]
+
+    def regularized_param_keys(self):
+        return ["Q", "Wk", "Wv", "Wo"] if self.project_input else ["Q"]
+
+    def forward(self, params, state, x, train=False, gen=None, mask=None):
+        x = self._dropout_input(x, train, gen)
+        q = params["Q"][None].expand(x.shape[0], -1, -1)
+        if self.project_input:
+            k = F.linear(x, params["Wk"], params["bk"])
+            v = F.linear(x, params["Wv"], params["bv"])
+        else:
+            k = v = x
+        nh = self.n_heads
+        o = dot_product_attention(
+            _split_heads(q, nh), _split_heads(k, nh), _split_heads(v, nh),
+            key_mask=mask, impl=self.attention_impl, train=train)
+        y = _merge_heads(o)
+        if self.project_input:
+            y = F.linear(y, params["Wo"], params["bo"])
+        return self.activation.apply(y), state
+
+
+@serde.register
+@dataclasses.dataclass
+class RecurrentAttentionLayer(BaseLayer):
+    """A recurrent cell that attends over the whole input sequence at
+    every step, with the previous hidden state as the query (reference
+    ``RecurrentAttentionLayer``)::
+
+        ctx_t = MHA(q = h_{t-1} Wq, K = x Wk, V = x Wv)
+        h_t   = act(x_t W + h_{t-1} RW + ctx_t Wc + b)
+
+    Keys, values and the input projection are computed once before the
+    loop; each step projects its query and attends one ``[1, T]`` row per
+    head in plain PyTorch, masked keys SET to -1e30 (a row with no valid
+    key averages its values)."""
+
+    n_out: int = 0
+    n_heads: int = 1
+    head_size: int = 0
+    activation: Activation = Activation.TANH
+
+    uses_mask = True
+    has_carry = True
+
+    def streaming_safe(self) -> bool:
+        # attention needs the WHOLE sequence; per-segment rnn_time_step
+        # calls would attend only within each call's window
+        return False
+
+    def _dims(self):
+        hs = self.head_size or (self.n_out // self.n_heads)
+        return hs, self.n_heads * hs
+
+    def output_type(self, input_type):
+        ts = input_type.timesteps if isinstance(input_type, it.Recurrent) else -1
+        return it.Recurrent(size=self.n_out, timesteps=ts)
+
+    def init(self, gen, input_type, dtype=torch.float32):
+        n_in = _rnn_size(input_type)
+        _, e = self._dims()
+        n = self.n_out
+        wi = self.weight_init
+
+        def w(rows, cols):
+            return wi.init(gen, (rows, cols), rows, cols, dtype,
+                           self.distribution)
+
+        return {"W": w(n_in, n), "RW": w(n, n), "Wq": w(n, e),
+                "Wk": w(n_in, e), "Wv": w(n_in, e), "Wc": w(e, n),
+                "b": torch.full((n,), self.bias_init, dtype=dtype)}
+
+    def param_order(self):
+        return ["W", "RW", "Wq", "Wk", "Wv", "Wc", "b"]
+
+    def regularized_param_keys(self):
+        return ["W", "RW", "Wq", "Wk", "Wv", "Wc"]
+
+    def zero_carry(self, batch, dtype=torch.float32, device=None):
+        return {"h": torch.zeros((batch, self.n_out), dtype=dtype,
+                                 device=device)}
+
+    def forward_with_carry(self, params, carry, x, mask=None, train=False,
+                           gen=None):
+        x = self._dropout_input(x, train, gen)
+        b, t, _ = x.shape
+        hs, e = self._dims()
+        nh = self.n_heads
+        xw = _project(x, params["W"], params["b"])
+        dt = xw.dtype
+        wq, rw, wc = (params[k].to(dt) for k in ("Wq", "RW", "Wc"))
+        # keys [b, nh, hs, t] and values [b, nh, t, hs] for batched products
+        k = (x @ params["Wk"].to(dt)).reshape(b, t, nh, hs).permute(0, 2, 3, 1)
+        v = (x @ params["Wv"].to(dt)).reshape(b, t, nh, hs).transpose(1, 2)
+        keep = None if mask is None else (mask.to(x.device) > 0)[:, None, None]
+        mt = _time_major_mask(mask, xw)
+        scale = 1.0 / math.sqrt(hs)
+        h = carry["h"].to(dt)
+        ys = []
+        for step in range(t):
+            q = (h @ wq).reshape(b, nh, 1, hs)
+            s = (q @ k) * scale                              # [b, nh, 1, t]
+            if keep is not None:
+                s = s.masked_fill(~keep, -1e30)
+            ctx = (torch.softmax(s, dim=-1) @ v).reshape(b, e)
+            h_new = self.activation.apply(
+                xw[step] + h @ rw + ctx @ wc)
+            h = _blend(None if mt is None else mt[step], h_new, h)
+            ys.append(h_new)
+        return _emit(ys, mt), {"h": h}
+
+    def forward(self, params, state, x, train=False, gen=None, mask=None):
+        carry = self.zero_carry(x.shape[0], x.dtype, x.device)
+        y, _ = self.forward_with_carry(params, carry, x, mask=mask,
+                                       train=train, gen=gen)
+        return y, state

@@ -419,7 +419,12 @@ class LocalResponseNormalization(Layer):
 @dataclasses.dataclass
 class GlobalPoolingLayer(Layer):
     """Reference ``GlobalPoolingLayer``: CNN [b,c,h,w] -> [b,c] or sequence
-    [b,t,f] -> [b,f]."""
+    [b,t,f] -> [b,f]. A ``[b, t]`` mask on a sequence excludes the masked
+    steps (the reference's masked pooling: max over the valid steps, which
+    is -inf for a row with none; sum and pnorm of the masked input; the
+    average over max(valid count, 1)). The layer has no ``uses_mask``, as in
+    the JAX package, so a network hands it no mask: masked pooling is this
+    method's, for a caller that passes one."""
 
     pooling_type: PoolingType = PoolingType.MAX
 
@@ -430,7 +435,19 @@ class GlobalPoolingLayer(Layer):
             return it.FeedForward(size=input_type.size)
         return input_type
 
-    def forward(self, params, state, x, train=False, gen=None):
+    def forward(self, params, state, x, train=False, gen=None, mask=None):
+        if mask is not None and x.ndim == 3:
+            m = mask.to(device=x.device, dtype=x.dtype)[..., None]
+            if self.pooling_type is PoolingType.MAX:
+                y = torch.amax(torch.where(m > 0, x, float("-inf")), dim=1)
+            elif self.pooling_type is PoolingType.SUM:
+                y = torch.sum(x * m, dim=1)
+            elif self.pooling_type is PoolingType.AVG:
+                y = torch.sum(x * m, dim=1) / torch.clamp(m.sum(dim=1),
+                                                          min=1.0)
+            else:
+                y = torch.sum(torch.abs(x * m) ** 2.0, dim=1) ** 0.5
+            return y, state
         dims = (2, 3) if x.ndim == 4 else tuple(range(1, x.ndim - 1))
         if self.pooling_type is PoolingType.MAX:
             return torch.amax(x, dim=dims), state

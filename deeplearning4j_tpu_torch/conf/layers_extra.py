@@ -1,9 +1,11 @@
-"""Layer normalization and learned position embeddings.
+"""Layer normalization, learned position embeddings and the Graves
+bidirectional LSTM.
 
 Counterparts of the JAX package's ``conf/layers_extra.py``
 ``LayerNormalization`` and ``PositionEmbeddingLayer`` (the two layers the
-Transformer zoo model uses besides attention); the same fields and
-``@type`` tags, so configurations round-trip between the packages.
+Transformer zoo model uses besides attention) and
+``GravesBidirectionalLSTM``; the same fields and ``@type`` tags, so
+configurations round-trip between the packages.
 """
 
 from __future__ import annotations
@@ -15,6 +17,11 @@ import torch
 from deeplearning4j_tpu_torch import serde
 from deeplearning4j_tpu_torch.conf import inputs as it
 from deeplearning4j_tpu_torch.conf.layers import BaseLayer
+from deeplearning4j_tpu_torch.conf.layers_rnn import (
+    Bidirectional,
+    BidirectionalMode,
+    GravesLSTM,
+)
 
 
 @serde.register
@@ -82,3 +89,21 @@ class PositionEmbeddingLayer(BaseLayer):
             raise ValueError(f"sequence length {t} exceeds "
                              f"max_len={self.max_len}")
         return x + params["P"][None, :t, :], state
+
+
+@serde.register
+@dataclasses.dataclass
+class GravesBidirectionalLSTM(Bidirectional):
+    """Reference ``GravesBidirectionalLSTM``: a bidirectional Graves LSTM
+    with CONCAT combining (its own conf class for parity; the modern
+    reference deprecates it for ``Bidirectional(GravesLSTM)``)."""
+
+    n_out: int = 0
+    forget_gate_bias_init: float = 1.0
+
+    def __post_init__(self):
+        if self.layer is None:
+            self.layer = GravesLSTM(
+                n_out=self.n_out,
+                forget_gate_bias_init=self.forget_gate_bias_init)
+        self.mode = BidirectionalMode.CONCAT

@@ -53,9 +53,8 @@ class MultiLayerConfiguration:
     ``nn.inference_opt.quantize_for_inference`` on the artifact it emits,
     never set by the builder. ``gradient_checkpointing`` recomputes each
     layer's activations in the backward (``torch.utils.checkpoint``);
-    ``backprop_type`` and the tBPTT lengths round-trip through the JSON, and
-    ``fit`` refuses ``TRUNCATED_BPTT`` until the recurrent layers are
-    ported."""
+    ``backprop_type`` and the tBPTT lengths select truncated BPTT in ``fit``
+    (``nn.multilayer``) and round-trip through the JSON."""
 
     layers: Tuple[Layer, ...] = ()
     input_type: Optional[object] = None
@@ -186,6 +185,13 @@ def apply_builder_defaults(b: Builder, layer: Layer) -> Layer:
     caller's layer objects."""
     layer = dataclasses.replace(layer)
     if not isinstance(layer, BaseLayer):
+        # wrappers (Bidirectional, LastTimeStep, MaskZeroLayer): the
+        # defaults reach the wrapped layer
+        inner = getattr(layer, "layer", None)
+        if isinstance(inner, Layer):
+            layer.layer = apply_builder_defaults(b, inner)
+            if hasattr(layer, "__post_init__"):
+                layer.__post_init__()
         return layer
     cls_defaults = {f.name: f.default for f in dataclasses.fields(layer)
                     if f.default is not dataclasses.MISSING}

@@ -62,7 +62,11 @@ from deeplearning4j_tpu_torch.conf.layers import (
     EmbeddingSequenceLayer,
     OutputLayer,
 )
-from deeplearning4j_tpu_torch.conf.layers_attention import SelfAttentionLayer
+from deeplearning4j_tpu_torch.conf.layers_attention import (
+    LearnedSelfAttentionLayer,
+    RecurrentAttentionLayer,
+    SelfAttentionLayer,
+)
 from deeplearning4j_tpu_torch.conf.layers_cnn import GlobalPoolingLayer
 from deeplearning4j_tpu_torch.conf.layers_extra import PositionEmbeddingLayer
 
@@ -120,6 +124,14 @@ def _inference(fn):
     return wrapped
 
 
+# the JAX decoder's refusals: pooling and learned-query attention do not
+# decode token by token, recurrent attention and every carry-bearing vertex
+# (recurrent layers, a streaming AttentionVertex) keep state the KV cache
+# does not hold
+_REFUSED = (GlobalPoolingLayer, LearnedSelfAttentionLayer,
+            RecurrentAttentionLayer)
+
+
 class TransformerDecoder:
     """KV-cached generation path over an initialized causal-LM
     ``ComputationGraph`` (on its device).
@@ -154,10 +166,11 @@ class TransformerDecoder:
         for name in net._topo:
             spec = net._vmap[name]
             layer = getattr(spec.vertex, "layer", None)
-            if isinstance(layer, GlobalPoolingLayer):
+            if isinstance(layer, _REFUSED) or getattr(spec.vertex,
+                                                      "has_carry", False):
                 raise ValueError(
-                    f"vertex {name!r} ({type(layer).__name__}) is not "
-                    "supported in the KV-cached decode path")
+                    f"vertex {name!r} ({type(layer or spec.vertex).__name__})"
+                    " is not supported in the KV-cached decode path")
             if isinstance(layer, SelfAttentionLayer):
                 layer._decode_check()  # causal + projected, or raise
                 self._attn[name] = types[spec.inputs[0]].size

@@ -47,6 +47,11 @@ layers ``matmul_stats``, and ``SelfAttentionLayer`` its core on
 consumed by an ``EmbeddingSequenceLayer`` holds token ids and crosses as
 ``long``.
 
+Truncated BPTT and ``rnn_time_step`` as in ``nn.multilayer``, the carries
+keyed by vertex name: every network input must be a sequence of one time
+length (a batch of static inputs only trains with the standard step), and
+the labels and masks must be per step at that length.
+
 Feature masks (``DataSet.features_mask``, ``MultiDataSet.features_masks``,
 ``fmasks=`` of ``output`` / ``feed_forward``) are ``[batch, time]`` per
 network input. ``_forward`` propagates them along sequence-shaped paths
@@ -86,6 +91,7 @@ from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn import io as nn_io
 from deeplearning4j_tpu_torch.optimize import solver
 from deeplearning4j_tpu_torch.optimize.listeners import TrainingListener
+from deeplearning4j_tpu_torch.resilience import faults
 from deeplearning4j_tpu_torch.util import params as params_util
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -131,6 +137,17 @@ def _place(t: torch.Tensor, device, dtype=None) -> torch.Tensor:
     return t
 
 
+def _ndim(a) -> int:
+    return a.ndim if hasattr(a, "ndim") else np.ndim(a)
+
+
+def _is_go_backwards(vertex) -> bool:
+    """Whether a vertex's (possibly wrapped) layer processes time reversed
+    (Keras go_backwards): under truncated BPTT it restarts from zeros in
+    every segment, since its carry would come from the FUTURE segment."""
+    return nn_io.contains_go_backwards(getattr(vertex, "layer", None))
+
+
 def _as_multi(ds) -> MultiDataSet:
     """DataSet -> single-input/single-output MultiDataSet (reference
     ``ComputationGraph#fit(DataSet)`` convenience overload)."""
@@ -166,6 +183,8 @@ class ComputationGraph(nn_io.HealthHooks):
         self._cdtype = (_torch_dtype(conf.compute_dtype)
                         if conf.compute_dtype else None)
         self._cast_params = None  # compute-dtype copy of params, built once
+        self._rnn_carries: Optional[Dict[str, dict]] = None  # rnn_time_step
+        self.last_segment_losses: Optional[torch.Tensor] = None  # tBPTT
         self._topo = conf.topo_order()
         self._vmap = conf.vertex_map()
         self._image = [nn_io.image_input(t) for t in conf.input_types]
@@ -251,14 +270,18 @@ class ComputationGraph(nn_io.HealthHooks):
         return kernels.cache_tag(self.conf)
 
     def _forward(self, params, state, inputs: Sequence, train=False,
-                 seed=None, keep_all=False, skip=frozenset(), fmasks=None):
+                 seed=None, keep_all=False, skip=frozenset(), fmasks=None,
+                 carries=None):
         """DAG forward; returns ``(activations, new_state)``. Eval mode keeps
         every vertex's activation only with ``keep_all`` (else it frees each
         one after its last consumer); train mode keeps them all for the
         backward. ``seed`` seeds the step's dropout generators; ``skip``:
         vertices left out (the loss scores the output vertices itself);
         ``fmasks``: per-input [batch, time] feature masks (or None),
-        propagated and handed to mask-consuming layers."""
+        propagated and handed to mask-consuming layers. ``carries``
+        ({vertex name: carry}, or None for zero carries): each
+        carry-bearing vertex (``go_backwards`` layers excepted) starts from
+        its entry, and the dict receives its final carry in place."""
         acts: Dict[str, torch.Tensor] = dict(zip(self.conf.network_inputs,
                                                  inputs))
         masks: Dict[str, torch.Tensor] = {}
@@ -283,13 +306,26 @@ class ComputationGraph(nn_io.HealthHooks):
             s = state.get(name, {})
             gen = (dropout_gen(getattr(spec.vertex, "layer", None), seed, i)
                    if train else None)
+            threaded = carries is not None and getattr(
+                spec.vertex, "has_carry", False) and not _is_go_backwards(
+                spec.vertex)
             routed = None
-            if self.conf.use_kernels:
+            if self.conf.use_kernels and not threaded:
                 routed = kernels.maybe_vertex_forward(spec.vertex, p, s, xs,
                                                       train, gen, **kw)
-            y, s2 = (routed if routed is not None
-                     else spec.vertex.forward(p, s, xs, train=train, gen=gen,
-                                              **kw))
+            if threaded:
+                c = carries.get(name)
+                if c is None:
+                    c = spec.vertex.zero_carry(xs[0].shape[0], xs[0].dtype,
+                                               xs[0].device)
+                y, carries[name] = spec.vertex.forward_with_carry(
+                    p, c, xs, train=train, gen=gen, **kw)
+                s2 = s
+            elif routed is not None:
+                y, s2 = routed
+            else:
+                y, s2 = spec.vertex.forward(p, s, xs, train=train, gen=gen,
+                                            **kw)
             acts[name] = y
             masks[name] = nn_io.propagate_mask(mask, y, spec.vertex)
             if name in state:
@@ -412,16 +448,17 @@ class ComputationGraph(nn_io.HealthHooks):
                 self._place_masks(mds.features_masks, len(features)), lmasks)
 
     def _loss(self, params, state, features, labels, fmasks, lmasks,
-              train=True, seed=None):
+              train=True, seed=None, carries=None):
         """The score of one batch and the forward's new state: the forward
         up to the output vertices (feature masks propagated), then each
         output vertex's loss on its pre-activations with the storage-dtype
-        (f32 master) params, plus the regularization terms."""
+        (f32 master) params, plus the regularization terms. ``carries``:
+        as :meth:`_forward`'s."""
         out_specs = self._output_specs()
         acts, new_state = self._forward(self._cast(params), state, features,
                                         train, seed,
                                         skip={s.name for s in out_specs},
-                                        fmasks=fmasks)
+                                        fmasks=fmasks, carries=carries)
         loss = 0.0
         for i, spec in enumerate(out_specs):
             x = acts[spec.inputs[0]].to(self._dtype)
@@ -454,19 +491,24 @@ class ComputationGraph(nn_io.HealthHooks):
         return self._backward_arrays(*self._prep_batch(ds), seed=train_seed)
 
     def _backward_arrays(self, features, labels, fmasks, lmasks, seed=None,
-                         on_leaves=None):
+                         on_leaves=None, carries=None):
         """The gradient pass on prepared arrays (``_prep_batch``'s):
         ``(loss, new_state, grads)``. ``on_leaves(leaves)`` sees the
         detached param leaves before the forward (the data-parallel
-        trainer hooks their gradients)."""
+        trainer hooks their gradients). ``carries`` (a tBPTT segment's):
+        read, then replaced in place by the final carries, detached."""
         leaves = {k: {pk: v.detach().requires_grad_(v.is_floating_point())
                       for pk, v in vp.items()}
                   for k, vp in self.params.items()}
         if on_leaves is not None:
             on_leaves(leaves)
         loss, new_state = self._loss(leaves, self.state, features, labels,
-                                     fmasks, lmasks, train=True, seed=seed)
+                                     fmasks, lmasks, train=True, seed=seed,
+                                     carries=carries)
         loss.backward()
+        if carries is not None:
+            for k, c in carries.items():
+                carries[k] = {n: t.detach() for n, t in c.items()}
         grads = {k: {pk: (v.grad if v.grad is not None
                           else torch.zeros_like(v))
                      for pk, v in vp.items()}
@@ -488,12 +530,7 @@ class ComputationGraph(nn_io.HealthHooks):
         ``MultiLayerNetwork.fit``: the steps run one after another."""
         if self.params is None:
             self.init()
-        if self.conf.backprop_type is BackpropType.TRUNCATED_BPTT:
-            raise NotImplementedError(
-                "truncated BPTT trains recurrent layers, which are not "
-                "ported yet")
-        if fused_steps is not None and int(fused_steps) < 1:
-            raise ValueError(f"fused_steps must be >= 1, got {fused_steps}")
+        nn_io.check_fused_steps(fused_steps, self.conf)
         reset = None
         if isinstance(data, (DataSet, MultiDataSet)):
             batches = [data]
@@ -522,6 +559,24 @@ class ComputationGraph(nn_io.HealthHooks):
         return float(self._fit_batch(ds))
 
     def _fit_batch(self, ds) -> torch.Tensor:
+        if self.conf.backprop_type is BackpropType.TRUNCATED_BPTT:
+            ndims = [_ndim(f) for f in _as_multi(ds).features]
+            if all(d == 3 for d in ndims):
+                args = self.tbptt_batch_arrays(ds)
+                feats = args[0]
+                # the same once-per-step injection site as the standard step
+                feats = [faults.fault_point("train.step", feats[0])] + list(
+                    feats[1:])
+                return self._fit_tbptt(feats, *args[1:])
+            if any(d == 3 for d in ndims):
+                # a mixed sequence / static batch must not silently train
+                # the standard step under a tBPTT conf
+                raise ValueError(
+                    "ComputationGraph truncated BPTT requires every "
+                    "network input to be a sequence [batch, time, size]; "
+                    f"got feature ranks {ndims}. Use STANDARD backprop "
+                    "for mixed sequence/static inputs")
+            # no sequence input at all: the standard step
         cur = self.iteration
         loss, new_state, grads = self._backward(
             ds, train_seed=self._train_seed(cur))
@@ -543,6 +598,175 @@ class ComputationGraph(nn_io.HealthHooks):
         for lst in self.listeners:
             lst.iteration_done(self, cur, self.epoch, loss)
         return loss
+
+    # --- truncated BPTT ----------------------------------------------------
+    def tbptt_batch_arrays(self, ds):
+        """One tBPTT batch as :meth:`tbptt_scan_fn`'s run takes it: on the
+        device, every input a sequence of one T, the labels per step at
+        that T, all-ones default masks, per-example labels masks expanded
+        per step, every mask at the input rate."""
+        features, labels, fmasks, lmasks = self._prep_batch(ds)
+        if any(f.ndim != 3 for f in features):
+            raise ValueError(
+                "ComputationGraph truncated BPTT requires every network "
+                "input to be a sequence [batch, time, size]; got shapes "
+                f"{[tuple(f.shape) for f in features]}")
+        ts = {int(f.shape[1]) for f in features}
+        if len(ts) != 1:
+            raise ValueError(
+                f"tBPTT inputs must share one time length, got {sorted(ts)}")
+        total_t = ts.pop()
+        n = int(features[0].shape[0])
+        for i, l in enumerate(labels):
+            if l.ndim != 3 or int(l.shape[1]) != total_t:
+                raise ValueError(
+                    f"truncated BPTT needs per-timestep labels [batch, "
+                    f"{total_t}, nOut] for output {i}, got shape "
+                    f"{tuple(l.shape)} (reference tBPTT operates on "
+                    "sequence labels)")
+        ones = torch.ones((n, total_t), dtype=self._dtype, device=self.device)
+        fmasks = [ones if m is None else m
+                  for m in (fmasks or [None] * len(features))]
+        lmasks = [ones if m is None else (m[:, None] * ones if m.ndim == 1
+                                          else m) for m in lmasks]
+        for kind, group in (("features mask", fmasks),
+                            ("labels mask", lmasks)):
+            for i, m in enumerate(group):
+                if int(m.shape[1]) != total_t:
+                    raise ValueError(
+                        f"truncated BPTT {kind} {i} has {m.shape[1]} "
+                        f"timesteps but the sequences have {total_t}: "
+                        "masks must be at the INPUT rate (a wrong-length "
+                        "mask would desynchronize the segments)")
+        return features, labels, fmasks, lmasks
+
+    def tbptt_scan_parts(self, seg: int, back: Optional[int] = None):
+        """``MultiLayerNetwork.tbptt_scan_parts`` over the DAG:
+        ``segments(group)`` cuts each array of a list, ``zero_carries``
+        keys the carries by vertex name, ``advance`` runs the segment's
+        head through the graph minus its output vertices."""
+        back = seg if back is None else min(int(back), seg)
+        cut = seg - back
+        out_names = set(self.conf.network_outputs)
+        cdt = self._cdtype or self._dtype
+
+        def segments(group):
+            return [nn_io.tbptt_segments(a, seg, cut) for a in group]
+
+        def zero_carries(features):
+            f0 = features[0]
+            return {name: self._vmap[name].vertex.zero_carry(
+                        f0.shape[0], cdt, f0.device)
+                    for name in self._topo
+                    if getattr(self._vmap[name].vertex, "has_carry", False)
+                    and not _is_go_backwards(self._vmap[name].vertex)}
+
+        def advance(carries, f_s, l_s, fm_s, lm_s):
+            if cut:
+                with torch.no_grad():
+                    self._forward(self._cast(self.params), self.state,
+                                  [f[:, :cut] for f in f_s], skip=out_names,
+                                  fmasks=[m[:, :cut] for m in fm_s],
+                                  carries=carries)
+                f_s, l_s, fm_s, lm_s = ([a[:, cut:] for a in g]
+                                        for g in (f_s, l_s, fm_s, lm_s))
+            return f_s, l_s, fm_s, lm_s
+
+        return segments, zero_carries, advance, cut
+
+    def tbptt_scan_fn(self, seg: int, back: Optional[int] = None):
+        """The whole-batch tBPTT runner over the DAG: ``run(features,
+        labels, fmasks, lmasks) -> segment losses [n_seg]`` (lists of
+        arrays), one optimization step per segment in place."""
+        segments, zero_carries, advance, _ = self.tbptt_scan_parts(seg, back)
+
+        def run(features, labels, fmasks, lmasks):
+            carries = zero_carries(features)
+            groups = [list(zip(*segments(g)))
+                      for g in (features, labels, fmasks, lmasks)]
+            losses = []
+            for f_s, l_s, fm_s, lm_s in zip(*groups):
+                f_s, l_s, fm_s, lm_s = advance(carries, f_s, l_s, fm_s, lm_s)
+                cur = self.iteration
+                loss, new_state, grads = self._backward_arrays(
+                    list(f_s), list(l_s), list(fm_s), list(lm_s),
+                    seed=self._train_seed(cur), carries=carries)
+                self._apply_updates(grads, cur)
+                self.state.update(new_state)
+                self._cast_params = None
+                self.iteration += 1
+                losses.append(loss)
+            return torch.stack(losses)
+
+        return run
+
+    def _fit_tbptt(self, features, labels, fmasks, lmasks) -> torch.Tensor:
+        """Truncated BPTT on one prepared batch: one update per segment,
+        the score the mean of the segment losses, one listener call at the
+        last segment's iteration."""
+        seg = int(self.conf.tbptt_fwd_length)
+        back = min(int(self.conf.tbptt_back_length or seg), seg)
+        losses = self.tbptt_scan_fn(seg, back)(features, labels, fmasks,
+                                               lmasks)
+        self.last_segment_losses = losses
+        loss = losses.mean()
+        self._score = loss
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration - 1, self.epoch, loss)
+        return loss
+
+    # --- stateful RNN inference (reference CG#rnnTimeStep) -------------------
+    def rnn_time_step(self, *inputs, fmasks=None):
+        """Streaming inference (reference ``#rnnTimeStep``): feed a chunk
+        ``[batch, t, size]`` (or one step ``[batch, size]``) per input, get
+        each output as a host array, the carry-bearing vertices' state
+        carried across calls."""
+        if self.params is None:
+            self.init()
+        for name in self._topo:
+            # the vertex itself (AttentionVertex), then its layer chain
+            nn_io.check_streaming_safe(self._vmap[name].vertex,
+                                       f"vertex {name!r}")
+        xs = [x[:, None, :] if x.ndim == 2 else x
+              for x in self._prepare(inputs)]
+        if self._rnn_carries is None:
+            cdt = self._cdtype or self._dtype
+            self._rnn_carries = {
+                name: self._vmap[name].vertex.zero_carry(
+                    xs[0].shape[0], cdt, self.device)
+                for name in self._topo
+                if getattr(self._vmap[name].vertex, "has_carry", False)}
+        with torch.no_grad():
+            acts, _ = self._forward(self._fwd_params(), self.state, xs,
+                                    fmasks=self._place_masks(fmasks,
+                                                             len(xs)),
+                                    carries=self._rnn_carries)
+            outs = [self._to_host(acts[n]) for n in self.conf.network_outputs]
+        return outs[0] if len(outs) == 1 else outs
+
+    def rnn_clear_previous_state(self) -> None:
+        """Reference ``#rnnClearPreviousState``."""
+        self._rnn_carries = None
+
+    def rnn_get_previous_state(self, vertex_name: str) -> Optional[dict]:
+        """Reference ``#rnnGetPreviousState(layerName)``: the vertex's carry
+        in the storage dtype, or None."""
+        if self._rnn_carries is None:
+            return None
+        c = self._rnn_carries.get(vertex_name)
+        if c is None:
+            return None
+        return {k: v.to(self._dtype) for k, v in c.items()}
+
+    def rnn_set_previous_state(self, vertex_name: str, state: dict) -> None:
+        """Reference ``#rnnSetPreviousState(layerName, state)``: the
+        vertex's carry, held in the compute dtype."""
+        if self._rnn_carries is None:
+            self._rnn_carries = {}
+        cdt = self._cdtype or self._dtype
+        self._rnn_carries[vertex_name] = {
+            k: torch.as_tensor(v).to(device=self.device, dtype=cdt)
+            for k, v in state.items()}
 
     def score(self, ds=None) -> float:
         """The eval-mode loss of ``ds`` (reference ``#score(DataSet)``); with

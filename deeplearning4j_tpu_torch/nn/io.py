@@ -10,7 +10,12 @@ holds integers exactly only up to 256). Everything else lands in the
 network dtype.
 
 ``propagate_mask`` threads a ``[batch, time]`` feature mask past one vertex,
-as the JAX package's ``nn/io.py::propagate_mask`` does. ``HealthHooks``
+as the JAX package's ``nn/io.py::propagate_mask`` does; a recurrent layer
+keeps the mask (its output has the input's time axis), ``LastTimeStep``
+and pooling over time end it. ``contains_go_backwards`` and
+``check_streaming_safe`` are the recurrent guards both networks share
+(truncated BPTT's per-segment reset, ``rnn_time_step``'s refusals).
+``HealthHooks``
 gives both network classes the snapshot and restore hooks of the JAX
 package's ``nn/io.py`` that the health layer's rollback calls.
 """
@@ -18,11 +23,13 @@ package's ``nn/io.py`` that the health layer's rollback calls.
 from __future__ import annotations
 
 import itertools
+from typing import List
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.conf import inputs as it
+from deeplearning4j_tpu_torch.conf.multilayer import BackpropType
 
 
 def image_input(input_type) -> bool:
@@ -82,6 +89,82 @@ def propagate_mask(mask, y, layer_or_vertex):
             return resized if resized.shape[1] == y.shape[1] else None
         layer = getattr(layer, "layer", None)
     return None
+
+
+def contains_go_backwards(layer) -> bool:
+    """Whether a layer, or a layer it wraps (``.layer`` chains), has the
+    Keras ``go_backwards`` flag: such layers get a per-segment reset under
+    truncated BPTT and refuse ``rnn_time_step``."""
+    while layer is not None:
+        if getattr(layer, "go_backwards", False):
+            return True
+        layer = getattr(layer, "layer", None)
+    return False
+
+
+def check_streaming_safe(layer, label: str) -> None:
+    """``rnn_time_step``'s guard: raise for a layer (or vertex) whose
+    chunk-by-chunk streaming would diverge from the whole-sequence forward:
+    ``Bidirectional`` and ``go_backwards`` layers (they need the whole
+    sequence), and carry-less layers that mix the time axis
+    (``streaming_safe() is False``: attention over the whole sequence).
+    Walks wrapper ``.layer`` chains."""
+    inner = layer
+    while inner is not None:
+        if type(inner).__name__ in ("Bidirectional",
+                                    "GravesBidirectionalLSTM"):
+            raise RuntimeError(
+                f"rnn_time_step is unsupported for Bidirectional layers "
+                f"({label}, including wrapped ones): the backward pass needs "
+                "the full sequence (reference throws "
+                "UnsupportedOperationException here)")
+        inner = getattr(inner, "layer", None)
+    inner = layer
+    while inner is not None:
+        if getattr(inner, "go_backwards", False):
+            raise RuntimeError(
+                f"rnn_time_step is unsupported for go_backwards RNNs "
+                f"({label}): reversed processing needs the full sequence")
+        safe = getattr(inner, "streaming_safe", None)
+        if safe is not None and not safe():
+            raise RuntimeError(
+                f"rnn_time_step is unsupported for {label} "
+                f"({type(inner).__name__}): it mixes the time axis without "
+                "recurrent state, so per-segment streaming would diverge "
+                "from the full forward at call boundaries")
+        inner = getattr(inner, "layer", None)
+
+
+def check_fused_steps(fused_steps, conf) -> None:
+    """``fit(fused_steps=K)``'s checks, shared by both networks: K >= 1,
+    and K > 1 only under standard backprop (a tBPTT batch already trains
+    as its chain of segments)."""
+    if fused_steps is None:
+        return
+    if int(fused_steps) < 1:
+        raise ValueError(f"fused_steps must be >= 1, got {fused_steps}")
+    if int(fused_steps) > 1 \
+            and conf.backprop_type is BackpropType.TRUNCATED_BPTT:
+        raise ValueError(
+            "fused_steps composes with STANDARD backprop only: a tBPTT "
+            "batch already trains as one chain of segments")
+
+
+def tbptt_segments(arr, seg: int, cut: int) -> List[torch.Tensor]:
+    """``[B, T, ...]`` cut into ``ceil(T / seg)`` segments ``[B, seg,
+    ...]``: the JAX package's ``_tbptt_prepad`` and in-trace segmentation
+    in one. The tail is zero-padded (masks too, so the padded steps are
+    masked); with a no-gradient head (``cut > 0``) the padding goes
+    BEFORE the tail's real steps, so they land in the gradient window and
+    not in the head (masked steps pass the carries through: the
+    reference's shorter tail slice)."""
+    t = arr.shape[1]
+    pad = -t % seg
+    if pad:
+        z = arr.new_zeros(arr.shape[:1] + (pad,) + arr.shape[2:])
+        split = t - t % seg if cut else t
+        arr = torch.cat([arr[:, :split], z, arr[:, split:]], dim=1)
+    return list(arr.split(seg, dim=1))
 
 
 class HealthHooks:

@@ -4,8 +4,9 @@ Reference: ``org.deeplearning4j.nn.multilayer.MultiLayerNetwork``;
 counterpart of the JAX package's ``deeplearning4j_tpu/nn/multilayer.py``:
 ``init``, ``fit`` (an iterator, a DataSet or arrays), ``fit_batch``,
 ``output``, ``feed_forward``, ``score``, ``evaluate``,
-``compute_gradient_and_score``, the flat params vector, ``summary``,
-``clone`` and ``num_params``.
+``compute_gradient_and_score``, truncated BPTT, ``rnn_time_step`` and the
+previous-state API, the flat params vector, ``summary``, ``clone`` and
+``num_params``.
 
 Params, state and updater state are keyed ``"0".."n"`` by layer index, as
 in the JAX package. At the public boundary ``output`` takes the JAX
@@ -30,6 +31,20 @@ stays on the device until something reads it (``score()``, a listener's
 the card. ``fused_steps=K`` trains K batches per group, one after another,
 identically to K = 1: eager PyTorch has no compiled multi-step program to
 fuse, and the step already launches without a host sync.
+
+Truncated BPTT (``BackpropType.TRUNCATED_BPTT`` with sequence features
+``[batch, time, size]``): the time axis is cut into segments of
+``tbptt_fwd_length`` (the tail padded with masked steps), and the segments
+run in a Python loop, one optimization step each, the recurrent layers'
+carries handed from segment to segment detached. With ``tbptt_back_length
+< tbptt_fwd_length`` the first ``fwd - back`` steps of a segment only
+advance the carries, in eval mode under ``torch.no_grad()``, and the
+gradient window is the segment's last ``back`` steps (a padded tail's real
+steps are moved into that window). The batch's score is the mean of its
+segment losses. ``go_backwards`` layers restart from zeros in every
+segment. ``rnn_time_step`` streams chunks through the same carries (the
+reference's ``rnnTimeStep`` state maps); the carries live in the compute
+dtype.
 
 ``conf.use_kernels`` sends every layer through ``kernels.maybe_forward``
 first, in train mode as in eval mode, as the JAX package's ``_forward``
@@ -73,6 +88,7 @@ from deeplearning4j_tpu_torch.datasets.iterators import (
 from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn import io as nn_io
 from deeplearning4j_tpu_torch.nn.graph import (
+    _ndim,
     _place,
     _torch_dtype,
     _vertex_seed,
@@ -117,6 +133,8 @@ class MultiLayerNetwork(nn_io.HealthHooks):
         self._cdtype = (_torch_dtype(conf.compute_dtype)
                         if conf.compute_dtype else None)
         self._cast_params = None  # compute-dtype copy of params, built once
+        self._rnn_carries: Optional[Dict[str, dict]] = None  # rnn_time_step
+        self.last_segment_losses: Optional[torch.Tensor] = None  # tBPTT
         self._image = nn_io.image_input(conf.input_type)
         # token ids cross as integers (a bfloat16 cast would round them)
         self._ids = bool(conf.layers) and isinstance(
@@ -190,12 +208,15 @@ class MultiLayerNetwork(nn_io.HealthHooks):
         return kernels.cache_tag(self.conf)
 
     def _run(self, params, state, x, train=False, seed=None, upto=None,
-             fmask=None, keep_all=False):
+             fmask=None, keep_all=False, carries=None):
         """The forward over layers ``[0, upto)``; returns ``(x, new_state)``
         (``keep_all``: every layer's activation instead of the last, stock
         forwards only, as the JAX package's ``feed_forward``). ``seed``
         seeds the step's dropout generators; ``fmask`` ([batch, time]) goes
-        to layers with ``uses_mask`` and is propagated past each layer."""
+        to layers with ``uses_mask`` and is propagated past each layer.
+        ``carries`` ({layer index: carry}, or None for zero carries): each
+        recurrent layer (``go_backwards`` ones excepted) starts from its
+        entry, and the dict receives the layer's final carry in place."""
         n = len(self.conf.layers) if upto is None else upto
         route = self.conf.use_kernels and not keep_all
         remat = train and self.conf.gradient_checkpointing
@@ -206,10 +227,21 @@ class MultiLayerNetwork(nn_io.HealthHooks):
             s = state.get(str(i), {})
             kw = ({"mask": fmask} if getattr(layer, "uses_mask", False)
                   else {})
+            threaded = carries is not None and getattr(
+                layer, "has_carry", False) and not nn_io.contains_go_backwards(
+                layer)
             routed = (kernels.maybe_forward(
                 layer, p, s, x, train, dropout_gen(layer, seed, i), **kw)
-                if route else None)
-            if routed is not None:
+                if route and not threaded else None)
+            if threaded:
+                c = carries.get(str(i))
+                if c is None:
+                    c = layer.zero_carry(x.shape[0], x.dtype, x.device)
+                x, carries[str(i)] = layer.forward_with_carry(
+                    p, c, x, train=train, gen=dropout_gen(layer, seed, i),
+                    **kw)
+                s2 = s
+            elif routed is not None:
                 x, s2 = routed
             elif remat and layer.has_params():
                 x, s2 = self._checkpointed(layer, p, s, x, seed, i, kw)
@@ -339,15 +371,16 @@ class MultiLayerNetwork(nn_io.HealthHooks):
                 self._on_device(ds.labels_mask))
 
     def _loss(self, params, features, labels, fmask, lmask, train=True,
-              seed=None):
+              seed=None, carries=None):
         """The score of one batch and the forward's new state: the forward
         up to the output layer, then the output layer's loss on its
         pre-activations with the storage-dtype (f32 master) params, plus
-        the regularization score."""
+        the regularization score. ``carries``: as :meth:`_run`'s."""
         last = len(self.conf.layers) - 1
         out_layer = self._output_layer()
         x, new_state = self._run(self._cast(params), self.state, features,
-                                 train, seed, upto=last, fmask=fmask)
+                                 train, seed, upto=last, fmask=fmask,
+                                 carries=carries)
         loss = out_layer.score(params.get(str(last), {}), x.to(self._dtype),
                                labels, lmask)
         if global_batch.adds_regularization():  # once over the ranks
@@ -364,19 +397,24 @@ class MultiLayerNetwork(nn_io.HealthHooks):
         return _vertex_seed(self.conf.seed, iteration + 1_000_003)
 
     def _backward(self, features, labels, fmask, lmask, seed=None,
-                  on_leaves=None):
+                  on_leaves=None, carries=None):
         """Forward + ``backward()`` on detached leaves of the params:
         ``(loss, new_state, grads)``. ``on_leaves(leaves)`` sees the
         detached param leaves before the forward (the data-parallel
-        trainer hooks their gradients)."""
+        trainer hooks their gradients). ``carries`` (a tBPTT segment's):
+        read, then replaced in place by the final carries, detached (no
+        gradient crosses a segment boundary)."""
         leaves = {k: {pk: v.detach().requires_grad_(v.is_floating_point())
                       for pk, v in vp.items()}
                   for k, vp in self.params.items()}
         if on_leaves is not None:
             on_leaves(leaves)
         loss, new_state = self._loss(leaves, features, labels, fmask, lmask,
-                                     train=True, seed=seed)
+                                     train=True, seed=seed, carries=carries)
         loss.backward()
+        if carries is not None:
+            for k, c in carries.items():
+                carries[k] = {n: t.detach() for n, t in c.items()}
         grads = {k: {pk: (v.grad if v.grad is not None
                           else torch.zeros_like(v))
                      for pk, v in vp.items()}
@@ -398,15 +436,10 @@ class MultiLayerNetwork(nn_io.HealthHooks):
         """Train (reference ``MultiLayerNetwork#fit`` overloads: a
         DataSetIterator, a DataSet, or (features, labels) arrays, batched
         by ``batch_size``). ``fused_steps=K`` groups K steps (see the
-        module docstring); it takes standard backprop only."""
+        module docstring); K > 1 takes standard backprop only."""
         if self.params is None:
             self.init()
-        if self.conf.backprop_type is BackpropType.TRUNCATED_BPTT:
-            raise NotImplementedError(
-                "truncated BPTT trains recurrent layers, which are not "
-                "ported yet")
-        if fused_steps is not None and int(fused_steps) < 1:
-            raise ValueError(f"fused_steps must be >= 1, got {fused_steps}")
+        nn_io.check_fused_steps(fused_steps, self.conf)
         iterator = _as_iterator(data, labels, batch_size)
         for _ in range(epochs):
             for lst in self.listeners:
@@ -426,6 +459,12 @@ class MultiLayerNetwork(nn_io.HealthHooks):
         return float(self._fit_batch(ds))
 
     def _fit_batch(self, ds: DataSet) -> torch.Tensor:
+        if self.conf.backprop_type is BackpropType.TRUNCATED_BPTT \
+                and _ndim(ds.features) == 3:
+            args = self.tbptt_batch_arrays(ds)
+            # the same once-per-step injection site as the standard step
+            args = (faults.fault_point("train.step", args[0]),) + args[1:]
+            return self._fit_tbptt(*args)
         features, labels, fmask, lmask = self._batch_arrays(ds)
         # injection site (raise = preemption mid-training)
         features = faults.fault_point("train.step", features)
@@ -451,6 +490,159 @@ class MultiLayerNetwork(nn_io.HealthHooks):
         for lst in self.listeners:
             lst.iteration_done(self, cur, self.epoch, loss)
         return loss
+
+    # --- truncated BPTT ----------------------------------------------------
+    def tbptt_batch_arrays(self, ds: DataSet):
+        """One tBPTT batch as :meth:`tbptt_scan_fn`'s run takes it: on the
+        device, per-step labels checked, all-ones default masks, a
+        per-example labels mask expanded per step. The run pads T to a
+        multiple of the segment (``nn.io.tbptt_segments``)."""
+        features, labels, fmask, lmask = self._batch_arrays(ds)
+        if labels.ndim != 3:
+            raise ValueError(
+                "truncated BPTT needs per-timestep labels [batch, time, "
+                f"nOut], got shape {tuple(labels.shape)} (reference tBPTT "
+                "operates on sequence labels; use STANDARD backprop for "
+                "sequence-level classification heads)")
+        n, t = features.shape[:2]
+        ones = torch.ones((n, t), dtype=self._dtype, device=self.device)
+        if fmask is None:
+            fmask = ones
+        if lmask is None:
+            lmask = ones
+        elif lmask.ndim == 1:
+            lmask = lmask[:, None] * ones
+        return features, labels, fmask, lmask
+
+    def tbptt_scan_parts(self, seg: int, back: Optional[int] = None):
+        """The tBPTT plumbing, ``(segments, zero_carries, advance, cut)``:
+
+        - ``segments(arr)``: ``nn.io.tbptt_segments`` of ``arr``;
+        - ``zero_carries(features)``: {layer index: zero carry} in the
+          compute dtype for the carry-bearing layers (``go_backwards``
+          layers excepted: they restart every segment);
+        - ``advance(carries, f, l, fm, lm)``: run the segment's first
+          ``cut = seg - back`` steps in eval mode without gradients,
+          advancing ``carries`` in place, and return the gradient
+          window's ``(f, l, fm, lm)``."""
+        back = seg if back is None else min(int(back), seg)
+        cut = seg - back
+        last = len(self.conf.layers) - 1
+        cdt = self._cdtype or self._dtype
+
+        def segments(arr):
+            return nn_io.tbptt_segments(arr, seg, cut)
+
+        def zero_carries(features):
+            return {str(i): layer.zero_carry(features.shape[0], cdt,
+                                             features.device)
+                    for i, layer in enumerate(self.conf.layers)
+                    if getattr(layer, "has_carry", False)
+                    and not nn_io.contains_go_backwards(layer)}
+
+        def advance(carries, f_s, l_s, fm_s, lm_s):
+            if cut:
+                with torch.no_grad():
+                    self._run(self._cast(self.params), self.state,
+                              f_s[:, :cut], upto=last, fmask=fm_s[:, :cut],
+                              carries=carries)
+                f_s, l_s, fm_s, lm_s = (a[:, cut:]
+                                        for a in (f_s, l_s, fm_s, lm_s))
+            return f_s, l_s, fm_s, lm_s
+
+        return segments, zero_carries, advance, cut
+
+    def tbptt_scan_fn(self, seg: int, back: Optional[int] = None):
+        """The whole-batch tBPTT runner: ``run(features, labels, fmask,
+        lmask) -> segment losses [n_seg]`` trains one optimization step per
+        segment on this network's params in place, the carries handed on
+        detached."""
+        segments, zero_carries, advance, _ = self.tbptt_scan_parts(seg, back)
+
+        def run(features, labels, fmask, lmask):
+            carries = zero_carries(features)
+            losses = []
+            for f_s, l_s, fm_s, lm_s in zip(*(segments(a) for a in (
+                    features, labels, fmask, lmask))):
+                f_s, l_s, fm_s, lm_s = advance(carries, f_s, l_s, fm_s, lm_s)
+                cur = self.iteration
+                loss, new_state, grads = self._backward(
+                    f_s, l_s, fm_s, lm_s, seed=self._train_seed(cur),
+                    carries=carries)
+                self._apply_updates(grads, cur)
+                self.state.update(new_state)
+                self._cast_params = None
+                self.iteration += 1
+                losses.append(loss)
+            return torch.stack(losses)
+
+        return run
+
+    def _fit_tbptt(self, features, labels, fmask, lmask) -> torch.Tensor:
+        """Truncated BPTT on one prepared batch (:meth:`tbptt_batch_arrays`):
+        one update per segment; the batch's score is the mean of the
+        segment losses, and the listeners see one call, at the last
+        segment's iteration."""
+        seg = int(self.conf.tbptt_fwd_length)
+        back = min(int(self.conf.tbptt_back_length or seg), seg)
+        losses = self.tbptt_scan_fn(seg, back)(features, labels, fmask,
+                                               lmask)
+        self.last_segment_losses = losses
+        self.last_batch_size = int(features.shape[0])
+        loss = losses.mean()
+        self._score = loss
+        for lst in self.listeners:
+            lst.iteration_done(self, self.iteration - 1, self.epoch, loss)
+        return loss
+
+    # --- stateful RNN inference (reference rnnTimeStep) ---------------------
+    def rnn_time_step(self, x, fmask=None) -> np.ndarray:
+        """Streaming inference (reference ``#rnnTimeStep``): feed a chunk
+        ``[batch, t, size]`` (or one step ``[batch, size]``), get the
+        outputs ``[batch, t, nOut]`` as a host array, the recurrent layers'
+        state carried across calls."""
+        if self.params is None:
+            self.init()
+        for i, layer in enumerate(self.conf.layers):
+            nn_io.check_streaming_safe(layer, f"layer {i}")
+        t = self._prepare(x)
+        if t.ndim == 2:  # one step [batch, size]
+            t = t[:, None, :]
+        if self._rnn_carries is None:
+            cdt = self._cdtype or self._dtype
+            self._rnn_carries = {
+                str(i): layer.zero_carry(t.shape[0], cdt, self.device)
+                for i, layer in enumerate(self.conf.layers)
+                if getattr(layer, "has_carry", False)}
+        with torch.no_grad():
+            y, _ = self._run(self._fwd_params(), self.state, t,
+                             fmask=self._on_device(fmask),
+                             carries=self._rnn_carries)
+        return self._to_host(y)
+
+    def rnn_clear_previous_state(self) -> None:
+        """Reference ``#rnnClearPreviousState``."""
+        self._rnn_carries = None
+
+    def rnn_get_previous_state(self, layer_idx: int) -> Optional[dict]:
+        """Reference ``#rnnGetPreviousState(layer)``: the layer's carry
+        (``{"h": ..., "c": ...}`` tensors) in the storage dtype, or None."""
+        if self._rnn_carries is None:
+            return None
+        c = self._rnn_carries.get(str(layer_idx))
+        if c is None:
+            return None
+        return {k: v.to(self._dtype) for k, v in c.items()}
+
+    def rnn_set_previous_state(self, layer_idx: int, state: dict) -> None:
+        """Reference ``#rnnSetPreviousState(layer, state)``: the layer's
+        carry from ``{name: array}``, held in the compute dtype."""
+        if self._rnn_carries is None:
+            self._rnn_carries = {}
+        cdt = self._cdtype or self._dtype
+        self._rnn_carries[str(layer_idx)] = {
+            k: torch.as_tensor(v).to(device=self.device, dtype=cdt)
+            for k, v in state.items()}
 
     def score(self, ds: Optional[DataSet] = None) -> float:
         """The eval-mode loss of ``ds``, regularization included (reference

@@ -7,7 +7,13 @@ weights ``[nIn, nOut]``; the port keeps conv weights OIHW
 ``SelfAttentionLayer``'s projections ``Wq/Wk/Wv`` ``[nIn, e]`` and ``Wo``
 ``[e, nOut]`` are transposed the same way, to ``[e, nIn]`` and
 ``[nOut, e]``, and so are ``AttentionVertex``'s (a graph vertex with
-params of its own). Embedding tables (``EmbeddingLayer.W`` and
+params of its own) and ``LearnedSelfAttentionLayer``'s ``Wk/Wv/Wo`` (its
+learned queries ``Q [nQueries, e]`` are rows in both packages). The
+recurrent layers (``conf.layers_rnn``: ``W``, ``RW``, GRU's ``rb``,
+GravesLSTM's peepholes, ``Bidirectional``'s ``f``/``b``-prefixed copies,
+the wrappers' inner layer) and ``RecurrentAttentionLayer`` keep the JAX
+package's ``[in, out]`` layouts, so they carry over as they are;
+``RnnOutputLayer`` is a dense layer. Embedding tables (``EmbeddingLayer.W`` and
 ``EmbeddingSequenceLayer.W [vocab, nOut]``,
 ``PositionEmbeddingLayer.P [max_len, size]``) keep their layout: a row per
 id in both packages. Biases, LayerNormalization ``gain``/``b``, BN
@@ -44,10 +50,19 @@ from deeplearning4j_tpu_torch.conf.layers import (
     EmbeddingLayer,
     EmbeddingSequenceLayer,
 )
-from deeplearning4j_tpu_torch.conf.layers_attention import SelfAttentionLayer
+from deeplearning4j_tpu_torch.conf.layers_attention import (
+    LearnedSelfAttentionLayer,
+    RecurrentAttentionLayer,
+    SelfAttentionLayer,
+)
 from deeplearning4j_tpu_torch.conf.layers_cnn import (
     ConvolutionLayer,
     FusedConvBN1x1,
+)
+from deeplearning4j_tpu_torch.conf.layers_rnn import (
+    BaseRecurrentLayer,
+    Bidirectional,
+    _RecurrentWrapper,
 )
 
 
@@ -58,11 +73,17 @@ def layout_perm(layer, key: str, ndim: int):
     """The axes permutation that takes ``layer``'s param ``key`` from the
     port's layout to the JAX package's (``np.transpose(v, perm)``), or None
     where the two layouts agree."""
-    if (isinstance(layer, (SelfAttentionLayer, AttentionVertex))
+    while isinstance(layer, _RecurrentWrapper):
+        layer = layer.layer
+    if (isinstance(layer, (SelfAttentionLayer, AttentionVertex,
+                           LearnedSelfAttentionLayer))
             and key in _ATTN_WEIGHTS):
         return (1, 0)  # [out, in] -> [in, out]
     if key != "W":
         return None
+    if isinstance(layer, (BaseRecurrentLayer, Bidirectional,
+                          RecurrentAttentionLayer)):
+        return None  # the JAX package's [in, out] in both packages
     if isinstance(layer, (ConvolutionLayer, FusedConvBN1x1)):
         return (2, 3, 1, 0)  # OIHW -> HWIO
     if isinstance(layer, DenseLayer):

@@ -1,6 +1,6 @@
 """Model zoo: the SPI and the sequential (MultiLayerNetwork) models:
-``LeNet``, ``SimpleCNN`` and ``AlexNet``, each the JAX package's
-configuration.
+``LeNet``, ``SimpleCNN``, ``AlexNet`` and ``TextGenerationLSTM``, each the
+JAX package's configuration.
 
 Reference: ``org.deeplearning4j.zoo.ZooModel``: ``conf()`` builds the
 configuration and ``init()`` the network. Pretrained-weight loading lands
@@ -179,6 +179,51 @@ class AlexNet(ZooModel):
                                    loss_fn=LossMCXENT()))
                 .set_input_type(InputType.convolutional(
                     self.height, self.width, self.channels))
+                .build())
+
+    def init(self, device="cuda"):
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+        return MultiLayerNetwork(self.conf(), device).init()
+
+
+class TextGenerationLSTM(ZooModel):
+    """Reference ``org.deeplearning4j.zoo.model.TextGenerationLSTM``:
+    LSTM(256) x 2 and a softmax ``RnnOutputLayer`` (MCXENT) over a
+    character vocabulary, trained on one-hot sequences (with truncated
+    BPTT: ``conf()`` is the zoo's layers, the caller sets the backprop
+    type) and sampled with ``rnn_time_step``. 47 characters and
+    ``max_length`` 40 by default, Adam(1e-3), XAVIER."""
+
+    def __init__(self, total_unique_characters: int = 47,
+                 max_length: int = 40, layer_size: int = 256,
+                 seed: int = 123, updater: IUpdater | None = None):
+        self.vocab = total_unique_characters
+        self.max_length = max_length
+        self.layer_size = layer_size
+        self.seed = seed
+        self.updater = updater or Adam(learning_rate=1e-3)
+
+    def conf(self) -> MultiLayerConfiguration:
+        from deeplearning4j_tpu_torch.conf.layers_rnn import (
+            LSTM,
+            RnnOutputLayer,
+        )
+
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed)
+                .updater(self.updater)
+                .weight_init(WeightInit.XAVIER)
+                .list()
+                .layer(LSTM(n_out=self.layer_size,
+                            activation=Activation.TANH))
+                .layer(LSTM(n_out=self.layer_size,
+                            activation=Activation.TANH))
+                .layer(RnnOutputLayer(n_out=self.vocab,
+                                      activation=Activation.SOFTMAX,
+                                      loss_fn=LossMCXENT()))
+                .set_input_type(InputType.recurrent(
+                    self.vocab, timesteps=self.max_length))
                 .build())
 
     def init(self, device="cuda"):

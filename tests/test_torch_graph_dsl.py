@@ -228,15 +228,22 @@ def test_attention_vertex_causal_and_unprojected_match_jax():
 
 
 def test_attention_vertex_refuses_streaming_until_rnn_time_step():
-    with pytest.raises(NotImplementedError, match="rnn_time_step"):
-        AttentionVertex(n_out=8, n_heads=2, causal=True, streaming_window=4)
+    """``rnn_time_step`` is ported: a causal vertex with a streaming window
+    builds and round-trips as the JAX package's does (its carry is the
+    key/value window); the window without ``causal`` is still refused."""
+    v = AttentionVertex(n_out=8, n_heads=2, causal=True, streaming_window=4)
+    assert v.streaming_safe() and v.has_carry
     with pytest.raises(ValueError, match="causal"):
         AttentionVertex(n_out=8, n_heads=2, streaming_window=4)
-    js = jserde.to_json(jgraph.AttentionVertex(n_out=8, n_heads=2,
-                                               causal=True,
-                                               streaming_window=4))
-    with pytest.raises(NotImplementedError):
-        serde.from_json(js)
+    with pytest.raises(ValueError, match="causal"):
+        jgraph.AttentionVertex(n_out=8, n_heads=2, streaming_window=4)
+    jv = jgraph.AttentionVertex(n_out=8, n_heads=2, causal=True,
+                                streaming_window=4)
+    back = serde.from_json(jserde.to_json(jv))
+    assert back == v
+    assert jserde.from_json(serde.to_json(back)) == jv
+    assert {k: tuple(t.shape) for k, t in back.zero_carry(3).items()} == {
+        k: tuple(np.shape(t)) for k, t in jv.zero_carry(3).items()}
 
 
 def _graphs():
@@ -446,10 +453,21 @@ def test_backprop_type_round_trips_and_fit_refuses_tbptt():
     assert pconf.to_json() == jconf.to_json()
     back = ComputationGraphConfiguration.from_json(jconf.to_json())
     assert back.backprop_type is BackpropType.TRUNCATED_BPTT
-    net = ComputationGraph(back, device="cpu").init()
-    ds = DataSet(RNG.normal(size=(2, 4)).astype(np.float32),
-                 np.eye(2, dtype=np.float32)[[0, 1]])
-    with pytest.raises(NotImplementedError, match="truncated BPTT"):
-        net.fit(ds)
-    standard = dataclasses.replace(back, backprop_type=BackpropType.STANDARD)
-    ComputationGraph(standard, device="cpu").init().fit(ds)
+    # truncated BPTT is ported: a graph whose inputs are all static trains
+    # the standard step under a tBPTT conf, as the JAX package's does
+    jnet = JGraph(jconf).init()
+    p, s = params_from_jax(back, jax.tree_util.tree_map(np.asarray,
+                                                        jnet.params),
+                           jax.tree_util.tree_map(np.asarray, jnet.state))
+    net = ComputationGraph(back, device="cpu").set_params(p, s)
+    x = RNG.normal(size=(2, 4)).astype(np.float32)
+    y = np.eye(2, dtype=np.float32)[[0, 1]]
+    from deeplearning4j_tpu.datasets.dataset import DataSet as JDataSet
+
+    jnet.fit(JDataSet(x, y))
+    net.fit(DataSet(x, y))
+    assert net.iteration == jnet.iteration == 1
+    assert net.score() == pytest.approx(float(jnet.score()), rel=1e-5)
+    np.testing.assert_allclose(net.params_flat(),
+                               np.asarray(jnet.params_flat()), rtol=1e-5,
+                               atol=1e-6)

@@ -24,7 +24,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_data_parallel, chip_gen_profile, chip_kernel_ab
-import chip_lenet_spread, chip_smoke, chip_train_profile
+import chip_lenet_spread, chip_sequence, chip_smoke, chip_train_profile
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))
 print(len(names), bad)
@@ -139,10 +139,21 @@ DATA_PARALLEL_MODULES = [
 ]
 
 
+# the sequence slice's modules (the recurrent layers, the learned-query and
+# recurrent attention layers, tBPTT and rnn_time_step in both networks, the
+# zoo's TextGenerationLSTM) and the script of its chip phases
+SEQUENCE_MODULES = [
+    "deeplearning4j_tpu_torch.conf.layers_rnn",
+    "deeplearning4j_tpu_torch.conf",
+    "deeplearning4j_tpu_torch.zoo",
+    "chip_sequence",
+]
+
+
 @pytest.mark.parametrize("module", GENERATION_MODULES + TRAINING_MODULES
                          + QUANT_MODULES + MLN_TRAINING_MODULES
                          + BF16_TRAINING_MODULES + TUNING_MODULES
-                         + DATA_PARALLEL_MODULES)
+                         + DATA_PARALLEL_MODULES + SEQUENCE_MODULES)
 def test_generation_module_alone_loads_no_jax(module):
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -161,7 +172,8 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                                  "chip_kernel_ab.py",
                                  "chip_train_profile.py",
                                  "chip_gen_profile.py",
-                                 "chip_lenet_spread.py")]
+                                 "chip_lenet_spread.py",
+                                 "chip_sequence.py")]
     offenders = [str(p.relative_to(ROOT)) for p in sources
                  if pattern.search(p.read_text())]
     assert offenders == []

@@ -30,6 +30,7 @@ from deeplearning4j_tpu.conf.layers import OutputLayer as JOut
 from deeplearning4j_tpu.conf.layers_cnn import ConvolutionLayer as JConv
 from deeplearning4j_tpu.conf.layers_cnn import PoolingType as JPT
 from deeplearning4j_tpu.conf.layers_cnn import SubsamplingLayer as JPool
+from deeplearning4j_tpu.conf.multilayer import MultiLayerConfiguration as JMLC
 from deeplearning4j_tpu.conf.multilayer import NeuralNetConfiguration as JNNC
 from deeplearning4j_tpu.conf.updaters import Adam as JAdam
 from deeplearning4j_tpu.conf.updaters import Nesterovs as JNesterovs
@@ -206,9 +207,16 @@ def test_builder_defaults_and_backprop_type_round_trip():
     assert (back.tbptt_fwd_length, back.tbptt_back_length) == (7, 5)
     assert back.gradient_checkpointing
     assert back.layers[0].regularization[0].l2 == 0.5
-    with pytest.raises(NotImplementedError, match="truncated BPTT"):
-        MultiLayerNetwork(conf, "cpu").fit(DataSet(
-            np.zeros((2, 2450), np.float32), np.zeros((2, 500), np.float32)))
+    # truncated BPTT over 2-D (static) features takes the standard step, as
+    # in the JAX package: with this conf's dense last layer both refuse it
+    # as no output layer
+    jnet = JMLN(JMLC.from_json(conf.to_json())).init()
+    x = np.zeros((2, 2450), np.float32)
+    y = np.zeros((2, 500), np.float32)
+    with pytest.raises(TypeError, match="not an output layer"):
+        jnet.fit(JDataSet(x, y))
+    with pytest.raises(TypeError, match="not an output layer"):
+        MultiLayerNetwork(conf, "cpu").fit(DataSet(x, y))
 
 
 def test_gradient_checkpointing_trains_identically():
