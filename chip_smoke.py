@@ -248,14 +248,28 @@ Phases, in order; any failure exits non-zero:
    launch of each kernel a step, one forward an ``output``),
    ``RecurrentAttentionLayer`` card against CPU, and rows 6-8 timed at
    the layer's geometry.
+29. the multi-tenant serving platform (``chip_platform.py``): a
+   ``ModelRegistry`` with full-width ResNet-50 v1 / v2 and AlexNet float32
+   v1 / int8 v2, loaded back digest-verified, a tampered zip refused; a
+   ``ModelPlatform`` with ``resnet`` (row 1), ``alexnet`` and the
+   GPT-2-small-width ``lm`` (``deploy_generation``: rows 5-6) behind
+   ``InferenceServer(platform)``, each answer held against the stock
+   route and each stream against sequential ``generate``; a hot swap under
+   traffic with no mixed launch; two seeded canary-chaos runs rolling back
+   at one request index, co-tenants pinned; the int8 canary rolled back
+   with a spoiled calibration and held, then promoted, with the real one
+   (row 4); ``ParallelInference`` over the card. Per tenant p50 latency and
+   images/s or tokens/s, swap and rollback times, load seconds a version.
 
-Then the ``{"trained_text_lstm": ...}``, ``{"sequence_attention": ...}``,
-``{"trained_mln": ...}`` and ``{"trained_bf16": ...}`` lines, one
+Then the ``{"platform": ...}``, ``{"trained_text_lstm": ...}``,
+``{"sequence_attention": ...}``, ``{"trained_mln": ...}`` and
+``{"trained_bf16": ...}`` lines, one
 ``{"kernels": [...]}`` line with every kernel (row 1 with its [21] shapes
 and launches; rows 2 and 6-8 with their bf16 numbers under
 ``bf16_training``; rows 1, 2, 4, 5, 6 with [25]'s numbers under
 ``tuning``; row 2 with [26]'s under ``data_parallel``; rows 6-8 with
-[28]'s under ``seq_attention``), the served,
+[28]'s under ``seq_attention``; rows 1, 4, 5, 6 with [29]'s launches
+under ``platform``), the served,
 trained, generated, trained_lm, served_int8, prefix_cached, speculative,
 tuned and data_parallel lines, and last
 ``{"ok": true, "device": {...}}``. The whole run takes a few minutes on an H100, the
@@ -5500,6 +5514,16 @@ def main() -> int:
                           "= masked F.scaled_dot_product_attention (its "
                           "autograd, dq, dk and dv together, for rows 7-8)"),
                 "shapes": seq_rows[row["name"]]}
+    # 29. the multi-tenant serving platform: three full-width tenants on
+    # their kernels behind InferenceServer(platform)
+    torch.cuda.empty_cache()
+    import chip_platform
+
+    plat_line, plat_rows = chip_platform.platform_phase(torch, dev, smi)
+    for row in report["kernels"]:
+        if row["name"] in plat_rows:
+            row["platform"] = plat_rows[row["name"]]
+    log(json.dumps({"platform": plat_line}))
     log(json.dumps({"trained_text_lstm": text_line}))
     log(json.dumps({"sequence_attention": seq_line}))
     log(json.dumps({"trained_mln": mln_line}))
@@ -5514,7 +5538,7 @@ def main() -> int:
     log(json.dumps({"speculative": spec_line}))
     log(json.dumps({"tuned": tuned_line}))
     log(json.dumps({"data_parallel": dp_line}))
-    log(f"[28] total wall time of the script {time.monotonic() - t_start:.1f}"
+    log(f"[29] total wall time of the script {time.monotonic() - t_start:.1f}"
         f" s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

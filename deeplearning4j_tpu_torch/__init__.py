@@ -16,16 +16,22 @@ Package map (the serving and training slices):
                   schedules, regularization
 - ``nn``        — ``ComputationGraph`` and ``MultiLayerNetwork`` (inference
                   and ``fit``), inference optimization, int8 quantization
-- ``optimize``  — the solver step and training listeners
+- ``optimize``  — the solver step, training listeners, checkpoints, the
+                  serving envelope cache and warmup budgets
 - ``datasets``  — ``DataSet`` / ``MultiDataSet``, iterators, the synthetic
                   MNIST set, normalizers
 - ``eval``      — ``Evaluation`` and the other evaluation accumulators
 - ``ops``       — fused 1x1 conv + BN statistics, attention
 - ``kernels``   — the hand-written CUDA kernels, their build and routing
 - ``parallel``  — dynamic-batching ``InferenceEngine``, ``InferenceServer``
-                  and the ``GenerationEngine``; data-parallel training
+                  and the ``GenerationEngine``; the multi-tenant
+                  ``ModelPlatform`` and ``ModelRegistry``,
+                  ``ParallelInference``; data-parallel training
                   (``ParallelWrapper``, ``TrainingMode``, the mesh,
                   compression, the cluster masters, ``spawn``)
+- ``resilience`` — circuit breaker, retry policies, fault injection
+- ``telemetry`` — metrics registry, request traces, spans, SLO monitors
+- ``analysis``  — the findings log
 - ``comms``     — the collective scheduler and exact mode's global batch
 - ``sharding``  — ``ZeroSpec``, the ZeRO optimizer-state layout
 - ``zoo``       — ``ResNet50``, ``TransformerEncoder``, ``LeNet``,

@@ -12,7 +12,8 @@
   denominators over every rank's rows.
 
 The JAX package's ``comms/reshard.py`` (cross-mesh hand-offs) waits for
-the sharding subsystem (ROADMAP A item 5).
+the sharding subsystem (ROADMAP A: "The remainder, in dependency
+order").
 """
 
 from deeplearning4j_tpu_torch.comms.scheduler import (  # noqa: F401

@@ -193,7 +193,6 @@ class CalibrationRecord:
     ranges: Dict[str, Dict[str, List[float]]]  # layer idx -> {lo, hi}
     digest: str = ""
     restored: bool = False    # re-registered from a restored artifact's spec
-                              # (the JAX package's field; kept for parity)
 
 
 _CAL_LOCK = threading.Lock()
@@ -205,6 +204,18 @@ def register_calibration(record: CalibrationRecord) -> None:
         _CALIBRATIONS[record.digest[:8]] = record
 
 
+def register_restored(spec) -> None:
+    """Re-register a calibration from a restored artifact's conf spec
+    (``ModelRegistry.load``): the ranges are gone, but the scheme and
+    digest mark the restored artifact's calibration as live."""
+    with _CAL_LOCK:
+        if spec.digest[:8] not in _CALIBRATIONS:
+            _CALIBRATIONS[spec.digest[:8]] = CalibrationRecord(
+                scheme=spec.scheme, seed=spec.seed,
+                clip_percentile=spec.clip_percentile, graph="", batches=0,
+                ranges={}, digest=spec.digest, restored=True)
+
+
 def lookup_calibration(digest: str) -> Optional[CalibrationRecord]:
     """The record for a full digest or its 8-hex prefix, else None."""
     with _CAL_LOCK:
@@ -214,6 +225,11 @@ def lookup_calibration(digest: str) -> Optional[CalibrationRecord]:
         return None
     return rec
 
+
+def clear_calibrations() -> None:
+    """Forget every live record (a restarted process's state; tests)."""
+    with _CAL_LOCK:
+        _CALIBRATIONS.clear()
 
 
 def _quantizable(layer, input_type) -> bool:

@@ -1,9 +1,11 @@
 """Parallelism: serving (the dynamic-batching ``InferenceEngine``, the HTTP
-``InferenceServer``, the ``GenerationEngine``, in their own modules) and
-data-parallel training on ``torch.distributed`` (reference
-``deeplearning4j-scaleout``): the process-group mesh, ``ParallelWrapper``
-and its exchange modes, compressed gradient exchange, the cluster
-masters, and ``spawn`` for ranks started from Python."""
+``InferenceServer``, the ``GenerationEngine``, in their own modules; the
+multi-tenant ``ModelPlatform`` with its ``ModelRegistry``, and
+``ParallelInference``, exported here) and data-parallel training on
+``torch.distributed`` (reference ``deeplearning4j-scaleout``): the
+process-group mesh, ``ParallelWrapper`` and its exchange modes, compressed
+gradient exchange, the cluster masters, and ``spawn`` for ranks started
+from Python."""
 
 from deeplearning4j_tpu_torch.parallel.compression import (  # noqa: F401
     AdaptiveThresholdAlgorithm,
@@ -48,4 +50,16 @@ from deeplearning4j_tpu_torch.parallel.cluster import (  # noqa: F401
 from deeplearning4j_tpu_torch.parallel.launch import (  # noqa: F401
     RankFailure,
     spawn,
+)
+from deeplearning4j_tpu_torch.parallel.inference import (  # noqa: F401
+    ParallelInference,
+)
+from deeplearning4j_tpu_torch.parallel.platform import (  # noqa: F401
+    CanaryGate,
+    HostOverloadedError,
+    ModelIntegrityError,
+    ModelPlatform,
+    ModelRegistry,
+    TenantConfig,
+    UnknownModelError,
 )

@@ -8,7 +8,11 @@ and each caller's observable is signalled with its slice. Concurrent
 requests share one padded forward on the device; the padding is quantized
 to power-of-two buckets, and ``warmup()`` runs every bucket once so the
 first real request of each size finds the kernel library built and cuDNN's
-algorithms chosen (eager PyTorch has no compile cache to fill).
+algorithms chosen. Every forward runs through the envelope cache
+(``optimize.aot_cache``): the first forward at a new (graph signature,
+input shapes, dtypes, device) is a miss — the port's counterpart of a
+compile — and ``aot_cache.stats()["misses"]`` stays flat across traffic
+whose buckets warmup already ran.
 
 Policies (the same knobs as the JAX package):
 
@@ -28,6 +32,12 @@ Requests are grouped by (trailing shape, dtype) signature — ragged batch
 SIZES share launches, heterogeneous shapes/dtypes each get their own, and a
 malformed request fails at ``submit`` with :class:`BadRequestError` for its
 sender only.
+
+Multi-tenant hooks (``parallel.platform``): a named engine labels its
+series ``model=<name>``, names its breaker ``serving:<name>`` and fires the
+fault site ``serving.launch:<name>``; ``admission=`` adds a host-wide
+quota at submit; ``publish`` swaps the serving weights atomically per
+batch.
 """
 
 from __future__ import annotations
@@ -37,11 +47,12 @@ import itertools
 import threading
 import time
 from collections import deque
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from deeplearning4j_tpu_torch import telemetry
+from deeplearning4j_tpu_torch.optimize import aot_cache
 from deeplearning4j_tpu_torch.resilience import faults
 from deeplearning4j_tpu_torch.resilience.breaker import (
     CircuitBreaker,
@@ -49,8 +60,6 @@ from deeplearning4j_tpu_torch.resilience.breaker import (
 )
 from deeplearning4j_tpu_torch.resilience.retry import SERVING_RETRY
 from deeplearning4j_tpu_torch.telemetry import tracing
-
-_FAULT_SITE = "serving.launch"
 
 
 class BadRequestError(ValueError):
@@ -102,16 +111,20 @@ def next_pow2(n: int) -> int:
     return p
 
 
-def bucket_rows(n: int) -> int:
-    """Padding bucket for an ``n``-row launch: the smallest ``2**k >= n``."""
-    return next_pow2(int(n))
+def bucket_rows(n: int, align: int = 1) -> int:
+    """Padding bucket for an ``n``-row launch: the smallest
+    ``align * 2**k >= n``. ``align`` is the replica count of a split
+    backend (``ParallelInference`` needs row counts divisible by its
+    workers), so the ladder is align, 2*align, 4*align, ..."""
+    per = -(-int(n) // int(align))
+    return next_pow2(per) * int(align)
 
 
-def bucket_ladder(max_batch: int) -> List[int]:
+def bucket_ladder(max_batch: int, align: int = 1) -> List[int]:
     """Every bucket a <=``max_batch``-row request can land in (what
     ``warmup()`` runs)."""
     out = []
-    b = 1
+    b = int(align)
     while True:
         out.append(b)
         if b >= max_batch:
@@ -202,27 +215,35 @@ class InferenceEngine:
     def __init__(self, model, config: Optional[BatchingConfig] = None,
                  graph_opt: bool = True, bf16: bool = False,
                  breaker: Optional[CircuitBreaker] = ...,
-                 retry=...):
+                 retry=..., name: Optional[str] = None,
+                 admission: Optional[Callable] = None):
         self.config = config or BatchingConfig()
+        # multi-tenant identity (parallel.platform): a NAMED engine labels
+        # its dl4j_serving_* series with model=<name>, defaults its breaker
+        # to "serving:<name>" (so /health aggregates every breaker of one
+        # model under one key) and fires "serving.launch:<name>", so a
+        # chaos plan can degrade exactly this tenant
+        self.name = name
+        self._fault_site = (f"serving.launch:{name}" if name
+                            else "serving.launch")
+        # host-level admission hook (platform quota): called at submit
+        # with (engine, rows) after this engine's own queue-full check and
+        # before the breaker; it may raise ServerOverloadedError
+        self._admission = admission
         # circuit breaker on the launch path: consecutive failures trip it
         # open and submits shed with CircuitOpenError (503); None disables
-        self._breaker = (CircuitBreaker(name=f"serving-{next(_ENGINE_SEQ)}")
-                         if breaker is ... else breaker)
+        self._breaker = (CircuitBreaker(
+            name=(f"serving:{name}" if name
+                  else f"serving-{next(_ENGINE_SEQ)}"))
+            if breaker is ... else breaker)
         # one transient-class retry before a launch failure reaches the
         # breaker; model bugs (ValueError & co) are never retried
         self._retry = SERVING_RETRY if retry is ... else retry
-        if graph_opt:
-            from deeplearning4j_tpu_torch.nn.inference_opt import (
-                optimize_for_inference,
-            )
-
-            model = optimize_for_inference(model, bf16=bf16)
-        self.model = model
-        conf = getattr(model, "conf", None)
-        self._np_dtype = np.dtype(getattr(conf, "dtype", "float32"))
-        self._templates = _input_templates(model)
-        self._queue: deque = deque()
+        self._graph_opt = bool(graph_opt)
+        self._bf16 = bool(bf16)
         self._cond = threading.Condition()
+        self._adopt_model(self._optimized(model))
+        self._queue: deque = deque()
         self._stop = False
         self._thread: Optional[threading.Thread] = None
         self._batch_seq = itertools.count(1)  # trace launch ids
@@ -276,11 +297,13 @@ class InferenceEngine:
         enters the shared queue."""
         if timeout_ms is ...:
             timeout_ms = self.config.timeout_ms
-        trace = tracing.start_trace("predict", traceparent=traceparent)
+        trace = tracing.start_trace(
+            "predict", traceparent=traceparent,
+            attrs={"model": self.name} if self.name else None)
         try:
             xs, n, group = self._validate(inputs)
         except BadRequestError:
-            telemetry.record_serving_request("bad_request")
+            telemetry.record_serving_request("bad_request", model=self.name)
             tracing.finish_trace(trace, "bad_request")
             raise
         t0 = time.monotonic()
@@ -292,17 +315,30 @@ class InferenceEngine:
                 tracing.finish_trace(trace, "shutdown")
                 raise RuntimeError("engine is closed")
             if len(self._queue) >= self.config.max_queue:
-                telemetry.record_serving_request("rejected")
+                telemetry.record_serving_request("rejected", model=self.name)
                 tracing.finish_trace(trace, "rejected")
                 raise ServerOverloadedError(
+                    f"model {self.name!r} serving queue full "
+                    f"({self.config.max_queue} pending)" if self.name else
                     f"serving queue full ({self.config.max_queue} pending)")
+            if self._admission is not None:
+                # platform-level quota, still before the breaker so a
+                # host-level rejection never burns a half-open probe ticket
+                try:
+                    self._admission(self, n)
+                except ServerOverloadedError:
+                    telemetry.record_serving_request("rejected",
+                                                     model=self.name)
+                    tracing.finish_trace(trace, "rejected")
+                    raise
             # breaker check LAST: a request rejected for being malformed
             # or for overload must not consume a half-open probe ticket
             if self._breaker is not None and not self._breaker.allow():
-                telemetry.record_serving_request("shed")
+                telemetry.record_serving_request("shed", model=self.name)
                 tracing.finish_trace(trace, "shed")
                 raise CircuitOpenError(
-                    f"circuit breaker {self._breaker.name!r} is "
+                    (f"model {self.name!r}: " if self.name else "")
+                    + f"circuit breaker {self._breaker.name!r} is "
                     f"{self._breaker.state}; request shed")
             self._queue.append(req)
             tracing.trace_event(trace, "admitted")
@@ -331,35 +367,100 @@ class InferenceEngine:
                           traceparent=traceparent)
         return self.result(req), req.trace
 
+    # --- model adoption / hot publish ---------------------------------------
+    def _optimized(self, model):
+        """The serving copy of ``model``: the inference-graph pass under
+        the engine's ``graph_opt`` / ``bf16`` flags."""
+        if not self._graph_opt:
+            return model
+        from deeplearning4j_tpu_torch.nn.inference_opt import (
+            optimize_for_inference,
+        )
+
+        return optimize_for_inference(model, bf16=self._bf16)
+
+    def _adopt_model(self, model):
+        """Derive the engine's serving surface from ``model`` (already
+        through the inference-graph pass): numpy dtype, input templates and
+        the envelope key's signature and device. The ONE place these are
+        computed — construction and ``publish`` share it — and set together
+        under the engine lock, so a launch reads a consistent set."""
+        conf = getattr(model, "conf", None)
+        with self._cond:
+            self.model = model
+            self._np_dtype = np.dtype(getattr(conf, "dtype", "float32"))
+            self._templates = _input_templates(model)
+            self._signature = aot_cache.graph_signature(conf)
+            self._device = getattr(model, "device", "cpu")
+        return model
+
+    def publish(self, model, params=None, state=None):
+        """Swap the serving weights WITHOUT restarting the engine.
+        ``model`` is the source network (configuration authority);
+        ``params`` / ``state`` override its trees. The construction-time
+        inference-graph pass re-runs with the same ``graph_opt`` / ``bf16``
+        flags, so a BN-folding engine keeps folding. The swap is atomic per
+        batch: a launch reads the serving model once, so every batch runs
+        wholly on the old version or wholly on the new one. A version with
+        the source's configuration keeps every warmed envelope (the same
+        graph signature: zero new envelopes). Returns the model now
+        serving."""
+        import copy
+
+        src = model
+        if params is not None or state is not None:
+            src = copy.copy(model)
+            if params is not None:
+                src.params = params
+            if state is not None:
+                src.state = state
+        return self._adopt_model(self._optimized(src))
+
     # --- warmup -------------------------------------------------------------
     def buckets(self) -> List[int]:
         return bucket_ladder(self.config.max_batch)
 
-    def warmup(self, shapes=None) -> dict:
+    def warmup(self, shapes=None, dtype=None) -> dict:
         """Run one zeros forward per padding bucket and per client-visible
-        input dtype (float and, for image inputs, uint8), so the first real
+        input dtype (float and, for image inputs, uint8; only ``dtype``
+        when given), each through the envelope cache, so the first real
         request of every size meets a built kernel library and chosen cuDNN
         algorithms. ``shapes``: per-input trailing shapes (default: from
-        the model conf). Returns ``{"buckets", "forwards", "seconds"}``."""
+        the model conf). Returns ``{"buckets", "forwards", "seconds",
+        "compiled", "compile_seconds"}`` (``compiled``: new envelopes)."""
         from deeplearning4j_tpu_torch.nn import io as nn_io
 
+        with self._cond:
+            model, sig, device = self.model, self._signature, self._device
+            templates, np_dtype = self._templates, self._np_dtype
         if shapes is None:
-            shapes = self._templates
+            shapes = templates
         if shapes is None or any(s is None for s in shapes):
             raise ValueError(
                 "cannot derive input shapes from the model conf; pass "
                 "warmup(shapes=[(...), ...]) explicitly")
-        types = _input_types(self.model) or [None] * len(shapes)
-        dtype_sets = nn_io.warm_dtype_variants(types, self._np_dtype)
+        if dtype is not None:
+            dtype_sets = [tuple(np.dtype(dtype) for _ in shapes)]
+        else:
+            types = _input_types(model) or [None] * len(shapes)
+            dtype_sets = nn_io.warm_dtype_variants(types, np_dtype)
+        before = aot_cache.stats()
         t0 = time.monotonic()
         forwards = 0
         for b in self.buckets():
             for dts in dtype_sets:
-                self.model.output(*[np.zeros((b,) + tuple(s), dt)
-                                    for s, dt in zip(shapes, dts)])
+                args = [np.zeros((b,) + tuple(s), dt)
+                        for s, dt in zip(shapes, dts)]
+                aot_cache.run_envelope(
+                    aot_cache.envelope_key(sig, args, device),
+                    lambda: model.output(*args))
                 forwards += 1
+        after = aot_cache.stats()
         return {"buckets": self.buckets(), "forwards": forwards,
-                "seconds": time.monotonic() - t0}
+                "seconds": time.monotonic() - t0,
+                "compiled": after["misses"] - before["misses"],
+                "compile_seconds": round(
+                    after["compile_seconds"] - before["compile_seconds"], 3)}
 
     # --- dispatcher ---------------------------------------------------------
     def _ensure_thread(self):
@@ -395,7 +496,8 @@ class InferenceEngine:
                 req.error = DeadlineExpiredError(
                     "request deadline expired after "
                     f"{(now - req.t0) * 1000:.1f} ms in queue")
-                telemetry.record_serving_request("expired", now - req.t0)
+                telemetry.record_serving_request("expired", now - req.t0,
+                                                 model=self.name)
                 tracing.finish_trace(req.trace, "expired")
                 req.event.set()
             else:
@@ -464,7 +566,8 @@ class InferenceEngine:
             req.result = result
             req.error = error
             req.event.set()
-        telemetry.record_serving_request(status, time.monotonic() - req.t0)
+        telemetry.record_serving_request(status, time.monotonic() - req.t0,
+                                         model=self.name)
         tracing.finish_trace(req.trace, status)
         return True
 
@@ -477,20 +580,22 @@ class InferenceEngine:
             claim[0] = owner
             return True
 
-    def _forward(self, cat, batch: List[_Request]):
-        """The shared launch, behind the ``serving.launch`` fault site and
-        (when configured) one transient-class retry bounded by the batch's
-        tightest request deadline."""
+    def _forward(self, cat, batch: List[_Request], model, key):
+        """The shared launch of ``model`` (read once per batch: a publish
+        never splits one), behind the ``serving.launch[:<name>]`` fault
+        site and the envelope cache, with (when configured) one
+        transient-class retry bounded by the batch's tightest request
+        deadline."""
         def once():
-            faults.fault_point(_FAULT_SITE)
-            return self.model.output(*cat)
+            faults.fault_point(self._fault_site)
+            return aot_cache.run_envelope(key, lambda: model.output(*cat))
 
         if self._retry is None:
             return once()
         deadlines = [r.deadline for r in batch if r.deadline is not None]
         return self._retry.call(
             once, deadline=min(deadlines) if deadlines else None,
-            op=_FAULT_SITE)
+            op=self._fault_site)
 
     def _arm_watchdog(self, batch: List[_Request], claim):
         tmo = self.config.launch_timeout_ms
@@ -530,6 +635,8 @@ class InferenceEngine:
         claim = [None]  # mutated under self._cond only (_claim_batch)
         watchdog = self._arm_watchdog(batch, claim)
         traced = [r for r in batch if r.trace is not None]
+        with self._cond:
+            model, sig, device = self.model, self._signature, self._device
         try:
             cat = [np.concatenate([r.xs[i] for r in batch], axis=0)
                    if len(batch) > 1 else batch[0].xs[i] for i in range(k)]
@@ -544,7 +651,8 @@ class InferenceEngine:
                 cat = [np.concatenate(
                     [a, np.zeros((target - rows,) + a.shape[1:], a.dtype)])
                     for a in cat]
-            out = self._forward(cat, batch)
+            out = self._forward(cat, batch, model,
+                                aot_cache.envelope_key(sig, cat, device))
             multi = isinstance(out, (list, tuple))
             host = [np.asarray(o) for o in (out if multi else [out])]
         except Exception as e:
@@ -580,7 +688,8 @@ class InferenceEngine:
             if self._breaker is not None:
                 self._breaker.on_failure()
             return
-        telemetry.record_serving_batch(rows, target, len(batch), now - t0)
+        telemetry.record_serving_batch(rows, target, len(batch), now - t0,
+                                       model=self.name)
         if self._breaker is not None:
             self._breaker.on_success()
 
@@ -592,7 +701,8 @@ class InferenceEngine:
     def stats(self) -> dict:
         with self._cond:
             depth = len(self._queue)
-        out = {"queue_depth": depth, "buckets": self.buckets()}
+        out = {"queue_depth": depth, "buckets": self.buckets(),
+               "aot_cache": aot_cache.stats()}
         if self._breaker is not None:
             out["circuit_breaker"] = self._breaker.status()
         return out

@@ -211,6 +211,9 @@ class GenerationEngine:
         self._prefills: Counter = Counter()  # (prompt bucket, join bucket)
         self._suffix_prefills: Counter = Counter()  # (suffix, prefix bucket)
         self._windows: Counter = Counter()   # KV bucket -> decode windows
+        # optional SLOMonitor (parallel.platform wires it): TTFT and outcomes
+        # observed synchronously where telemetry records them
+        self._slo = None
         telemetry.register_generation_engine(self)
 
     def _coerce_draft(self, model) -> TransformerDecoder:
@@ -753,6 +756,9 @@ class GenerationEngine:
                 r.t_first = now
                 telemetry.record_decode_first_token(now - r.t0)
                 tracing.trace_event(r.trace, "first_token")
+                if self._slo is not None:
+                    self._slo.observe(self.name or "default",
+                                      ttft=now - r.t0)
                 if active[i]:
                     n_live += 1
                 else:
@@ -869,6 +875,9 @@ class GenerationEngine:
         self._retired_total += 1
         telemetry.record_decode_request("ok", now - req.t0, model=self.name)
         tracing.finish_trace(req.trace, "done", {"tokens": len(req.out)})
+        if self._slo is not None:
+            self._slo.observe(self.name or "default", ok=True,
+                              seconds=now - req.t0)
         self._release_prefix(req)
         req.event.set()
 
@@ -885,6 +894,8 @@ class GenerationEngine:
                 telemetry.record_decode_request("error", model=self.name)
                 tracing.finish_trace(req.trace, "rollback",
                                      {"error": type(e).__name__})
+                if self._slo is not None:
+                    self._slo.observe(self.name or "default", ok=False)
                 self._release_prefix(req)
                 req.event.set()
                 self._rows[b] = None

@@ -5,8 +5,9 @@ names mesh axes over the devices of one program; the port runs one
 process per rank (the PyTorch idiom) joined by ``torch.distributed``, and
 a :class:`Mesh` here is the data axis of that process group: its size is
 the world size, and each process holds one replica. The other axes
-(``model``, ``pipeline``, ``sequence``, ``expert``) are refused until the
-items that bring them (ROADMAP A item 5).
+(``model``, ``pipeline``, ``sequence``, ``expert``) are refused until
+``parallel/{tensor, expert, pipeline}.py`` are ported (ROADMAP A: "The
+remainder, in dependency order").
 
 Backends: NCCL when the model lives on a CUDA device, gloo on the CPU, and
 gloo on CUDA tensors only when the caller names ``backend="gloo"``
@@ -86,7 +87,9 @@ class MeshConfig:
                 raise NotImplementedError(
                     f"mesh axis {name!r} = {getattr(self, name)}: only the "
                     f"data axis is ported; tensor, pipeline, sequence and "
-                    f"expert parallelism come with ROADMAP A item 5")
+                    f"expert parallelism wait for parallel/{{tensor, expert, "
+                    f"pipeline}}.py (ROADMAP A: 'The remainder, in "
+                    f"dependency order')")
         world = scheduler.world_of()
         if self.data not in (-1, world):
             raise ValueError(f"mesh data axis {self.data} must equal the "

@@ -1,5 +1,5 @@
 """HTTP model serving (the reference's ``ParallelInference`` deployments /
-libnd4j ``GraphServer`` role), single-model mode.
+libnd4j ``GraphServer`` role), one model or a multi-tenant platform.
 
 Counterpart of the JAX package's ``parallel/serving.py``: a stdlib
 ``ThreadingHTTPServer`` whose concurrent ``/predict`` callers are coalesced
@@ -16,8 +16,22 @@ into shared device launches by an
 - ``GET  /metrics``  Prometheus scrape of the telemetry registry
 
 Integer-valued image inputs in [0, 255] ride as uint8 and are scaled by
-1/255 on the device, as the JAX package's ``nn/io.py`` defines. The
-multi-tenant ``ModelPlatform`` mode lands with the serving slice.
+1/255 on the device, as the JAX package's ``nn/io.py`` defines.
+
+Multi-tenant mode: construct with a
+:class:`~deeplearning4j_tpu_torch.parallel.platform.ModelPlatform` instead
+of a model and the server grows per-model routes —
+
+- ``POST /predict/<model>`` (alias ``/models/<model>/predict``) routes
+  through the platform's canary-aware router. An unknown model (or a bare
+  ``/predict``) is a NAMED 404 listing the deployed models — never a
+  ``KeyError`` 500. Every 503 body carries ``model`` / ``scope`` /
+  ``breaker`` fields so a client can tell "this model is shedding"
+  (``scope="model"``) from "host overloaded" (``scope="host"``).
+- ``GET /models``     per-tenant platform stats (versions, canary,
+  breakers, warmup budgets)
+- ``GET /healthz``    per-model breaker/queue block; ``status`` becomes
+  ``"shedding"`` when ANY tenant's breaker is open
 """
 
 from __future__ import annotations
@@ -38,12 +52,18 @@ from deeplearning4j_tpu_torch.parallel.batcher import (
     LaunchTimeoutError,
     ServerOverloadedError,
 )
+from deeplearning4j_tpu_torch.parallel.platform import (
+    HostOverloadedError,
+    ModelPlatform,
+    UnknownModelError,
+)
 from deeplearning4j_tpu_torch.telemetry import tracing
 
 
 class InferenceServer:
     """Serve a ``ComputationGraph`` or a ``MultiLayerNetwork`` (an int8
-    artifact of ``nn.inference_opt.quantize_for_inference`` included).
+    artifact of ``nn.inference_opt.quantize_for_inference`` included), or
+    every tenant of a ``ModelPlatform``.
 
     Usage::
 
@@ -54,13 +74,16 @@ class InferenceServer:
     ``batching``: a :class:`BatchingConfig` (or the default one) routes
     concurrent ``/predict`` requests through the shared-launch engine;
     ``None`` serializes forwards under one lock. ``graph_opt``/``bf16``
-    forward to the engine's inference-graph pass.
+    forward to the engine's inference-graph pass (all three are ignored in
+    platform mode: each tenant brings its own engine).
     """
 
     def __init__(self, model, dtype=np.float32,
                  batching: Union[BatchingConfig, None] = ...,
                  graph_opt: bool = True, bf16: bool = False):
-        self.model = model
+        self.platform: Optional[ModelPlatform] = (
+            model if isinstance(model, ModelPlatform) else None)
+        self.model = None if self.platform is not None else model
         self.dtype = dtype
         self._httpd = None
         self._thread = None
@@ -69,6 +92,11 @@ class InferenceServer:
         if batching is ...:
             batching = BatchingConfig()
         self.engine: Optional[InferenceEngine] = None
+        self._uint8_cache: dict = {}  # platform mode: per-tenant flags
+        if self.platform is not None:
+            # platform mode: the server is pure routing + error surfaces
+            self._uint8_inputs = ()
+            return
         if batching is not None:
             self.engine = InferenceEngine(model, batching,
                                           graph_opt=graph_opt, bf16=bf16)
@@ -78,18 +106,20 @@ class InferenceServer:
             self._uint8_input(i) for i in range(self._expected_inputs()))
 
     # --- inference ----------------------------------------------------------
-    def _expected_inputs(self) -> int:
-        conf = getattr(self.model, "conf", None)
+    def _expected_inputs(self, model=None) -> int:
+        net = self.model if model is None else model
+        conf = getattr(net, "conf", None)
         if conf is not None and hasattr(conf, "network_inputs"):
             return len(conf.network_inputs)
         return 1
 
-    def _uint8_input(self, idx: int) -> bool:
+    def _uint8_input(self, idx: int, model=None) -> bool:
         """Whether input ``idx`` is an image-typed feature the model
         dequantizes on the device."""
         from deeplearning4j_tpu_torch.nn import io as nn_io
 
-        conf = getattr(self.model, "conf", None)
+        net = self.model if model is None else model
+        conf = getattr(net, "conf", None)
         if conf is None:
             return False
         if hasattr(conf, "network_inputs"):
@@ -143,12 +173,130 @@ class InferenceServer:
         outs = out if isinstance(out, list) else [out]
         return [np.asarray(o).tolist() for o in outs], trace
 
-    def _shed_payload(self, e: Exception) -> dict:
-        """The 503 body: the error and the breaker state, so a client can
-        tell "shedding on purpose" from "overloaded"."""
-        payload = {"error": str(e), "scope": "model"}
-        if self.engine is not None and self.engine.breaker is not None:
-            payload["breaker"] = self.engine.breaker.state
+    # --- platform (multi-tenant) routing ------------------------------------
+    def _resolve_predict_path(self, path: str):
+        """-> (model_name_or_None, error_payload_or_None). Single-model
+        mode accepts exactly ``/predict``; platform mode requires a model
+        segment and 404s BY NAME (listing the deployed models) instead of
+        letting a missing tenant surface as a 500."""
+        if self.platform is None:
+            if path == "/predict":
+                return None, None
+            return None, {"error": "not found"}
+        name = None
+        if path.startswith("/predict/"):
+            name = path[len("/predict/"):]
+        elif path.startswith("/models/") and path.endswith("/predict"):
+            name = path[len("/models/"):-len("/predict")]
+        if not name:
+            return None, {
+                "error": "no model in path; POST /predict/<model>",
+                "models": self.platform.models()}
+        if "/" in name:
+            return None, {"error": "not found"}
+        return name, None
+
+    def _platform_uint8_flags(self, engine) -> tuple:
+        """Per-tenant uint8 eligibility, cached per tenant and validated
+        against the LIVE model by identity (a weakref, not a bare ``id()``
+        — after a hot swap frees the old model, CPython may reuse its
+        address for the new one, and stale flags would route a non-image
+        input down the uint8 path)."""
+        import weakref
+
+        model = engine.model
+        with self._lock:
+            entry = self._uint8_cache.get(engine.name)
+            if entry is not None and entry[0]() is model:
+                return entry[1]
+            flags = tuple(
+                self._uint8_input(i, model)
+                for i in range(self._expected_inputs(model)))
+            try:
+                ref = weakref.ref(model)
+            except TypeError:  # unweakrefable model type: never cache
+                return flags
+            self._uint8_cache[engine.name] = (ref, flags)
+        return flags
+
+    def _predict_platform(self, name: str, inputs, traceparent=None):
+        """Parse + route one multi-tenant request: generic JSON→array
+        conversion (arity / shape / dtype validation lives in the tenant's
+        engine, mapped to 400); integer image payloads ride as uint8
+        exactly like the single-model path."""
+        xs = []
+        flags = None
+        for i, a in enumerate(inputs):
+            try:
+                arr = np.asarray(a)
+                if arr.dtype == object:
+                    raise ValueError("ragged nested lists")
+            except (ValueError, TypeError) as e:
+                # numpy raises on inhomogeneous nesting (or yields an
+                # object array): the sender's 400, not a host 500
+                raise BadRequestError(f"malformed input array: {e}")
+            if np.issubdtype(arr.dtype, np.integer) and arr.size \
+                    and 0 <= arr.min() and arr.max() <= 255:
+                if flags is None:
+                    flags = self._platform_uint8_flags(
+                        self.platform.engine(name))
+                if i < len(flags) and flags[i]:
+                    arr = arr.astype(np.uint8)
+            xs.append(arr)
+        out, trace = self.platform.predict_traced(
+            name, *xs, traceparent=traceparent)
+        outs = out if isinstance(out, list) else [out]
+        return [np.asarray(o).tolist() for o in outs], trace
+
+    def _shed_payload(self, e: Exception, name: Optional[str]) -> dict:
+        """The 503 body: which scope is shedding (this model vs the whole
+        host) and the model's breaker state, so a client can back off per
+        model instead of abandoning the host."""
+        payload = {"error": str(e)}
+        if isinstance(e, HostOverloadedError):
+            payload["scope"] = "host"
+            return payload
+        payload["scope"] = "model"
+        if name is not None:
+            payload["model"] = name
+        breaker = None
+        if self.platform is not None and name is not None:
+            try:
+                breaker = self.platform.engine(name).breaker
+            except UnknownModelError:
+                breaker = None
+        elif self.engine is not None:
+            breaker = self.engine.breaker
+        if breaker is not None:
+            payload["breaker"] = breaker.state
+        return payload
+
+    def _platform_health(self) -> dict:
+        """Per-model readiness: any open breaker flips the host status to
+        "shedding" and names the models doing it."""
+        stats = self.platform.stats()
+        payload = {"status": "ok", "models": {}}
+        shedding = []
+        for name, row in stats.items():
+            entry = {k: row[k] for k in ("version", "queue_depth",
+                                         "breaker") if k in row}
+            if "canary" in row:
+                entry["canary"] = {
+                    k: row["canary"][k]
+                    for k in ("version", "fraction", "breaker")}
+            if "generation" in row:
+                entry["generation"] = {
+                    k: row["generation"][k]
+                    for k in ("version", "queue_depth", "breaker")}
+            states = [entry.get("breaker"),
+                      entry.get("canary", {}).get("breaker"),
+                      row.get("generation", {}).get("breaker")]
+            if "open" in states:
+                shedding.append(name)
+            payload["models"][name] = entry
+        if shedding:
+            payload["status"] = "shedding"
+            payload["shedding_models"] = shedding
         return payload
 
     def warmup(self, **kw) -> dict:
@@ -208,6 +356,9 @@ class InferenceServer:
 
             def do_GET(self):
                 if self.path == "/healthz":
+                    if srv.platform is not None:
+                        self._send(200, srv._platform_health())
+                        return
                     payload = {"status": "ok"}
                     if srv.engine is not None:
                         payload["queue_depth"] = srv.engine.queue_depth()
@@ -219,7 +370,14 @@ class InferenceServer:
                                 # should route traffic elsewhere
                                 payload["status"] = "shedding"
                     self._send(200, payload)
+                elif self.path == "/models" and srv.platform is not None:
+                    self._send(200, {"models": srv.platform.stats()})
                 elif self.path == "/model":
+                    if srv.platform is not None:
+                        self._send(404, {
+                            "error": "multi-model host; GET /models",
+                            "models": srv.platform.models()})
+                        return
                     self._send(200, srv._model_info())
                 elif self.path == "/metrics":
                     from deeplearning4j_tpu_torch import telemetry
@@ -239,8 +397,9 @@ class InferenceServer:
                 # W3C trace-context propagation: error responses echo the
                 # caller's header so failed requests still correlate
                 tp_in = self.headers.get("traceparent")
-                if self.path != "/predict":
-                    self._send(404, {"error": "not found"}, traceparent=tp_in)
+                name, notfound = srv._resolve_predict_path(self.path)
+                if notfound is not None:
+                    self._send(404, notfound, traceparent=tp_in)
                     return
                 length = int(self.headers.get("Content-Length", 0))
                 if length < 0 or length > max_body_bytes:
@@ -254,18 +413,31 @@ class InferenceServer:
                     inputs = req["inputs"]
                     if not isinstance(inputs, list) or not inputs:
                         raise ValueError("inputs must be a non-empty list")
-                    xs = srv._parse_inputs(inputs)
+                    if name is None:
+                        xs = srv._parse_inputs(inputs)
                 except (ValueError, KeyError, TypeError) as e:
                     self._send(400, {"error": str(e)}, traceparent=tp_in)
                     return
                 try:
-                    outs, trace = srv._predict(xs, traceparent=tp_in)
+                    outs, trace = (
+                        srv._predict(xs, traceparent=tp_in)
+                        if name is None
+                        else srv._predict_platform(name, inputs,
+                                                   traceparent=tp_in))
+                except UnknownModelError as e:
+                    # a missing tenant is the CLIENT's addressing error: a
+                    # named 404 listing what IS deployed
+                    self._send(404, {"error": str(e),
+                                     "models": srv.platform.models()},
+                               traceparent=tp_in)
+                    return
                 except BadRequestError as e:
                     self._send(400, {"error": str(e)}, traceparent=tp_in)
                     return
                 except (ServerOverloadedError, DeadlineExpiredError,
                         CircuitOpenError, LaunchTimeoutError) as e:
-                    self._send(503, srv._shed_payload(e), traceparent=tp_in)
+                    self._send(503, srv._shed_payload(e, name),
+                               traceparent=tp_in)
                     return
                 except Exception as e:  # model/runtime failure -> 500 JSON
                     self._send(500, {"error": f"{type(e).__name__}: {e}"},

@@ -184,16 +184,18 @@ class ParallelWrapper:
             raise TypeError(f"unsupported model type {type(model)}")
         if expert_parallel:
             raise NotImplementedError(
-                "expert_parallel needs the MoE layers and parallel/expert, "
-                "ROADMAP A item 5")
+                "expert_parallel is not ported yet: it waits for the MoE "
+                "layers and parallel/expert.py (ROADMAP A: 'The remainder, "
+                "in dependency order')")
         if partition_rules is not None:
             raise NotImplementedError(
-                "partition_rules needs sharding/plan.py (ShardingPlan), "
-                "ROADMAP A item 5")
+                "partition_rules is not ported yet: it waits for "
+                "sharding/plan.py's ShardingPlan (ROADMAP A: 'The remainder, "
+                "in dependency order')")
         if model.conf.backprop_type is BackpropType.TRUNCATED_BPTT:
             raise NotImplementedError(
-                "truncated BPTT needs the recurrent layers, ROADMAP A "
-                "item 3")
+                "truncated BPTT through ParallelWrapper is not ported yet "
+                "(ROADMAP A: 'What PRs 12-15 left of their slices')")
         self.mesh = mesh if mesh is not None else mesh_mod.single_host_mesh(
             n_devices=workers)
         self.workers = self.mesh.world

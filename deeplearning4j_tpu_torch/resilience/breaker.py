@@ -19,7 +19,9 @@ shedding:
 
 State transitions publish ``dl4j_circuit_state{breaker=...}``
 (0=closed, 1=half_open, 2=open) and
-``dl4j_circuit_transitions_total{breaker=...,to=...}``.
+``dl4j_circuit_transitions_total{breaker=...,to=...}``. Live breakers
+are tracked in a WeakSet so ``resilience.status()`` / the ``/health``
+surface can report every breaker in the process.
 
 A copy of the JAX package's ``resilience/breaker.py``.
 """
@@ -29,12 +31,15 @@ from __future__ import annotations
 import collections
 import threading
 import time
+import weakref
 from typing import Optional
 
 CLOSED = "closed"
 OPEN = "open"
 HALF_OPEN = "half_open"
 _STATE_CODE = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
+
+_BREAKERS = weakref.WeakSet()
 
 
 class CircuitOpenError(RuntimeError):
@@ -84,6 +89,7 @@ class CircuitBreaker:
         self._probe_issued_at = 0.0
         self._window = collections.deque(maxlen=self.window_size)
         self.tripped_total = 0
+        _BREAKERS.add(self)
         self._publish(CLOSED, transition=False)
 
     # --- admission ----------------------------------------------------------
@@ -195,3 +201,7 @@ class CircuitBreaker:
                     "failures": self._window.count(False),
                 },
             }
+
+
+def live_breakers():
+    return list(_BREAKERS)

@@ -118,3 +118,10 @@ CHECKPOINT_RETRY = RetryPolicy(max_attempts=3, base_delay_s=0.05,
 #: rather than burn the batch's deadline on backoff.
 SERVING_RETRY = RetryPolicy(max_attempts=2, base_delay_s=0.02,
                             name="serving.launch")
+#: Registry model loads (``parallel.platform.ModelRegistry.load``):
+#: SERVING_RETRY-shaped — one retry over the transient class only, so a
+#: filesystem hiccup doesn't fail a deploy or swap, while a digest
+#: mismatch (``ModelIntegrityError``, not in the retryable set) propagates
+#: at once and the incumbent version keeps serving.
+MODEL_LOAD_RETRY = RetryPolicy(max_attempts=2, base_delay_s=0.02,
+                               name="model.load")

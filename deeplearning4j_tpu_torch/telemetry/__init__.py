@@ -15,6 +15,7 @@ from __future__ import annotations
 import weakref
 
 from deeplearning4j_tpu_torch.telemetry import registry as registry  # noqa: F401
+from deeplearning4j_tpu_torch.telemetry import slo as slo  # noqa: F401
 from deeplearning4j_tpu_torch.telemetry import spans as spans  # noqa: F401
 from deeplearning4j_tpu_torch.telemetry import tracing as tracing  # noqa: F401
 from deeplearning4j_tpu_torch.telemetry.registry import REGISTRY
@@ -116,35 +117,86 @@ def record_shard_bytes(param_bytes: float, opt_bytes: float,
                         "active sharding plan", **labels).set(opt_bytes)
 
 
-def record_serving_request(status: str, seconds: float = None) -> None:
+def record_serving_request(status: str, seconds: float = None,
+                           model: str = None) -> None:
     """Count one inference request terminal state: ``ok`` / ``error`` /
     ``bad_request`` / ``rejected`` (queue full) / ``expired`` (deadline) /
     ``shed`` / ``timeout``; ``seconds`` = submit-to-completion latency when
-    the request made it into the queue."""
+    the request made it into the queue. ``model`` labels the series for
+    named (multi-tenant platform) engines; unnamed engines keep the
+    unlabeled series."""
+    labels = {"model": model} if model else {}
     REGISTRY.counter("dl4j_serving_requests_total",
                      help="inference requests by terminal status",
-                     status=status).inc()
+                     status=status, **labels).inc()
     if seconds is not None:
         REGISTRY.histogram("dl4j_serving_request_seconds",
-                           help="submit-to-result request latency"
-                           ).observe(seconds)
+                           help="submit-to-result request latency",
+                           **labels).observe(seconds)
 
 
 def record_serving_batch(rows: int, padded_rows: int, requests: int,
-                         seconds: float) -> None:
+                         seconds: float, model: str = None) -> None:
     """Record one shared device launch: fill ratio (real rows / padded
-    bucket rows), rows and coalesced-request histograms, launch time."""
+    bucket rows), rows and coalesced-request histograms, launch time.
+    ``model`` labels the series for named engines (per-tenant views)."""
+    labels = {"model": model} if model else {}
     REGISTRY.counter("dl4j_serving_batches_total",
-                     help="shared inference launches").inc()
+                     help="shared inference launches", **labels).inc()
     REGISTRY.histogram("dl4j_serving_batch_fill_ratio",
-                       help="real rows / padded bucket rows"
-                       ).observe(rows / max(padded_rows, 1))
+                       help="real rows / padded bucket rows",
+                       **labels).observe(rows / max(padded_rows, 1))
     REGISTRY.histogram("dl4j_serving_batch_rows",
-                       help="real rows per shared launch").observe(rows)
+                       help="real rows per shared launch",
+                       **labels).observe(rows)
     REGISTRY.histogram("dl4j_serving_batch_requests",
-                       help="requests coalesced per launch").observe(requests)
+                       help="requests coalesced per launch",
+                       **labels).observe(requests)
     REGISTRY.histogram("dl4j_serving_batch_seconds",
-                       help="shared launch wall time").observe(seconds)
+                       help="shared launch wall time",
+                       **labels).observe(seconds)
+
+
+def record_platform_event(event: str, model: str = None) -> None:
+    """Count one platform control-plane event (``parallel.platform``):
+    ``swap`` / ``canary_deploy`` / ``canary_rollback`` / ``promote`` /
+    ``host_rejected`` — unconditional, these are rare lifecycle events,
+    never per-request work."""
+    labels = {"model": model} if model else {}
+    REGISTRY.counter(f"dl4j_platform_{event}_total",
+                     help="multi-tenant platform lifecycle events",
+                     **labels).inc()
+
+
+def record_canary_accuracy(model: str, delta: float) -> None:
+    """Record one canary accuracy-arm shadow compare
+    (``parallel.platform``): the max-abs output delta between the canary
+    (e.g. an int8 quantized version) and its f32 incumbent on one sampled
+    request. Gauge = last observed delta; the counter tracks sample
+    volume."""
+    REGISTRY.gauge("dl4j_canary_accuracy_delta",
+                   help="last canary-vs-incumbent output delta",
+                   model=model).set(float(delta))
+    REGISTRY.counter("dl4j_canary_accuracy_samples_total",
+                     help="canary accuracy-arm shadow compares",
+                     model=model).inc()
+
+
+def record_slo_transition(tenant: str, to_state: str) -> None:
+    """Count one SLO alert-state transition (``telemetry.slo``): rare by
+    construction (hysteresis), never per-request work. The current
+    state and burn gauges are scrape-time collectors."""
+    REGISTRY.counter("dl4j_slo_transitions_total",
+                     help="SLO alert-state transitions",
+                     tenant=tenant, to=to_state).inc()
+
+
+def record_analysis_finding(rule: str, severity: str) -> None:
+    """Count one unwaived finding recorded in ``analysis.findings.LOG``
+    (the platform's PLT301 warmup truncations)."""
+    REGISTRY.counter("dl4j_analysis_findings_total",
+                     help="static-analysis findings (analysis/ linters)",
+                     rule=rule, severity=severity).inc()
 
 
 def record_retry(op: str) -> None:
@@ -345,6 +397,22 @@ def _collect_serving_queue_depth(reg) -> None:
         reg.gauge("dl4j_serving_queue_depth",
                   help="pending serving requests").set(
             sum(e.queue_depth() for e in engines))
+
+
+@REGISTRY.register_collector
+def _collect_slo_metrics(reg) -> None:
+    for mon in slo.monitors():
+        for tenant, snap in mon.snapshot().items():
+            reg.gauge("dl4j_slo_state",
+                      help="0=ok 1=warn 2=page",
+                      tenant=tenant).set(slo.STATE_CODE[snap["state"]])
+            for objective, b in snap["burn_rates"].items():
+                for window in ("short", "long"):
+                    reg.gauge("dl4j_slo_burn_rate",
+                              help="violation fraction / objective "
+                                   "budget per rolling window",
+                              tenant=tenant, objective=objective,
+                              window=window).set(b[window])
 
 
 def prometheus_text() -> str:

@@ -4,8 +4,9 @@ The JAX package's ``telemetry/health.py`` compiles guard vectors into
 every train step (``ParallelWrapper``'s among them) once
 ``configure(policy)`` turns a mode on, and rolls back through the
 networks' ``_health_snapshot`` / ``_health_restore``. The port has the
-hooks; the guards, the monitor and the rollback come with ROADMAP A
-item 5, and until then turning a mode on raises.
+hooks; the guards, the monitor and the rollback come with the health
+layer (ROADMAP A: "The remainder, in dependency order"), and until then
+turning a mode on raises.
 """
 
 from __future__ import annotations
@@ -24,5 +25,6 @@ class AnomalyPolicy(enum.Enum):
 
 def configure(policy: AnomalyPolicy = AnomalyPolicy.WARN, **kwargs):
     raise NotImplementedError(
-        f"health guard modes ({policy}) are not ported: they come with "
-        f"the health layer, ROADMAP A item 5")
+        f"health guard modes ({policy}) are not ported yet: they wait for "
+        f"the health layer, telemetry/health.py (ROADMAP A: 'The "
+        f"remainder, in dependency order')")

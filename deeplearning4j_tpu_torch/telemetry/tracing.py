@@ -3,7 +3,10 @@
 A copy of the JAX package's ``telemetry/tracing.py``: one record per
 request covering submit → terminal, with lifecycle events at every
 scheduler stage (batcher: queued → admitted → grouped → launched →
-demuxed → done/shed/expired).
+demuxed → done/shed/expired; generation: queued → prefix_attach/prefill
+→ join → each fused decode window → retire/rollback), with the
+JSON-ready ``snapshot``, the Chrome-trace export and the per-stage
+``stage_breakdown`` that a served request's time is read from.
 
 Discipline:
 
@@ -30,6 +33,8 @@ from __future__ import annotations
 
 import collections
 import hashlib
+import json
+import os
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -88,6 +93,23 @@ class Trace:
         if self.t1_ns is None:
             return None
         return (self.t1_ns - self.t0_ns) / 1e6
+
+    def event_ns(self, name: str) -> Optional[int]:
+        for n, t, _ in self.events:
+            if n == name:
+                return t
+        return None
+
+    def as_dict(self) -> dict:
+        return {
+            "trace_id": self.trace_id, "span_id": self.span_id,
+            "parent_id": self.parent_id, "name": self.name,
+            "index": self.index, "status": self.status,
+            "duration_ms": self.duration_ms(), "attrs": dict(self.attrs),
+            "events": [
+                {"name": n, "ms": (t - self.t0_ns) / 1e6, "attrs": a or {}}
+                for n, t, a in self.events],
+        }
 
 
 # --------------------------------------------------------------------------
@@ -243,3 +265,87 @@ def stats() -> dict:
             "kept_sampled": len(_ring), "seed": _seed,
             "sample_every": _sample_every,
         }
+
+
+def snapshot() -> dict:
+    """JSON-ready view for the ``/traces`` endpoint."""
+    return {"stats": stats(), "traces": [t.as_dict() for t in traces()]}
+
+
+def export_chrome_trace(path: Optional[str] = None) -> dict:
+    """Chrome-trace JSON: one ``X`` slice per request (tid = submit
+    index, so concurrent requests get their own rows) plus an ``i``
+    instant per lifecycle event, for ``chrome://tracing`` or Perfetto."""
+    pid = os.getpid()
+    evs = []
+    for tr in traces():
+        t1 = tr.t1_ns if tr.t1_ns is not None else tr.t0_ns
+        evs.append({
+            "name": f"req:{tr.name}", "ph": "X", "cat": "request",
+            "ts": tr.t0_ns / 1e3, "dur": (t1 - tr.t0_ns) / 1e3,
+            "pid": pid, "tid": tr.index,
+            "args": {"trace_id": tr.trace_id, "status": tr.status,
+                     **tr.attrs},
+        })
+        for name, t, attrs in tr.events:
+            evs.append({
+                "name": name, "ph": "i", "s": "t", "cat": "request",
+                "ts": t / 1e3, "pid": pid, "tid": tr.index,
+                "args": dict(attrs) if attrs else {},
+            })
+    doc = {"traceEvents": evs, "displayTimeUnit": "ms"}
+    if path is not None:
+        with open(path, "w") as f:
+            json.dump(doc, f)
+    return doc
+
+
+# --------------------------------------------------------------------------
+# stage breakdown (the benches' trace-derived report)
+# --------------------------------------------------------------------------
+
+def _quant(vals: List[float]) -> Optional[dict]:
+    if not vals:
+        return None
+    s = sorted(vals)
+    return {"mean_ms": round(sum(s) / len(s), 4),
+            "p50_ms": round(nearest_rank(s, 0.50), 4),
+            "p95_ms": round(nearest_rank(s, 0.95), 4),
+            "count": len(s)}
+
+
+def stage_breakdown() -> dict:
+    """Aggregate per-stage waits across retained traces: queue wait
+    (submit → first launch/prefill activity), batch wait (grouped →
+    launched), launch time (launched → demuxed), and per-window decode
+    time (from ``decode_window`` event attrs). Sampling applies — this
+    summarizes the RETAINED population, not every request."""
+    queue_w, batch_w, launch, windows, totals = [], [], [], [], []
+    for tr in traces():
+        first_work = None
+        for probe in ("launched", "prefill", "prefix_attach"):
+            t = tr.event_ns(probe)
+            if t is not None and (first_work is None or t < first_work):
+                first_work = t
+        if first_work is not None:
+            queue_w.append((first_work - tr.t0_ns) / 1e6)
+        tg, tl = tr.event_ns("grouped"), tr.event_ns("launched")
+        if tg is not None and tl is not None:
+            batch_w.append((tl - tg) / 1e6)
+        td = tr.event_ns("demuxed")
+        if tl is not None and td is not None:
+            launch.append((td - tl) / 1e6)
+        for name, _, attrs in tr.events:
+            if name == "decode_window" and attrs and "ms" in attrs:
+                windows.append(attrs["ms"])
+        d = tr.duration_ms()
+        if d is not None:
+            totals.append(d)
+    return {
+        "traces": len(totals),
+        "queue_wait": _quant(queue_w),
+        "batch_wait": _quant(batch_w),
+        "launch": _quant(launch),
+        "decode_window": _quant(windows),
+        "total": _quant(totals),
+    }

@@ -24,7 +24,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_data_parallel, chip_gen_profile, chip_kernel_ab
-import chip_lenet_spread, chip_sequence, chip_smoke, chip_train_profile
+import chip_lenet_spread, chip_platform, chip_sequence, chip_smoke
+import chip_train_profile
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))
 print(len(names), bad)
@@ -36,9 +37,9 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().splitlines()[-1].split(" ", 1)
-    # every module of the port, checkpointing, the gradient check and the
-    # data-parallel slice's modules included
-    assert int(count) >= 76
+    # every module of the port, checkpointing, the gradient check, the
+    # data-parallel slice's and the serving platform's modules included
+    assert int(count) >= 82
     assert bad == "[]"
 
 
@@ -150,10 +151,26 @@ SEQUENCE_MODULES = [
 ]
 
 
-@pytest.mark.parametrize("module", GENERATION_MODULES + TRAINING_MODULES
-                         + QUANT_MODULES + MLN_TRAINING_MODULES
-                         + BF16_TRAINING_MODULES + TUNING_MODULES
-                         + DATA_PARALLEL_MODULES + SEQUENCE_MODULES)
+# the serving platform slice's modules (the registry and platform,
+# ParallelInference, SLOs, the findings log, the fault sites, the envelope
+# cache and warmup budgets, the resilience status) and its chip phase
+PLATFORM_MODULES = [
+    "deeplearning4j_tpu_torch.parallel.platform",
+    "deeplearning4j_tpu_torch.parallel.inference",
+    "deeplearning4j_tpu_torch.telemetry.slo",
+    "deeplearning4j_tpu_torch.analysis.findings",
+    "deeplearning4j_tpu_torch.resilience.faults",
+    "deeplearning4j_tpu_torch.optimize.aot_cache",
+    "deeplearning4j_tpu_torch.resilience",
+    "chip_platform",
+]
+
+
+# a module named by two slices runs once, under its first slice's id
+@pytest.mark.parametrize("module", list(dict.fromkeys(
+    GENERATION_MODULES + TRAINING_MODULES + QUANT_MODULES
+    + MLN_TRAINING_MODULES + BF16_TRAINING_MODULES + TUNING_MODULES
+    + DATA_PARALLEL_MODULES + SEQUENCE_MODULES + PLATFORM_MODULES)))
 def test_generation_module_alone_loads_no_jax(module):
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -173,7 +190,7 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                                  "chip_train_profile.py",
                                  "chip_gen_profile.py",
                                  "chip_lenet_spread.py",
-                                 "chip_sequence.py")]
+                                 "chip_sequence.py", "chip_platform.py")]
     offenders = [str(p.relative_to(ROOT)) for p in sources
                  if pattern.search(p.read_text())]
     assert offenders == []

@@ -333,3 +333,193 @@ def test_http_traceparent_round_trip_and_trace_chain(nets):
     assert trace.duration_ms() > 0
     assert tracing.stats()["finished"] == 1
     tracing.reset()
+
+
+# --------------------------------------------------------------------------
+# hot publish, typed warmup, and the multi-tenant HTTP surfaces
+# --------------------------------------------------------------------------
+
+def _other_version(net, seed):
+    """The same graph with other seeded weights (a newly trained version:
+    the same configuration, so the same envelopes)."""
+    other = ComputationGraph(net.conf, device="cpu").init()
+    rng = np.random.default_rng(seed)
+    flat = net.params_flat()
+    return other.set_params_flat(
+        flat + rng.normal(0, 0.5, flat.shape).astype(flat.dtype))
+
+
+def test_publish_is_atomic_per_batch(nets):
+    """Concurrent clients across repeated publishes: every answer is one
+    version's output for its rows, every coalesced launch (a trace's batch
+    id) served one version only, and no publish adds an envelope."""
+    from deeplearning4j_tpu_torch.optimize import aot_cache
+    from deeplearning4j_tpu_torch.telemetry import tracing
+
+    _, net = nets
+    v2 = _other_version(net, seed=3)
+    versions = (net, v2)
+    tracing.enable(seed=3, sample_every=1)
+    eng = InferenceEngine(net, BatchingConfig(
+        max_batch=8, max_delay_ms=20.0, settle_ms=3.0))
+    answers, errors = [], []
+    try:
+        eng.warmup()
+        miss0 = aot_cache.stats()["misses"]
+        stop = threading.Event()
+
+        def client(c):
+            try:
+                for i in range(8):
+                    x = _images(1 + (c + i) % 3, seed=100 * c + i)
+                    y, tr = eng.predict_traced(x)
+                    answers.append((x, y, tr))
+            except Exception as e:  # reported below, never swallowed
+                errors.append(f"client {c}: {type(e).__name__}: {e}")
+
+        def publisher():
+            k = 0
+            while not stop.is_set():
+                k += 1
+                eng.publish(versions[k % 2])
+                time.sleep(0.004)
+
+        pub = threading.Thread(target=publisher)
+        clients = [threading.Thread(target=client, args=(c,))
+                   for c in range(6)]
+        pub.start()
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=60)
+        stop.set()
+        pub.join(timeout=60)
+        assert not pub.is_alive()
+        assert not any(t.is_alive() for t in clients)
+        assert not errors, errors
+        assert aot_cache.stats()["misses"] == miss0
+    finally:
+        eng.close()
+        tracing.disable()
+        tracing.reset()
+    by_batch, served = {}, set()
+    for x, y, tr in answers:
+        near = [v for v, m in enumerate(versions)
+                if np.allclose(y, m.output(x), **TOL)]
+        assert len(near) == 1, "an answer matches neither version"
+        served.add(near[0])
+        (launch,) = [a for name, _, a in tr.events if name == "launched"]
+        by_batch.setdefault(launch["batch"], set()).add(near[0])
+    assert all(len(vs) == 1 for vs in by_batch.values()), by_batch
+    assert len(answers) == 48 and len(by_batch) < 48
+    assert served == {0, 1}
+
+
+def test_warmup_dtype_runs_one_variant(nets):
+    """``warmup(dtype=...)`` runs that input dtype only: uint8 requests
+    then find their envelopes, float32 requests meet new ones."""
+    from deeplearning4j_tpu_torch.optimize import aot_cache
+
+    aot_cache.clear()
+    _, net = nets
+    with InferenceEngine(net, BatchingConfig(max_batch=4)) as eng:
+        warm = eng.warmup(dtype=np.uint8)
+        assert warm["buckets"] == [1, 2, 4]
+        assert warm["forwards"] == warm["compiled"] == 3
+        miss0 = aot_cache.stats()["misses"]
+        eng.predict(_images(3, seed=1, uint8=True))
+        assert aot_cache.stats()["misses"] == miss0
+        eng.predict(_images(3, seed=1))
+        assert aot_cache.stats()["misses"] == miss0 + 1
+        full = eng.warmup()
+        assert full["forwards"] == 6 and full["compiled"] == 2
+
+
+@pytest.fixture
+def platform(nets, tmp_path):
+    """Two image tenants (the fixture graph, and another version of it) on
+    the port's platform, on the CPU."""
+    from deeplearning4j_tpu_torch.parallel.platform import (
+        ModelPlatform,
+        ModelRegistry,
+        TenantConfig,
+    )
+
+    _, net = nets
+    reg = ModelRegistry(tmp_path)
+    reg.publish("img", net)
+    reg.publish("other", _other_version(net, seed=5))
+    plat = ModelPlatform(reg, seed=3, host_max_pending=2, device="cpu")
+    cfg = TenantConfig(batching=BatchingConfig(max_batch=4))
+    plat.deploy("img", config=cfg)
+    plat.deploy("other", config=cfg)
+    server = InferenceServer(plat).start(port=0)
+    yield plat, server
+    server.stop()
+    plat.close()
+
+
+def test_platform_http_routes_models_and_health(nets, platform):
+    """``/predict/<model>`` answers as the tenant's network (uint8 pixels
+    ride as uint8, as in single-model mode); an unknown model is a named
+    404; ``/models`` and ``/healthz`` carry one entry per tenant."""
+    jnet, _ = nets
+    plat, server = platform
+    x = _images(2, seed=7, uint8=True)
+    code, raw = _http(server.port, "/predict/img", {"inputs": [x.tolist()]})
+    assert code == 200, raw
+    np.testing.assert_allclose(json.loads(raw)["outputs"][0],
+                               np.asarray(jnet.output(x)), **TOL)
+    assert plat.engine("img").model is not None
+    code, raw = _http(server.port, "/predict/ghost",
+                      {"inputs": [x.tolist()]})
+    body = json.loads(raw)
+    assert code == 404 and "ghost" in body["error"]
+    assert body["models"] == ["img", "other"]
+    code, raw = _http(server.port, "/model")
+    assert code == 404 and json.loads(raw)["models"] == ["img", "other"]
+    code, raw = _http(server.port, "/models")
+    models = json.loads(raw)["models"]
+    assert code == 200 and sorted(models) == ["img", "other"]
+    assert models["img"]["version"] == 1
+    code, raw = _http(server.port, "/healthz")
+    health = json.loads(raw)
+    assert health["status"] == "ok"
+    assert health["models"]["other"] == {"version": 1, "queue_depth": 0,
+                                         "breaker": "closed"}
+
+
+def test_platform_http_model_and_host_503s(platform):
+    """A tenant whose breaker opened sheds with ``scope="model"`` and its
+    breaker state, and ``/healthz`` names it; the host cap sheds every
+    tenant with ``scope="host"``, a class and body a client can tell
+    apart."""
+    from deeplearning4j_tpu_torch.resilience.faults import FaultPlan
+
+    plat, server = platform
+    body = {"inputs": [_images(1, seed=8).tolist()]}
+    with FaultPlan(seed=8).inject("serving.launch:other").armed():
+        for _ in range(6):
+            _http(server.port, "/predict/other", body)
+        code, raw = _http(server.port, "/predict/other", body)
+    shed = json.loads(raw)
+    assert code == 503
+    assert (shed["model"], shed["scope"], shed["breaker"]) == (
+        "other", "model", "open")
+    health = json.loads(_http(server.port, "/healthz")[1])
+    assert health["status"] == "shedding"
+    assert health["shedding_models"] == ["other"]
+    # the host cap (2 pending over every tenant): park img's dispatcher
+    eng = plat.engine("img")
+    eng._ensure_thread = lambda: None
+    held = [eng.submit((_images(1, seed=9),)) for _ in range(2)]
+    try:
+        code, raw = _http(server.port, "/predict/img", body)
+        host = json.loads(raw)
+        assert code == 503 and host["scope"] == "host"
+        assert "breaker" not in host and "host overloaded" in host["error"]
+    finally:
+        del eng.__dict__["_ensure_thread"]
+        eng._ensure_thread()
+        for h in held:
+            assert h.event.wait(60)
