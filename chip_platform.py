@@ -98,10 +98,6 @@ LM_PROMPTS, LM_MAX_NEW = 8, 16
 PI_SIZES = range(1, 34)
 
 
-def _log(msg: str) -> None:
-    cs.log(msg)
-
-
 def _opener():
     return urllib.request.build_opener(urllib.request.ProxyHandler({}))
 
@@ -128,25 +124,6 @@ def _stock(net, dev):
     """The ``use_kernels=False`` twin of ``net`` (the same weights)."""
     return type(net)(dataclasses.replace(net.conf, use_kernels=False),
                      dev).set_params(net.params, net.state)
-
-
-def _launches():
-    from deeplearning4j_tpu_torch.kernels import impls
-    from deeplearning4j_tpu_torch.ops import attention as att
-
-    return {"matmul_bias_act": impls.matmul_bias_act.launches,
-            "matmul_bias_act_int8": impls.matmul_bias_act_int8.launches,
-            "flash_attention": att.flash_attention.launches,
-            "paged_decode_attention": att.paged_decode_attention.launches}
-
-
-def _reset_launches():
-    from deeplearning4j_tpu_torch.kernels import impls
-    from deeplearning4j_tpu_torch.ops import attention as att
-
-    for fn in (impls.matmul_bias_act, impls.matmul_bias_act_int8,
-               att.flash_attention, att.paged_decode_attention):
-        fn.launches = 0
 
 
 def _batches(model: str) -> int:
@@ -251,7 +228,7 @@ def registry_versions(torch, dev, root: Path, smi: str) -> dict:
             raise AssertionError("int8 AlexNet's spec changed in the "
                                  "registry")
         del net
-    _log(f"[29a] published (two models at once) "
+    cs.log(f"[29a] published (two models at once) "
          f"{json.dumps({k: round(x, 2) for k, x in t_pub.items()})} s; "
          f"loaded (digest-verified, on {dev}) "
          f"{json.dumps({k: round(x, 2) for k, x in loads.items()})} s; "
@@ -348,7 +325,7 @@ def serve_tenants(torch, dev, v, smi) -> dict:
     gen = plat.deploy_generation(
         "lm", model=lm_zoo, config=GenerationConfig(**cs.GEN_CONFIG))
     torch.cuda.synchronize()
-    _log(f"[29b] deployed resnet v1 ("
+    cs.log(f"[29b] deployed resnet v1 ("
          f"{deployed['resnet']['warmup']['forwards']} warmup forwards), "
          f"alexnet v1 ("
          f"{deployed['alexnet']['warmup']['forwards']}), lm "
@@ -362,7 +339,7 @@ def serve_tenants(torch, dev, v, smi) -> dict:
     prompts = cs.gen_requests(LM_PROMPTS, lm_zoo.vocab_size, PLAT_SEED)
 
     # ---- the platform's traffic: counts from here on belong to it ----
-    _reset_launches()
+    cs.reset_launch_counts()
     b0 = {n: _batches(n) for n in refs}
     p0, s0 = _decode_counts(lm_eng)
     server = InferenceServer(plat).start(port=0, host="127.0.0.1")
@@ -421,7 +398,7 @@ def serve_tenants(torch, dev, v, smi) -> dict:
     finally:
         server.stop()
     torch.cuda.synchronize()
-    launches = _launches()
+    launches = cs.launch_counts()
     forwards = {n: _batches(n) - b0[n] for n in refs}
     p1, s1 = _decode_counts(lm_eng)
     prefills, steps = p1 - p0, s1 - s0
@@ -434,7 +411,7 @@ def serve_tenants(torch, dev, v, smi) -> dict:
         "flash_attention": cs.GEN_MODEL["n_layers"] * prefills,
         "paged_decode_attention": cs.GEN_MODEL["n_layers"] * steps,
     }
-    _log(f"[29b] traffic: {forwards} forwards, lm {prefills} prefills and "
+    cs.log(f"[29b] traffic: {forwards} forwards, lm {prefills} prefills and "
          f"{steps} decode steps; launches {json.dumps(launches)} (expected "
          f"{json.dumps(want)})")
     if launches != want or not prefills or not steps:
@@ -449,19 +426,19 @@ def serve_tenants(torch, dev, v, smi) -> dict:
             for name in ("resnet", "alexnet")}
     perf["lm"] = {"tokens_per_s": tokens / lm_wall, "wall_s": lm_wall,
                   "tokens": tokens}
-    _log(f"[29b] served == use_kernels=False: max |diff| resnet "
+    cs.log(f"[29b] served == use_kernels=False: max |diff| resnet "
          f"{worst['resnet']:.3e}, alexnet {worst['alexnet']:.3e} (tol atol="
          f"{cs.SERVED_TOL[0]} rtol={cs.SERVED_TOL[1]}); lm streams vs "
          f"sequential {streams['identical']}/{len(prompts)} identical")
     for name in ("resnet", "alexnet"):
         p = perf[name]
-        _log(f"[29b] {name}: one-image request p50 {p['p50_ms']:.2f} ms "
+        cs.log(f"[29b] {name}: one-image request p50 {p['p50_ms']:.2f} ms "
              f"(p95 {p['p95_ms']:.2f}; queue wait "
              f"{p['queue_wait_p50_ms']:.2f}, of it batch wait {p['batch_wait_p50_ms']:.2f}, launch "
              f"{p['launch_p50_ms']:.2f}), over HTTP with JSON "
              f"{p['http_p50_ms']:.2f} ms; {p['images_per_s']:.1f} images/s "
              f"at {THROUGHPUT[0]} clients x {THROUGHPUT[2]} images [{smi}]")
-    _log(f"[29b] lm: {tokens} tokens for {LM_PROMPTS} prompts in "
+    cs.log(f"[29b] lm: {tokens} tokens for {LM_PROMPTS} prompts in "
          f"{lm_wall:.2f} s, {perf['lm']['tokens_per_s']:.1f} tokens/s [{smi}]")
     probe_lm = prompts[0]
     return {"plat": plat, "refs": refs, "images": images, "rng": rng,
@@ -505,7 +482,7 @@ def tampered_swap_refused(v, t) -> str:
         zp.write_bytes(original)
     if not reg.verify("resnet", 2):
         raise AssertionError("[29c] v2 did not verify once restored")
-    _log(f"[29c] tampered v2 refused: {refused}; v1 kept serving the same "
+    cs.log(f"[29c] tampered v2 refused: {refused}; v1 kept serving the same "
          "bytes")
     return refused
 
@@ -580,7 +557,7 @@ def swap_under_traffic(torch, dev, v, t) -> dict:
                              "envelopes")
     if plat.stats()["resnet"]["version"] != 2:
         raise AssertionError("[29c] the tenant does not record v2")
-    _log(f"[29c] swap v1 -> v2 under {SWAP_CLIENTS} clients: "
+    cs.log(f"[29c] swap v1 -> v2 under {SWAP_CLIENTS} clients: "
          f"{len(answers)} answers (v1 {counts[1]}, v2 {counts[2]}) over "
          f"{len(by_batch)} launches, none mixed, every request after the "
          f"swap v2's; swap {swap_s * 1e3:.1f} ms (load + publish), 0 new "
@@ -649,7 +626,7 @@ def canary_chaos(torch, dev, v, t) -> dict:
                      "canary": rollback["canary"],
                      "reason": rollback["reason"], "sheds": sheds,
                      "fired": plan.fired(), "trip_request_ms": trip_ms})
-        _log(f"[29d] run {run}: rollback at request "
+        cs.log(f"[29d] run {run}: rollback at request "
              f"{rollback['at_request']} ({rollback['reason']}; canary "
              f"{rollback['canary']['requests']} requests, "
              f"{rollback['canary']['failures']} failures; {plan.fired()} "
@@ -688,7 +665,7 @@ def quantized_canary(torch, dev, v, t) -> dict:
     d_real = np.abs(v["a2"].output(probe) - y32).max(axis=1)
     d_spoiled = np.abs(spoiled.output(probe) - y32).max(axis=1)
     limit = float(np.sqrt(d_real.max() * d_spoiled.min()))
-    _log(f"[29e] probe of {ACC_PROBE} images, max |int8 - f32| per image: "
+    cs.log(f"[29e] probe of {ACC_PROBE} images, max |int8 - f32| per image: "
          f"real calibration {d_real.min():.3e}-{d_real.max():.3e}, spoiled "
          f"{d_spoiled.min():.3e}-{d_spoiled.max():.3e}; accuracy-arm limit "
          f"{limit:.3e}")
@@ -708,11 +685,11 @@ def quantized_canary(torch, dev, v, t) -> dict:
     if spoiled_rb is None or "accuracy arm" not in spoiled_rb["reason"]:
         raise AssertionError(f"[29e] the spoiled int8 canary held: "
                              f"{plat.stats()['alexnet']}")
-    _log(f"[29e] spoiled int8 canary (clip percentile {SPOILED_CLIP}): "
+    cs.log(f"[29e] spoiled int8 canary (clip percentile {SPOILED_CLIP}): "
          f"rolled back at request {spoiled_rb['at_request']}: "
          f"{spoiled_rb['reason']}")
     # the real calibration: held, then promoted; counts from here on
-    _reset_launches()
+    cs.reset_launch_counts()
     b0 = {n: _batches(n) for n in ("alexnet", "alexnet#canary")}
     dep = plat.deploy_canary("alexnet", 2, fraction=CHAOS_FRACTION,
                              gate=CanaryGate(max_accuracy_delta=limit))
@@ -738,14 +715,14 @@ def quantized_canary(torch, dev, v, t) -> dict:
                                   torch.from_numpy(ref8.output(x))))
     torch.cuda.synchronize()
     int8_fw = canary_fw + prom["warmup"]["forwards"] + _batches("alexnet") - b1
-    launches = _launches()
+    launches = cs.launch_counts()
     # the int8 network's routed dense layers are row 4's; the float32
     # incumbent's shadow compares launch row 1
     want = {"matmul_bias_act_int8": 2 * int8_fw,
             "matmul_bias_act": cs.mln_expected_launches(
                 t["refs"]["alexnet"].conf, f32_fw)}
     got = {k: launches[k] for k in want}
-    _log(f"[29e] int8 canary v2: {canary['requests']} requests, "
+    cs.log(f"[29e] int8 canary v2: {canary['requests']} requests, "
          f"{canary['accuracy_samples']} shadow compares, max |delta| "
          f"{canary['accuracy_max_delta']:.3e} (limit {limit:.3e}): held; "
          f"promoted in {promote_ms:.1f} ms; {int8_fw} int8 forwards, "
@@ -779,7 +756,7 @@ def parallel_inference(torch, dev, v, t, c) -> dict:
     ref = c["ref2"]
     rng = np.random.default_rng(PLAT_SEED + 5)
     shape = t["images"]["resnet"]
-    _reset_launches()
+    cs.reset_launch_counts()
     worst, t0 = 0.0, time.monotonic()
     for n in PI_SIZES:
         x = _images(rng, n, shape)
@@ -788,7 +765,7 @@ def parallel_inference(torch, dev, v, t, c) -> dict:
     torch.cuda.synchronize()
     sweep_s = time.monotonic() - t0
     forwards = sum(pi.workers for _ in PI_SIZES)
-    launches = _launches()["matmul_bias_act"]
+    launches = cs.launch_counts()["matmul_bias_act"]
     miss0 = _misses()
     for n in PI_SIZES:
         pi.output(_images(rng, n, shape))
@@ -797,7 +774,7 @@ def parallel_inference(torch, dev, v, t, c) -> dict:
     if launches != 36 * forwards:
         raise AssertionError(f"[29f] matmul_bias_act launched {launches} "
                              f"times for {forwards} forwards")
-    _log(f"[29f] ParallelInference over {pi.workers} card(s): sizes "
+    cs.log(f"[29f] ParallelInference over {pi.workers} card(s): sizes "
          f"{PI_SIZES.start}-{PI_SIZES.stop - 1} == use_kernels=False, max "
          f"|diff| {worst:.3e}; {launches} matmul_bias_act launches "
          f"({forwards} forwards); sweep {sweep_s:.2f} s with the stock "
@@ -825,7 +802,7 @@ def platform_phase(torch, dev, smi) -> tuple:
         finally:
             t["plat"].close()
     wall = time.monotonic() - t_start
-    _log(f"[29] serving platform in {wall:.1f} s [{smi}]")
+    cs.log(f"[29] serving platform in {wall:.1f} s [{smi}]")
     scope = "[29] the serving platform's traffic: "
     rows = {
         "matmul_bias_act": {
@@ -881,13 +858,13 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     smi = cs.nvidia_smi_line()
-    _log(smi)
+    cs.log(smi)
     t0 = time.monotonic()
     build.build_all(impls.SOURCES)
-    _log(f"[2] nvcc built {', '.join(impls.SOURCES)} in "
+    cs.log(f"[2] nvcc built {', '.join(impls.SOURCES)} in "
          f"{time.monotonic() - t0:.1f} s")
     line, rows = platform_phase(torch, dev, smi)
-    _log(json.dumps({"platform": line, "rows": rows}))
+    cs.log(json.dumps({"platform": line, "rows": rows}))
     return 0
 
 

@@ -104,10 +104,6 @@ RATT = dict(n_out=256, n_heads=4, batch=8, t=128, n_in=47)
 RATT_RTOL = 1e-5
 
 
-def _log(msg: str) -> None:
-    cs.log(msg)
-
-
 def _rel(a, b) -> float:
     """|a - b| / |b| (L2) of two tensors or arrays, in float64."""
     a = np.asarray(a, np.float64)
@@ -273,7 +269,7 @@ def text_generation(torch, dev, smi) -> dict:
     line["a"] = a
     if not a["passes"] or a["segments"] != [TEXT_T // TEXT_SEG] * TEXT_FITS:
         failures.append(f"(a) card vs CPU: {a}")
-    _log(f"[27a] TextGenerationLSTM ({n_params:,} params, B {TEXT_BATCH}, "
+    cs.log(f"[27a] TextGenerationLSTM ({n_params:,} params, B {TEXT_BATCH}, "
          f"T {TEXT_T}, tBPTT {TEXT_SEG}/{TEXT_SEG}): forward rel L2 "
          f"{out_err:.3e} (<= {TEXT_OUT_RTOL}); {TEXT_FITS} fit_batch x "
          f"{a['segments'][0]} segments, worst segment loss rel "
@@ -289,7 +285,7 @@ def text_generation(torch, dev, smi) -> dict:
     if d["passes"]:
         failures.append(f"(d) the zeroed-carry control passed (a)'s gates: "
                         f"{d}")
-    _log(f"[27d] planted control (carries zeroed every segment): worst "
+    cs.log(f"[27d] planted control (carries zeroed every segment): worst "
          f"segment loss rel {d['worst_loss_rel']:.3e}, state rel L2 "
          f"{d['worst_state_rel_l2']:.3e}: "
          f"{'caught' if not d['passes'] else 'MISSED'}")
@@ -307,7 +303,7 @@ def text_generation(torch, dev, smi) -> dict:
     if b_loss > TEXT_ONE_SEG_RTOL or b_state > TEXT_ONE_SEG_RTOL \
             or line["b"]["segments"] != 1:
         failures.append(f"(b) one-segment tBPTT vs STANDARD: {line['b']}")
-    _log(f"[27b] tBPTT {TEXT_T}/{TEXT_T} (one segment) vs STANDARD on the "
+    cs.log(f"[27b] tBPTT {TEXT_T}/{TEXT_T} (one segment) vs STANDARD on the "
          f"card: loss rel {b_loss:.3e}, params rel L2 {b_state:.3e} (<= "
          f"{TEXT_ONE_SEG_RTOL})")
     del nets
@@ -322,7 +318,7 @@ def text_generation(torch, dev, smi) -> dict:
     want = -(-TEXT_T_RAGGED // TEXT_SEG)
     if not c["passes"] or c["segments"] != [want] * TEXT_FITS:
         failures.append(f"(c) back < fwd card vs CPU: {c}")
-    _log(f"[27c] tBPTT {TEXT_SEG}/{TEXT_BACK} at T {TEXT_T_RAGGED} "
+    cs.log(f"[27c] tBPTT {TEXT_SEG}/{TEXT_BACK} at T {TEXT_T_RAGGED} "
          f"(padded to {want * TEXT_SEG}, {want} segments): worst "
          f"segment loss rel {c['worst_loss_rel']:.3e}, state rel L2 "
          f"{c['worst_state_rel_l2']:.3e}")
@@ -344,7 +340,7 @@ def text_generation(torch, dev, smi) -> dict:
                  "distinct_chars": int(len(np.unique(fed)))}
     if stream_err > TEXT_STREAM_RTOL or not bits:
         failures.append(f"(e) sampling: {line['e']}")
-    _log(f"[27e] {TEXT_BATCH} streams, {TEXT_PRIME}-character prime + "
+    cs.log(f"[27e] {TEXT_BATCH} streams, {TEXT_PRIME}-character prime + "
          f"{TEXT_GEN} greedy rnn_time_step steps: streamed vs one output "
          f"rel L2 {stream_err:.3e} (<= {TEXT_STREAM_RTOL}); get / clear / "
          f"set at step {TEXT_RESUME_AT} resumes bit for bit: {bits}; "
@@ -379,7 +375,7 @@ def text_generation(torch, dev, smi) -> dict:
         "forward_ms_t200": fwd_ms,
         "chars_per_s": chars_per_s}
     f = line["f"]
-    _log(f"[27f] a tBPTT segment (B {TEXT_BATCH} x {TEXT_SEG} steps): "
+    cs.log(f"[27f] a tBPTT segment (B {TEXT_BATCH} x {TEXT_SEG} steps): "
          f"{f['segment_ms']:.2f} ms wall ({f['segment_ms_traced']:.2f} "
          f"under the profiler), {f['segment_device_ms']:.2f} ms device, "
          f"{f['launches_per_segment']:.0f} kernel launches, idle "
@@ -387,7 +383,7 @@ def text_generation(torch, dev, smi) -> dict:
          f"{fwd_ms:.2f} ms; peak {f['peak_mib']:.1f} MiB "
          f"({f['peak_above_params_mib']:.1f} above the resident state); "
          f"{chars_per_s:.1f} characters/s [{smi}]")
-    _log(f"[27f] device top: {prof['top']}; host top: {prof['host_top']}")
+    cs.log(f"[27f] device top: {prof['top']}; host top: {prof['host_top']}")
     line["seconds"] = time.monotonic() - t_start
     if failures:
         raise AssertionError("[27] " + "; ".join(failures))
@@ -637,7 +633,7 @@ def sequence_attention(torch, F, att, dev, smi) -> tuple:
     t0 = time.monotonic()
     model = seq_model(torch, dev, att)
     s = model["steps"]
-    _log(f"[28b] LSTM(256) + LearnedSelfAttentionLayer(256, 4 heads x 64, "
+    cs.log(f"[28b] LSTM(256) + LearnedSelfAttentionLayer(256, 4 heads x 64, "
          f"8 queries, flash) + RnnOutputLayer(47), {model['params']:,} "
          f"params, B {SEQ_BATCH} x T {SEQ_MODEL['t']} ragged mask: "
          f"{SEQ_STEPS} steps flash vs reference, worst loss rel "
@@ -647,14 +643,14 @@ def sequence_attention(torch, F, att, dev, smi) -> tuple:
          f"{model['launches_per_step'][0]}; output launches "
          f"{model['output_launches']}")
     ratt = recurrent_attention(torch, dev)
-    _log(f"[28c] RecurrentAttentionLayer(256, 4 heads), B {RATT['batch']} "
+    cs.log(f"[28c] RecurrentAttentionLayer(256, 4 heads), B {RATT['batch']} "
          f"x T {RATT['t']} masked: card vs CPU worst rel L2 "
          f"{ratt['worst']:.3e} (<= {RATT_RTOL})")
     rows = time_seq_attention(torch, F, att, dev,
                               model["launches_per_step"][0])
     for name, rs in rows.items():
         for r in rs:
-            _log(f"[28d] {name} B={r['b']} H={r['h']} Tq={r['tq']} "
+            cs.log(f"[28d] {name} B={r['b']} H={r['h']} Tq={r['tq']} "
                  f"Tk={r['tk']} D={r['d']} masked: kernel {r['ms']:.4f} ms "
                  f"(device {r['device_ms']}), plain {r['plain_ms']:.4f}, "
                  f"masked SDPA {r['library_ms']:.4f}, bound "
@@ -683,18 +679,18 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     smi = cs.nvidia_smi_line()
-    _log(smi)
+    cs.log(smi)
     t0 = time.monotonic()
     build.build_all(impls.SOURCES)
-    _log(f"[2] nvcc built {', '.join(impls.SOURCES)} in "
+    cs.log(f"[2] nvcc built {', '.join(impls.SOURCES)} in "
          f"{time.monotonic() - t0:.1f} s")
     cs.check_flash(torch, att, dev, cases=(), suffix=False)
     cs.check_flash_bwd(torch, att, dev, cases=())
     text = text_generation(torch, dev, smi)
     seq, rows = sequence_attention(torch, F, att, dev, smi)
-    _log(json.dumps({"trained_text_lstm": text}))
-    _log(json.dumps({"sequence_attention": seq, "rows": rows}))
-    _log(f"[28] total {time.monotonic() - t0:.1f} s")
+    cs.log(json.dumps({"trained_text_lstm": text}))
+    cs.log(json.dumps({"sequence_attention": seq, "rows": rows}))
+    cs.log(f"[28] total {time.monotonic() - t0:.1f} s")
     return 0
 
 

@@ -260,8 +260,23 @@ Phases, in order; any failure exits non-zero:
    with a spoiled calibration and held, then promoted, with the real one
    (row 4); ``ParallelInference`` over the card. Per tenant p50 latency and
    images/s or tokens/s, swap and rollback times, load seconds a version.
+30. the rest of the graph zoo (``chip_zoo.py``): VGG16, VGG19, SqueezeNet,
+   Darknet19, UNet, Xception, InceptionResNetV1, TinyYOLO, YOLO2 and
+   NASNet at their zoo defaults, float32, batch 8, seeded: the kernel
+   route against ``use_kernels=False`` (the logits' relative L2 within
+   the model's ``chip_zoo.LOGIT_REL_L2``, and row 1 with one TF32 product
+   a term outside it; ``matmul_bias_act`` launches a forward, at each
+   shape, equal to the sites ``routed_sites`` counts: 2, 2, 17, 7, 1, 4,
+   71, 1, 8, 28 in all; the output shape the configuration's), forward
+   ms, images/s and peak
+   memory a route; YOLO2 behind ``InferenceServer`` (8 one-image requests
+   against the stock route, the same detections after ``nms`` at the
+   stock route's 99th-percentile score, p50 latency); row 1 at VGG's
+   ``fc1`` / ``fc2``, SqueezeNet's ``conv10`` and InceptionResNetV1's and
+   YOLO2's largest 1x1 sites beside its plain version, ``F.linear`` + the
+   activation and the bounds.
 
-Then the ``{"platform": ...}``, ``{"trained_text_lstm": ...}``,
+Then the ``{"zoo": ...}``, ``{"platform": ...}``, ``{"trained_text_lstm": ...}``,
 ``{"sequence_attention": ...}``, ``{"trained_mln": ...}`` and
 ``{"trained_bf16": ...}`` lines, one
 ``{"kernels": [...]}`` line with every kernel (row 1 with its [21] shapes
@@ -269,7 +284,8 @@ and launches; rows 2 and 6-8 with their bf16 numbers under
 ``bf16_training``; rows 1, 2, 4, 5, 6 with [25]'s numbers under
 ``tuning``; row 2 with [26]'s under ``data_parallel``; rows 6-8 with
 [28]'s under ``seq_attention``; rows 1, 4, 5, 6 with [29]'s launches
-under ``platform``), the served,
+under ``platform``; row 1 with [30]'s launches and shapes under ``zoo``),
+the served,
 trained, generated, trained_lm, served_int8, prefix_cached, speculative,
 tuned and data_parallel lines, and last
 ``{"ok": true, "device": {...}}``. The whole run takes a few minutes on an H100, the
@@ -595,6 +611,29 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def launch_counts() -> dict:
+    """Launches of the serving kernels' wrappers since the last reset."""
+    from deeplearning4j_tpu_torch.kernels import impls
+    from deeplearning4j_tpu_torch.ops import attention as att
+
+    return {"matmul_bias_act": impls.matmul_bias_act.launches,
+            "matmul_bias_act_int8": impls.matmul_bias_act_int8.launches,
+            "flash_attention": att.flash_attention.launches,
+            "paged_decode_attention": att.paged_decode_attention.launches}
+
+
+def reset_launch_counts() -> None:
+    """Every count of ``launch_counts`` and ``matmul_bias_act``'s tally
+    by shape to 0."""
+    from deeplearning4j_tpu_torch.kernels import impls
+    from deeplearning4j_tpu_torch.ops import attention as att
+
+    for fn in (impls.matmul_bias_act, impls.matmul_bias_act_int8,
+               att.flash_attention, att.paged_decode_attention):
+        fn.launches = 0
+    impls.matmul_bias_act.shapes.clear()
+
+
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     return 1
@@ -708,16 +747,18 @@ def path_shapes(conf, batch: int):
     return out
 
 
-def randomize_bn(net, seed: int) -> None:
+def randomize_bn(net, seed: int, gamma=(0.1, 0.5)) -> None:
     """Seeded BN statistics and affine, as a trained network has them (with
-    init's identity BN the random trunk saturates the softmax)."""
+    init's identity BN the random trunk saturates the softmax): gamma
+    uniform in ``gamma``, beta and mean normal (0, 0.1), var uniform in
+    (0.5, 1.5)."""
     import torch
 
     gen = torch.Generator().manual_seed(seed)
     for name, st in net.state.items():
         n = st["mean"].numel()
         p = net.params[name]
-        p["gamma"].copy_(torch.empty(n).uniform_(0.1, 0.5, generator=gen))
+        p["gamma"].copy_(torch.empty(n).uniform_(*gamma, generator=gen))
         p["beta"].copy_(torch.empty(n).normal_(0.0, 0.1, generator=gen))
         st["mean"].copy_(torch.empty(n).normal_(0.0, 0.1, generator=gen))
         st["var"].copy_(torch.empty(n).uniform_(0.5, 1.5, generator=gen))
@@ -5523,6 +5564,13 @@ def main() -> int:
     for row in report["kernels"]:
         if row["name"] in plat_rows:
             row["platform"] = plat_rows[row["name"]]
+    # 30. the rest of the graph zoo at full width, row 1 at every routed site
+    torch.cuda.empty_cache()
+    import chip_zoo
+
+    zoo_line, report["kernels"][0]["zoo"] = chip_zoo.zoo_phase(torch, F, dev,
+                                                               smi)
+    log(json.dumps({"zoo": zoo_line}))
     log(json.dumps({"platform": plat_line}))
     log(json.dumps({"trained_text_lstm": text_line}))
     log(json.dumps({"sequence_attention": seq_line}))
@@ -5538,7 +5586,7 @@ def main() -> int:
     log(json.dumps({"speculative": spec_line}))
     log(json.dumps({"tuned": tuned_line}))
     log(json.dumps({"data_parallel": dp_line}))
-    log(f"[29] total wall time of the script {time.monotonic() - t_start:.1f}"
+    log(f"[30] total wall time of the script {time.monotonic() - t_start:.1f}"
         f" s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

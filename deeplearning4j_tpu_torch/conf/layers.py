@@ -127,15 +127,17 @@ def promote(*tensors):
     return tuple(None if t is None else t.to(dt) for t in tensors)
 
 
-def _fold_out_channels(layer, params, key, scale, shift):
-    """``params[key]`` (output channels on axis 0: dense [nOut, nIn], conv
-    OIHW) times ``scale`` and the bias ``b*scale + shift``, computed in
-    float32 and stored in the weight's dtype; the layer gains a bias."""
+def _fold_out_channels(layer, params, key, scale, shift, axis=0):
+    """``params[key]`` (output channels on ``axis``: 0 for dense [nOut,
+    nIn] and conv OIHW, 1 for a transposed conv's [in, out, kh, kw]) times
+    ``scale`` and the bias ``b*scale + shift``, computed in float32 and
+    stored in the weight's dtype; the layer gains a bias."""
     w = params[key]
     dt = w.dtype
     scale = torch.as_tensor(scale, dtype=torch.float32, device=w.device)
     shift = torch.as_tensor(shift, dtype=torch.float32, device=w.device)
-    view = (-1,) + (1,) * (w.ndim - 1)
+    view = [1] * w.ndim
+    view[axis] = -1
     out = dict(params)
     out[key] = (w.float() * scale.reshape(view)).to(dt)
     b = params["b"].float() if layer.has_bias else 0.0

@@ -1,11 +1,15 @@
 """Convolutional / pooling / normalization layer configs.
 
-Reference confs: ``ConvolutionLayer``, ``SubsamplingLayer``,
+Reference confs: ``ConvolutionLayer``, ``Convolution1DLayer``,
+``SeparableConvolution2D``, ``Deconvolution2D``, ``SubsamplingLayer``,
 ``BatchNormalization``, ``LocalResponseNormalization``,
-``GlobalPoolingLayer``, ``ZeroPaddingLayer``, ``SpaceToDepthLayer`` and the
-JAX package's ``FusedConvBN1x1`` (``org.deeplearning4j.nn.conf.layers``). Fields and
-``@type`` tags are the JAX package's. Tensors are logical NCHW in
-``channels_last`` memory; weights are OIHW.
+``GlobalPoolingLayer``, ``Upsampling2D``, ``ZeroPaddingLayer``,
+``Cropping2D``, ``SpaceToDepthLayer``, ``CnnLossLayer`` and the JAX
+package's ``FusedConvBN1x1`` (``org.deeplearning4j.nn.conf.layers``).
+Fields and ``@type`` tags are the JAX package's. Tensors are logical NCHW
+in ``channels_last`` memory; weights are OIHW (a ``Deconvolution2D``'s are
+``[in, out, kh, kw]``, ``F.conv_transpose2d``'s layout; a
+``Convolution1DLayer``'s ``[out, in, k]``, ``F.conv1d``'s).
 
 ``ConvolutionMode.SAME`` follows XLA, not PyTorch: the output is
 ``ceil(size / stride)`` and an odd total padding puts the extra element on
@@ -26,12 +30,14 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch import serde
 from deeplearning4j_tpu_torch.comms import global_batch
 from deeplearning4j_tpu_torch.conf import inputs as it
+from deeplearning4j_tpu_torch.conf.activations import Activation
 from deeplearning4j_tpu_torch.conf.layers import (
     BaseLayer,
     Layer,
     _as_ff_size,
     _fold_out_channels,
 )
+from deeplearning4j_tpu_torch.conf.losses import ILossFunction, LossMCXENT
 
 
 @serde.register_enum
@@ -120,7 +126,10 @@ class ConvolutionLayer(BaseLayer):
         in_c = input_type.channels
         w = self.weight_init.init(gen, (self.n_out, in_c, kh, kw), kh * kw * in_c,
                                   kh * kw * self.n_out, dtype, self.distribution)
-        params = {"W": w}
+        return self._with_bias({"W": w}, dtype)
+
+    def _with_bias(self, params, dtype):
+        """``params`` plus the bias ``b`` (``bias_init``) when ``has_bias``."""
         if self.has_bias:
             params["b"] = torch.full((self.n_out,), self.bias_init, dtype=dtype)
         return params
@@ -148,6 +157,181 @@ class ConvolutionLayer(BaseLayer):
         put the output channel first. The caller guarantees the activation
         is IDENTITY."""
         return _fold_out_channels(self, params, "W", scale, shift)
+
+
+def _conv1d_pads(size, mode, kernel, stride, padding) -> Tuple[int, int]:
+    """(low, high) time padding of a ``Convolution1DLayer``: XLA's SAME
+    split, or ``padding1d`` on both sides."""
+    if mode is ConvolutionMode.SAME:
+        return _same_pads(size, kernel, stride)
+    return padding, padding
+
+
+@serde.register
+@dataclasses.dataclass
+class Convolution1DLayer(ConvolutionLayer):
+    """Reference ``Convolution1DLayer``: a convolution over the time axis
+    of ``[batch, time, features]`` sequences (the JAX package's NWC; the
+    reference's ``[b, f, t]``). W is ``[out, in, k]``; the input is
+    transposed to ``F.conv1d``'s ``[b, f, t]`` and back."""
+
+    kernel: int = 3
+    stride1d: int = 1
+    padding1d: int = 0
+
+    def output_type(self, input_type):
+        if not isinstance(input_type, it.Recurrent):
+            raise ValueError(
+                f"Convolution1DLayer needs sequence input, got {input_type}")
+        t = input_type.timesteps
+        if t > 0:
+            t = _out_size(t, self.kernel, self.stride1d, self.padding1d,
+                          self.convolution_mode)
+        return it.Recurrent(size=self.n_out, timesteps=t)
+
+    def init(self, gen, input_type, dtype=torch.float32):
+        in_c = input_type.size
+        w = self.weight_init.init(gen, (self.n_out, in_c, self.kernel),
+                                  self.kernel * in_c, self.kernel * self.n_out,
+                                  dtype, self.distribution)
+        return self._with_bias({"W": w}, dtype)
+
+    def forward(self, params, state, x, train=False, gen=None):
+        x = self._dropout_input(x, train, gen).transpose(1, 2)
+        lo, hi = _conv1d_pads(x.shape[2], self.convolution_mode, self.kernel,
+                              self.stride1d, self.padding1d)
+        b = params["b"] if self.has_bias else None
+        y = F.conv1d(F.pad(x, (lo, hi)), params["W"], b, self.stride1d)
+        return self.activation.apply(y.transpose(1, 2)), state
+
+    def streaming_safe(self) -> bool:
+        """``rnn_time_step`` cuts the sequence at arbitrary boundaries: a
+        window spanning one would see zeros instead of the previous chunk's
+        steps. Only a pointwise, unpadded, stride-1 conv is exact."""
+        return (self.kernel == 1 and self.stride1d == 1
+                and (self.convolution_mode is ConvolutionMode.SAME
+                     or self.padding1d == 0))
+
+    def resize_mask(self, mask):
+        """A ``[batch, time]`` mask through this layer's time geometry
+        (reference ``feedForwardMaskArray``): an output step is valid iff
+        any input step in its window is, the mask max-pooled with the
+        conv's kernel, stride and padding; padding counts as 0."""
+        lo, hi = _conv1d_pads(mask.shape[1], self.convolution_mode,
+                              self.kernel, self.stride1d, self.padding1d)
+        m = F.pad(mask[:, None, :], (lo, hi))
+        # the JAX package's reduce_window starts every window at 0.0
+        return F.max_pool1d(m, self.kernel, self.stride1d)[:, 0].clamp(min=0.0)
+
+
+@serde.register
+@dataclasses.dataclass
+class SeparableConvolution2D(ConvolutionLayer):
+    """Reference ``SeparableConvolution2D``: a depthwise convolution
+    (``depth_multiplier`` filters per input channel, ``groups = in_c``)
+    then a pointwise 1x1. ``dW`` is ``[in_c * mult, 1, kh, kw]``: output
+    channel ``c * mult + m`` is input channel ``c``'s ``m``-th filter, the
+    order of XLA's grouped convolution. ``pW`` is ``[n_out, in_c * mult,
+    1, 1]``. The depthwise stage takes the stride, dilation and padding
+    (SAME: XLA's split, the odd element high)."""
+
+    depth_multiplier: int = 1
+
+    def init(self, gen, input_type, dtype=torch.float32):
+        kh, kw = _pair(self.kernel_size)
+        in_c = input_type.channels
+        mid = in_c * self.depth_multiplier
+        dw = self.weight_init.init(gen, (mid, 1, kh, kw), kh * kw * in_c,
+                                   kh * kw * mid, dtype, self.distribution)
+        pw = self.weight_init.init(gen, (self.n_out, mid, 1, 1), mid,
+                                   self.n_out, dtype, self.distribution)
+        return self._with_bias({"dW": dw, "pW": pw}, dtype)
+
+    def param_order(self):
+        return ["dW", "pW", "b"] if self.has_bias else ["dW", "pW"]
+
+    def forward(self, params, state, x, train=False, gen=None):
+        x = self._dropout_input(x, train, gen)
+        pads = _window_pads(x, self.convolution_mode, self.kernel_size,
+                            self.stride, self.padding, self.dilation)
+        y = F.conv2d(F.pad(x, pads) if any(pads) else x, params["dW"], None,
+                     _pair(self.stride), 0, _pair(self.dilation),
+                     groups=x.shape[1])
+        b = params["b"] if self.has_bias else None
+        y = F.conv2d(y, params["pW"], b)
+        return self.activation.apply(y), state
+
+    def fold_scale_shift(self, params, scale, shift):
+        """The affine folds into the pointwise kernel (the last product
+        before the bias); the depthwise stage stays."""
+        return _fold_out_channels(self, params, "pW", scale, shift)
+
+
+@serde.register
+@dataclasses.dataclass
+class Deconvolution2D(ConvolutionLayer):
+    """Reference ``Deconvolution2D`` (transposed convolution), the JAX
+    package's function: a direct convolution over the stride-dilated
+    input with the spatially flipped kernel, padded ``(k-1-p, k-1-p)``
+    (TRUNCATE: output ``s*(i-1) + k - 2p``) or, for SAME (output ``i*s``),
+    ``s + k - 2`` in all split ``pt // 2`` low and the rest high.
+
+    W is ``[in, out, kh, kw]``, ``F.conv_transpose2d``'s layout, which
+    computes that convolution unflipped: ``conv_transpose2d`` without
+    padding is the full output (pads ``k - 1`` both sides), and the
+    layer's output is cut out of it (or padded with zeros where a pad
+    exceeds ``k - 1``). ``F.conv_transpose2d``'s own ``padding`` is
+    symmetric with ``output_padding`` high only and below the stride, so
+    it cannot express an odd ``s + k`` at stride 1. ``dilation`` is not
+    applied, as in the JAX package."""
+
+    def output_type(self, input_type):
+        kh, kw = _pair(self.kernel_size)
+        sh, sw = _pair(self.stride)
+        ph, pw = _pair(self.padding)
+        if self.convolution_mode is ConvolutionMode.SAME:
+            h = input_type.height * sh
+            w = input_type.width * sw
+        else:
+            h = sh * (input_type.height - 1) + kh - 2 * ph
+            w = sw * (input_type.width - 1) + kw - 2 * pw
+        return it.Convolutional(height=h, width=w, channels=self.n_out)
+
+    def init(self, gen, input_type, dtype=torch.float32):
+        kh, kw = _pair(self.kernel_size)
+        in_c = input_type.channels
+        w = self.weight_init.init(gen, (in_c, self.n_out, kh, kw),
+                                  kh * kw * in_c, kh * kw * self.n_out, dtype,
+                                  self.distribution)
+        return self._with_bias({"W": w}, dtype)
+
+    def _pads(self):
+        """The dilated input's (low, high) padding per spatial dim."""
+        out = []
+        for k, s, p in zip(_pair(self.kernel_size), _pair(self.stride),
+                           _pair(self.padding)):
+            if self.convolution_mode is ConvolutionMode.SAME:
+                total = s + k - 2
+                out.append((total // 2, total - total // 2))
+            else:
+                out.append((k - 1 - p, k - 1 - p))
+        return out
+
+    def forward(self, params, state, x, train=False, gen=None):
+        x = self._dropout_input(x, train, gen)
+        kh, kw = _pair(self.kernel_size)
+        (top, bottom), (left, right) = self._pads()
+        full = F.conv_transpose2d(x, params["W"], None, _pair(self.stride))
+        # F.pad with negative amounts cuts; the full output has pads k-1
+        y = F.pad(full, (left - (kw - 1), right - (kw - 1),
+                         top - (kh - 1), bottom - (kh - 1)))
+        if self.has_bias:
+            y = y + params["b"].reshape(1, -1, 1, 1)
+        return self.activation.apply(_channels_last(y)), state
+
+    def fold_scale_shift(self, params, scale, shift):
+        """The output channel is W's axis 1."""
+        return _fold_out_channels(self, params, "W", scale, shift, axis=1)
 
 
 @serde.register
@@ -509,3 +693,64 @@ class SpaceToDepthLayer(Layer):
                                                 bs * bs * c)
         # NHWC-contiguous, so the NCHW view is channels_last already
         return y.permute(0, 3, 1, 2), state
+
+
+@serde.register
+@dataclasses.dataclass
+class Upsampling2D(Layer):
+    """Reference ``Upsampling2D``: nearest-neighbour repeat, each pixel
+    ``size[0]`` times down and ``size[1]`` times across."""
+
+    size: Tuple[int, int] = (2, 2)
+
+    def output_type(self, input_type):
+        sh, sw = _pair(self.size)
+        return it.Convolutional(input_type.height * sh, input_type.width * sw,
+                                input_type.channels)
+
+    def forward(self, params, state, x, train=False, gen=None):
+        sh, sw = _pair(self.size)
+        y = x.repeat_interleave(sh, dim=2).repeat_interleave(sw, dim=3)
+        return _channels_last(y), state
+
+
+@serde.register
+@dataclasses.dataclass
+class Cropping2D(Layer):
+    """Reference ``Cropping2D``: ``cropping`` is ``(top, bottom, left,
+    right)`` rows and columns cut from the image."""
+
+    cropping: Tuple[int, int, int, int] = (0, 0, 0, 0)  # t, b, l, r
+
+    def output_type(self, input_type):
+        t, b, l, r = self.cropping
+        return it.Convolutional(input_type.height - t - b,
+                                input_type.width - l - r, input_type.channels)
+
+    def forward(self, params, state, x, train=False, gen=None):
+        t, b, l, r = self.cropping
+        h, w = x.shape[2], x.shape[3]
+        return x[:, :, t:h - b, l:w - r], state
+
+
+@serde.register
+@dataclasses.dataclass
+class CnnLossLayer(Layer):
+    """Reference ``CnnLossLayer``: the activation and loss per position
+    of an image (UNet's segmentation head); no params. Both act on the
+    NHWC view, so a softmax runs over the channels and labels (and a
+    mask) arrive in the JAX package's ``[b, h, w, c]`` layout."""
+
+    activation: Activation = Activation.IDENTITY
+    loss_fn: ILossFunction = dataclasses.field(default_factory=LossMCXENT)
+
+    def forward(self, params, state, x, train=False, gen=None):
+        y = self.activation.apply(x.permute(0, 2, 3, 1))
+        return y.permute(0, 3, 1, 2), state
+
+    def score(self, params, x, labels, mask=None):
+        return self.loss_fn.score(labels, x.permute(0, 2, 3, 1),
+                                  self.activation, mask)
+
+    def regularized_param_keys(self):
+        return []

@@ -52,6 +52,7 @@ from deeplearning4j_tpu_torch.kernels.routing import (  # noqa: F401
     maybe_forward,
     maybe_vertex_forward,
     plan_envelopes,
+    routed_sites,
 )
 from deeplearning4j_tpu_torch.kernels.tuner import (  # noqa: F401
     TUNING,

@@ -5,7 +5,8 @@ CPU, and for CUDA tensors launches its hand-written kernel (built from
 ``csrc/`` at first use, see :mod:`kernels.build`) or raises: there is no
 fallback. A wrapper counts its kernel launches in ``<wrapper>.launches`` (a
 plain int, never touched by the plain path), so a run can show that its
-main path went through the kernel. The tuned wrappers take a ``tiling``
+main path went through the kernel; ``matmul_bias_act.shapes`` also tallies
+its launches by ``(M, K, N, activation)``. The tuned wrappers take a ``tiling``
 (:mod:`kernels.registry`); None passes 0, the launcher's default rule.
 
 ``matmul_bias_act`` replaces the JAX package's Pallas kernel
@@ -27,6 +28,7 @@ the kernel route trains exactly like the stock route.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import threading
 
@@ -104,9 +106,13 @@ def _int8_library() -> ctypes.CDLL:
     return build.load(INT8_SOURCE, _INT8_SIGNATURES)
 
 
-def count(wrapper, counter: str = "launches") -> None:
+def count(wrapper, counter: str = "launches", shape=None) -> None:
+    """One launch of ``wrapper``'s kernel; ``shape`` also tallies it in
+    ``wrapper.shapes``."""
     with _COUNT_LOCK:
         setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+        if shape is not None:
+            wrapper.shapes[shape] += 1
 
 
 def stream(t: torch.Tensor) -> int:
@@ -170,7 +176,7 @@ def _matmul_bias_act_cuda(x, w, b, act, tiling):
         DTYPE_IDS[x.dtype], ACTIVATION_IDS[act.value], bm, bn, x.device.index,
         stream(x))
     raise_on_error("matmul_bias_act", rc)
-    count(matmul_bias_act)
+    count(matmul_bias_act, shape=(m, k, n, act.value))
     return y
 
 
@@ -222,6 +228,7 @@ def matmul_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 matmul_bias_act.launches = 0
+matmul_bias_act.shapes = collections.Counter()
 
 
 # --------------------------------------------------------------------------

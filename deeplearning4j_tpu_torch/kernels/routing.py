@@ -508,26 +508,24 @@ def _layer_envelope(layer, itype, batch: int, dtype,
     return None
 
 
-def plan_envelopes(conf, batch: int,
-                   mode: Optional[str] = None) -> List[Tuple[str, object]]:
-    """The ``(kernel_id, envelope)`` list a ``use_kernels`` forward or fit
-    of this conf at ``batch`` routes: what :func:`autotune_model` tunes.
-    Derived from the conf's static shape chain, so it needs no params or
-    data. Takes a MultiLayerConfiguration (layer chain) or a
-    ComputationGraphConfiguration (DAG walk over its LayerVertex specs,
-    preprocessors applied). ``mode``: the envelopes' backend ("cuda" or
-    "cpu"; default :func:`default_mode`), so the CPU can plan the card's."""
+def routed_sites(conf, batch: int, mode: Optional[str] = None
+                 ) -> List[Tuple[str, str, object]]:
+    """``(site, kernel_id, envelope)`` for every layer a ``use_kernels``
+    forward or fit of this conf at ``batch`` routes, in topological order:
+    one kernel launch a site and forward. ``site`` is a graph's vertex
+    name or a MultiLayerNetwork's layer index. Derived from the conf's
+    static shape chain, so it needs no params or data. Takes a
+    MultiLayerConfiguration (layer chain) or a
+    ComputationGraphConfiguration (DAG walk over its single-input
+    LayerVertex specs, preprocessors applied). ``mode``: the envelopes'
+    backend ("cuda" or "cpu"; default :func:`default_mode`), so the CPU can
+    plan the card's."""
     dtype = getattr(conf, "compute_dtype", None) or conf.dtype
-    out: List[Tuple[str, object]] = []
-    seen = set()
+    out: List[Tuple[str, str, object]] = []
 
-    def add(pair):
-        if pair is None:
-            return
-        kid, env = pair
-        if (kid, env.key) not in seen:
-            seen.add((kid, env.key))
-            out.append((kid, env))
+    def add(site, pair):
+        if pair is not None:
+            out.append((site,) + pair)
 
     if hasattr(conf, "vertices"):  # ComputationGraphConfiguration
         types = conf.vertex_output_types()
@@ -544,10 +542,25 @@ def plan_envelopes(conf, batch: int,
             if pre is not None and itype is not None:
                 itype = pre.output_type(itype)
             if itype is not None:
-                add(_layer_envelope(layer, itype, batch, dtype, mode))
+                add(name, _layer_envelope(layer, itype, batch, dtype, mode))
     else:
-        for layer, itype in zip(conf.layers, conf.input_types()):
-            add(_layer_envelope(layer, itype, batch, dtype, mode))
+        for i, (layer, itype) in enumerate(zip(conf.layers,
+                                               conf.input_types())):
+            add(str(i), _layer_envelope(layer, itype, batch, dtype, mode))
+    return out
+
+
+def plan_envelopes(conf, batch: int,
+                   mode: Optional[str] = None) -> List[Tuple[str, object]]:
+    """The distinct ``(kernel_id, envelope)`` pairs of
+    :func:`routed_sites`, in first-seen order: what :func:`autotune_model`
+    tunes."""
+    out: List[Tuple[str, object]] = []
+    seen = set()
+    for _, kid, env in routed_sites(conf, batch, mode):
+        if (kid, env.key) not in seen:
+            seen.add((kid, env.key))
+            out.append((kid, env))
     return out
 
 

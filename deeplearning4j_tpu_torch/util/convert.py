@@ -4,6 +4,12 @@ The JAX package keeps conv weights HWIO ``[kh, kw, in, out]`` and dense
 weights ``[nIn, nOut]``; the port keeps conv weights OIHW
 ``[out, in, kh, kw]`` and dense weights ``[nOut, nIn]`` (torch's
 ``nn.Linear`` layout, K-contiguous for the ``matmul_bias_act`` kernel).
+A ``SeparableConvolution2D``'s ``dW`` (HWIO ``[kh, kw, 1, in*mult]``) and
+``pW`` (``[1, 1, in*mult, out]``) become OIHW the same way; a
+``Deconvolution2D``'s ``W`` becomes ``[in, out, kh, kw]``
+(``F.conv_transpose2d``'s layout) and a ``Convolution1DLayer``'s ``[k,
+in, out]`` becomes ``[out, in, k]`` (``F.conv1d``'s). A conv weight of any
+other rank has no rule and raises.
 ``SelfAttentionLayer``'s projections ``Wq/Wk/Wv`` ``[nIn, e]`` and ``Wo``
 ``[e, nOut]`` are transposed the same way, to ``[e, nIn]`` and
 ``[nOut, e]``, and so are ``AttentionVertex``'s (a graph vertex with
@@ -56,8 +62,11 @@ from deeplearning4j_tpu_torch.conf.layers_attention import (
     SelfAttentionLayer,
 )
 from deeplearning4j_tpu_torch.conf.layers_cnn import (
+    Convolution1DLayer,
     ConvolutionLayer,
+    Deconvolution2D,
     FusedConvBN1x1,
+    SeparableConvolution2D,
 )
 from deeplearning4j_tpu_torch.conf.layers_rnn import (
     BaseRecurrentLayer,
@@ -79,18 +88,34 @@ def layout_perm(layer, key: str, ndim: int):
                            LearnedSelfAttentionLayer))
             and key in _ATTN_WEIGHTS):
         return (1, 0)  # [out, in] -> [in, out]
+    if isinstance(layer, SeparableConvolution2D) and key in ("dW", "pW"):
+        return _conv_perm(layer, key, ndim, 4, (2, 3, 1, 0))  # OIHW -> HWIO
     if key != "W":
         return None
     if isinstance(layer, (BaseRecurrentLayer, Bidirectional,
                           RecurrentAttentionLayer)):
         return None  # the JAX package's [in, out] in both packages
+    if isinstance(layer, Convolution1DLayer):
+        return _conv_perm(layer, key, ndim, 3, (2, 1, 0))  # [out, in, k]
+    if isinstance(layer, Deconvolution2D):
+        return _conv_perm(layer, key, ndim, 4, (2, 3, 0, 1))  # [in, out, ..]
     if isinstance(layer, (ConvolutionLayer, FusedConvBN1x1)):
-        return (2, 3, 1, 0)  # OIHW -> HWIO
+        return _conv_perm(layer, key, ndim, 4, (2, 3, 1, 0))  # OIHW -> HWIO
     if isinstance(layer, DenseLayer):
         return (1, 0)  # [nOut, nIn] -> [nIn, nOut]
     if isinstance(layer, (EmbeddingLayer, EmbeddingSequenceLayer)):
         return None
     raise ValueError(f"no weight layout rule for {type(layer).__name__}")
+
+
+def _conv_perm(layer, key, ndim, rank, perm):
+    """``perm`` for a conv weight of its layer's ``rank``; any other rank
+    (a 3-D weight on a 2-D conv, say) has no rule."""
+    if ndim != rank:
+        raise ValueError(f"no {ndim}-D layout rule for "
+                         f"{type(layer).__name__}.{key} (its weights are "
+                         f"{rank}-D)")
+    return perm
 
 
 def convert_layer_params(layer, params: Dict[str, object]) -> Dict[str, torch.Tensor]:

@@ -1,11 +1,27 @@
-"""Model zoo (reference: ``deeplearning4j-zoo``): ``ResNet50``,
-``TransformerEncoder``, ``LeNet``, ``SimpleCNN``, ``AlexNet`` and
-``TextGenerationLSTM``."""
+"""Model zoo (reference: ``deeplearning4j-zoo``): the graph models
+``VGG16``, ``VGG19``, ``ResNet50``, ``SqueezeNet``, ``Darknet19``,
+``UNet``, ``Xception``, ``InceptionResNetV1``, ``TinyYOLO``, ``YOLO2``,
+``NASNet`` and ``TransformerEncoder``; the sequential ``LeNet``,
+``SimpleCNN``, ``AlexNet`` and ``TextGenerationLSTM``."""
 
-from deeplearning4j_tpu_torch.zoo.graphs import ResNet50  # noqa: F401
-from deeplearning4j_tpu_torch.zoo.graphs import TransformerEncoder  # noqa: F401
-from deeplearning4j_tpu_torch.zoo.models import ZooModel  # noqa: F401
-from deeplearning4j_tpu_torch.zoo.models import AlexNet  # noqa: F401
-from deeplearning4j_tpu_torch.zoo.models import LeNet  # noqa: F401
-from deeplearning4j_tpu_torch.zoo.models import SimpleCNN  # noqa: F401
-from deeplearning4j_tpu_torch.zoo.models import TextGenerationLSTM  # noqa: F401
+from deeplearning4j_tpu_torch.zoo.graphs import (  # noqa: F401
+    VGG16,
+    VGG19,
+    Darknet19,
+    InceptionResNetV1,
+    NASNet,
+    ResNet50,
+    SqueezeNet,
+    TinyYOLO,
+    TransformerEncoder,
+    UNet,
+    Xception,
+    YOLO2,
+)
+from deeplearning4j_tpu_torch.zoo.models import (  # noqa: F401
+    AlexNet,
+    LeNet,
+    SimpleCNN,
+    TextGenerationLSTM,
+    ZooModel,
+)

@@ -25,7 +25,7 @@ for name in names:
     importlib.import_module(name)
 import chip_data_parallel, chip_gen_profile, chip_kernel_ab
 import chip_lenet_spread, chip_platform, chip_sequence, chip_smoke
-import chip_train_profile
+import chip_train_profile, chip_zoo
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))
 print(len(names), bad)
@@ -38,8 +38,9 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().splitlines()[-1].split(" ", 1)
     # every module of the port, checkpointing, the gradient check, the
-    # data-parallel slice's and the serving platform's modules included
-    assert int(count) >= 82
+    # data-parallel slice's, the serving platform's and the object
+    # detection layer's modules included
+    assert int(count) >= 83
     assert bad == "[]"
 
 
@@ -166,11 +167,19 @@ PLATFORM_MODULES = [
 ]
 
 
+# the zoo slice's new modules (object detection) and its chip phase
+ZOO_MODULES = [
+    "deeplearning4j_tpu_torch.conf.layers_objdetect",
+    "chip_zoo",
+]
+
+
 # a module named by two slices runs once, under its first slice's id
 @pytest.mark.parametrize("module", list(dict.fromkeys(
     GENERATION_MODULES + TRAINING_MODULES + QUANT_MODULES
     + MLN_TRAINING_MODULES + BF16_TRAINING_MODULES + TUNING_MODULES
-    + DATA_PARALLEL_MODULES + SEQUENCE_MODULES + PLATFORM_MODULES)))
+    + DATA_PARALLEL_MODULES + SEQUENCE_MODULES + PLATFORM_MODULES
+    + ZOO_MODULES)))
 def test_generation_module_alone_loads_no_jax(module):
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -190,7 +199,8 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                                  "chip_train_profile.py",
                                  "chip_gen_profile.py",
                                  "chip_lenet_spread.py",
-                                 "chip_sequence.py", "chip_platform.py")]
+                                 "chip_sequence.py", "chip_platform.py",
+                                 "chip_zoo.py")]
     offenders = [str(p.relative_to(ROOT)) for p in sources
                  if pattern.search(p.read_text())]
     assert offenders == []

@@ -11,6 +11,7 @@ reference); bfloat16 — both round an f32 result once to bf16, agreement to
 bf16 resolution (``tests/test_kernels.py``'s rtol 0.05, atol 0.1).
 """
 
+import collections
 import re
 from pathlib import Path
 
@@ -116,6 +117,28 @@ def test_cpu_wrapper_runs_plain_version_and_counts_no_launch():
     before = impls.probe.launches
     assert torch.equal(impls.probe(torch.zeros(8, 128)), torch.ones(8, 128))
     assert impls.probe.launches == before
+
+
+def test_cpu_wrapper_leaves_the_shape_tally_alone():
+    x, w, b = _inputs(8, 4, 3, seed=7)
+    before = dict(impls.matmul_bias_act.shapes)
+    t = torch.tensor
+    impls.matmul_bias_act(t(x), t(w.T.copy()), t(b), Activation.RELU)
+    assert dict(impls.matmul_bias_act.shapes) == before
+
+
+def test_count_tallies_a_launch_by_shape():
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    wrapper.shapes = collections.Counter()
+    impls.count(wrapper, shape=(8, 4, 3, "relu"))
+    impls.count(wrapper, shape=(8, 4, 3, "relu"))
+    impls.count(wrapper, shape=(2, 4, 3, "identity"))
+    impls.count(wrapper)
+    assert wrapper.launches == 4
+    assert wrapper.shapes == {(8, 4, 3, "relu"): 2, (2, 4, 3, "identity"): 1}
 
 
 @pytest.mark.parametrize("case", ["softmax", "shape", "bias", "dtype",
