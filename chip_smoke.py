@@ -275,8 +275,23 @@ Phases, in order; any failure exits non-zero:
    ``fc1`` / ``fc2``, SqueezeNet's ``conv10`` and InceptionResNetV1's and
    YOLO2's largest 1x1 sites beside its plain version, ``F.linear`` + the
    activation and the bounds.
+31. the rest of the layer DSL (``chip_layers.py``): every
+   ``conf/layers_extra.py`` layer on the card against the port on the
+   CPU (forward and gradients) at its full sizes; MobileNet-v1 (224x224x3,
+   width 1.0, batch 8) served on both routes (13 pointwise convs on row 1,
+   logits within ``chip_layers.MOBILENET_REL_L2`` and a one-TF32-product
+   control outside it); C3D (16x112x112x3 clips, 487 classes, batch 8)
+   trained 3 SGD steps on both routes (fc6 / fc7 on row 1, two launches a
+   step); row 1 at fc6, fc7 and MobileNet's first and last pointwise
+   convs beside ``F.linear`` + the activation and the bounds.
+32. the MoE transformer (``chip_moe.py``): the GPT-2-small-width LM with
+   8 experts, top-2, capacity 1.25, trained 3 Adam steps at 8 x 1024 on
+   both routes (rows 6-8 12 times a step; routing flips between the
+   routes counted and gated, the other tokens' logits held); its experts
+   across two gloo ranks on the card at 2 layers against one-rank
+   ``fit_batch``, and NCCL at one rank the same bits.
 
-Then the ``{"zoo": ...}``, ``{"platform": ...}``, ``{"trained_text_lstm": ...}``,
+Then the ``{"layers": ...}``, ``{"moe": ...}``, ``{"zoo": ...}``, ``{"platform": ...}``, ``{"trained_text_lstm": ...}``,
 ``{"sequence_attention": ...}``, ``{"trained_mln": ...}`` and
 ``{"trained_bf16": ...}`` lines, one
 ``{"kernels": [...]}`` line with every kernel (row 1 with its [21] shapes
@@ -284,7 +299,8 @@ and launches; rows 2 and 6-8 with their bf16 numbers under
 ``bf16_training``; rows 1, 2, 4, 5, 6 with [25]'s numbers under
 ``tuning``; row 2 with [26]'s under ``data_parallel``; rows 6-8 with
 [28]'s under ``seq_attention``; rows 1, 4, 5, 6 with [29]'s launches
-under ``platform``; row 1 with [30]'s launches and shapes under ``zoo``),
+under ``platform``; row 1 with [30]'s launches and shapes under ``zoo``
+and [31]'s under ``layers``; rows 6-8 with [32]'s launches under ``moe``),
 the served,
 trained, generated, trained_lm, served_int8, prefix_cached, speculative,
 tuned and data_parallel lines, and last
@@ -5570,6 +5586,24 @@ def main() -> int:
 
     zoo_line, report["kernels"][0]["zoo"] = chip_zoo.zoo_phase(torch, F, dev,
                                                                smi)
+    # 31. the rest of the layer DSL: every new layer card against CPU,
+    # MobileNet-v1 served and C3D trained on row 1
+    torch.cuda.empty_cache()
+    import chip_layers
+
+    layers_line, report["kernels"][0]["layers"] = \
+        chip_layers.layers_dsl_phase(torch, F, dev, smi)
+    # 32. the MoE transformer on rows 6-8: one rank, then experts across
+    # ranks of their own
+    torch.cuda.empty_cache()
+    import chip_moe
+
+    moe_line, moe_rows = chip_moe.moe_phase(torch, dev, smi)
+    for row in report["kernels"]:
+        if row["name"] in moe_rows:
+            row["moe"] = moe_rows[row["name"]]
+    log(json.dumps({"layers": layers_line}))
+    log(json.dumps({"moe": moe_line}))
     log(json.dumps({"zoo": zoo_line}))
     log(json.dumps({"platform": plat_line}))
     log(json.dumps({"trained_text_lstm": text_line}))
@@ -5586,7 +5620,7 @@ def main() -> int:
     log(json.dumps({"speculative": spec_line}))
     log(json.dumps({"tuned": tuned_line}))
     log(json.dumps({"data_parallel": dp_line}))
-    log(f"[30] total wall time of the script {time.monotonic() - t_start:.1f}"
+    log(f"[32] total wall time of the script {time.monotonic() - t_start:.1f}"
         f" s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

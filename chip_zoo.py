@@ -447,8 +447,8 @@ def zoo_shapes(rows) -> list:
     return out
 
 
-def time_zoo_shapes(torch, F, dev, shapes) -> list:
-    """[30c] row 1 at the zoo's shapes."""
+def time_zoo_shapes(torch, F, dev, shapes, phase="30c") -> list:
+    """[30c] row 1 at the zoo's shapes (``phase`` tags the log lines)."""
     from deeplearning4j_tpu_torch.conf.activations import Activation
     from deeplearning4j_tpu_torch.kernels import impls
 
@@ -466,7 +466,7 @@ def time_zoo_shapes(torch, F, dev, shapes) -> list:
         err = float((y - ref).abs().max())
         bad = int(((y - ref).abs() > atol + rtol * ref.abs()).sum())
         if bad or not torch.isfinite(y).all():
-            raise AssertionError(f"[30c] {label} m={m} k={k} n={n}: {bad} "
+            raise AssertionError(f"[{phase}] {label} m={m} k={k} n={n}: {bad} "
                                  f"elements outside atol={atol} rtol={rtol} "
                                  f"(max |err| {err})")
 
@@ -492,7 +492,7 @@ def time_zoo_shapes(torch, F, dev, shapes) -> list:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         }
         rows.append(row)
-        cs.log(f"[30c] {label} m={m} k={k} n={n} {act_name}: kernel "
+        cs.log(f"[{phase}] {label} m={m} k={k} n={n} {act_name}: kernel "
              f"{row['ms']:.4f} ms (device {row['device_ms']}), plain "
              f"{row['plain_ms']:.4f} ms, F.linear + {act_name} "
              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "

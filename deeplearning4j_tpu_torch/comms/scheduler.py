@@ -30,9 +30,10 @@ Trees flatten as JAX flattens them (dicts in sorted key order, lists and
 tuples in order, None holds no leaf).
 
 gloo holds CUDA tensors for ``all_reduce`` and ``broadcast``; its
-reduce-scatter and all-gather on CUDA tensors vary by torch version, so
-on CUDA tensors those two always run through an explicit host stage (copy to the CPU, the CPU
-collective, copy back), counted in :func:`stats` under ``host_staged``.
+reduce-scatter, all-gather and all-to-all on CUDA tensors vary by torch
+version, so on CUDA tensors those three always run through an explicit
+host stage (copy to the CPU, the CPU collective, copy back), counted in
+:func:`stats` under ``host_staged``.
 NCCL never takes that path. Every backend's errors raise.
 """
 
@@ -446,6 +447,21 @@ def all_gather(out: torch.Tensor, inp: torch.Tensor, group=None) -> None:
         out.copy_(host)
         return
     _single(_dist(), "all_gather")(out.view(-1), inp, group=group)
+
+
+def all_to_all(out: torch.Tensor, inp: torch.Tensor, group=None) -> None:
+    """``out`` row ``r`` <- rank ``r``'s ``inp`` row of this rank (both
+    ``[world, ...]``). gloo on CUDA tensors runs through the host stage."""
+    if not _joined():
+        out.copy_(inp)
+        return
+    if _backend(group) == "gloo" and inp.is_cuda:
+        _count(_STATS.host_staged, "all_to_all")
+        host = torch.empty(out.shape, dtype=out.dtype)
+        all_to_all(host, inp.cpu(), group)
+        out.copy_(host)
+        return
+    _dist().all_to_all_single(out, inp, group=group)
 
 
 def run_bucket(intent: str, vals, group=None):

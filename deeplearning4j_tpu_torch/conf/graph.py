@@ -364,8 +364,8 @@ class ElementWiseVertex(GraphVertex):
 
 def _feature_dim(x) -> int:
     """The reference's feature axis in the port's layout: channels (dim 1)
-    of a logical NCHW image, else the last dim."""
-    return 1 if x.ndim == 4 else x.ndim - 1
+    of a logical NCHW image or NCDHW volume, else the last dim."""
+    return 1 if x.ndim in (4, 5) else x.ndim - 1
 
 
 @serde.register

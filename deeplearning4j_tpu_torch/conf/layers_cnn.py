@@ -224,6 +224,18 @@ class Convolution1DLayer(ConvolutionLayer):
         return F.max_pool1d(m, self.kernel, self.stride1d)[:, 0].clamp(min=0.0)
 
 
+def depthwise_conv2d(x, w, b, mode, kernel, stride, padding,
+                     dilation=(1, 1)):
+    """The depthwise convolution of ``SeparableConvolution2D`` and
+    ``DepthwiseConvolution2D``: ``groups = in_c``, ``w`` ``[in_c * mult, 1,
+    kh, kw]``, so output channel ``j`` reads input channel ``j // mult``
+    (XLA's ``feature_group_count`` order); SAME pads XLA's split, the odd
+    element high."""
+    pads = _window_pads(x, mode, kernel, stride, padding, dilation)
+    return F.conv2d(F.pad(x, pads) if any(pads) else x, w, b, _pair(stride),
+                    0, _pair(dilation), groups=x.shape[1])
+
+
 @serde.register
 @dataclasses.dataclass
 class SeparableConvolution2D(ConvolutionLayer):
@@ -252,11 +264,9 @@ class SeparableConvolution2D(ConvolutionLayer):
 
     def forward(self, params, state, x, train=False, gen=None):
         x = self._dropout_input(x, train, gen)
-        pads = _window_pads(x, self.convolution_mode, self.kernel_size,
-                            self.stride, self.padding, self.dilation)
-        y = F.conv2d(F.pad(x, pads) if any(pads) else x, params["dW"], None,
-                     _pair(self.stride), 0, _pair(self.dilation),
-                     groups=x.shape[1])
+        y = depthwise_conv2d(x, params["dW"], None, self.convolution_mode,
+                             self.kernel_size, self.stride, self.padding,
+                             self.dilation)
         b = params["b"] if self.has_bias else None
         y = F.conv2d(y, params["pW"], b)
         return self.activation.apply(y), state
@@ -362,27 +372,39 @@ class SubsamplingLayer(Layer):
     def forward(self, params, state, x, train=False, gen=None):
         k, s = _pair(self.kernel_size), _pair(self.stride)
         pads = _window_pads(x, self.convolution_mode, k, s, self.padding)
+        return window_pool(x, self.pooling_type, k, s, pads, self.pnorm), \
+            state
 
-        def pad(v, value=0.0):
-            return F.pad(v, pads, value=value) if any(pads) else v
 
-        def window_sum(v):
-            return F.avg_pool2d(pad(v), k, s, divisor_override=1)
+def window_pool(x, pooling_type: PoolingType, kernel, stride, pads,
+                pnorm: int = 2):
+    """Pool an NCHW or NCDHW tensor over its spatial axes: ``kernel`` and
+    ``stride`` per axis, ``pads`` in ``F.pad`` order (last axis first).
+    Padded positions never count: -inf for MAX, 0 for SUM and PNORM
+    (``(sum |x|^p)^(1/p)``), left out of AVG's divisor (the count of real
+    elements in each window)."""
+    pool = F.max_pool2d if x.ndim == 4 else F.max_pool3d
+    avg = F.avg_pool2d if x.ndim == 4 else F.avg_pool3d
+    kernel, stride = tuple(kernel), tuple(stride)
 
-        if self.pooling_type is PoolingType.MAX:
-            y = F.max_pool2d(pad(x, float("-inf")), k, s)
-        elif self.pooling_type is PoolingType.SUM:
-            y = window_sum(x)
-        elif self.pooling_type is PoolingType.AVG:
-            ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
-                              device=x.device)
-            y = window_sum(x) / window_sum(ones)
-        elif self.pooling_type is PoolingType.PNORM:
-            p = float(self.pnorm)
-            y = window_sum(torch.abs(x) ** p) ** (1.0 / p)
-        else:
-            raise ValueError(f"unknown pooling type {self.pooling_type}")
-        return y, state
+    def pad(v, value=0.0):
+        return F.pad(v, pads, value=value) if any(pads) else v
+
+    def window_sum(v):
+        return avg(pad(v), kernel, stride, divisor_override=1)
+
+    if pooling_type is PoolingType.MAX:
+        return pool(pad(x, float("-inf")), kernel, stride)
+    if pooling_type is PoolingType.SUM:
+        return window_sum(x)
+    if pooling_type is PoolingType.AVG:
+        ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                          device=x.device)
+        return window_sum(x) / window_sum(ones)
+    if pooling_type is PoolingType.PNORM:
+        p = float(pnorm)
+        return window_sum(torch.abs(x) ** p) ** (1.0 / p)
+    raise ValueError(f"unknown pooling type {pooling_type}")
 
 
 def _channel_view(v, ndim):
@@ -632,7 +654,8 @@ class GlobalPoolingLayer(Layer):
             else:
                 y = torch.sum(torch.abs(x * m) ** 2.0, dim=1) ** 0.5
             return y, state
-        dims = (2, 3) if x.ndim == 4 else tuple(range(1, x.ndim - 1))
+        dims = (tuple(range(2, x.ndim)) if x.ndim in (4, 5)
+                else tuple(range(1, x.ndim - 1)))
         if self.pooling_type is PoolingType.MAX:
             return torch.amax(x, dim=dims), state
         if self.pooling_type is PoolingType.SUM:

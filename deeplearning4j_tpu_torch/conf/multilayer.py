@@ -267,11 +267,14 @@ def _insert_preprocessors(layers: List[Layer], input_type) -> List[Layer]:
     convolution or pooling layer follows flat image input
     (``InputType.convolutional_flat``), as the reference's
     ``InputType#getPreProcessorForInputType`` in setInputType does; flat
-    image input feeds any other layer as feed-forward. The 3-D CNN flatten
-    is not ported yet: a configuration that needs it raises."""
+    image input feeds any other layer as feed-forward. A dense layer after
+    3-D CNN input gets a ``Cnn3DToFeedForwardPreProcessor``."""
     from deeplearning4j_tpu_torch.conf.layers_cnn import (
         ConvolutionLayer,
         SubsamplingLayer,
+    )
+    from deeplearning4j_tpu_torch.conf.layers_extra import (
+        Cnn3DToFeedForwardPreProcessor,
     )
 
     out: List[Layer] = []
@@ -284,8 +287,11 @@ def _insert_preprocessors(layers: List[Layer], input_type) -> List[Layer]:
             cur = pre.output_type(cur)
         if isinstance(cur, it.Convolutional3D) and isinstance(layer,
                                                               DenseLayer):
-            raise NotImplementedError(
-                "Cnn3DToFeedForwardPreProcessor is not ported yet")
+            pre = Cnn3DToFeedForwardPreProcessor(
+                depth=cur.depth, height=cur.height, width=cur.width,
+                channels=cur.channels)
+            out.append(pre)
+            cur = pre.output_type(cur)
         if isinstance(cur, it.ConvolutionalFlat):
             if isinstance(layer, (ConvolutionLayer, SubsamplingLayer)):
                 pre = FeedForwardToCnnPreProcessor(

@@ -69,6 +69,7 @@ from deeplearning4j_tpu_torch.conf.layers_attention import (
 )
 from deeplearning4j_tpu_torch.conf.layers_cnn import GlobalPoolingLayer
 from deeplearning4j_tpu_torch.conf.layers_extra import PositionEmbeddingLayer
+from deeplearning4j_tpu_torch.conf.layers_moe import MoELayer
 
 
 def pow2_ladder(lo: int, hi: int) -> List[int]:
@@ -127,9 +128,14 @@ def _inference(fn):
 # the JAX decoder's refusals: pooling and learned-query attention do not
 # decode token by token, recurrent attention and every carry-bearing vertex
 # (recurrent layers, a streaming AttentionVertex) keep state the KV cache
-# does not hold
+# does not hold, and an MoE layer's capacity is shared over the batch's
+# rows (``_REASONS``)
 _REFUSED = (GlobalPoolingLayer, LearnedSelfAttentionLayer,
-            RecurrentAttentionLayer)
+            RecurrentAttentionLayer, MoELayer)
+_REASONS = {MoELayer: (": MoE routing is cross-row (capacity is shared "
+                       "over the whole batch), which breaks the decode "
+                       "shapes and the row independence continuous "
+                       "batching rests on")}
 
 
 class TransformerDecoder:
@@ -170,7 +176,8 @@ class TransformerDecoder:
                                                       "has_carry", False):
                 raise ValueError(
                     f"vertex {name!r} ({type(layer or spec.vertex).__name__})"
-                    " is not supported in the KV-cached decode path")
+                    " is not supported in the KV-cached decode path"
+                    + _REASONS.get(type(layer), ""))
             if isinstance(layer, SelfAttentionLayer):
                 layer._decode_check()  # causal + projected, or raise
                 self._attn[name] = types[spec.inputs[0]].size

@@ -80,6 +80,7 @@ from deeplearning4j_tpu_torch.conf.layers import (
     EmbeddingLayer,
     EmbeddingSequenceLayer,
 )
+from deeplearning4j_tpu_torch.conf.layers_moe import sum_aux_losses
 from deeplearning4j_tpu_torch.conf.multilayer import BackpropType
 from deeplearning4j_tpu_torch.datasets.dataset import (
     DataSet,
@@ -134,6 +135,8 @@ def _place(t: torch.Tensor, device, dtype=None) -> torch.Tensor:
     t = t.to(device=device, dtype=dtype or t.dtype, copy=True)
     if t.ndim == 4:  # conv weights match the channels_last activations
         t = t.contiguous(memory_format=torch.channels_last)
+    elif t.ndim == 5:  # 3-D conv weights match channels_last_3d volumes
+        t = t.contiguous(memory_format=torch.channels_last_3d)
     return t
 
 
@@ -363,15 +366,12 @@ class ComputationGraph(nn_io.HealthHooks):
                                 scale=self._image[i] if i < len(self._image)
                                 else True,
                                 ids=i < len(self._ids) and self._ids[i])
-            if t.ndim == 4:  # NHWC -> logical NCHW, channels_last memory
-                t = t.permute(0, 3, 1, 2)
+            t = nn_io.to_internal(t)
             xs.append(t)
         return xs
 
     def _to_host(self, t: torch.Tensor) -> np.ndarray:
-        t = t.to(self._dtype)
-        if t.ndim == 4:
-            t = t.permute(0, 2, 3, 1)
+        t = nn_io.to_external(t.to(self._dtype))
         if t.dtype == torch.bfloat16:  # numpy has no bfloat16
             t = t.float()
         return t.cpu().numpy()
@@ -467,6 +467,8 @@ class ComputationGraph(nn_io.HealthHooks):
         if global_batch.adds_regularization():  # once over the ranks
             loss = loss + solver.regularization_score(params,
                                                       self._layer_conf)
+        if train:  # eval must not pick up the last step's aux
+            loss = loss + sum_aux_losses(new_state, self._dtype)
         return loss, new_state
 
     def _layer_conf(self, name: str):

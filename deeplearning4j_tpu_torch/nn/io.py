@@ -55,6 +55,27 @@ def as_device(a, device, dtype: torch.dtype, compute_dtype: torch.dtype,
     return t.to(dtype).to(compute_dtype)
 
 
+def to_internal(t: torch.Tensor) -> torch.Tensor:
+    """An NHWC image or NDHWC volume as the logical NCHW / NCDHW tensor
+    the layers take (channels-last memory: the same bytes, a view); any
+    other rank as it is."""
+    if t.ndim == 4:
+        return t.permute(0, 3, 1, 2)
+    if t.ndim == 5:
+        return t.permute(0, 4, 1, 2, 3)
+    return t
+
+
+def to_external(t: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`to_internal`: an NC(D)HW result in the JAX
+    package's NHWC / NDHWC layout."""
+    if t.ndim == 4:
+        return t.permute(0, 2, 3, 1)
+    if t.ndim == 5:
+        return t.permute(0, 2, 3, 4, 1)
+    return t
+
+
 def warm_dtype_variants(input_types, base_dtype):
     """The client-visible input-dtype combinations a serving engine warms
     per padding bucket: image-typed inputs arrive as the float base dtype

@@ -75,6 +75,7 @@ from deeplearning4j_tpu_torch.conf.layers import (
     EmbeddingLayer,
     EmbeddingSequenceLayer,
 )
+from deeplearning4j_tpu_torch.conf.layers_moe import sum_aux_losses
 from deeplearning4j_tpu_torch.conf.multilayer import (
     BackpropType,
     MultiLayerConfiguration,
@@ -175,7 +176,7 @@ class MultiLayerNetwork(nn_io.HealthHooks):
             t = torch.as_tensor(tree)
             t = _place(t, self.device,
                        self._dtype if t.is_floating_point() else None)
-            return t if t.ndim == 4 else t.contiguous()
+            return t if t.ndim in (4, 5) else t.contiguous()
 
         self.params = place(params)
         self.state = place(state)
@@ -297,12 +298,9 @@ class MultiLayerNetwork(nn_io.HealthHooks):
         return self._cast_params
 
     def _prepare(self, x) -> torch.Tensor:
-        t = nn_io.as_device(x, self.device, self._dtype,
-                            self._cdtype or self._dtype, scale=self._image,
-                            ids=self._ids)
-        if t.ndim == 4:  # NHWC -> logical NCHW, channels_last memory
-            t = t.permute(0, 3, 1, 2)
-        return t
+        return nn_io.to_internal(nn_io.as_device(
+            x, self.device, self._dtype, self._cdtype or self._dtype,
+            scale=self._image, ids=self._ids))
 
     def _on_device(self, a) -> Optional[torch.Tensor]:
         """A label or mask array on this network's device in the storage
@@ -314,9 +312,7 @@ class MultiLayerNetwork(nn_io.HealthHooks):
         return t.to(device=self.device, dtype=self._dtype)
 
     def _to_host(self, t: torch.Tensor) -> np.ndarray:
-        t = t.to(self._dtype)
-        if t.ndim == 4:
-            t = t.permute(0, 2, 3, 1)
+        t = nn_io.to_external(t.to(self._dtype))
         if t.dtype == torch.bfloat16:  # numpy has no bfloat16
             t = t.float()
         return t.cpu().numpy()
@@ -386,6 +382,8 @@ class MultiLayerNetwork(nn_io.HealthHooks):
         if global_batch.adds_regularization():  # once over the ranks
             loss = loss + solver.regularization_score(
                 params, lambda key: self.conf.layers[int(key)])
+        if train:  # eval must not pick up the last step's aux
+            loss = loss + sum_aux_losses(new_state, self._dtype)
         return loss, new_state
 
     def _layer_updater(self, key: str):

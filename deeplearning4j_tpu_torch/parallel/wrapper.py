@@ -35,6 +35,15 @@ Modes (the JAX package's semantics):
   reduce-scatter over the flat padded tree, the updater and
   regularization on this rank's 1/n slice, the params' all-gather; the
   optimizer state stays scattered.
+- **SHARED_GRADIENTS, expert-parallel** (``expert_parallel=True``): each
+  ``MoELayer``'s experts split over the ranks (``n_experts / world``
+  each, experts riding the data axis, GShard's layout) and its tokens
+  cross by all-to-all (``parallel.expert``); the JAX package's
+  ``shard_map`` step: per-rank forward and backward, the replicated
+  leaves' gradients averaged, an expert shard's gradient its own (every
+  rank's share arrives through the all-to-all's backward), a penalty on
+  the shards counted in full, floating state averaged. The model holds
+  every expert again after ``fit`` (and for a save mid-fit).
 - **AVERAGING**: independent replicas (an all-padding rank does not
   move); every ``averaging_frequency`` iterations params, state and (with
   ``average_updaters``) updater state are averaged.
@@ -58,6 +67,7 @@ import torch
 
 from deeplearning4j_tpu_torch import telemetry
 from deeplearning4j_tpu_torch.comms import global_batch, scheduler
+from deeplearning4j_tpu_torch.parallel import expert
 from deeplearning4j_tpu_torch.parallel import mesh as mesh_mod
 from deeplearning4j_tpu_torch.parallel.compression import (
     ThresholdAlgorithm,
@@ -67,6 +77,12 @@ from deeplearning4j_tpu_torch.parallel.compression import (
 )
 
 DATA = mesh_mod.DATA_AXIS
+
+
+def _shard_axes(layer) -> dict:
+    """The leaves a layer shards over the expert axis (``MoELayer``'s
+    ``param_shard_axes``), by param key."""
+    return getattr(layer, "param_shard_axes", dict)()
 
 
 class TrainingMode(enum.Enum):
@@ -182,11 +198,15 @@ class ParallelWrapper:
         self._is_graph = isinstance(model, ComputationGraph)
         if not self._is_graph and not isinstance(model, MultiLayerNetwork):
             raise TypeError(f"unsupported model type {type(model)}")
-        if expert_parallel:
-            raise NotImplementedError(
-                "expert_parallel is not ported yet: it waits for the MoE "
-                "layers and parallel/expert.py (ROADMAP A: 'The remainder, "
-                "in dependency order')")
+        self.expert_parallel = bool(expert_parallel)
+        if self.expert_parallel and (
+                training_mode is not TrainingMode.SHARED_GRADIENTS
+                or threshold_algorithm is not None
+                or model.conf.backprop_type is BackpropType.TRUNCATED_BPTT):
+            raise ValueError(
+                "expert_parallel composes with the exact "
+                "SHARED_GRADIENTS mode only (no threshold "
+                "compression, no tBPTT)")
         if partition_rules is not None:
             raise NotImplementedError(
                 "partition_rules is not ported yet: it waits for "
@@ -207,6 +227,20 @@ class ParallelWrapper:
         if self.mesh.backend == "nccl" and model.device.type != "cuda":
             raise ValueError(
                 "NCCL moves CUDA tensors only: train a CPU model over gloo")
+        sharded = [(name, layer) for name, layer in self._layer_confs()
+                   if _shard_axes(layer)]
+        if self.expert_parallel:
+            for name, layer in sharded:
+                if layer.n_experts % self.workers != 0:
+                    raise ValueError(
+                        f"layer {name}: n_experts={layer.n_experts} must "
+                        f"be a multiple of the data-axis size "
+                        f"{self.workers}")
+        elif sharded and self.workers > 1:
+            raise NotImplementedError(
+                f"layer {sharded[0][0]}: an MoE layer's capacity is shared "
+                "over the global batch, which the per-rank data-parallel "
+                "modes do not see; train it with expert_parallel=True")
         self.training_mode = training_mode
         self.averaging_frequency = int(averaging_frequency)
         self.average_updaters = bool(average_updaters)
@@ -227,9 +261,15 @@ class ParallelWrapper:
             self.gradient_bucket_bytes = (int(mb * 2 ** 20) if mb > 0
                                           else None)
             self._explicit_exchange = True
+        if self._explicit_exchange and self.expert_parallel:
+            raise ValueError(
+                "gradient_bucket_mb composes with the standard "
+                "SHARED_GRADIENTS / AVERAGING steps only (no "
+                "expert_parallel, no tBPTT yet)")
         self._zero = bool(zero_optimizer)
         if self._zero and (training_mode is not TrainingMode.SHARED_GRADIENTS
-                           or threshold_algorithm is not None):
+                           or threshold_algorithm is not None
+                           or self.expert_parallel):
             raise ValueError(
                 "zero_optimizer composes with the exact SHARED_GRADIENTS "
                 "path only (no threshold compression, no expert_parallel, "
@@ -237,7 +277,7 @@ class ParallelWrapper:
         self.fused_steps = int(fused_steps or 0)
         if self.fused_steps > 1 and (
                 training_mode is not TrainingMode.SHARED_GRADIENTS
-                or threshold_algorithm is not None
+                or threshold_algorithm is not None or self.expert_parallel
                 or self._explicit_exchange or self._zero):
             raise ValueError(
                 "fused_steps composes with the exact SHARED_GRADIENTS "
@@ -255,6 +295,16 @@ class ParallelWrapper:
         self._setup_done = False
 
     # --- model-type adapters -----------------------------------------------
+    def _layer_confs(self):
+        """-> (params key, conf layer) for every layer / vertex."""
+        m = self.model
+        if self._is_graph:
+            for name, spec in m.conf.vertex_map().items():
+                yield name, getattr(spec.vertex, "layer", None) or spec.vertex
+        else:
+            for i, layer in enumerate(m.conf.layers):
+                yield str(i), layer
+
     def _prep(self, ds):
         """-> (batch arrays as the model's gradient pass takes them, rows):
         graph ``(features, labels, fmasks, lmasks)`` lists, MLN single
@@ -339,8 +389,14 @@ class ParallelWrapper:
             telemetry.record_shard_bytes(
                 self._zero_pspec.total_bytes(),
                 self._zero_ospec.bytes_per_device(), m.device)
-        if not self._zero and self.training_mode is \
-                TrainingMode.SHARED_GRADIENTS and \
+        elif self.expert_parallel:
+            self._experts = [(k, pk, layer)
+                             for k, layer in self._layer_confs()
+                             for pk in sorted(_shard_axes(layer))
+                             if pk in m.params.get(k, {})]
+            self._shard_experts()
+        if not (self._zero or self.expert_parallel) and \
+                self.training_mode is TrainingMode.SHARED_GRADIENTS and \
                 self.threshold_algorithm is None and self._hooks is None:
             plan = scheduler.plan_for(m.params, "all_reduce", DATA,
                                       self.gradient_bucket_bytes)
@@ -464,6 +520,8 @@ class ParallelWrapper:
             loss = self._threshold_step(batch, rows, cur)
         elif self._zero:
             loss = self._zero_step(batch, rows, cur)
+        elif self.expert_parallel:
+            loss = self._expert_step(batch, cur)
         elif self._explicit_exchange:
             loss = self._bucketed_step(batch, rows, cur)
         else:
@@ -473,7 +531,8 @@ class ParallelWrapper:
             telemetry.record_step("parallel", rows)
             self._record_exchange(did_avg)
         self._score = loss
-        if self._zero or self.training_mode is TrainingMode.AVERAGING:
+        if (self._zero or self.expert_parallel
+                or self.training_mode is TrainingMode.AVERAGING):
             self._synced = False  # the live trees moved past the model's
         m._finish_step(loss, cur)
 
@@ -601,6 +660,105 @@ class ParallelWrapper:
                     slot[pk].copy_(p)
             x.gather_into(flat, scheduler.tree_leaves(m.params), self.group)
 
+    def _expert_step(self, batch, cur: int):
+        """The JAX package's expert-parallel step: each rank's forward and
+        backward over its own rows (per-rank batch-norm statistics, as its
+        ``shard_map`` step), the sharded ``MoELayer`` s exchanging tokens
+        by all-to-all; the objective is the ranks' mean loss. The
+        replicated leaves' gradients are averaged over the ranks; an expert
+        shard's gradient is its own, which the all-to-all's backward fills
+        with every rank's share. A penalty on the expert shards counts in
+        full: ``psum(extra) - pmean(extra)`` of the sharded leaves' terms
+        joins the objective. Floating state is averaged."""
+        m = self.model
+        n = float(self.workers)
+        self._shard_experts()
+        with telemetry.span(telemetry.PHASE_COMPUTE), \
+                expert.active_expert_axis(DATA, self.group):
+            loss, new_state, grads = self._gradients(batch, cur)
+            extra, extra_g = self._sharded_penalty()
+        with telemetry.span(telemetry.PHASE_GRAD_SYNC):
+            shards = {(k, pk) for k, pk, _ in self._experts}
+            replicated = {k: {pk: g for pk, g in vg.items()
+                              if (k, pk) not in shards}
+                          for k, vg in grads.items()}
+            summed = bucketed_psum(replicated, self.group, None)
+            for k, vg in grads.items():
+                for pk in vg:
+                    g = (summed[k][pk] if (k, pk) not in shards
+                         else vg[pk] + extra_g[(k, pk)] * (n - 1.0))
+                    vg[pk] = g / n
+            m._apply_updates(grads, cur)
+            m.state.update(self._weighted_state(new_state, 1.0 / n))
+            return self._sum_scalar((loss + extra * (n - 1.0)) / n)
+
+    def _sharded_penalty(self):
+        """The regularization score of this rank's expert shards and its
+        gradient by leaf (zero where no regularization is configured)."""
+        m = self.model
+        leaves = {}
+        total = torch.zeros((), device=m.device)
+        for k, pk, layer in self._experts:
+            regs = (layer.regularization
+                    if pk in layer.regularized_param_keys()
+                    else layer.regularization_bias) or ()
+            leaf = m.params[k][pk].detach().requires_grad_()
+            leaves[(k, pk)] = leaf
+            for r in regs:
+                total = total + r.score_term(leaf)
+        if not total.requires_grad:
+            return total, {kp: torch.zeros_like(v)
+                           for kp, v in leaves.items()}
+        grads = torch.autograd.grad(total, list(leaves.values()),
+                                    allow_unused=True)
+        return total.detach(), {
+            kp: torch.zeros_like(v) if g is None else g
+            for (kp, v), g in zip(leaves.items(), grads)}
+
+    def _shard_experts(self):
+        """Cut every full expert leaf (and its updater state) down to this
+        rank's ``n_experts / world`` experts; a leaf already cut stays."""
+        m = self.model
+        for k, pk, layer in self._experts:
+            full = m.params[k][pk]
+            if full.shape[0] != layer.n_experts:
+                continue
+            n = layer.n_experts // self.workers
+            lo = self.rank * n
+
+            def cut(t):
+                return t[lo:lo + n].clone()
+
+            m.params[k][pk] = cut(full)
+            st = m.opt_state.get(k, {}).get(pk)
+            if st is not None:
+                m.opt_state[k][pk] = {
+                    sk: cut(v) if v.ndim and v.shape[0] == layer.n_experts
+                    else v for sk, v in st.items()}
+        m._cast_params = None
+
+    def _gather_experts(self):
+        """Every expert leaf (and its updater state) whole again, from the
+        ranks' shards."""
+        m = self.model
+
+        def whole(t):
+            out = t.new_empty((self.workers,) + tuple(t.shape))
+            scheduler.all_gather(out, t.contiguous().view(-1), self.group)
+            return out.reshape((-1,) + tuple(t.shape[1:]))
+
+        for k, pk, layer in self._experts:
+            part = m.params[k][pk]
+            if part.shape[0] == layer.n_experts:
+                continue
+            m.params[k][pk] = whole(part)
+            st = m.opt_state.get(k, {}).get(pk)
+            if st is not None:
+                m.opt_state[k][pk] = {
+                    sk: whole(v) if v.ndim and v.shape[0] == part.shape[0]
+                    else v for sk, v in st.items()}
+        m._cast_params = None
+
     def _averaging_step(self, batch, rows: int, cur: int):
         """A local step on this rank's replica (none for an all-padding
         rank), then every ``averaging_frequency`` iterations the average
@@ -662,6 +820,8 @@ class ParallelWrapper:
                     for pk, st in vp.items()}
                 for k, vp in self._zero_ospec.assemble(
                     self._opt_slices, self.group).items()}
+        elif self.expert_parallel:
+            self._gather_experts()
 
     # --- health-layer hooks (thin, as the networks') ------------------------
     def _health_snapshot(self):

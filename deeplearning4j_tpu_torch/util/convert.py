@@ -15,6 +15,15 @@ other rank has no rule and raises.
 ``[nOut, e]``, and so are ``AttentionVertex``'s (a graph vertex with
 params of its own) and ``LearnedSelfAttentionLayer``'s ``Wk/Wv/Wo`` (its
 learned queries ``Q [nQueries, e]`` are rows in both packages). The
+``Convolution3D``'s ``W`` is OIDHW in the port and DHWIO in the JAX
+package; ``DepthwiseConvolution2D``'s is ``[C*mult, 1, kh, kw]`` against
+``[kh, kw, 1, C*mult]``. The locally connected layers keep the JAX
+package's layouts (``LocallyConnected2D`` ``W [oh, ow, C*kh*kw, nOut]``,
+``b [oh, ow, nOut]``; ``LocallyConnected1D`` ``W [ot, f*k, nOut]``, ``b
+[ot, nOut]``), and so do ``PReLULayer``'s ``alpha``,
+``ElementWiseMultiplicationLayer``'s ``W``/``b`` and ``MoELayer``'s
+``router [d, E]``, ``w1 [E, d, h]``, ``w2 [E, h, d]``, ``b1``, ``b2`` (the
+layouts ``bmm`` takes); its ``__aux_loss__`` state entry is a scalar. The
 recurrent layers (``conf.layers_rnn``: ``W``, ``RW``, GRU's ``rb``,
 GravesLSTM's peepholes, ``Bidirectional``'s ``f``/``b``-prefixed copies,
 the wrappers' inner layer) and ``RecurrentAttentionLayer`` keep the JAX
@@ -68,6 +77,13 @@ from deeplearning4j_tpu_torch.conf.layers_cnn import (
     FusedConvBN1x1,
     SeparableConvolution2D,
 )
+from deeplearning4j_tpu_torch.conf.layers_extra import (
+    Convolution3D,
+    DepthwiseConvolution2D,
+    ElementWiseMultiplicationLayer,
+    LocallyConnected1D,
+    LocallyConnected2D,
+)
 from deeplearning4j_tpu_torch.conf.layers_rnn import (
     BaseRecurrentLayer,
     Bidirectional,
@@ -95,6 +111,13 @@ def layout_perm(layer, key: str, ndim: int):
     if isinstance(layer, (BaseRecurrentLayer, Bidirectional,
                           RecurrentAttentionLayer)):
         return None  # the JAX package's [in, out] in both packages
+    if isinstance(layer, (LocallyConnected2D, LocallyConnected1D,
+                          ElementWiseMultiplicationLayer)):
+        return None  # the JAX package's layouts in both packages
+    if isinstance(layer, Convolution3D):
+        return _conv_perm(layer, key, ndim, 5, (2, 3, 4, 1, 0))  # -> DHWIO
+    if isinstance(layer, DepthwiseConvolution2D):
+        return _conv_perm(layer, key, ndim, 4, (2, 3, 1, 0))  # -> HWIO
     if isinstance(layer, Convolution1DLayer):
         return _conv_perm(layer, key, ndim, 3, (2, 1, 0))  # [out, in, k]
     if isinstance(layer, Deconvolution2D):

@@ -57,6 +57,7 @@ from deeplearning4j_tpu_torch.conf.layers_extra import (
     LayerNormalization,
     PositionEmbeddingLayer,
 )
+from deeplearning4j_tpu_torch.conf.layers_moe import MoELayer
 from deeplearning4j_tpu_torch.conf.layers_objdetect import Yolo2OutputLayer
 from deeplearning4j_tpu_torch.conf.losses import LossBinaryXENT, LossMCXENT
 from deeplearning4j_tpu_torch.conf.multilayer import NeuralNetConfiguration
@@ -852,8 +853,12 @@ class TransformerEncoder(GraphZooModel):
     train through ``fit``: the LM on ``[batch, time, vocab_size]`` one-hot
     next-token labels (a ``[batch, time]`` labels mask averages over the
     valid positions), the classifier on ``[batch, num_classes]`` labels
-    (its average pooling is unmasked in a graph, as in the JAX package). Mixture-of-experts blocks
-    (``moe_experts > 0``) are not ported yet."""
+    (its average pooling is unmasked in a graph, as in the JAX package).
+    With ``moe_experts > 0`` each block's FFN is an ``MoELayer``
+    (``moe_experts`` experts of ``ffn_dim`` hidden units, ``moe_top_k`` a
+    token, ``moe_capacity_factor``; the block's own add vertex is the
+    residual), which ``ParallelWrapper(expert_parallel=True)`` shards over
+    its ranks; the KV-cached decoder refuses it."""
 
     def __init__(self, num_classes: int = 2, vocab_size: int = 0,
                  embed_dim: int = 64, n_heads: int = 4, n_layers: int = 2,
@@ -863,10 +868,6 @@ class TransformerEncoder(GraphZooModel):
                  moe_experts: int = 0, moe_top_k: int = 2,
                  moe_capacity_factor: float = 1.25,
                  lm_head: bool = False, use_kernels: bool = False):
-        if moe_experts > 0:
-            raise NotImplementedError(
-                "TransformerEncoder(moe_experts > 0): MoE blocks are not "
-                "ported yet; they land with the expert-parallel slice")
         self.num_classes = num_classes
         self.vocab_size = vocab_size
         self.embed_dim = embed_dim
@@ -878,6 +879,9 @@ class TransformerEncoder(GraphZooModel):
         self.updater = updater or Adam(learning_rate=1e-3)
         self.attention_impl = attention_impl
         self.causal = causal
+        self.moe_experts = moe_experts
+        self.moe_top_k = moe_top_k
+        self.moe_capacity_factor = moe_capacity_factor
         self.lm_head = lm_head
         self.use_kernels = use_kernels
         if lm_head and not (vocab_size and causal):
@@ -912,14 +916,23 @@ class TransformerEncoder(GraphZooModel):
                          ElementWiseVertex(op=ElementWiseOp.ADD),
                          prev, f"b{i}_attn")
             g.add_layer(f"b{i}_ln2", LayerNormalization(), f"b{i}_res1")
-            g.add_layer(f"b{i}_ff1", DenseLayer(
-                n_out=self.ffn_dim, activation=Activation.GELU),
-                f"b{i}_ln2")
-            g.add_layer(f"b{i}_ff2", DenseLayer(
-                n_out=e, activation=Activation.IDENTITY), f"b{i}_ff1")
+            if self.moe_experts:
+                g.add_layer(f"b{i}_moe", MoELayer(
+                    n_experts=self.moe_experts, d_hidden=self.ffn_dim,
+                    top_k=self.moe_top_k,
+                    capacity_factor=self.moe_capacity_factor,
+                    residual=False), f"b{i}_ln2")
+                ff_out = f"b{i}_moe"
+            else:
+                g.add_layer(f"b{i}_ff1", DenseLayer(
+                    n_out=self.ffn_dim, activation=Activation.GELU),
+                    f"b{i}_ln2")
+                g.add_layer(f"b{i}_ff2", DenseLayer(
+                    n_out=e, activation=Activation.IDENTITY), f"b{i}_ff1")
+                ff_out = f"b{i}_ff2"
             g.add_vertex(f"b{i}_res2",
                          ElementWiseVertex(op=ElementWiseOp.ADD),
-                         f"b{i}_res1", f"b{i}_ff2")
+                         f"b{i}_res1", ff_out)
             prev = f"b{i}_res2"
         g.add_layer("final_ln", LayerNormalization(), prev)
         if self.lm_head:

@@ -284,8 +284,9 @@ def test_classifier_head_matches_jax():
 
 
 def test_moe_and_bad_heads_refused():
-    with pytest.raises(NotImplementedError, match="slice"):
-        TransformerEncoder(vocab_size=16, moe_experts=4)
+    with pytest.raises(ValueError, match="b0_moe.*cross-row"):
+        TransformerEncoder(vocab_size=16, lm_head=True, causal=True,
+                           moe_experts=4).decoder(device="cpu")
     with pytest.raises(ValueError):
         TransformerEncoder(vocab_size=16, lm_head=True)
     with pytest.raises(ValueError):
@@ -520,13 +521,12 @@ def test_engine_failure_fails_requests_then_recovers():
 
 
 def test_engine_refuses_unported_features_and_closes():
-    """The one decode-path feature the port still lacks is refused before
-    an engine exists: an MoE LM (its blocks wait for the expert-parallel
-    slice) raises NotImplementedError at its configuration. A closed
+    """An MoE LM is refused before an engine exists, as the JAX decoder
+    refuses it: its capacity is shared over the batch's rows. A closed
     engine refuses later submits."""
-    with pytest.raises(NotImplementedError, match="MoE"):
+    with pytest.raises(ValueError, match="MoE routing is cross-row"):
         TransformerEncoder(vocab_size=VOCAB, lm_head=True, causal=True,
-                           moe_experts=4)
+                           moe_experts=4).decoder(device="cpu")
     eng = _engine()
     eng.close()
     with pytest.raises(RuntimeError):

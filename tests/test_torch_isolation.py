@@ -25,7 +25,7 @@ for name in names:
     importlib.import_module(name)
 import chip_data_parallel, chip_gen_profile, chip_kernel_ab
 import chip_lenet_spread, chip_platform, chip_sequence, chip_smoke
-import chip_train_profile, chip_zoo
+import chip_train_profile, chip_zoo, chip_layers, chip_moe
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))
 print(len(names), bad)
@@ -39,8 +39,8 @@ def test_importing_the_port_loads_no_jax():
     count, bad = out.stdout.strip().splitlines()[-1].split(" ", 1)
     # every module of the port, checkpointing, the gradient check, the
     # data-parallel slice's, the serving platform's and the object
-    # detection layer's modules included
-    assert int(count) >= 83
+    # detection layer's and the MoE slice's modules included
+    assert int(count) >= 85
     assert bad == "[]"
 
 
@@ -174,12 +174,22 @@ ZOO_MODULES = [
 ]
 
 
+# the layer DSL and MoE slice's modules (the rest of layers_extra, the MoE
+# layer, expert parallelism) and its chip phases
+MOE_MODULES = [
+    "deeplearning4j_tpu_torch.conf.layers_moe",
+    "deeplearning4j_tpu_torch.parallel.expert",
+    "chip_layers",
+    "chip_moe",
+]
+
+
 # a module named by two slices runs once, under its first slice's id
 @pytest.mark.parametrize("module", list(dict.fromkeys(
     GENERATION_MODULES + TRAINING_MODULES + QUANT_MODULES
     + MLN_TRAINING_MODULES + BF16_TRAINING_MODULES + TUNING_MODULES
     + DATA_PARALLEL_MODULES + SEQUENCE_MODULES + PLATFORM_MODULES
-    + ZOO_MODULES)))
+    + ZOO_MODULES + MOE_MODULES)))
 def test_generation_module_alone_loads_no_jax(module):
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -200,7 +210,8 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                                  "chip_gen_profile.py",
                                  "chip_lenet_spread.py",
                                  "chip_sequence.py", "chip_platform.py",
-                                 "chip_zoo.py")]
+                                 "chip_zoo.py", "chip_layers.py",
+                                 "chip_moe.py")]
     offenders = [str(p.relative_to(ROOT)) for p in sources
                  if pattern.search(p.read_text())]
     assert offenders == []

@@ -205,8 +205,8 @@ def test_list_builder_inserts_the_flatten_and_refuses_the_unported():
     cube = (NeuralNetConfiguration.builder().list()
             .layer(DenseLayer(n_out=5))
             .set_input_type(InputType.convolutional_3d(2, 3, 3, 2)))
-    with pytest.raises(NotImplementedError, match="Cnn3DToFeedForward"):
-        cube.build()
+    assert [type(lyr).__name__ for lyr in cube.build().layers] == [
+        "Cnn3DToFeedForwardPreProcessor", "DenseLayer"]
 
 
 # --------------------------------------------------------------------------

@@ -644,14 +644,26 @@ def _port_mlp(**conf_kw):
     return MultiLayerNetwork(conf, "cpu").init()
 
 
+def _port_moe():
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo.graphs import TransformerEncoder
+
+    return ComputationGraph(TransformerEncoder(
+        embed_dim=8, n_heads=2, n_layers=1, max_len=4,
+        moe_experts=2).conf(), device="cpu").init()
+
+
 @pytest.mark.parametrize("kw,match", [
-    ({"expert_parallel": True}, "waits for the MoE layers and "
-                                "parallel/expert.py"),
+    # an MoE net trains data-parallel only with its experts sharded
+    ({"model": _port_moe, "mesh": port_mesh.Mesh(world=2, rank=0)},
+     "expert_parallel=True"),
     ({"partition_rules": [(".*", None)]}, "waits for sharding/plan.py"),
 ], ids=["kw0-item 5", "kw1-item 5"])
 def test_unported_options_are_refused(kw, match):
+    kw = dict(kw)
+    model = kw.pop("model", _port_mlp)()
     with pytest.raises(NotImplementedError, match=match):
-        ParallelWrapper(_port_mlp(), **kw)
+        ParallelWrapper(model, **kw)
 
 
 def test_tbptt_is_refused():
