@@ -290,8 +290,23 @@ Phases, in order; any failure exits non-zero:
    routes counted and gated, the other tokens' logits held); its experts
    across two gloo ranks on the card at 2 layers against one-rank
    ``fit_batch``, and NCCL at one rank the same bits.
+33. fine-tuning a pretrained model under the health layer
+   (``chip_transfer.py``): full-width AlexNet published with
+   ``save_pretrained`` and restored with ``init_pretrained`` bit for bit
+   (a flipped byte refused), a 7x7-stem ResNet-50 through
+   ``restore_partial`` into the s2d stem; AlexNet fine-tuned through
+   ``TransferLearning.Builder`` (frozen through pool5, a 10-class head,
+   Adam 1e-4) under ``EarlyStoppingTrainer`` on a seeded template set
+   (row 1 at fc6 / fc7, twice a step and an evaluation forward; the
+   frozen convs unchanged; held-out logits a epoch against the stock
+   route and a one-TF32-product control; best accuracy above 0.5);
+   ``TransferLearningHelper`` against the full network; SKIP_STEP, WARN,
+   ROLLBACK and HALT on a planted NaN batch (bit-identical skip, no added
+   synchronization, exact rollback, a strict-JSON bundle, early stopping
+   on the planted step); step, guard, snapshot and featurize times, row 1
+   at fc6 / fc7.
 
-Then the ``{"layers": ...}``, ``{"moe": ...}``, ``{"zoo": ...}``, ``{"platform": ...}``, ``{"trained_text_lstm": ...}``,
+Then the ``{"transfer": ...}``, ``{"layers": ...}``, ``{"moe": ...}``, ``{"zoo": ...}``, ``{"platform": ...}``, ``{"trained_text_lstm": ...}``,
 ``{"sequence_attention": ...}``, ``{"trained_mln": ...}`` and
 ``{"trained_bf16": ...}`` lines, one
 ``{"kernels": [...]}`` line with every kernel (row 1 with its [21] shapes
@@ -300,7 +315,8 @@ and launches; rows 2 and 6-8 with their bf16 numbers under
 ``tuning``; row 2 with [26]'s under ``data_parallel``; rows 6-8 with
 [28]'s under ``seq_attention``; rows 1, 4, 5, 6 with [29]'s launches
 under ``platform``; row 1 with [30]'s launches and shapes under ``zoo``
-and [31]'s under ``layers``; rows 6-8 with [32]'s launches under ``moe``),
+and [31]'s under ``layers`` and [33]'s under ``transfer``; rows 6-8 with
+[32]'s launches under ``moe``),
 the served,
 trained, generated, trained_lm, served_int8, prefix_cached, speculative,
 tuned and data_parallel lines, and last
@@ -5602,6 +5618,13 @@ def main() -> int:
     for row in report["kernels"]:
         if row["name"] in moe_rows:
             row["moe"] = moe_rows[row["name"]]
+    # 33. a pretrained AlexNet fine-tuned on row 1 under the health layer
+    torch.cuda.empty_cache()
+    import chip_transfer
+
+    transfer_line, report["kernels"][0]["transfer"] = \
+        chip_transfer.transfer_phase(torch, F, dev, smi)
+    log(json.dumps({"transfer": transfer_line}))
     log(json.dumps({"layers": layers_line}))
     log(json.dumps({"moe": moe_line}))
     log(json.dumps({"zoo": zoo_line}))
@@ -5620,7 +5643,7 @@ def main() -> int:
     log(json.dumps({"speculative": spec_line}))
     log(json.dumps({"tuned": tuned_line}))
     log(json.dumps({"data_parallel": dp_line}))
-    log(f"[32] total wall time of the script {time.monotonic() - t_start:.1f}"
+    log(f"[33] total wall time of the script {time.monotonic() - t_start:.1f}"
         f" s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -7,6 +7,15 @@
 
 namespace dl4j {
 
+// max(z, 0) and clamp(z, lo, hi) that keep a NaN z, as torch's and XLA's
+// do (fmaxf / fminf return the other operand, which turned a NaN
+// pre-activation into a finite output the health guards could not see)
+__device__ __forceinline__ float max0_f(float z) { return z < 0.f ? 0.f : z; }
+
+__device__ __forceinline__ float clamp_f(float z, float lo, float hi) {
+  return z < lo ? lo : (z > hi ? hi : z);
+}
+
 __device__ __forceinline__ float softplus_f(float z) {
   return fmaxf(z, 0.f) + log1pf(expf(-fabsf(z)));
 }
@@ -22,9 +31,9 @@ __device__ __forceinline__ float apply_act(int act, float z) {
     case 2:  // tanh
       return tanhf(z);
     case 3:  // relu
-      return fmaxf(z, 0.f);
+      return max0_f(z);
     case 4:  // relu6
-      return fminf(fmaxf(z, 0.f), 6.f);
+      return clamp_f(z, 0.f, 6.f);
     case 5:  // leakyrelu
       return z >= 0.f ? z : 0.01f * z;
     case 6:  // elu
@@ -44,9 +53,9 @@ __device__ __forceinline__ float apply_act(int act, float z) {
     case 12:  // mish
       return z * tanhf(softplus_f(z));
     case 13:  // hardsigmoid
-      return fminf(fmaxf(0.2f * z + 0.5f, 0.f), 1.f);
+      return clamp_f(0.2f * z + 0.5f, 0.f, 1.f);
     case 14:  // hardtanh
-      return fminf(fmaxf(z, -1.f), 1.f);
+      return clamp_f(z, -1.f, 1.f);
     case 15:  // cube
       return z * z * z;
     case 16: {  // rationaltanh
@@ -56,7 +65,7 @@ __device__ __forceinline__ float apply_act(int act, float z) {
       return 1.7159f * s * (1.f - 1.f / (1.f + a + y * y + 1.41645f * (y * y * y * y)));
     }
     case 17:  // rectifiedtanh
-      return fmaxf(tanhf(z), 0.f);
+      return max0_f(tanhf(z));
     case 18:  // thresholdedrelu
       return z > 1.f ? z : 0.f;
     default:

@@ -52,6 +52,9 @@ keyed by vertex name: every network input must be a sequence of one time
 length (a batch of static inputs only trains with the standard step), and
 the labels and masks must be per step at that length.
 
+The health layer's guards, the flight recorder and the telemetry step
+count as in ``nn.multilayer`` (path ``graph``).
+
 Feature masks (``DataSet.features_mask``, ``MultiDataSet.features_masks``,
 ``fmasks=`` of ``output`` / ``feed_forward``) are ``[batch, time]`` per
 network input. ``_forward`` propagates them along sequence-shaped paths
@@ -93,6 +96,7 @@ from deeplearning4j_tpu_torch.nn import io as nn_io
 from deeplearning4j_tpu_torch.optimize import solver
 from deeplearning4j_tpu_torch.optimize.listeners import TrainingListener
 from deeplearning4j_tpu_torch.resilience import faults
+from deeplearning4j_tpu_torch.telemetry import flightrec
 from deeplearning4j_tpu_torch.util import params as params_util
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -169,6 +173,8 @@ class ComputationGraph(nn_io.HealthHooks):
     ``feed_forward``, ``fit``, ``fit_batch``, ``score``, ``evaluate``,
     ``compute_gradient_and_score``, ``params_flat``, ``summary``,
     ``clone``."""
+
+    _health_path = "graph"
 
     def __init__(self, conf: ComputationGraphConfiguration, device="cuda"):
         self.conf = conf
@@ -544,16 +550,19 @@ class ComputationGraph(nn_io.HealthHooks):
             batches = [MultiDataSet(features=list(f), labels=list(lab))]
         else:
             raise TypeError(f"cannot fit from {type(data)}")
-        for _ in range(epochs):
-            for lst in self.listeners:
-                lst.on_epoch_start(self, self.epoch)
-            for ds in batches:
-                self._fit_batch(ds)
-            if reset is not None:
-                reset()
-            for lst in self.listeners:
-                lst.on_epoch_end(self, self.epoch)
-            self.epoch += 1
+        with flightrec.flight_recorder(model=self), \
+                self._health_fused(fused_steps):
+            for _ in range(epochs):
+                for lst in self.listeners:
+                    lst.on_epoch_start(self, self.epoch)
+                for ds in batches:
+                    self._fit_batch(ds)
+                self._health_flush_fused()
+                if reset is not None:
+                    reset()
+                for lst in self.listeners:
+                    lst.on_epoch_end(self, self.epoch)
+                self.epoch += 1
         return self
 
     def fit_batch(self, ds) -> float:
@@ -561,6 +570,8 @@ class ComputationGraph(nn_io.HealthHooks):
         return float(self._fit_batch(ds))
 
     def _fit_batch(self, ds) -> torch.Tensor:
+        if self.params is None:
+            self.init()
         if self.conf.backprop_type is BackpropType.TRUNCATED_BPTT:
             ndims = [_ndim(f) for f in _as_multi(ds).features]
             if all(d == 3 for d in ndims):
@@ -579,24 +590,32 @@ class ComputationGraph(nn_io.HealthHooks):
                     f"got feature ranks {ndims}. Use STANDARD backprop "
                     "for mixed sequence/static inputs")
             # no sequence input at all: the standard step
+        features, labels, fmasks, lmasks = self._prep_batch(ds)
+        # injection site (raise = preemption mid-training, corrupt = a
+        # poisoned batch for the health guards)
+        features = [faults.fault_point("train.step", features[0])] + list(
+            features[1:])
         cur = self.iteration
-        loss, new_state, grads = self._backward(
-            ds, train_seed=self._train_seed(cur))
-        self._apply_updates(grads, cur)
-        self.state.update(new_state)
-        return self._finish_step(loss, cur)
+        loss, new_state, grads = self._backward_arrays(
+            features, labels, fmasks, lmasks, seed=self._train_seed(cur))
+        vec = self._update_pass(loss, grads, new_state, cur)
+        return self._finish_step(loss, cur, vec, (features, labels))
 
     def _apply_updates(self, grads, cur: int) -> None:
         """The update pass: each layer's gradient normalization,
         regularization and updater, applied to the params in place."""
         solver.apply_updates(self, grads, cur, self.epoch)
 
-    def _finish_step(self, loss, cur: int) -> torch.Tensor:
-        """Step bookkeeping after the update: the score, the counters and
-        the listeners."""
+    def _finish_step(self, loss, cur: int, vec=None,
+                     batch=None) -> torch.Tensor:
+        """Step bookkeeping after the update: the score, the counters,
+        the telemetry step (``batch``: the step's (features, labels)), the
+        health epilogue (``vec``: its guard vector) and the listeners."""
         self._cast_params = None
         self._score = loss
         self.iteration += 1  # listeners see iteration == next-to-run
+        if batch is not None:
+            self._health_epilogue(cur, loss, vec, batch)
         for lst in self.listeners:
             lst.iteration_done(self, cur, self.epoch, loss)
         return loss
@@ -686,18 +705,20 @@ class ComputationGraph(nn_io.HealthHooks):
             carries = zero_carries(features)
             groups = [list(zip(*segments(g)))
                       for g in (features, labels, fmasks, lmasks)]
-            losses = []
+            losses, vecs = [], []
             for f_s, l_s, fm_s, lm_s in zip(*groups):
                 f_s, l_s, fm_s, lm_s = advance(carries, f_s, l_s, fm_s, lm_s)
                 cur = self.iteration
+                old = dict(carries)
                 loss, new_state, grads = self._backward_arrays(
                     list(f_s), list(l_s), list(fm_s), list(lm_s),
                     seed=self._train_seed(cur), carries=carries)
-                self._apply_updates(grads, cur)
-                self.state.update(new_state)
+                vecs.append(self._update_pass(loss, grads, new_state, cur,
+                                              (old, carries)))
                 self._cast_params = None
                 self.iteration += 1
                 losses.append(loss)
+            self._tbptt_guard = self._combine_guards(vecs)
             return torch.stack(losses)
 
         return run
@@ -713,6 +734,8 @@ class ComputationGraph(nn_io.HealthHooks):
         self.last_segment_losses = losses
         loss = losses.mean()
         self._score = loss
+        self._health_epilogue(self.iteration - 1, loss, self._tbptt_guard,
+                              (features, labels))
         for lst in self.listeners:
             lst.iteration_done(self, self.iteration - 1, self.epoch, loss)
         return loss

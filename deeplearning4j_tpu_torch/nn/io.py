@@ -17,11 +17,14 @@ and pooling over time end it. ``contains_go_backwards`` and
 (truncated BPTT's per-segment reset, ``rnn_time_step``'s refusals).
 ``HealthHooks``
 gives both network classes the snapshot and restore hooks of the JAX
-package's ``nn/io.py`` that the health layer's rollback calls.
+package's ``nn/io.py`` that the health layer's rollback calls, and the
+health layer's part of their train steps: the update pass (plain, or
+guarded under a health mode) and the per-step epilogue.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 from typing import List
 
@@ -189,9 +192,93 @@ def tbptt_segments(arr, seg: int, cut: int) -> List[torch.Tensor]:
 
 
 class HealthHooks:
-    """The health layer's rollback hooks (the JAX package's
-    ``_health_snapshot`` / ``_health_restore``): a host snapshot of the
-    training state, and its restore (``optimize.checkpoint``)."""
+    """The health layer's part of both networks' train steps.
+
+    - ``_health_snapshot`` / ``_health_restore`` (the JAX package's
+      rollback hooks): a host snapshot of the training state and its
+      restore (``optimize.checkpoint``);
+    - ``_update_pass``: one step's update, plain or, under a health mode,
+      guarded (``telemetry.health.guarded_update``), returning the guard
+      vector;
+    - ``_health_epilogue``: after the step's counters moved, the telemetry
+      step count and the guard vector to the monitor, or, while a fused
+      group is open (``fit(fused_steps=K)`` under a health mode), into the
+      group, which reaches the monitor as one ``[K, G]`` stack.
+
+    The network names its path (``_health_path``) and has ``params``,
+    ``state``, ``opt_state``, ``conf``, ``iteration``, ``epoch`` and
+    ``_apply_updates``."""
+
+    _health_path = "multilayer"
+    _fused_group = None  # [(step, loss, vec, batch)] of an open group
+    _fused_k = 1
+
+    def _update_pass(self, loss, grads, new_state, cur: int, carries=None):
+        from deeplearning4j_tpu_torch.telemetry import health
+
+        mode = health.graph_mode()
+        if not mode:
+            self._apply_updates(grads, cur)
+            self.state.update(new_state)
+            return None
+        return health.guarded_update(self, loss, grads, new_state, cur,
+                                     self.epoch, mode, carries)
+
+    @staticmethod
+    def _combine_guards(vecs):
+        """A batch's guard from its segments' (None when unguarded)."""
+        from deeplearning4j_tpu_torch.telemetry import health
+
+        vecs = [v for v in vecs if v is not None]
+        return health.combine(vecs) if vecs else None
+
+    def _health_epilogue(self, cur: int, loss, vec, batch) -> None:
+        from deeplearning4j_tpu_torch import telemetry
+        from deeplearning4j_tpu_torch.telemetry import health
+
+        features = batch[0][0] if isinstance(batch[0], list) else batch[0]
+        telemetry.record_step(self._health_path, int(features.shape[0]))
+        if vec is None:
+            return
+        if self._fused_group is not None:
+            self._fused_group.append((cur, loss, vec, batch))
+            if len(self._fused_group) >= self._fused_k:
+                self._health_flush_fused()
+            return
+        health.observe_step(self, self._health_path, cur, self.epoch, loss,
+                            vec, health.bucket_keys(self.params),
+                            batch=batch,
+                            rng_seed=int(getattr(self.conf, "seed", 0) or 0))
+
+    @contextlib.contextmanager
+    def _health_fused(self, fused_steps):
+        """Open fused groups of ``fused_steps`` for the duration of a fit
+        (only under a health mode and K > 1)."""
+        from deeplearning4j_tpu_torch.telemetry import health
+
+        k = int(fused_steps or 1)
+        if k > 1 and health.enabled():
+            self._fused_group, self._fused_k = [], k
+        try:
+            yield
+        finally:
+            self._fused_group, self._fused_k = None, 1
+
+    def _health_flush_fused(self) -> None:
+        """Hand an open group's steps to the monitor (a shorter group at
+        an epoch's end)."""
+        from deeplearning4j_tpu_torch.telemetry import health
+
+        group = self._fused_group
+        if not group:
+            return
+        self._fused_group = []
+        health.observe_fused(
+            self, self._health_path, group[0][0], self.epoch,
+            torch.stack([g[1] for g in group]),
+            torch.stack([g[2] for g in group]),
+            health.bucket_keys(self.params), len(group), batch=group[-1][3],
+            rng_seed=int(getattr(self.conf, "seed", 0) or 0))
 
     def _health_snapshot(self):
         from deeplearning4j_tpu_torch.optimize import checkpoint

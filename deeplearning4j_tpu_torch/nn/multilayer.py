@@ -32,6 +32,15 @@ the card. ``fused_steps=K`` trains K batches per group, one after another,
 identically to K = 1: eager PyTorch has no compiled multi-step program to
 fuse, and the step already launches without a host sync.
 
+Under a health mode (``telemetry.health.configure``) every step also
+computes its guard vector on the device and hands it to the monitor; under
+``SKIP_STEP`` the update is selected against the old values by the guard's
+device flag, so a poisoned step changes nothing (``nn.io.HealthHooks``).
+A tBPTT batch's guard is the elementwise max over its segments; a fused
+group's K vectors reach the monitor together after the group, as the JAX
+package's fused scan hands them over. ``fit`` runs inside the flight
+recorder, and every step counts into ``telemetry.record_step``.
+
 Truncated BPTT (``BackpropType.TRUNCATED_BPTT`` with sequence features
 ``[batch, time, size]``): the time axis is cut into segments of
 ``tbptt_fwd_length`` (the tail padded with masked steps), and the segments
@@ -99,6 +108,7 @@ from deeplearning4j_tpu_torch.nn.graph import (
 from deeplearning4j_tpu_torch.optimize import solver
 from deeplearning4j_tpu_torch.optimize.listeners import TrainingListener
 from deeplearning4j_tpu_torch.resilience import faults
+from deeplearning4j_tpu_torch.telemetry import flightrec
 from deeplearning4j_tpu_torch.util import params as params_util
 
 
@@ -116,6 +126,8 @@ def _as_iterator(data, labels=None, batch_size: Optional[int] = None):
 
 class MultiLayerNetwork(nn_io.HealthHooks):
     """Sequential network (reference ``MultiLayerNetwork``)."""
+
+    _health_path = "multilayer"
 
     def __init__(self, conf: MultiLayerConfiguration, device="cuda"):
         self.conf = conf
@@ -439,15 +451,18 @@ class MultiLayerNetwork(nn_io.HealthHooks):
             self.init()
         nn_io.check_fused_steps(fused_steps, self.conf)
         iterator = _as_iterator(data, labels, batch_size)
-        for _ in range(epochs):
-            for lst in self.listeners:
-                lst.on_epoch_start(self, self.epoch)
-            for ds in iterator:
-                self._fit_batch(ds)
-            iterator.reset()
-            for lst in self.listeners:
-                lst.on_epoch_end(self, self.epoch)
-            self.epoch += 1
+        with flightrec.flight_recorder(model=self), \
+                self._health_fused(fused_steps):
+            for _ in range(epochs):
+                for lst in self.listeners:
+                    lst.on_epoch_start(self, self.epoch)
+                for ds in iterator:
+                    self._fit_batch(ds)
+                self._health_flush_fused()
+                iterator.reset()
+                for lst in self.listeners:
+                    lst.on_epoch_end(self, self.epoch)
+                self.epoch += 1
         return self
 
     def fit_batch(self, ds: DataSet) -> float:
@@ -464,27 +479,31 @@ class MultiLayerNetwork(nn_io.HealthHooks):
             args = (faults.fault_point("train.step", args[0]),) + args[1:]
             return self._fit_tbptt(*args)
         features, labels, fmask, lmask = self._batch_arrays(ds)
-        # injection site (raise = preemption mid-training)
+        # injection site (raise = preemption mid-training, corrupt = a
+        # poisoned batch for the health guards)
         features = faults.fault_point("train.step", features)
         cur = self.iteration
         loss, new_state, grads = self._backward(
             features, labels, fmask, lmask, seed=self._train_seed(cur))
-        self._apply_updates(grads, cur)
-        self.state.update(new_state)
+        vec = self._update_pass(loss, grads, new_state, cur)
         self.last_batch_size = int(features.shape[0])
-        return self._finish_step(loss, cur)
+        return self._finish_step(loss, cur, vec, (features, labels))
 
     def _apply_updates(self, grads, cur: int) -> None:
         """The update pass: each layer's gradient normalization,
         regularization and updater, applied to the params in place."""
         solver.apply_updates(self, grads, cur, self.epoch)
 
-    def _finish_step(self, loss, cur: int) -> torch.Tensor:
-        """Step bookkeeping after the update: the score, the counters and
-        the listeners."""
+    def _finish_step(self, loss, cur: int, vec=None,
+                     batch=None) -> torch.Tensor:
+        """Step bookkeeping after the update: the score, the counters,
+        the telemetry step (``batch``: the step's (features, labels)), the
+        health epilogue (``vec``: its guard vector) and the listeners."""
         self._cast_params = None
         self._score = loss
         self.iteration += 1  # listeners see iteration == next-to-run
+        if batch is not None:
+            self._health_epilogue(cur, loss, vec, batch)
         for lst in self.listeners:
             lst.iteration_done(self, cur, self.epoch, loss)
         return loss
@@ -559,19 +578,21 @@ class MultiLayerNetwork(nn_io.HealthHooks):
 
         def run(features, labels, fmask, lmask):
             carries = zero_carries(features)
-            losses = []
+            losses, vecs = [], []
             for f_s, l_s, fm_s, lm_s in zip(*(segments(a) for a in (
                     features, labels, fmask, lmask))):
                 f_s, l_s, fm_s, lm_s = advance(carries, f_s, l_s, fm_s, lm_s)
                 cur = self.iteration
+                old = dict(carries)
                 loss, new_state, grads = self._backward(
                     f_s, l_s, fm_s, lm_s, seed=self._train_seed(cur),
                     carries=carries)
-                self._apply_updates(grads, cur)
-                self.state.update(new_state)
+                vecs.append(self._update_pass(loss, grads, new_state, cur,
+                                              (old, carries)))
                 self._cast_params = None
                 self.iteration += 1
                 losses.append(loss)
+            self._tbptt_guard = self._combine_guards(vecs)
             return torch.stack(losses)
 
         return run
@@ -589,6 +610,8 @@ class MultiLayerNetwork(nn_io.HealthHooks):
         self.last_batch_size = int(features.shape[0])
         loss = losses.mean()
         self._score = loss
+        self._health_epilogue(self.iteration - 1, loss, self._tbptt_guard,
+                              (features, labels))
         for lst in self.listeners:
             lst.iteration_done(self, self.iteration - 1, self.epoch, loss)
         return loss

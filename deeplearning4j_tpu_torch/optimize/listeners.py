@@ -3,7 +3,8 @@
 Reference: ``org.deeplearning4j.optimize.api.TrainingListener`` and the
 impls in ``org.deeplearning4j.optimize.listeners``; copied from the JAX
 package's ``optimize/listeners.py``: score printing and collection, the
-performance and ETA listeners and periodic evaluation. ``score`` is the
+performance and ETA listeners, periodic evaluation and the health
+monitor's reports. ``score`` is the
 step's loss (a 0-dim tensor, on the device until a listener reads it with
 ``float(score)``).
 """
@@ -154,3 +155,43 @@ class EvaluativeListener(TrainingListener):
     def on_epoch_end(self, model, epoch):
         if self.unit == "epoch" and (epoch + 1) % self.frequency == 0:
             self._run(model)
+
+
+class HealthListener(TrainingListener):
+    """The training-health monitor (``telemetry.health``) through the
+    listener SPI: every N iterations, flush the monitor's queued guard
+    vectors (one transfer) and report its counts and the latest gradient
+    norm and update:param ratio. A line prints only when something changed
+    (``print_all=True``: at every collection); ``history`` keeps the
+    reports."""
+
+    def __init__(self, frequency: int = 10, stream=None,
+                 print_all: bool = False):
+        self.frequency = max(1, int(frequency))
+        self.stream = stream or sys.stdout
+        self.print_all = bool(print_all)
+        self.history: List[dict] = []
+        self._last_nonfinite = 0
+
+    def iteration_done(self, model, iteration, epoch, score):
+        if iteration % self.frequency:
+            return
+        from deeplearning4j_tpu_torch.telemetry import health
+
+        rep = health.report()
+        rep["iteration"] = int(iteration)
+        self.history.append(rep)
+        new_bad = rep["nonfinite_steps"] - self._last_nonfinite
+        self._last_nonfinite = rep["nonfinite_steps"]
+        if new_bad or self.print_all:
+            last = rep.get("last") or {}
+            msg = (f"[health] iter {iteration}: status={rep['status']}, "
+                   f"{rep['nonfinite_steps']} non-finite step(s)")
+            if rep["skipped_steps"]:
+                msg += f", {rep['skipped_steps']} skipped"
+            if rep["rollbacks"]:
+                msg += f", {rep['rollbacks']} rollback(s)"
+            if last:
+                msg += (f", grad_norm={last['grad_norm']:.4g}, "
+                        f"update:param={last['update_param_ratio']:.3g}")
+            print(msg, file=self.stream)

@@ -73,10 +73,20 @@ def apply_updater_to_layer(layer_conf, updater, params: dict, grads: dict,
     keeps its storage and memory format), so ``new_params`` holds the same
     tensors as ``params``.
     """
+    upds, new_opt = layer_updates(layer_conf, updater, params, grads,
+                                  opt_state, lr, t, epoch)
+    return {k: p.sub_(upds[k]) for k, p in params.items()}, new_opt
+
+
+def layer_updates(layer_conf, updater, params: dict, grads: dict,
+                  opt_state: dict, lr, t, epoch=0.0):
+    """:func:`apply_updater_to_layer` without the subtraction: ``({key:
+    update}, new_opt_state)``, the params untouched (each updater returns
+    new state tensors and never writes its inputs)."""
     reg_w = tuple(getattr(layer_conf, "regularization", ()) or ())
     reg_b = tuple(getattr(layer_conf, "regularization_bias", ()) or ())
     reg_keys = set(layer_conf.regularized_param_keys())
-    new_params, new_opt = {}, {}
+    upds, new_opt = {}, {}
     for k, p in params.items():
         g = grads[k]
         regs = reg_w if k in reg_keys else reg_b
@@ -86,8 +96,8 @@ def apply_updater_to_layer(layer_conf, updater, params: dict, grads: dict,
                                               epoch=epoch, param=p)
         for r in regs:
             upd = r.apply_after_updater(upd, p, lr)
-        new_params[k] = p.sub_(upd)
-    return new_params, new_opt
+        upds[k] = upd
+    return upds, new_opt
 
 
 def regularization_score(params: dict, layer_of):
@@ -122,3 +132,43 @@ def apply_updates(net, grads: dict, t, epoch=0.0) -> None:
             net.params[k], net.opt_state[k] = apply_updater_to_layer(
                 layer, upd, net.params[k], g, net.opt_state[k],
                 upd.current_lr(t, epoch), t, epoch)
+
+
+def apply_updates_guarded(net, grads: dict, t, epoch=0.0, ok=None):
+    """:func:`apply_updates` for a step under the health layer: each
+    layer's new params are computed out of place, ``p - update`` (the
+    bits ``p.sub_(update)`` gives), and copied in; with ``ok`` (a device
+    bool) the new params and updater state are taken only where it holds
+    (``torch.where``), so an anomalous step leaves both bit-identical with
+    no host read. Returns the squared L2 norms ``(new - old, old)`` over
+    every float param, as float32 device scalars."""
+    from deeplearning4j_tpu_torch.telemetry.health import sq_sum
+
+    diffs, olds = [], []
+    with torch.no_grad():
+        for k in grads:
+            layer, upd = net._layer_updater(k)
+            g = normalize_layer_gradients(layer, grads[k])
+            params = net.params[k]
+            upds, new_opt = layer_updates(
+                layer, upd, params, g, net.opt_state[k],
+                upd.current_lr(t, epoch), t, epoch)
+            floats = [pk for pk in sorted(params)
+                      if params[pk].is_floating_point()]
+            news = {pk: params[pk] - upds[pk] for pk in params}
+            dev = next(iter(params.values())).device if params else None
+            diffs.append(sq_sum([news[pk].float() - params[pk].float()
+                                 for pk in floats], dev))
+            olds.append(sq_sum([params[pk] for pk in floats], dev))
+            for pk, p in params.items():
+                p.copy_(news[pk] if ok is None
+                        else torch.where(ok, news[pk], p))
+            if ok is not None:
+                new_opt = {pk: {sk: torch.where(ok, v, net.opt_state[k][pk][sk])
+                                for sk, v in st.items()}
+                           for pk, st in new_opt.items()}
+            net.opt_state[k] = new_opt
+    if not diffs:
+        z = torch.zeros((), dtype=torch.float32)
+        return z, z
+    return torch.stack(diffs).sum(), torch.stack(olds).sum()

@@ -408,7 +408,18 @@ class ParallelWrapper:
     def fit(self, data, labels=None, epochs: int = 1):
         """Train this rank's partition (reference ``ParallelWrapper#fit``):
         a DataSetIterator, a (Multi)DataSet, or (features, labels)
-        arrays."""
+        arrays. A health mode (``telemetry.health.configure``) is refused:
+        the guards across ranks are not ported yet."""
+        from deeplearning4j_tpu_torch.telemetry import health
+
+        if health.enabled():
+            raise NotImplementedError(
+                f"ParallelWrapper.fit under the health layer "
+                f"({health.monitor().policy.value}) is not ported yet: it "
+                "waits for the wrapper's guard modes (the guard vector "
+                "combined across ranks, SKIP_STEP inside the exchange; the "
+                "JAX package's parallel/wrapper.py health wiring, ROADMAP "
+                "A); call telemetry.health.disable() first")
         from deeplearning4j_tpu_torch.datasets.iterators import (
             ListDataSetIterator,
         )

@@ -170,7 +170,9 @@ def _poison(value):
         if not value.is_floating_point() or value.numel() == 0:
             return value
         out = value.clone()
-        out.view(-1)[0] = float("nan")
+        # the logical first element (a channels-last image batch has no
+        # flat view): the element the JAX package's NHWC batch poisons
+        out[(0,) * out.ndim] = float("nan")
         return out
     try:
         arr = np.array(value, copy=True)

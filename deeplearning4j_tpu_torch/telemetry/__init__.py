@@ -1,6 +1,7 @@
-"""Telemetry: the metrics registry, request tracing, step-trace spans, and
-the recording helpers the serving and generation engines and the
-data-parallel trainer call.
+"""Telemetry: the metrics registry, request tracing, step-trace spans, the
+training health layer and its flight recorder, the export surfaces, and
+the recording helpers the serving and generation engines, the networks'
+train steps and the data-parallel trainer call.
 
 A minimal counterpart of the JAX package's ``telemetry/__init__.py``: the
 same metric names and labels for what the port records. Serving,
@@ -14,10 +15,26 @@ from __future__ import annotations
 
 import weakref
 
+from deeplearning4j_tpu_torch.telemetry import flightrec as flightrec  # noqa: F401
+from deeplearning4j_tpu_torch.telemetry import health as health  # noqa: F401
 from deeplearning4j_tpu_torch.telemetry import registry as registry  # noqa: F401
 from deeplearning4j_tpu_torch.telemetry import slo as slo  # noqa: F401
 from deeplearning4j_tpu_torch.telemetry import spans as spans  # noqa: F401
 from deeplearning4j_tpu_torch.telemetry import tracing as tracing  # noqa: F401
+from deeplearning4j_tpu_torch.telemetry.export import (  # noqa: F401
+    TelemetryListener,
+    dump_jsonl,
+    telemetry_record,
+)
+from deeplearning4j_tpu_torch.telemetry.flightrec import (  # noqa: F401
+    FlightRecorder,
+    flight_recorder,
+)
+from deeplearning4j_tpu_torch.telemetry.health import (  # noqa: F401
+    AnomalyPolicy,
+    DivergenceError,
+    HealthMonitor,
+)
 from deeplearning4j_tpu_torch.telemetry.registry import REGISTRY
 from deeplearning4j_tpu_torch.telemetry.spans import (  # noqa: F401
     PHASE_COMPUTE,
@@ -27,12 +44,17 @@ from deeplearning4j_tpu_torch.telemetry.spans import (  # noqa: F401
     disable,
     enable,
     enabled,
+    events,
+    export_chrome_trace,
     host_gap_close,
     host_gap_open,
+    host_gap_pause,
     host_gap_reset,
+    host_gap_resume,
     host_gap_stop,
     phase_stats,
     span,
+    sync_mode,
 )
 
 
@@ -51,7 +73,7 @@ def reset() -> None:
 
 def record_step(path: str, examples: int = 0, steps: int = 1) -> None:
     """Count one dispatch's optimization steps (and examples) for a
-    training path (``parallel`` for the data-parallel trainer)."""
+    training path: ``multilayer``, ``graph`` or ``parallel``."""
     if not spans._enabled:
         return
     REGISTRY.counter("dl4j_training_steps_total",

@@ -2,7 +2,8 @@
 ``VGG16``, ``VGG19``, ``ResNet50``, ``SqueezeNet``, ``Darknet19``,
 ``UNet``, ``Xception``, ``InceptionResNetV1``, ``TinyYOLO``, ``YOLO2``,
 ``NASNet`` and ``TransformerEncoder``; the sequential ``LeNet``,
-``SimpleCNN``, ``AlexNet`` and ``TextGenerationLSTM``."""
+``SimpleCNN``, ``AlexNet`` and ``TextGenerationLSTM``; their pretrained
+weights through ``zoo.pretrained``."""
 
 from deeplearning4j_tpu_torch.zoo.graphs import (  # noqa: F401
     VGG16,
@@ -24,4 +25,10 @@ from deeplearning4j_tpu_torch.zoo.models import (  # noqa: F401
     SimpleCNN,
     TextGenerationLSTM,
     ZooModel,
+)
+from deeplearning4j_tpu_torch.zoo.pretrained import (  # noqa: F401
+    PretrainedType,
+    load_pretrained,
+    restore_partial,
+    save_pretrained,
 )

@@ -3,8 +3,8 @@
 JAX package's configuration.
 
 Reference: ``org.deeplearning4j.zoo.ZooModel``: ``conf()`` builds the
-configuration and ``init()`` the network. Pretrained-weight loading lands
-with a later slice.
+configuration, ``init()`` the network, and ``init_pretrained(type)`` loads
+checksum-verified cached weights (``zoo.pretrained``).
 """
 
 from __future__ import annotations
@@ -27,10 +27,14 @@ from deeplearning4j_tpu_torch.conf.multilayer import (
 )
 from deeplearning4j_tpu_torch.conf.updaters import Adam, IUpdater, Nesterovs
 from deeplearning4j_tpu_torch.conf.weights import WeightInit
+from deeplearning4j_tpu_torch.zoo.pretrained import PretrainedMixin
 
 
-class ZooModel:
-    """SPI base (reference ``org.deeplearning4j.zoo.ZooModel``)."""
+class ZooModel(PretrainedMixin):
+    """SPI base (reference ``org.deeplearning4j.zoo.ZooModel``): ``conf()``
+    builds the configuration, ``init()`` the network, and the mixin adds
+    ``init_pretrained`` / ``pretrained_available`` / ``pretrained_url`` /
+    ``pretrained_checksum``."""
 
     def init(self, device="cuda"):
         """Build the network with freshly initialized weights on ``device``."""

@@ -25,7 +25,7 @@ for name in names:
     importlib.import_module(name)
 import chip_data_parallel, chip_gen_profile, chip_kernel_ab
 import chip_lenet_spread, chip_platform, chip_sequence, chip_smoke
-import chip_train_profile, chip_zoo, chip_layers, chip_moe
+import chip_train_profile, chip_zoo, chip_layers, chip_moe, chip_transfer
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))
 print(len(names), bad)
@@ -39,8 +39,9 @@ def test_importing_the_port_loads_no_jax():
     count, bad = out.stdout.strip().splitlines()[-1].split(" ", 1)
     # every module of the port, checkpointing, the gradient check, the
     # data-parallel slice's, the serving platform's and the object
-    # detection layer's and the MoE slice's modules included
-    assert int(count) >= 85
+    # detection layer's, the MoE slice's and the fine-tuning slice's
+    # modules included
+    assert int(count) >= 90
     assert bad == "[]"
 
 
@@ -184,12 +185,26 @@ MOE_MODULES = [
 ]
 
 
+# the fine-tuning slice's modules (pretrained weights, transfer learning,
+# early stopping, the health layer, its flight recorder, the export
+# surfaces) and its chip phase
+TRANSFER_MODULES = [
+    "deeplearning4j_tpu_torch.zoo.pretrained",
+    "deeplearning4j_tpu_torch.nn.transferlearning",
+    "deeplearning4j_tpu_torch.earlystopping",
+    "deeplearning4j_tpu_torch.telemetry.flightrec",
+    "deeplearning4j_tpu_torch.telemetry.export",
+    "deeplearning4j_tpu_torch.optimize.solver",
+    "chip_transfer",
+]
+
+
 # a module named by two slices runs once, under its first slice's id
 @pytest.mark.parametrize("module", list(dict.fromkeys(
     GENERATION_MODULES + TRAINING_MODULES + QUANT_MODULES
     + MLN_TRAINING_MODULES + BF16_TRAINING_MODULES + TUNING_MODULES
     + DATA_PARALLEL_MODULES + SEQUENCE_MODULES + PLATFORM_MODULES
-    + ZOO_MODULES + MOE_MODULES)))
+    + ZOO_MODULES + MOE_MODULES + TRANSFER_MODULES)))
 def test_generation_module_alone_loads_no_jax(module):
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -211,7 +226,7 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                                  "chip_lenet_spread.py",
                                  "chip_sequence.py", "chip_platform.py",
                                  "chip_zoo.py", "chip_layers.py",
-                                 "chip_moe.py")]
+                                 "chip_moe.py", "chip_transfer.py")]
     offenders = [str(p.relative_to(ROOT)) for p in sources
                  if pattern.search(p.read_text())]
     assert offenders == []
