@@ -305,8 +305,21 @@ Phases, in order; any failure exits non-zero:
    synchronization, exact rollback, a strict-JSON bundle, early stopping
    on the planted step); step, guard, snapshot and featurize times, row 1
    at fc6 / fc7.
+34. preemption-safe, monitored training (``chip_session.py``): rows 1, 2
+   and 6-8 on NaN (0x7fffffff, 0xffffffff), +-inf, 3.4e38 and FLT_MAX
+   inputs keep their plain versions' NaN and inf pattern; full-width
+   ResNet-50 (fused_conv_bn, Adam, batch 32, row 2 36 times a step)
+   under ``TrainingSession(ParallelWrapper exact)`` at one NCCL rank,
+   killed at ``train.step`` call 5 and resumed bit for bit, then resumed
+   by a fresh process from the directory alone; ZeRO across two gloo
+   ranks on the card with pod snapshots, host 1 dead at a heartbeat and
+   resumed bit for bit, a 2 -> 1 restore and a corrupted shard passed
+   over; SKIP_STEP / WARN across ranks in exact and ZeRO mode (no
+   synchronizing call a step at NCCL); ``StatsListener`` posting to a
+   ``UIServer`` whose endpoints answer; the legacy solvers on LeNet
+   (row 1) on both routes; the profiler's NaN panic, step times, trace.
 
-Then the ``{"transfer": ...}``, ``{"layers": ...}``, ``{"moe": ...}``, ``{"zoo": ...}``, ``{"platform": ...}``, ``{"trained_text_lstm": ...}``,
+Then the ``{"session": ...}``, ``{"transfer": ...}``, ``{"layers": ...}``, ``{"moe": ...}``, ``{"zoo": ...}``, ``{"platform": ...}``, ``{"trained_text_lstm": ...}``,
 ``{"sequence_attention": ...}``, ``{"trained_mln": ...}`` and
 ``{"trained_bf16": ...}`` lines, one
 ``{"kernels": [...]}`` line with every kernel (row 1 with its [21] shapes
@@ -5624,6 +5637,27 @@ def main() -> int:
 
     transfer_line, report["kernels"][0]["transfer"] = \
         chip_transfer.transfer_phase(torch, F, dev, smi)
+    # 34. preemption-safe, monitored training: the NaN-keeping split on
+    # rows 1, 2, 6-8, ResNet-50 sessions and pod snapshots on row 2, the
+    # guard modes across ranks, the UI, the legacy solvers on row 1
+    torch.cuda.empty_cache()
+    import chip_session
+
+    impls.matmul_stats.launches = 0
+    session_line = chip_session.session_phase(torch, dev, smi)
+    for row in report["kernels"]:
+        if row["name"] == "matmul_stats":
+            row["session"] = {
+                "launches_per_step": session_line["session"]["rank"][
+                    "row2_launches_per_step"],
+                "scope": ("[34b]: full-width ResNet-50 fused_conv_bn under "
+                          "TrainingSession(ParallelWrapper exact) at one "
+                          "NCCL rank, batch 32")}
+        if row["name"] in ("matmul_bias_act", "matmul_stats",
+                           "flash_attention", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv"):
+            row["nan_inf_kept"] = True  # [34a] holds it
+    log(json.dumps({"session": session_line}))
     log(json.dumps({"transfer": transfer_line}))
     log(json.dumps({"layers": layers_line}))
     log(json.dumps({"moe": moe_line}))
@@ -5643,7 +5677,7 @@ def main() -> int:
     log(json.dumps({"speculative": spec_line}))
     log(json.dumps({"tuned": tuned_line}))
     log(json.dumps({"data_parallel": dp_line}))
-    log(f"[33] total wall time of the script {time.monotonic() - t_start:.1f}"
+    log(f"[34] total wall time of the script {time.monotonic() - t_start:.1f}"
         f" s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -51,7 +51,8 @@ temporary directory.
   no more synchronizing calls a step than the unguarded step (counted
   with ``torch.cuda.set_sync_debug_mode("warn")``); ROLLBACK restores the
   last-good snapshot bit for bit; row 1 keeps a NaN input's NaN through
-  its clamping epilogues, as its plain version does; HALT raises
+  its clamping epilogues, as its plain version does, and the NaN CUDA
+  arithmetic makes (0x7fffffff) in every output of its row; HALT raises
   ``DivergenceError`` and its
   bundle's five files parse with a strict ``parse_constant``; an
   early-stopping run under SKIP_STEP stops on the planted step with
@@ -761,11 +762,10 @@ def health_checks(torch, tuned, p0, train, smi) -> dict:
 def nan_propagation(torch, dev) -> dict:
     """Row 1 at fc7's shape with a NaN (0x7fc00000, the host's) in its
     input: every clamping epilogue keeps the NaN row, as the plain version
-    does, and the other rows agree within ``KERNEL_TOL``. Reported, not
-    held: whether the NaN CUDA arithmetic makes (0x7fffffff) survives the
-    3xTF32 split (``mma_tiles.cuh::to_tf32`` rounds a finite x: this
-    NaN's rounding carries into the sign bit and leaves -0.0; ROADMAP C).
-    Returns the activations held and that reading."""
+    does, and the other rows agree within ``KERNEL_TOL``. Held too: the NaN
+    CUDA arithmetic makes (0x7fffffff) survives the 3xTF32 split
+    (``mma_tiles.cuh::split_tf32``) in every output of its row. Returns
+    the activations held and the count of that row's NaN outputs."""
     from deeplearning4j_tpu_torch.conf.activations import Activation
     from deeplearning4j_tpu_torch.kernels import impls
 
@@ -791,6 +791,9 @@ def nan_propagation(torch, dev) -> dict:
     x.view(torch.int32)[0, 0] = 0x7FFFFFFF
     y = impls.matmul_bias_act(x, w, b, Activation.IDENTITY)
     kept = int(torch.isnan(y[0]).sum())
+    if kept != y.shape[1]:
+        raise AssertionError(f"[33d] row 1 kept the 0x7fffffff NaN in "
+                             f"{kept} of {y.shape[1]} outputs")
     return {"activations": names, "cuda_nan_rows_kept": kept,
             "cuda_nan_row_width": int(y.shape[1])}
 

@@ -115,18 +115,87 @@ __device__ __forceinline__ void load_tile(T* __restrict__ dst,
 // the 3xTF32 split and the MMA instructions
 // ---------------------------------------------------------------------------
 
-// cvt.rna.tf32.f32 of a finite x (round to nearest, ties away from zero, at 13
-// dropped mantissa bits) in two integer operations. Every element of every
-// float32 operand goes through it twice, and on an H100 the instruction made
-// the flash backward kernels 1.4-1.6x slower.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+// cvt.rna.tf32.f32 (round to nearest, ties away from zero, at 13 dropped
+// mantissa bits) of an x below kTf32Top in magnitude, in two integer
+// operations. Every element of every float32 operand goes through it twice,
+// and on an H100 the instruction made the flash backward kernels 1.4-1.6x
+// slower. From kTf32Top on, the carry reaches the exponent's top or the sign:
+// |x| within 2^-11 of FLT_MAX would become infinity, the NaN CUDA arithmetic
+// makes (0x7fffffff) -0.0, and 0xffffffff +0.0.
+constexpr uint32_t kTf32Top = 0x7f7ff000u;
+
+__device__ __forceinline__ uint32_t to_tf32(uint32_t u) {
+  return (u + 0x1000u) & 0xffffe000u;
 }
 
+// x = big + small, both TF32, so that the three products of mma_3xtf32 give
+// what the float32 product gives, NaN and infinity included:
+// - a finite x below kTf32Top: big is x rounded, small the rounded rest;
+// - a finite x from kTf32Top on: big and small truncated, so that neither
+//   nor their sum reaches infinity;
+// - a NaN of any payload: both parts NaN, with the quiet bit set inside the
+//   19 bits the tensor cores read;
+// - +-inf: big +-1, small +-inf. The small inf meets the partner y's big
+//   part, which gives the float32 product's inf (or NaN for y = 0), and the
+//   remaining terms are +-y's parts, finite and unable to cancel it; for y
+//   = +-inf too, +-1 meets y's small inf with the same sign. A big inf
+//   would meet y's small part, which may be 0 or of the other sign (inf * 0
+//   and inf - inf are NaN).
+// split_tf32_group below keeps this off the common path.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
                                            uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
+  const uint32_t u = __float_as_uint(x), a = u & 0x7fffffffu;
+  if (a < kTf32Top) {
+    big = to_tf32(u);
+    small = to_tf32(__float_as_uint(x - __uint_as_float(big)));
+  } else if (a < 0x7f800000u) {
+    big = u & 0xffffe000u;
+    small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
+  } else if (a == 0x7f800000u) {
+    big = (u & 0x80000000u) | 0x3f800000u;
+    small = u;
+  } else {
+    big = small = (u & 0xffffe000u) | 0x00400000u;
+  }
+}
+
+// Whether the two-operation split is exact for x: |x| below kTf32Top (false
+// for NaN). One FSETP with the absolute value as its modifier.
+__device__ __forceinline__ bool tf32_plain(float x) {
+  return fabsf(x) < __uint_as_float(kTf32Top);
+}
+
+// The two-operation split of an x below kTf32Top; `plain` turns false when
+// x is not (the caller then splits again with split_tf32). One compare an
+// element over the two roundings, and no branch.
+__device__ __forceinline__ void split_tf32_fast(float x, uint32_t& big,
+                                                uint32_t& small, bool& plain) {
+  big = to_tf32(__float_as_uint(x));
+  small = to_tf32(__float_as_uint(x - __uint_as_float(big)));
+  plain = plain && tf32_plain(x);
+}
+
+// N elements split: the two-operation split of each, then the full one
+// (split_tf32) over the group only where one of them needs it. The common
+// case adds a compare an element and one branch a group to the split; a NaN,
+// an infinity or a near-FLT_MAX value takes the branch. (split_tf32 on every
+// element, which if-converts into selects, made the kernels 1.7-2.9x slower
+// on an H100.)
+template <int N>
+__device__ __forceinline__ void split_tf32_group(const float (&x)[N],
+                                                 uint32_t (&big)[N],
+                                                 uint32_t (&small)[N]) {
+  bool plain = true;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    big[i] = to_tf32(__float_as_uint(x[i]));
+    small[i] = to_tf32(__float_as_uint(x[i] - __uint_as_float(big[i])));
+    plain = plain && tf32_plain(x[i]);
+  }
+  if (__builtin_expect(!plain, 0)) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) split_tf32(x[i], big[i], small[i]);
+  }
 }
 
 // Splits a shared f32 tile of ROWS x DP (row stride LD) in place: big
@@ -142,11 +211,9 @@ __device__ __forceinline__ void split_tile(float* __restrict__ big,
     const int i = tid + it * NT;
     const int off = (i / Q) * LD + (i % Q) * 4;
     const float4 x = *reinterpret_cast<const float4*>(big + off);
+    const float xv[4] = {x.x, x.y, x.z, x.w};
     uint32_t b[4], s[4];
-    split_tf32(x.x, b[0], s[0]);
-    split_tf32(x.y, b[1], s[1]);
-    split_tf32(x.z, b[2], s[2]);
-    split_tf32(x.w, b[3], s[3]);
+    split_tf32_group(xv, b, s);
     *reinterpret_cast<uint4*>(big + off) = make_uint4(b[0], b[1], b[2], b[3]);
     *reinterpret_cast<uint4*>(small + off) = make_uint4(s[0], s[1], s[2], s[3]);
   }
@@ -217,11 +284,9 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NTILES][4],
 #pragma unroll
     for (int kk = 0; kk < K; kk += 8) {
       const float* xp = X + g * LDX + kk + t;
+      const float xv[4] = {xp[0], xp[8 * LDX], xp[4], xp[8 * LDX + 4]};
       uint32_t ab[4], as[4];
-      split_tf32(xp[0], ab[0], as[0]);
-      split_tf32(xp[8 * LDX], ab[1], as[1]);
-      split_tf32(xp[4], ab[2], as[2]);
-      split_tf32(xp[8 * LDX + 4], ab[3], as[3]);
+      split_tf32_group(xv, ab, as);
 #pragma unroll
       for (int n = 0; n < NTILES; ++n) {
         const int o = (n * 8 + g) * LDY + kk + t;
@@ -268,11 +333,9 @@ __device__ __forceinline__ void mma_ckn(float (&acc)[NTILES][4],
 #pragma unroll
     for (int j = 0; j < KT; ++j) {
       // k slot t <- column 2t, slot t + 4 <- column 2t + 1 (rows g, g + 8)
+      const float cv[4] = {c[j][0], c[j][2], c[j][1], c[j][3]};
       uint32_t ab[4], as[4];
-      split_tf32(c[j][0], ab[0], as[0]);
-      split_tf32(c[j][2], ab[1], as[1]);
-      split_tf32(c[j][1], ab[2], as[2]);
-      split_tf32(c[j][3], ab[3], as[3]);
+      split_tf32_group(cv, ab, as);
       const int o = (j * 8 + 2 * t) * LDY + g;
 #pragma unroll
       for (int n = 0; n < NTILES; ++n) {

@@ -55,30 +55,41 @@ inline bool wide_tiles(int m, int n, int num_sms) {
 }
 
 // d[mt][nt] += X . Y^T over one BK step: X the warp's WM rows of a staged x
-// tile, Y its WN rows of the w tile (row stride LD, k contiguous).
-template <typename T, int MT, int NTL, int BK, int LD>
+// tile, Y its WN rows of the w tile (row stride LD, k contiguous). float32:
+// kExact splits with split_tf32 (NaN, inf and near-FLT_MAX kept); else with
+// the two-operation split, turning `plain` false where an element needs the
+// exact one (gemm_tile then runs the block again with kExact).
+template <typename T, int MT, int NTL, int BK, int LD, bool kExact>
 __device__ __forceinline__ void warp_mma(float (&d)[MT][NTL][4],
                                          const T* __restrict__ X,
-                                         const T* __restrict__ Y, int lane) {
+                                         const T* __restrict__ Y, int lane,
+                                         bool& plain) {
   const int g = lane >> 2, t = lane & 3;
   if constexpr (std::is_same<T, float>::value) {
+    auto split = [&](float v, uint32_t& big, uint32_t& small) {
+      if constexpr (kExact) {
+        mma::split_tf32(v, big, small);
+      } else {
+        mma::split_tf32_fast(v, big, small, plain);
+      }
+    };
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 8) {
       uint32_t ab[MT][4], as[MT][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         const float* xp = X + (mt * 16 + g) * LD + kk + t;
-        mma::split_tf32(xp[0], ab[mt][0], as[mt][0]);
-        mma::split_tf32(xp[8 * LD], ab[mt][1], as[mt][1]);
-        mma::split_tf32(xp[4], ab[mt][2], as[mt][2]);
-        mma::split_tf32(xp[8 * LD + 4], ab[mt][3], as[mt][3]);
+        split(xp[0], ab[mt][0], as[mt][0]);
+        split(xp[8 * LD], ab[mt][1], as[mt][1]);
+        split(xp[4], ab[mt][2], as[mt][2]);
+        split(xp[8 * LD + 4], ab[mt][3], as[mt][3]);
       }
 #pragma unroll
       for (int nt = 0; nt < NTL; ++nt) {
         const float* yp = Y + (nt * 8 + g) * LD + kk + t;
         uint32_t bb[2], bs[2];
-        mma::split_tf32(yp[0], bb[0], bs[0]);
-        mma::split_tf32(yp[4], bb[1], bs[1]);
+        split(yp[0], bb[0], bs[0]);
+        split(yp[4], bb[1], bs[1]);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           mma::mma_3xtf32(d[mt][nt], ab[mt], as[mt], bb, bs);
@@ -108,18 +119,15 @@ __device__ __forceinline__ void warp_mma(float (&d)[MT][NTL][4],
   }
 }
 
-// acc = x[row0 : row0 + BM, :] . w[col0 : col0 + BN, :]^T (rows past M or N
-// give 0) for the calling warp's fragments: warp wm = warp / kWarpsN owns
-// rows wm * WM + [0, WM) of the tile, wn = warp % kWarpsN columns
-// wn * WN + [0, WN). `smem` holds G::kSmem bytes (dynamic shared memory);
-// vec: 16-byte aligned x and w with K * sizeof(T) a multiple of 16. kFresh:
-// each K step summed fresh, then added to acc (see the top of the file).
-template <typename G, bool kFresh = false, typename T>
-__device__ __forceinline__ void gemm_tile(const T* __restrict__ x,
+// One pass of the main loop over K into acc (zeroed first); kExact as
+// warp_mma's.
+template <typename G, bool kFresh, bool kExact, typename T>
+__device__ __forceinline__ void gemm_pass(const T* __restrict__ x,
                                           const T* __restrict__ w, int M, int N,
                                           int K, int row0, int col0, bool vec,
                                           T* __restrict__ smem,
-                                          float (&acc)[G::MT][G::NTL][4]) {
+                                          float (&acc)[G::MT][G::NTL][4],
+                                          bool& plain) {
   constexpr int BM = G::BM, BN = G::BN, BK = G::BK, LD = G::LD, NT = G::NT;
   constexpr int S = G::kStages;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -152,8 +160,9 @@ __device__ __forceinline__ void gemm_tile(const T* __restrict__ x,
     const T* xs = smem + (i % S) * G::kStage;
     if constexpr (kFresh) {
       float part[G::MT][G::NTL][4] = {};
-      warp_mma<T, G::MT, G::NTL, BK, LD>(part, xs + wm * G::WM * LD,
-                                         xs + (BM + wn * G::WN) * LD, lane);
+      warp_mma<T, G::MT, G::NTL, BK, LD, kExact>(
+          part, xs + wm * G::WM * LD, xs + (BM + wn * G::WN) * LD, lane,
+          plain);
 #pragma unroll
       for (int mt = 0; mt < G::MT; ++mt)
 #pragma unroll
@@ -161,8 +170,36 @@ __device__ __forceinline__ void gemm_tile(const T* __restrict__ x,
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
     } else {
-      warp_mma<T, G::MT, G::NTL, BK, LD>(acc, xs + wm * G::WM * LD,
-                                         xs + (BM + wn * G::WN) * LD, lane);
+      warp_mma<T, G::MT, G::NTL, BK, LD, kExact>(
+          acc, xs + wm * G::WM * LD, xs + (BM + wn * G::WN) * LD, lane, plain);
+    }
+  }
+}
+
+// acc = x[row0 : row0 + BM, :] . w[col0 : col0 + BN, :]^T (rows past M or N
+// give 0) for the calling warp's fragments: warp wm = warp / kWarpsN owns
+// rows wm * WM + [0, WM) of the tile, wn = warp % kWarpsN columns
+// wn * WN + [0, WN). `smem` holds G::kSmem bytes (dynamic shared memory);
+// vec: 16-byte aligned x and w with K * sizeof(T) a multiple of 16. kFresh:
+// each K step summed fresh, then added to acc (see the top of the file).
+// float32: the pass splits with the two-operation rounding and notes any
+// element it does not hold (NaN, inf, |x| near FLT_MAX); a block where one
+// thread noted one runs the pass again with the exact split, so the common
+// case pays a compare an element and one block-wide vote.
+template <typename G, bool kFresh = false, typename T>
+__device__ __forceinline__ void gemm_tile(const T* __restrict__ x,
+                                          const T* __restrict__ w, int M, int N,
+                                          int K, int row0, int col0, bool vec,
+                                          T* __restrict__ smem,
+                                          float (&acc)[G::MT][G::NTL][4]) {
+  bool plain = true;
+  gemm_pass<G, kFresh, false>(x, w, M, N, K, row0, col0, vec, smem, acc,
+                              plain);
+  if constexpr (std::is_same<T, float>::value) {
+    mma::cp_async_wait<0>();
+    if (__syncthreads_or(!plain)) {
+      gemm_pass<G, kFresh, true>(x, w, M, N, K, row0, col0, vec, smem, acc,
+                                 plain);
     }
   }
 }

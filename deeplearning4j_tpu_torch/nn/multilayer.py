@@ -77,7 +77,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch import kernels
+from deeplearning4j_tpu_torch import kernels, profiler
 from deeplearning4j_tpu_torch.comms import global_batch
 from deeplearning4j_tpu_torch.conf import inputs as it
 from deeplearning4j_tpu_torch.conf.layers import (
@@ -504,6 +504,8 @@ class MultiLayerNetwork(nn_io.HealthHooks):
         self.iteration += 1  # listeners see iteration == next-to-run
         if batch is not None:
             self._health_epilogue(cur, loss, vec, batch)
+        if profiler.panic_enabled():
+            profiler.check_step(loss, self._health_path, cur)
         for lst in self.listeners:
             lst.iteration_done(self, cur, self.epoch, loss)
         return loss

@@ -157,6 +157,46 @@ class EvaluativeListener(TrainingListener):
             self._run(model)
 
 
+class AotCacheStatsListener(TrainingListener):
+    """Report the envelope cache (``optimize.aot_cache``) every N
+    iterations: hits / misses / envelopes / the misses' cumulative
+    seconds. PyTorch compiles nothing, so a miss is a first forward at a
+    new envelope (shape, dtype, route); one after warmup means shape
+    drift that would otherwise only show up as an unexplained step-time
+    spike. ``history`` keeps the per-collection snapshots for
+    programmatic checks (tests, dashboards). Counterpart of the JAX
+    package's listener of the same name, whose cache holds compiled
+    executables."""
+
+    def __init__(self, frequency: int = 10, stream=None,
+                 print_stats: bool = True):
+        self.frequency = max(1, int(frequency))
+        self.stream = stream or sys.stdout
+        self.print_stats = bool(print_stats)
+        self.history: List[dict] = []
+        self._last = None
+
+    def iteration_done(self, model, iteration, epoch, score):
+        if iteration % self.frequency:
+            return
+        from deeplearning4j_tpu_torch.optimize import aot_cache
+
+        snap = aot_cache.stats()
+        snap["iteration"] = int(iteration)
+        self.history.append(snap)
+        if self.print_stats:
+            delta_miss = (snap["misses"] - self._last["misses"]
+                          if self._last else snap["misses"])
+            msg = (f"[aot-cache] iter {iteration}: {snap['hits']} hits, "
+                   f"{snap['misses']} misses ({snap['entries']} "
+                   f"envelopes, {snap['compile_seconds']:.2f}s first "
+                   f"forwards)")
+            if self._last and delta_miss:
+                msg += f" — {delta_miss} NEW envelope(s) since last report"
+            print(msg, file=self.stream)
+        self._last = snap
+
+
 class HealthListener(TrainingListener):
     """The training-health monitor (``telemetry.health``) through the
     listener SPI: every N iterations, flush the monitor's queued guard

@@ -48,6 +48,18 @@ Modes (the JAX package's semantics):
   move); every ``averaging_frequency`` iterations params, state and (with
   ``average_updaters``) updater state are averaged.
 
+Under a health mode (``telemetry.health.configure``) every mode guards
+its step as the JAX package's wrapper does: exact, bucketed and ZeRO on
+the summed (post-exchange) gradients, identical on every rank (ZeRO from
+the reduce-scattered slices' squared sums); threshold on the summed
+messages, SKIP_STEP reverting the residual too; averaging on each
+replica's own step, the vectors max-combined across the ranks
+(``health.combine_across``); expert-parallel on the loss alone. Under
+SKIP_STEP the update is selected on the device by the step's flag, on
+every rank alike, and nothing reads the flag on the host. The monitor
+sees the wrapper as the owner (its ``_health_snapshot`` /
+``_health_restore`` serve ROLLBACK).
+
 While ``fit`` runs, the model's ``_live_trainer`` points here, so
 ``util.serializer.write_model``, ``CheckpointListener`` and the training
 snapshots gather the live trees first (ZeRO's scattered updater state,
@@ -65,7 +77,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch import telemetry
+from deeplearning4j_tpu_torch import profiler, telemetry
 from deeplearning4j_tpu_torch.comms import global_batch, scheduler
 from deeplearning4j_tpu_torch.parallel import expert
 from deeplearning4j_tpu_torch.parallel import mesh as mesh_mod
@@ -75,6 +87,7 @@ from deeplearning4j_tpu_torch.parallel.compression import (
     bucketed_psum,
     encode_tree,
 )
+from deeplearning4j_tpu_torch.telemetry import health
 
 DATA = mesh_mod.DATA_AXIS
 
@@ -289,6 +302,8 @@ class ParallelWrapper:
         self._residual = None
         self._hooks = None
         self._mp_target = None
+        self._health_mode = None  # the guard mode the steps were set up for
+        self._fused_group = None  # a fused group's [(step, loss, vec)]
         # True while the model's trees hold the live training state
         # (ZeRO's updater state and the averaging replicas live here)
         self._synced = True
@@ -358,6 +373,12 @@ class ParallelWrapper:
     # --- set-up -------------------------------------------------------------
     def _setup(self):
         m = self.model
+        mode = health.graph_mode()
+        if self._health_mode != mode:
+            # a guarded and an unguarded step differ: set the step up anew
+            # (the JAX package drops its compiled step)
+            self._hooks = None
+            self._health_mode = mode
         self._synced = True
         if self.training_mode is TrainingMode.AVERAGING:
             # this rank's replica starts from the model's trees; the model
@@ -408,18 +429,7 @@ class ParallelWrapper:
     def fit(self, data, labels=None, epochs: int = 1):
         """Train this rank's partition (reference ``ParallelWrapper#fit``):
         a DataSetIterator, a (Multi)DataSet, or (features, labels)
-        arrays. A health mode (``telemetry.health.configure``) is refused:
-        the guards across ranks are not ported yet."""
-        from deeplearning4j_tpu_torch.telemetry import health
-
-        if health.enabled():
-            raise NotImplementedError(
-                f"ParallelWrapper.fit under the health layer "
-                f"({health.monitor().policy.value}) is not ported yet: it "
-                "waits for the wrapper's guard modes (the guard vector "
-                "combined across ranks, SKIP_STEP inside the exchange; the "
-                "JAX package's parallel/wrapper.py health wiring, ROADMAP "
-                "A); call telemetry.health.disable() first")
+        arrays; under the health mode that is on when it starts."""
         from deeplearning4j_tpu_torch.datasets.iterators import (
             ListDataSetIterator,
         )
@@ -522,21 +532,23 @@ class ParallelWrapper:
             batch = self._pad(batch, rows, target)
         cur = m.iteration
         did_avg = False
+        vec = None
         telemetry.host_gap_close()
         # each step brackets its gradient pass (PHASE_COMPUTE) and its
-        # exchange with the update (PHASE_GRAD_SYNC)
+        # exchange with the update (PHASE_GRAD_SYNC); under a health mode
+        # each returns its guard vector too
         if self.training_mode is TrainingMode.AVERAGING:
-            loss, did_avg = self._averaging_step(batch, rows, cur)
+            loss, vec, did_avg = self._averaging_step(batch, rows, cur)
         elif self.threshold_algorithm is not None:
-            loss = self._threshold_step(batch, rows, cur)
+            loss, vec = self._threshold_step(batch, rows, cur)
         elif self._zero:
-            loss = self._zero_step(batch, rows, cur)
+            loss, vec = self._zero_step(batch, rows, cur)
         elif self.expert_parallel:
-            loss = self._expert_step(batch, cur)
+            loss, vec = self._expert_step(batch, cur)
         elif self._explicit_exchange:
-            loss = self._bucketed_step(batch, rows, cur)
+            loss, vec = self._bucketed_step(batch, rows, cur)
         else:
-            loss = self._exact_step(batch, target, cur)
+            loss, vec = self._exact_step(batch, target, cur)
         telemetry.host_gap_open()
         if telemetry.enabled():
             telemetry.record_step("parallel", rows)
@@ -545,7 +557,35 @@ class ParallelWrapper:
         if (self._zero or self.expert_parallel
                 or self.training_mode is TrainingMode.AVERAGING):
             self._synced = False  # the live trees moved past the model's
-        m._finish_step(loss, cur)
+        # the networks' step bookkeeping, with the wrapper's health
+        # epilogue between the counters and the listeners (the JAX host
+        # loop's order)
+        m._cast_params = None
+        m._score = loss
+        m.iteration += 1
+        if vec is not None:
+            self._observe(cur, loss, vec, batch)
+        if profiler.panic_enabled():
+            profiler.check_step(loss, "parallel", cur)
+        for lst in m.listeners:
+            lst.iteration_done(m, cur, m.epoch, loss)
+
+    def _observe(self, cur: int, loss, vec, batch) -> None:
+        """The step's guard vector to the monitor, the wrapper the owner
+        (or into an open fused group, which reaches it as one stack)."""
+        m = self.model
+        keys = (("all",) if self.expert_parallel
+                else health.bucket_keys(m.params))
+        # expert-parallel applies no SKIP_STEP (a loss-only guard): its
+        # anomalous updates are never reported as discarded
+        skipped = False if self.expert_parallel else None
+        if self._fused_group is not None:
+            self._fused_group.append((cur, loss, vec))
+            return
+        health.observe_step(self, "parallel", cur, m.epoch, loss, vec, keys,
+                            batch=batch[:2],
+                            rng_seed=int(getattr(m.conf, "seed", 0) or 0),
+                            skipped=skipped)
 
     def _fit_batch_fused(self, ds, k: int):
         """A ``[K, B, ...]`` super-batch: K exact steps, one after
@@ -559,8 +599,26 @@ class ParallelWrapper:
             raise ValueError(
                 "fused [K, B, ...] batches require the exact "
                 "SHARED_GRADIENTS SPMD path (see fused_steps)")
-        for j in range(k):
-            self._fit_batch(unstack(ds, j))
+        m = self.model
+        if not self._health_mode:
+            for j in range(k):
+                self._fit_batch(unstack(ds, j))
+            return
+        # the K steps' guards reach the monitor as one [K, G] stack, as the
+        # JAX package's fused scan returns them
+        self._fused_group = []
+        try:
+            for j in range(k):
+                self._fit_batch(unstack(ds, j))
+            group = self._fused_group
+        finally:
+            self._fused_group = None
+        health.observe_fused(
+            self, "parallel", group[0][0], m.epoch,
+            torch.stack([g[1] for g in group]),
+            torch.stack([g[2] for g in group]),
+            health.bucket_keys(m.params), len(group),
+            rng_seed=int(getattr(m.conf, "seed", 0) or 0))
 
     # --- the modes' steps ---------------------------------------------------
     def _exact_step(self, batch, target: int, cur: int):
@@ -573,9 +631,21 @@ class ParallelWrapper:
                                           target * self.workers):
             loss, new_state, _ = self._gradients(batch, cur, on_leaves)
         with telemetry.span(telemetry.PHASE_GRAD_SYNC):
-            m._apply_updates(self._hooks.finish(), cur)
+            return self._update(self._hooks.finish(), new_state,
+                                self._sum_scalar(loss), cur)
+
+    def _update(self, grads, new_state, loss, cur: int):
+        """The update pass of the modes whose ``grads`` are the summed
+        (shared) gradients, the same on every rank: plain, or guarded on
+        those gradients (``health.guarded_update``, SKIP_STEP's select
+        included). Returns ``(loss, guard vector or None)``."""
+        m = self.model
+        if not self._health_mode:
+            m._apply_updates(grads, cur)
             m.state.update(new_state)
-            return self._sum_scalar(loss)
+            return loss, None
+        return loss, health.guarded_update(m, loss, grads, new_state, cur,
+                                           m.epoch, self._health_mode)
 
     def _bucketed_step(self, batch, rows: int, cur: int):
         m = self.model
@@ -585,9 +655,9 @@ class ParallelWrapper:
         with telemetry.span(telemetry.PHASE_COMPUTE):
             loss, new_state, _ = self._gradients(batch, cur, on_leaves)
         with telemetry.span(telemetry.PHASE_GRAD_SYNC):
-            m._apply_updates(self._hooks.finish(), cur)
-            m.state.update(self._weighted_state(new_state, w))
-            return self._sum_scalar(loss * float(c)) / float(ctot)
+            return self._update(
+                self._hooks.finish(), self._weighted_state(new_state, w),
+                self._sum_scalar(loss * float(c)) / float(ctot), cur)
 
     def _threshold_step(self, batch, rows: int, cur: int):
         m = self.model
@@ -598,18 +668,24 @@ class ParallelWrapper:
             loss, new_state, grads = self._gradients(batch, cur)
         with telemetry.span(telemetry.PHASE_GRAD_SYNC):
             grads = scheduler.tree_map(lambda g: g * w, grads)
+            old_residual = self._residual
             enc, self._residual, sparsity = encode_tree(
                 grads, self._residual, float(self._tau))
             shared = bucketed_psum(enc, self.group,
                                    self.gradient_bucket_bytes)
-            m._apply_updates(shared, cur)
-            m.state.update(self._weighted_state(new_state, float(c / ctot)))
+            loss, vec = self._update(
+                shared, self._weighted_state(new_state, float(c / ctot)),
+                self._sum_scalar(loss * float(c)) / float(ctot), cur)
+            if self._health_mode == "skip":
+                # SKIP_STEP reverts the residual with the params
+                self._residual = health.apply_skip(
+                    vec, (self._residual,), (old_residual,))[0]
             feedback = self._sum_scalar(sparsity) / n
             # the adaptive threshold needs the sparsity on the host: this
             # mode syncs every step, as the reference's feedback loop does
             self._tau = np.float32(self.threshold_algorithm.update(
                 self._tau, np.float32(float(feedback))))
-            return self._sum_scalar(loss * float(c)) / float(ctot)
+            return loss, vec
 
     def _zero_step(self, batch, rows: int, cur: int):
         """Reduce-scatter the weighted gradients, update this rank's
@@ -622,24 +698,39 @@ class ParallelWrapper:
         with telemetry.span(telemetry.PHASE_COMPUTE):
             loss, new_state, grads = self._gradients(batch, cur)
         with telemetry.span(telemetry.PHASE_GRAD_SYNC):
+            loss = self._sum_scalar(loss * float(c)) / float(ctot)
             # the list holds the gradients' only references: the scatter
             # frees each one as it packs it
             grads = scheduler.tree_leaves(grads)
-            self._zero_update(self._zero_x.scatter(grads, w, self.group),
-                              cur)
-            m.state.update(self._weighted_state(new_state, w))
-            return self._sum_scalar(loss * float(c)) / float(ctot)
+            vec = self._zero_update(
+                self._zero_x.scatter(grads, w, self.group), cur, loss)
+            new_state = self._weighted_state(new_state, w)
+            if vec is not None and self._health_mode == "skip":
+                ok = health.vec_ok(vec)
+                new_state = {k: health._select(ok, s, m.state[k])
+                             if k in m.state else s
+                             for k, s in new_state.items()}
+            m.state.update(new_state)
+            return loss, vec
 
-    def _zero_update(self, flat, cur: int) -> None:
+    def _zero_update(self, flat, cur: int, loss):
         """Gradient normalization (full-tensor norms from the slices'
         summed squares), regularization and the updater on this rank's
         slices (``flat``: the reduce-scattered gradients), then the params'
         all-gather into the model's tensors. Each layer's new param slices
-        take its gradients' place in ``flat``, which the gather sends."""
+        take its gradients' place in ``flat``, which the gather sends.
+
+        Under a health mode the guard vector comes from the slices: each
+        bucket's squared gradient sum, and the update's and the params'
+        squared norms, summed over the ranks in the same all-reduce
+        (slices partition every tensor, so these are the full trees'
+        sums). SKIP_STEP selects the new param and updater-state slices
+        against the old by the step's flag before the gather. Returns the
+        guard vector (None without a health mode)."""
         from deeplearning4j_tpu_torch.conf.layers import GradientNormalization
         from deeplearning4j_tpu_torch.optimize import solver
-
         m, x = self.model, self._zero_x
+        mode = self._health_mode
         keys = sorted(m.params)
         index = {kp: i for i, kp in enumerate(self._grad_keys())}
         gn = {k for k in keys if getattr(
@@ -654,6 +745,15 @@ class ParallelWrapper:
             scheduler.all_reduce(loc, self.group)
             sq = {kp: loc[i] for i, kp in enumerate(pairs)}
         with torch.no_grad():
+            if mode:
+                # per bucket: the squared sum of its slices' gradients,
+                # before normalization (what the JAX step guards)
+                bkeys = health.bucket_keys(m.params)
+                bucket_sq = [health.sq_sum(
+                    [x.slice_of(flat, index[(k, pk)])
+                     for pk in sorted(m.params.get(k, {}))], flat.device)
+                    for k in bkeys]
+            news, diffs, olds = {}, [], []
             for k in keys:
                 layer, upd = m._layer_updater(k)
                 slot = {pk: x.slice_of(flat, index[(k, pk)])
@@ -664,12 +764,47 @@ class ParallelWrapper:
                         layer, g_k, {pk: sq[(k, pk)] for pk in g_k})
                 p_k = {pk: x.local_slice(p, index[(k, pk)], self.rank)
                        for pk, p in m.params[k].items()}
-                p_k, self._opt_slices[k] = solver.apply_updater_to_layer(
-                    layer, upd, p_k, g_k, self._opt_slices[k],
-                    upd.current_lr(cur, m.epoch), cur, m.epoch)
-                for pk, p in p_k.items():
+                lr = upd.current_lr(cur, m.epoch)
+                if mode:
+                    # out of place (the bits p.sub_(update) gives), so the
+                    # old slices stay for the norms and SKIP_STEP's select
+                    upds, new_o = solver.layer_updates(
+                        layer, upd, p_k, g_k, self._opt_slices[k], lr, cur,
+                        m.epoch)
+                    new_p = {pk: p - upds[pk] for pk, p in p_k.items()}
+                    floats = [pk for pk in sorted(p_k)
+                              if p_k[pk].is_floating_point()]
+                    diffs.append(health.sq_sum(
+                        [new_p[pk].float() - p_k[pk].float()
+                         for pk in floats], flat.device))
+                    olds.append(health.sq_sum([p_k[pk] for pk in floats],
+                                              flat.device))
+                else:
+                    new_p, new_o = solver.apply_updater_to_layer(
+                        layer, upd, p_k, g_k, self._opt_slices[k], lr, cur,
+                        m.epoch)
+                news[k] = (slot, p_k, new_p, new_o)
+            vec = None
+            if mode:
+                total = torch.stack(bucket_sq + [torch.stack(diffs).sum(),
+                                                 torch.stack(olds).sum()])
+                scheduler.all_reduce(total, self.group)
+                vec = health.assemble(loss, list(total[:-2]), total[-2],
+                                      total[-1])
+            ok = health.vec_ok(vec) if mode == "skip" else None
+            for k, (slot, p_k, new_p, new_o) in news.items():
+                if ok is not None:
+                    new_p = {pk: torch.where(ok, v, p_k[pk])
+                             for pk, v in new_p.items()}
+                    old_o = self._opt_slices[k]
+                    new_o = {pk: {sk: torch.where(ok, v, old_o[pk][sk])
+                                  for sk, v in st.items()}
+                             for pk, st in new_o.items()}
+                self._opt_slices[k] = new_o
+                for pk, p in new_p.items():
                     slot[pk].copy_(p)
             x.gather_into(flat, scheduler.tree_leaves(m.params), self.group)
+        return vec
 
     def _expert_step(self, batch, cur: int):
         """The JAX package's expert-parallel step: each rank's forward and
@@ -701,7 +836,14 @@ class ParallelWrapper:
                     vg[pk] = g / n
             m._apply_updates(grads, cur)
             m.state.update(self._weighted_state(new_state, 1.0 / n))
-            return self._sum_scalar((loss + extra * (n - 1.0)) / n)
+            loss = self._sum_scalar((loss + extra * (n - 1.0)) / n)
+        vec = None
+        if self._health_mode:
+            # the expert shards' gradients stay on their ranks: the guard
+            # reads the loss, which a NaN gradient reaches within a step
+            # through the shared layers (the JAX package's rule)
+            vec = health.loss_guard_vector(loss)
+        return loss, vec
 
     def _sharded_penalty(self):
         """The regularization score of this rank's expert shards and its
@@ -777,13 +919,29 @@ class ParallelWrapper:
         m = self.model
         m.params, m.state, m.opt_state = self._params, self._state, self._opt
         c, ctot = self._counts(rows)
+        mode = self._health_mode
+        vec = None
         with telemetry.span(telemetry.PHASE_COMPUTE):
             if c > 0:
                 loss, new_state, grads = self._gradients(batch, cur)
-                m._apply_updates(grads, cur)
-                m.state.update(new_state)
+                if mode:
+                    # each replica guards (and under SKIP_STEP skips) its
+                    # own step
+                    vec = health.guarded_update(m, loss, grads, new_state,
+                                                cur, m.epoch, mode)
+                else:
+                    m._apply_updates(grads, cur)
+                    m.state.update(new_state)
             else:
                 loss = torch.zeros((), device=m.device)
+        if mode:
+            if vec is None:  # an all-padding replica reports 0
+                vec = torch.zeros(
+                    (health.GUARD_HEAD
+                     + len(health.bucket_keys(m.params)),),
+                    dtype=torch.float32, device=m.device)
+            # any replica's anomaly is the step's anomaly
+            vec = health.combine_across(vec, self.group)
         did_avg = ((cur + 1) // self.averaging_frequency
                    > cur // self.averaging_frequency)
         with telemetry.span(telemetry.PHASE_GRAD_SYNC):
@@ -791,7 +949,8 @@ class ParallelWrapper:
                 group = (self._params, self._state) + (
                     (self._opt,) if self.average_updaters else ())
                 self._average_into(group)
-            return self._sum_scalar(loss * float(c)) / float(ctot), did_avg
+            return (self._sum_scalar(loss * float(c)) / float(ctot), vec,
+                    did_avg)
 
     def _average_into(self, trees):
         """Replace every floating leaf of ``trees`` by its mean over the
@@ -836,9 +995,21 @@ class ParallelWrapper:
 
     # --- health-layer hooks (thin, as the networks') ------------------------
     def _health_snapshot(self):
+        """A host copy of the live training trees: this rank's own replica
+        in averaging mode (as the JAX package snapshots each replica), else
+        the model's, gathered first (ZeRO's slices: a collective, which
+        every rank reaches on the same step, its guard being the same on
+        every rank)."""
         from deeplearning4j_tpu_torch.optimize import checkpoint
 
-        snap = checkpoint.snapshot_training_state(self.model)
+        m = self.model
+        if (self.training_mode is TrainingMode.AVERAGING
+                and self._setup_done):
+            return {"params": checkpoint._host_copy(self._params),
+                    "state": checkpoint._host_copy(self._state),
+                    "opt_state": checkpoint._host_copy(self._opt),
+                    "iteration": int(m.iteration), "epoch": int(m.epoch)}
+        snap = checkpoint.snapshot_training_state(m)
         if self._residual is not None:
             snap["residual"] = checkpoint._host_copy(self._residual)
             snap["tau"] = self._tau

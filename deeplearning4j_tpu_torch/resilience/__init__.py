@@ -1,10 +1,7 @@
-"""Resilience for the serving path: circuit breaker, retry policy and
-deterministic fault injection (copies of the JAX package's modules, which
-import no jax), and the process-wide ``status()`` that ``/health`` reads.
-
-The JAX package's training-session and pod recovery modules
-(``resilience/{session, pod}.py``) are not ported yet, so ``status()``
-carries no ``pod`` block.
+"""Resilience: circuit breaker, retry policy and deterministic fault
+injection (copies of the JAX package's modules, which import no jax), the
+preemption-safe ``TrainingSession`` (``session``) and pod snapshots
+(``pod``), and the process-wide ``status()`` that ``/health`` reads.
 """
 
 from __future__ import annotations
@@ -22,6 +19,17 @@ from deeplearning4j_tpu_torch.resilience.faults import (  # noqa: F401
     fault_point,
 )
 from deeplearning4j_tpu_torch.resilience.retry import RetryPolicy  # noqa: F401
+from deeplearning4j_tpu_torch.resilience import pod as pod  # noqa: F401
+from deeplearning4j_tpu_torch.resilience import session as session  # noqa: F401
+from deeplearning4j_tpu_torch.resilience.pod import (  # noqa: F401
+    HostDeathError,
+    PodConfig,
+    PodSnapshotIncompleteError,
+)
+from deeplearning4j_tpu_torch.resilience.session import (  # noqa: F401
+    PreemptionError,
+    TrainingSession,
+)
 
 _STATE_RANK = {"closed": 0, "half_open": 1, "open": 2}
 
@@ -57,14 +65,16 @@ def _aggregate_breakers() -> dict:
 def status() -> dict:
     """Process-wide resilience snapshot for ``/health`` and debugging:
     every live circuit breaker's state (aggregated per model, see
-    :func:`_aggregate_breakers`), the retry and fault counters, the SLO
-    monitors' states (when any monitor has observed a tenant), and whether
-    a fault plan is armed."""
+    :func:`_aggregate_breakers`), the retry, resume and fault counters,
+    the SLO monitors' states (when any monitor has observed a tenant), the
+    pod topology and snapshot / restore series (when a pod session has
+    recorded any), and whether a fault plan is armed."""
     from deeplearning4j_tpu_torch.telemetry import REGISTRY, slo
 
     snap = REGISTRY.snapshot(run_collectors=False)
     counters = {k: v for k, v in snap.items()
                 if k.startswith(("dl4j_retries_total",
+                                 "dl4j_resumes_total",
                                  "dl4j_faults_injected_total"))}
     out = {
         "circuit_breakers": _aggregate_breakers(),
@@ -74,4 +84,14 @@ def status() -> dict:
     slo_status = slo.status()
     if slo_status["tenants"]:
         out["slo"] = slo_status
+    pod_series = {k: v for k, v in snap.items()
+                  if k.startswith("dl4j_pod_")}
+    if pod_series:
+        out["pod"] = {
+            "hosts": int(snap.get("dl4j_pod_hosts", 0)),
+            "series": {
+                k: (v if not isinstance(v, dict)
+                    else {kk: v[kk] for kk in ("count", "mean", "p95")})
+                for k, v in pod_series.items()},
+        }
     return out

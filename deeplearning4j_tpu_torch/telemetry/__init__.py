@@ -227,6 +227,59 @@ def record_retry(op: str) -> None:
                      help="retries scheduled by RetryPolicy", op=op).inc()
 
 
+def record_step_seconds(seconds: float, path: str = "listener") -> None:
+    """Observe one step duration into the registry histogram (the
+    ProfilerListener routing); a no-op while telemetry is off."""
+    if not spans._enabled:
+        return
+    REGISTRY.histogram("dl4j_step_seconds", help="host-observed step time",
+                       path=path).observe(seconds)
+
+
+def record_resume(scope: str = "job") -> None:
+    """Count one TrainingSession resume from a snapshot.
+    ``scope="job"`` = whole-process failure (preemption, injected step
+    fault, crash restart); ``scope="host"`` = one pod host died
+    (``HostDeathError`` at the ``pod.heartbeat`` site) and the whole job
+    resumed from the last distributed snapshot."""
+    REGISTRY.counter("dl4j_resumes_total",
+                     help="training resumes from snapshot",
+                     scope=scope).inc()
+
+
+def record_pod_hosts(n_hosts: int) -> None:
+    """Publish the pod shape (``dl4j_pod_hosts``): how many hosts the
+    snapshot / training topology spans (an emulated pod reports its
+    emulated width)."""
+    REGISTRY.gauge("dl4j_pod_hosts",
+                   help="hosts in the active pod topology").set(n_hosts)
+
+
+def record_pod_shard(host: int, nbytes: int, seconds: float) -> None:
+    """One host's pod-snapshot shard written: per-host shard bytes gauge
+    + shard write-time histogram."""
+    REGISTRY.gauge("dl4j_pod_snapshot_shard_bytes",
+                   help="bytes in this host's newest snapshot shard",
+                   host=str(host)).set(nbytes)
+    REGISTRY.histogram("dl4j_pod_shard_write_seconds",
+                       help="per-host shard write time").observe(seconds)
+
+
+def record_pod_snapshot_seconds(seconds: float) -> None:
+    """One full distributed snapshot (all shards + manifests + the
+    coordinator commit)."""
+    REGISTRY.histogram("dl4j_pod_snapshot_seconds",
+                       help="distributed snapshot wall time").observe(
+        seconds)
+
+
+def record_pod_restore_seconds(seconds: float) -> None:
+    """One pod-snapshot restore (verify + aggregate + rebuild)."""
+    REGISTRY.histogram("dl4j_pod_restore_seconds",
+                       help="distributed restore wall time").observe(
+        seconds)
+
+
 def record_fault_injected(site: str, action: str) -> None:
     REGISTRY.counter("dl4j_faults_injected_total",
                      help="faults fired by an armed FaultPlan",

@@ -214,6 +214,20 @@ def combine(stacked_vecs) -> torch.Tensor:
     return torch.amax(stacked_vecs, dim=0)
 
 
+def combine_across(vec, group=None) -> torch.Tensor:
+    """One guard vector across the ranks of ``group`` (a
+    ``torch.distributed`` process group; None: the default one): the
+    elementwise max by all-reduce, so any rank's anomaly is the step's
+    anomaly (the JAX package's ``pmax`` over the data axis). The result
+    stays on the device. The non-finite flags are 0 or 1 on every rank, so
+    the max keeps them whatever a backend's max does with a NaN."""
+    from deeplearning4j_tpu_torch.comms import scheduler
+
+    out = vec.detach().to(torch.float32).clone()
+    scheduler.all_reduce(out, group, op="max")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the guarded update pass of the networks' train steps
 # ---------------------------------------------------------------------------

@@ -89,14 +89,17 @@ def live_trainer(net):
     return live() if live is not None else None
 
 
-def write_model(net, path, save_updater: bool = True) -> None:
+def write_model(net, path, save_updater: bool = True,
+                compress: bool = True) -> None:
     """Reference ``ModelSerializer#writeModel(net, file, saveUpdater)``.
 
     Gather-on-save: while a ``ParallelWrapper`` fit owns the live trees
     (ZeRO's scattered updater state, the averaging replicas), they are
     gathered onto ``net`` first, so the zip always holds full, current
     trees. That gather is a collective: every rank calls ``write_model``
-    at the same point."""
+    at the same point. ``compress=False`` stores the entries uncompressed
+    (a training snapshot, where the write's time counts and deflate costs
+    seconds a hundred MB); either zip restores in both packages."""
     trainer = live_trainer(net)
     if trainer is not None:
         trainer.sync_model()
@@ -104,7 +107,8 @@ def write_model(net, path, save_updater: bool = True) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.tmp.{os.getpid()}")
     try:
-        with zipfile.ZipFile(tmp, "w", zipfile.ZIP_DEFLATED) as z:
+        method = zipfile.ZIP_DEFLATED if compress else zipfile.ZIP_STORED
+        with zipfile.ZipFile(tmp, "w", method) as z:
             z.writestr("configuration.json", net.conf.to_json())
             z.writestr("coefficients.npy", _npy_bytes(net.params_flat()))
             # a raise here is a partial write: the temp file holds some

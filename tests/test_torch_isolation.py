@@ -26,6 +26,7 @@ for name in names:
 import chip_data_parallel, chip_gen_profile, chip_kernel_ab
 import chip_lenet_spread, chip_platform, chip_sequence, chip_smoke
 import chip_train_profile, chip_zoo, chip_layers, chip_moe, chip_transfer
+import chip_session
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))
 print(len(names), bad)
@@ -40,8 +41,8 @@ def test_importing_the_port_loads_no_jax():
     # every module of the port, checkpointing, the gradient check, the
     # data-parallel slice's, the serving platform's and the object
     # detection layer's, the MoE slice's and the fine-tuning slice's
-    # modules included
-    assert int(count) >= 90
+    # modules included, and the session slice's
+    assert int(count) >= 96
     assert bad == "[]"
 
 
@@ -199,12 +200,26 @@ TRANSFER_MODULES = [
 ]
 
 
+# the session slice's modules (the training session and pod snapshots,
+# the training UI, the legacy solvers, the profiler) and its chip phase
+SESSION_MODULES = [
+    "deeplearning4j_tpu_torch.resilience.session",
+    "deeplearning4j_tpu_torch.resilience.pod",
+    "deeplearning4j_tpu_torch.ui",
+    "deeplearning4j_tpu_torch.ui.stats",
+    "deeplearning4j_tpu_torch.ui.server",
+    "deeplearning4j_tpu_torch.optimize.legacy",
+    "deeplearning4j_tpu_torch.profiler",
+    "chip_session",
+]
+
+
 # a module named by two slices runs once, under its first slice's id
 @pytest.mark.parametrize("module", list(dict.fromkeys(
     GENERATION_MODULES + TRAINING_MODULES + QUANT_MODULES
     + MLN_TRAINING_MODULES + BF16_TRAINING_MODULES + TUNING_MODULES
     + DATA_PARALLEL_MODULES + SEQUENCE_MODULES + PLATFORM_MODULES
-    + ZOO_MODULES + MOE_MODULES + TRANSFER_MODULES)))
+    + ZOO_MODULES + MOE_MODULES + TRANSFER_MODULES + SESSION_MODULES)))
 def test_generation_module_alone_loads_no_jax(module):
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -226,7 +241,8 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                                  "chip_lenet_spread.py",
                                  "chip_sequence.py", "chip_platform.py",
                                  "chip_zoo.py", "chip_layers.py",
-                                 "chip_moe.py", "chip_transfer.py")]
+                                 "chip_moe.py", "chip_transfer.py",
+                                 "chip_session.py")]
     offenders = [str(p.relative_to(ROOT)) for p in sources
                  if pattern.search(p.read_text())]
     assert offenders == []

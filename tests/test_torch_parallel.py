@@ -674,26 +674,6 @@ def test_tbptt_is_refused():
         ParallelWrapper(net)
 
 
-@pytest.mark.parametrize("policy", list(health.AnomalyPolicy),
-                         ids=lambda p: p.value)
-def test_health_modes_are_refused(policy):
-    """The networks train under every health mode; the wrapper's fit
-    refuses one, naming what it waits for, and trains again once the
-    mode is off."""
-    pw = ParallelWrapper(_port_mlp())
-    x, y = _xy(8, 0)
-    health.configure(policy, record_flights=False)
-    try:
-        with pytest.raises(NotImplementedError,
-                           match="waits for the wrapper's guard modes"):
-            pw.fit(x, y)
-    finally:
-        health.disable()
-        health.MONITOR.reset()
-    pw.fit(x, y)
-    assert pw.model.iteration == 1
-
-
 @pytest.mark.parametrize("kw", [
     {"zero_optimizer": True, "training_mode": TrainingMode.AVERAGING},
     {"zero_optimizer": True, "threshold_algorithm": ThresholdAlgorithm()},
