@@ -71,7 +71,7 @@ TEXT_GEN = 200
 TEXT_RESUME_AT = 100
 TEXT_SEED = 27
 TEXT_FITS = 2
-TEXT_PROFILE_FITS = 2
+TEXT_PROFILE_FITS = 1
 # card against the CPU, float32 with TF32 off: the same float32 function
 # summed in other orders (cuBLAS against MKL) over 200 steps of two tanh
 # LSTMs; the outputs by relative L2 (softmax outputs ~1/47), each segment's

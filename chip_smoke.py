@@ -318,8 +318,24 @@ Phases, in order; any failure exits non-zero:
    synchronizing call a step at NCCL); ``StatsListener`` posting to a
    ``UIServer`` whose endpoints answer; the legacy solvers on LeNet
    (row 1) on both routes; the profiler's NaN panic, step times, trace.
+35. staged and data-parallel training completed (``chip_ingest.py``):
+   full-width ResNet-50 (fused_conv_bn, Adam, batch 32, row 2 36 times a
+   step) trained through ``fit`` from a host iterator over the device ring
+   (``DeviceRingIterator``) and with ``fused_steps=2``, bit for bit the
+   run on batches placed on the card beforehand; the ``ingest.device_put``
+   fault retried and past the retry raised; a ``TrainingSession`` over the
+   ring killed and resumed bit for bit without staging the skipped
+   batches; ``TextGenerationLSTM`` tBPTT through ``ParallelWrapper`` (NCCL
+   x1 bit for bit, two gloo ranks at [27]'s gates, back < fwd, threshold,
+   averaging, a no-exchange control caught); the 8-expert MoE LM in the
+   exact mode without ``expert_parallel`` (NCCL x1 bit for bit with rows
+   6-8 12 times a step, two gloo ranks against ``fit_batch``, a per-rank
+   capacity control caught); ``InferenceEngine(ParallelInference)``
+   (ResNet-50, row 1) and AlexNet's ``quant_calibrate`` span (row 4);
+   bf16 ``TextGenerationLSTM``, UNet and YOLO2 through ``fit`` (row 1),
+   Xception and NASNet training steps.
 
-Then the ``{"session": ...}``, ``{"transfer": ...}``, ``{"layers": ...}``, ``{"moe": ...}``, ``{"zoo": ...}``, ``{"platform": ...}``, ``{"trained_text_lstm": ...}``,
+Then the ``{"ingest": ...}``, ``{"session": ...}``, ``{"transfer": ...}``, ``{"layers": ...}``, ``{"moe": ...}``, ``{"zoo": ...}``, ``{"platform": ...}``, ``{"trained_text_lstm": ...}``,
 ``{"sequence_attention": ...}``, ``{"trained_mln": ...}`` and
 ``{"trained_bf16": ...}`` lines, one
 ``{"kernels": [...]}`` line with every kernel (row 1 with its [21] shapes
@@ -329,7 +345,8 @@ and launches; rows 2 and 6-8 with their bf16 numbers under
 [28]'s under ``seq_attention``; rows 1, 4, 5, 6 with [29]'s launches
 under ``platform``; row 1 with [30]'s launches and shapes under ``zoo``
 and [31]'s under ``layers`` and [33]'s under ``transfer``; rows 6-8 with
-[32]'s launches under ``moe``),
+[32]'s launches under ``moe``; rows 1, 2, 4 and 6-8 with [35]'s launches
+under ``ingest``),
 the served,
 trained, generated, trained_lm, served_int8, prefix_cached, speculative,
 tuned and data_parallel lines, and last
@@ -588,6 +605,9 @@ BF16_TRACK_RTOL = 1e-2
 # at steps 5, 10 and 15, retention removes the first, and the run resumed
 # from the newest zip trains the remaining 3 steps
 BF16_STEPS = 18
+# [22]-[23]'s step timings: alternating turns a route (the script's time
+# limit bounds their depth)
+BF16_TIMING_PAIRS = 2
 CKPT_EVERY = 5
 CKPT_KEEP = 2
 # [22] the s2d stem against the 7x7 stem, float32, eval mode
@@ -4492,8 +4512,10 @@ def bf16_step_times(torch, models: dict, ds, steps: int, smi: str,
     """ms per ``fit_batch`` step of each model in alternating turns
     (:func:`mln_step_times`), ``unit`` examples or tokens a step, and each
     bf16 route's device time and idle share under ``torch.profiler``."""
-    times = mln_step_times(torch, models, ds, pairs=3, steps=steps)
-    out = {"card": smi, "steps_per_turn": steps, "pairs": 3}
+    times = mln_step_times(torch, models, ds, pairs=BF16_TIMING_PAIRS,
+                           steps=steps)
+    out = {"card": smi, "steps_per_turn": steps,
+           "pairs": BF16_TIMING_PAIRS}
     for side in models:
         out[f"step_ms_{side}"] = times[f"step_ms_{side}"]
         out[f"per_s_{side}"] = unit / times[f"step_ms_{side}"] * 1e3
@@ -5657,6 +5679,16 @@ def main() -> int:
                            "flash_attention", "flash_attention_bwd_dq",
                            "flash_attention_bwd_dkv"):
             row["nan_inf_kept"] = True  # [34a] holds it
+    # 35. staged and data-parallel training completed: the device ring on
+    # row 2, tBPTT and MoE through the exact mode, the platform's leftovers
+    torch.cuda.empty_cache()
+    import chip_ingest
+
+    ingest_line, ingest_rows = chip_ingest.ingest_phase(torch, dev, smi)
+    for row in report["kernels"]:
+        if row["name"] in ingest_rows:
+            row["ingest"] = ingest_rows[row["name"]]
+    log(json.dumps({"ingest": ingest_line}, default=str))
     log(json.dumps({"session": session_line}))
     log(json.dumps({"transfer": transfer_line}))
     log(json.dumps({"layers": layers_line}))
@@ -5677,7 +5709,7 @@ def main() -> int:
     log(json.dumps({"speculative": spec_line}))
     log(json.dumps({"tuned": tuned_line}))
     log(json.dumps({"data_parallel": dp_line}))
-    log(f"[34] total wall time of the script {time.monotonic() - t_start:.1f}"
+    log(f"[35] total wall time of the script {time.monotonic() - t_start:.1f}"
         f" s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

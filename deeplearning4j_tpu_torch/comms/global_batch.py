@@ -18,6 +18,11 @@ collectives:
   mask (:func:`loss_share`); summed over the ranks it is the global mean;
 - regularization: counted by rank 0 only (:func:`adds_regularization`),
   so the summed score and gradients count it once.
+- an MoE layer's routing: its router probabilities gathered from every rank
+  (:func:`gather_rows`), so the router's top-k, the capacity queue and the
+  auxiliary loss see the global batch; each rank runs its own tokens
+  through the experts and adds ``1 / world`` of the auxiliary loss
+  (:func:`world_share`).
 
 Each sum is an all-reduce whose backward is an all-reduce of the
 cotangent (:func:`all_reduce_sum`), since every rank's loss depends on
@@ -99,6 +104,36 @@ class _AllReduceSum(torch.autograd.Function):
 def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     """Differentiable sum of ``x`` over the group."""
     return _AllReduceSum.apply(x, group)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows, rank-major; the cotangent of this rank's rows is
+    the sum of every rank's cotangent for them."""
+
+    @staticmethod
+    def forward(ctx, x, group, world, rank):
+        ctx.group, ctx.rank, ctx.rows = group, rank, x.shape[0]
+        out = x.new_empty((world,) + tuple(x.shape))
+        scheduler.all_gather(out, x.contiguous().view(-1), group)
+        return out.reshape((-1,) + tuple(x.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        scheduler.all_reduce(g, ctx.group)
+        lo = ctx.rank * ctx.rows
+        return g[lo:lo + ctx.rows], None, None, None
+
+
+def gather_rows(x: torch.Tensor):
+    """``(rows of every rank, this rank's first row in them)`` inside
+    :func:`global_batch` (every rank holds the same number of rows), else
+    ``(x, 0)``; differentiable."""
+    gb = active()
+    if gb is None:
+        return x, 0
+    return (_GatherRows.apply(x, gb.group, gb.world, gb.rank),
+            gb.rank * x.shape[0])
 
 
 def batch_moments(x32: torch.Tensor, axes):

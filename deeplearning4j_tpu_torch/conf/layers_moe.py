@@ -7,6 +7,16 @@ for a dropped token and, when the expert weights arrive sharded (``e_loc <
 n_experts`` under ``ParallelWrapper(expert_parallel=True)``), an
 all-to-all token exchange over the active process group.
 
+Under the data-parallel trainer's exact mode (``comms.global_batch``) an
+unsharded layer routes over the global batch, as the JAX package's one
+SPMD step does (``parallel.expert.moe_apply_global``): every rank's router
+probabilities are gathered (``[tokens, E]``, not the hidden states), the
+top-k, the capacity ``C`` (sized from the global token count), the queue
+(rank 0's tokens first) and the auxiliary loss are the global batch's,
+each rank runs only its own tokens through the experts, and it adds ``1 /
+world`` of the auxiliary loss (:func:`sum_aux_losses`), so the ranks'
+summed objective is the global one.
+
 The GShard load-balance loss reaches the training objective through the
 reserved state key :data:`AUX_LOSS_KEY`: in train mode the layer writes
 its ``aux_weight``-scaled aux into the state it returns, and both
@@ -22,6 +32,7 @@ import math
 import torch
 
 from deeplearning4j_tpu_torch import serde
+from deeplearning4j_tpu_torch.comms import global_batch
 from deeplearning4j_tpu_torch.conf import inputs as it
 from deeplearning4j_tpu_torch.conf.layers import BaseLayer
 
@@ -33,11 +44,15 @@ AUX_LOSS_KEY = "__aux_loss__"
 def sum_aux_losses(new_state, dtype):
     """Total of every layer's aux-loss entry in a train-mode forward's new
     state (callers gate on ``train``). Each entry is left detached in
-    ``new_state``: the state keeps the value, the score keeps the graph."""
+    ``new_state``: the state keeps the value, the score keeps the graph.
+    Inside ``comms.global_batch`` each entry is the global batch's, which
+    every rank computes: a rank adds its ``1 / world`` share."""
     total = 0.0
+    share = global_batch.world_share()
     for s in new_state.values():
         if isinstance(s, dict) and AUX_LOSS_KEY in s:
-            total = total + s[AUX_LOSS_KEY].to(dtype)
+            aux = s[AUX_LOSS_KEY].to(dtype)
+            total = total + (aux * share if share != 1.0 else aux)
             s[AUX_LOSS_KEY] = s[AUX_LOSS_KEY].detach()
     return total
 
@@ -51,7 +66,8 @@ class MoELayer(BaseLayer):
     vertex). Output size == input size.
 
     ``capacity_factor`` sizes ``C = max(1, ceil(top_k * tokens / n_experts
-    * capacity_factor))`` per rank. Params: ``router [d, E]``, ``w1 [E, d,
+    * capacity_factor))`` over the tokens routed together (this rank's
+    under ``expert_parallel``, the global batch's in the exact mode). Params: ``router [d, E]``, ``w1 [E, d,
     h]``, ``w2 [E, h, d]``, ``b1 [E, h]``, ``b2 [E, d]``; under
     ``ParallelWrapper(expert_parallel=True)`` the expert leaves
     (``param_shard_axes``) hold this rank's ``E / world`` experts."""
@@ -119,13 +135,22 @@ class MoELayer(BaseLayer):
                     "active_expert_axis context — run through "
                     "ParallelWrapper(expert_parallel=True)")
             group = expert.current_expert_group()
-        capacity = max(1, math.ceil(
-            self.top_k * x2.shape[0] / self.n_experts * self.capacity_factor))
-        y2, aux = expert.moe_apply(
-            params["router"], params["w1"], params["w2"], x2,
-            self.n_experts, capacity, top_k=self.top_k, axis_name=axis,
-            b1=params.get("b1"), b2=params.get("b2"),
-            residual=self.residual, group=group)
+        if axis is None and global_batch.active() is not None:
+            # the exact data-parallel mode: route over the global batch
+            y2, aux = expert.moe_apply_global(
+                params["router"], params["w1"], params["w2"], x2,
+                self.n_experts, self.capacity_factor, self.top_k,
+                global_batch.gather_rows, b1=params.get("b1"),
+                b2=params.get("b2"), residual=self.residual)
+        else:
+            capacity = max(1, math.ceil(self.top_k * x2.shape[0]
+                                        / self.n_experts
+                                        * self.capacity_factor))
+            y2, aux = expert.moe_apply(
+                params["router"], params["w1"], params["w2"], x2,
+                self.n_experts, capacity, top_k=self.top_k,
+                axis_name=axis, b1=params.get("b1"), b2=params.get("b2"),
+                residual=self.residual, group=group)
         new_state = ({AUX_LOSS_KEY: (self.aux_weight * aux).to(
             state[AUX_LOSS_KEY].dtype)} if train else state)
         return self.activation.apply(y2).reshape(shape), new_state

@@ -90,7 +90,10 @@ from deeplearning4j_tpu_torch.datasets.dataset import (
     MultiDataSet,
     host_array,
 )
-from deeplearning4j_tpu_torch.datasets.iterators import DataSetIterator
+from deeplearning4j_tpu_torch.datasets.iterators import (
+    DataSetIterator,
+    ListDataSetIterator,
+)
 from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn import io as nn_io
 from deeplearning4j_tpu_torch.optimize import solver
@@ -534,8 +537,9 @@ class ComputationGraph(nn_io.HealthHooks):
             fused_steps: Optional[int] = None) -> "ComputationGraph":
         """Train (reference ``ComputationGraph#fit`` overloads: a
         DataSetIterator, a (Multi)DataSet, or (features, labels) arrays).
-        ``fused_steps=K`` trains identically to K = 1, as in
-        ``MultiLayerNetwork.fit``: the steps run one after another."""
+        ``fused_steps=K`` trains identically to K = 1, fed by a K-stacking
+        device ring, as in ``MultiLayerNetwork.fit``: the steps run one
+        after another."""
         if self.params is None:
             self.init()
         nn_io.check_fused_steps(fused_steps, self.conf)
@@ -550,6 +554,13 @@ class ComputationGraph(nn_io.HealthHooks):
             batches = [MultiDataSet(features=list(f), labels=list(lab))]
         else:
             raise TypeError(f"cannot fit from {type(data)}")
+        if int(fused_steps or 0) > 1:
+            if isinstance(batches, list):
+                # one (Multi)DataSet goes through the same ring
+                batches = ListDataSetIterator(batches)
+            batches = nn_io.wrap_fused(batches, fused_steps, self.conf,
+                                       self.device)
+            reset = batches.reset
         with flightrec.flight_recorder(model=self), \
                 self._health_fused(fused_steps):
             for _ in range(epochs):
@@ -572,6 +583,9 @@ class ComputationGraph(nn_io.HealthHooks):
     def _fit_batch(self, ds) -> torch.Tensor:
         if self.params is None:
             self.init()
+        k = int(getattr(ds, "fused_stack", 0) or 0)
+        if k > 1:
+            return self._fit_stacked(ds, k)
         if self.conf.backprop_type is BackpropType.TRUNCATED_BPTT:
             ndims = [_ndim(f) for f in _as_multi(ds).features]
             if all(d == 3 for d in ndims):

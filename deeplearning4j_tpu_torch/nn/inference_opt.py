@@ -29,8 +29,8 @@ their ``conf.layers_quant`` twins, as a pure numpy (float64) function of
 the float32 weights and the record, and stamps the conf with a
 ``QuantizationSpec``. The process-wide registry of calibration records is
 the JAX package's (re-registering a restored artifact's record lands with
-the model registry); its ``quant_calibrate`` telemetry span is not ported
-yet.
+the model registry). Each calibration batch's range observation runs in a
+``quant_calibrate`` telemetry span, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -67,6 +67,7 @@ from deeplearning4j_tpu_torch.conf.layers_quant import (
 )
 from deeplearning4j_tpu_torch.ops.conv_fused import bn_fold_scale_shift
 from deeplearning4j_tpu_torch.optimize import aot_cache
+from deeplearning4j_tpu_torch.telemetry import spans
 
 
 def _zero_dropout(layer):
@@ -314,17 +315,19 @@ def calibrate(model, batches, clip_percentile: float = 99.9,
     for batch in batches:
         feats = _features(batch)
         acts = opt.feed_forward(feats)
-        n_batches += 1
-        for i in eligible:
-            x = _host_input(feats, opt._dtype) if i == 0 else acts[i - 1]
-            v = x.reshape(-1, x.shape[-1]).astype(np.float64)
-            blo = np.percentile(v, p_lo, axis=0)
-            bhi = np.percentile(v, p_hi, axis=0)
-            if i not in lo_hi:
-                lo_hi[i] = [blo, bhi]
-            else:
-                lo_hi[i][0] = np.minimum(lo_hi[i][0], blo)
-                lo_hi[i][1] = np.maximum(lo_hi[i][1], bhi)
+        with spans.span("quant_calibrate"):
+            n_batches += 1
+            for i in eligible:
+                x = (_host_input(feats, opt._dtype) if i == 0
+                     else acts[i - 1])
+                v = x.reshape(-1, x.shape[-1]).astype(np.float64)
+                blo = np.percentile(v, p_lo, axis=0)
+                bhi = np.percentile(v, p_hi, axis=0)
+                if i not in lo_hi:
+                    lo_hi[i] = [blo, bhi]
+                else:
+                    lo_hi[i][0] = np.minimum(lo_hi[i][0], blo)
+                    lo_hi[i][1] = np.maximum(lo_hi[i][1], bhi)
     if not n_batches:
         raise ValueError("empty calibration set")
 

@@ -79,11 +79,13 @@ def to_external(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def warm_dtype_variants(input_types, base_dtype):
+def warm_dtype_variants(input_types, base_dtype, quantization=None):
     """The client-visible input-dtype combinations a serving engine warms
     per padding bucket: image-typed inputs arrive as the float base dtype
     or as raw uint8, everything else as the base dtype only. Returns the
-    cross-product list of per-input numpy dtype tuples."""
+    cross-product list of per-input numpy dtype tuples. ``quantization``
+    (the conf's ``QuantizationSpec``) adds no variant: an int8 artifact
+    quantizes behind the same float32 / uint8 client inputs."""
     base = np.dtype(base_dtype)
     per_input = []
     for t in input_types:
@@ -172,6 +174,22 @@ def check_fused_steps(fused_steps, conf) -> None:
         raise ValueError(
             "fused_steps composes with STANDARD backprop only: a tBPTT "
             "batch already trains as one chain of segments")
+
+
+def wrap_fused(iterator, fused_steps, conf, device):
+    """``fit(fused_steps=K)``'s feed, shared by both networks (the JAX
+    package's ``_wrap_fused``): the iterator wrapped in a K-stacking
+    ``DeviceRingIterator`` on the network's device, so each K-step group
+    costs one staging of one ``[K, B, ...]`` super-batch, copied under the
+    running steps. A no-op at K <= 1 and for an iterator that already
+    stacks K batches; tBPTT refuses K > 1 (:func:`check_fused_steps`)."""
+    check_fused_steps(fused_steps, conf)
+    k = int(fused_steps or 0)
+    if k <= 1 or getattr(iterator, "stack_batches", 0) == k:
+        return iterator
+    from deeplearning4j_tpu_torch.datasets.prefetch import DeviceRingIterator
+
+    return DeviceRingIterator(iterator, stack_batches=k, device=device)
 
 
 def tbptt_segments(arr, seg: int, cut: int) -> List[torch.Tensor]:
@@ -279,6 +297,17 @@ class HealthHooks:
             torch.stack([g[2] for g in group]),
             health.bucket_keys(self.params), len(group), batch=group[-1][3],
             rng_seed=int(getattr(self.conf, "seed", 0) or 0))
+
+    def _fit_stacked(self, ds, k: int) -> torch.Tensor:
+        """A ``[K, B, ...]`` super-batch (``fused_stack=K``): its K steps,
+        one after another (the JAX package's fused scan trains
+        bit-identically to K single steps). Returns the last step's loss."""
+        from deeplearning4j_tpu_torch.datasets.prefetch import unstack
+
+        loss = None
+        for j in range(k):
+            loss = self._fit_batch(unstack(ds, j))
+        return loss
 
     def _health_snapshot(self):
         from deeplearning4j_tpu_torch.optimize import checkpoint

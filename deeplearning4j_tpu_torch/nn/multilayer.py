@@ -28,9 +28,12 @@ Dropout draws come from a ``torch.Generator`` per layer and step, seeded
 from ``conf.seed``, the iteration and the layer index. The step's score
 stays on the device until something reads it (``score()``, a listener's
 ``float(score)``), so ``fit`` launches step after step without waiting for
-the card. ``fused_steps=K`` trains K batches per group, one after another,
-identically to K = 1: eager PyTorch has no compiled multi-step program to
-fuse, and the step already launches without a host sync.
+the card. ``fused_steps=K`` feeds ``fit`` from a K-stacking
+``datasets.prefetch.DeviceRingIterator`` on the network's device (one
+staged ``[K, B, ...]`` super-batch a group, its copy under the running
+steps) and trains each group's K batches one after another, identically
+to K = 1: eager PyTorch has no compiled multi-step program to fuse, and
+the step already launches without a host sync.
 
 Under a health mode (``telemetry.health.configure``) every step also
 computes its guard vector on the device and hands it to the monitor; under
@@ -445,12 +448,13 @@ class MultiLayerNetwork(nn_io.HealthHooks):
             fused_steps: Optional[int] = None) -> "MultiLayerNetwork":
         """Train (reference ``MultiLayerNetwork#fit`` overloads: a
         DataSetIterator, a DataSet, or (features, labels) arrays, batched
-        by ``batch_size``). ``fused_steps=K`` groups K steps (see the
-        module docstring); K > 1 takes standard backprop only."""
+        by ``batch_size``). ``fused_steps=K`` groups K steps fed by a
+        K-stacking device ring (see the module docstring); K > 1 takes
+        standard backprop only."""
         if self.params is None:
             self.init()
-        nn_io.check_fused_steps(fused_steps, self.conf)
-        iterator = _as_iterator(data, labels, batch_size)
+        iterator = nn_io.wrap_fused(_as_iterator(data, labels, batch_size),
+                                    fused_steps, self.conf, self.device)
         with flightrec.flight_recorder(model=self), \
                 self._health_fused(fused_steps):
             for _ in range(epochs):
@@ -472,6 +476,9 @@ class MultiLayerNetwork(nn_io.HealthHooks):
         return float(self._fit_batch(ds))
 
     def _fit_batch(self, ds: DataSet) -> torch.Tensor:
+        k = int(getattr(ds, "fused_stack", 0) or 0)
+        if k > 1:
+            return self._fit_stacked(ds, k)
         if self.conf.backprop_type is BackpropType.TRUNCATED_BPTT \
                 and _ndim(ds.features) == 3:
             args = self.tbptt_batch_arrays(ds)

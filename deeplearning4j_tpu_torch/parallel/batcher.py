@@ -150,11 +150,17 @@ class _Request:
         self.trace = trace
 
 
+def _network(model):
+    """The network behind a serving backend: a ``ParallelInference``'s
+    model, else the model itself."""
+    return model.model if hasattr(model, "replicas") else model
+
+
 def _input_types(model):
     """The model conf's per-input InputTypes (a ComputationGraph's
     ``input_types``, a MultiLayerNetwork's one ``input_type``), or None
     when unreadable."""
-    conf = getattr(model, "conf", None)
+    conf = getattr(_network(model), "conf", None)
     if conf is None:
         return None
     if hasattr(conf, "network_inputs"):
@@ -205,7 +211,9 @@ class InferenceEngine:
 
     ``model`` is anything exposing ``output(*arrays)`` and ``conf`` — a
     ``ComputationGraph`` or a ``MultiLayerNetwork`` (a quantized artifact
-    included). ``graph_opt=True`` (default) serves the
+    included) — or a ``ParallelInference``, whose worker count becomes the
+    bucket alignment (``bucket_rows(n, workers)``), so every padded launch
+    splits evenly over its replicas. ``graph_opt=True (default) serves the
     ``nn.inference_opt.optimize_for_inference`` copy, whose params a
     training original never touches (a MultiLayerNetwork's BNs folded and
     dropout pruned; a quantized artifact copied untouched); ``bf16=True``
@@ -370,13 +378,19 @@ class InferenceEngine:
     # --- model adoption / hot publish ---------------------------------------
     def _optimized(self, model):
         """The serving copy of ``model``: the inference-graph pass under
-        the engine's ``graph_opt`` / ``bf16`` flags."""
+        the engine's ``graph_opt`` / ``bf16`` flags (a ``ParallelInference``
+        gets replicas of its model's serving copy)."""
         if not self._graph_opt:
             return model
         from deeplearning4j_tpu_torch.nn.inference_opt import (
             optimize_for_inference,
         )
 
+        if hasattr(model, "replicas"):
+            return type(model)(
+                optimize_for_inference(model.model, bf16=self._bf16),
+                devices=model.devices, batch_limit=model.batch_limit,
+                bucketize=model.bucketize)
         return optimize_for_inference(model, bf16=self._bf16)
 
     def _adopt_model(self, model):
@@ -385,13 +399,17 @@ class InferenceEngine:
         the envelope key's signature and device. The ONE place these are
         computed — construction and ``publish`` share it — and set together
         under the engine lock, so a launch reads a consistent set."""
-        conf = getattr(model, "conf", None)
+        net = _network(model)
+        conf = getattr(net, "conf", None)
         with self._cond:
             self.model = model
             self._np_dtype = np.dtype(getattr(conf, "dtype", "float32"))
             self._templates = _input_templates(model)
             self._signature = aot_cache.graph_signature(conf)
-            self._device = getattr(model, "device", "cpu")
+            self._device = getattr(net, "device", "cpu")
+            # a split backend (ParallelInference) needs launch rows that
+            # divide over its workers: the bucket ladder aligns to them
+            self._align = int(getattr(model, "workers", 1) or 1)
         return model
 
     def publish(self, model, params=None, state=None):
@@ -418,7 +436,7 @@ class InferenceEngine:
 
     # --- warmup -------------------------------------------------------------
     def buckets(self) -> List[int]:
-        return bucket_ladder(self.config.max_batch)
+        return bucket_ladder(self.config.max_batch, self._align)
 
     def warmup(self, shapes=None, dtype=None) -> dict:
         """Run one zeros forward per padding bucket and per client-visible
@@ -640,7 +658,7 @@ class InferenceEngine:
         try:
             cat = [np.concatenate([r.xs[i] for r in batch], axis=0)
                    if len(batch) > 1 else batch[0].xs[i] for i in range(k)]
-            target = bucket_rows(rows)
+            target = bucket_rows(rows, self._align)
             if traced:
                 attrs = {"batch": next(self._batch_seq), "bucket": target,
                          "rows": rows, "requests": len(batch),

@@ -47,8 +47,9 @@ from deeplearning4j_tpu_torch.parallel.mesh import EXPERT_AXIS
 _ACTIVE_EXPERT_AXIS: list = [(None, None)]
 
 # bytes this process sent through the all-to-all exchange, forward and
-# backward, since the last reset_stats()
-_STATS = {"all_to_all": 0, "bytes": 0}
+# backward, and the rows its experts ran forward (experts x capacity;
+# under moe_apply_global, the kept choices), since the last reset_stats()
+_STATS = {"all_to_all": 0, "bytes": 0, "expert_rows": 0}
 
 
 @contextlib.contextmanager
@@ -75,7 +76,7 @@ def stats() -> dict:
 
 
 def reset_stats() -> None:
-    _STATS.update(all_to_all=0, bytes=0)
+    _STATS.update(all_to_all=0, bytes=0, expert_rows=0)
 
 
 def _exchange(x: torch.Tensor, group) -> torch.Tensor:
@@ -141,21 +142,17 @@ def route(probs: torch.Tensor, top_k: int, capacity: int):
     return kidx, gates, pos, pos < capacity
 
 
-def moe_apply(router, w1, w2, x, n_experts: int, capacity: int,
-              top_k: int = 1, axis_name: str | None = EXPERT_AXIS,
-              b1=None, b2=None, residual: bool = True, group=None):
-    """The MoE layer's math over ``x`` ``[t, d]`` (this rank's tokens):
-    ``w1 [e_loc, d, h]`` / ``w2 [e_loc, h, d]`` this rank's experts
-    (``e_loc == n_experts`` unsharded), ``router [d, E]`` replicated.
-    Returns ``(x + y, aux)`` (``y`` alone with ``residual=False``). With
-    ``e_loc < n_experts`` the buffers cross ``group`` by all-to-all;
-    ``axis_name`` None refuses that."""
+def _experts(x, kidx, gates, pos, keep, w1, w2, b1, b2, n_experts: int,
+             capacity: int, axis_name, group):
+    """``y`` of ``x`` ``[t, d]``: each kept choice (expert ``kidx``, slot
+    ``pos`` of ``capacity``) through its expert, scaled by its gate and
+    summed over the token's choices."""
     t, d = x.shape
+    top_k = kidx.shape[1]
     e_loc = w1.shape[0]
-    probs = torch.softmax(x @ router, dim=-1)                  # [t, E]
-    kidx, gates, pos, keep = route(probs, top_k, capacity)
     slots = n_experts * capacity
     slot = torch.where(keep, kidx * capacity + pos, slots)     # [t, k]
+    _STATS["expert_rows"] += slots
 
     # dispatch: slot s of expert e holds token src[e*C + s]; an empty slot
     # reads the zero row t
@@ -192,11 +189,73 @@ def moe_apply(router, w1, w2, x, n_experts: int, capacity: int,
     back = torch.cat([out.reshape(slots, d), out.new_zeros((1, d))])
     # combine: each kept choice's expert output scaled by its gate
     w = gates * keep.to(gates.dtype)
-    y = (back[slot] * w[..., None].to(back.dtype)).sum(1)
+    return (back[slot] * w[..., None].to(back.dtype)).sum(1)
 
-    # load-balance aux (GShard): the rank-0 assignment only
+
+def _aux(probs, kidx, n_experts: int):
+    """The load-balance aux (GShard): the rank-0 assignment only."""
     assign = F.one_hot(kidx[:, 0], n_experts).to(probs.dtype).mean(0)
-    aux = n_experts * torch.sum(assign * probs.mean(0))
+    return n_experts * torch.sum(assign * probs.mean(0))
+
+
+def moe_apply(router, w1, w2, x, n_experts: int, capacity: int,
+              top_k: int = 1, axis_name: str | None = EXPERT_AXIS,
+              b1=None, b2=None, residual: bool = True, group=None):
+    """The MoE layer's math over ``x`` ``[t, d]`` (this rank's tokens):
+    ``w1 [e_loc, d, h]`` / ``w2 [e_loc, h, d]`` this rank's experts
+    (``e_loc == n_experts`` unsharded), ``router [d, E]`` replicated.
+    Returns ``(x + y, aux)`` (``y`` alone with ``residual=False``). With
+    ``e_loc < n_experts`` the buffers cross ``group`` by all-to-all;
+    ``axis_name`` None refuses that."""
+    probs = torch.softmax(x @ router, dim=-1)                  # [t, E]
+    kidx, gates, pos, keep = route(probs, top_k, capacity)
+    y = _experts(x, kidx, gates, pos, keep, w1, w2, b1, b2, n_experts,
+                 capacity, axis_name, group)
+    return (x + y if residual else y), _aux(probs, kidx, n_experts)
+
+
+def moe_apply_global(router, w1, w2, x, n_experts: int,
+                     capacity_factor: float, top_k: int, gather,
+                     b1=None, b2=None, residual: bool = True):
+    """:func:`moe_apply` with unsharded experts over this rank's ``x`` ``[t,
+    d]`` when the routing is the global batch's (the data-parallel exact
+    mode). ``gather(probs)`` -> ``(every rank's [T, E] router softmax,
+    this rank's first row in it)``, differentiable
+    (``comms.global_batch.gather_rows``). The top-k, the capacity (sized
+    from ``T``), the queue and the aux are the global batch's; then each
+    expert runs over exactly this rank's choices it kept (grouped by
+    expert, one host read of the ``E`` counts a call), so a rank's expert
+    work is its own tokens'. Returns ``(x + y, aux)`` for this rank's
+    rows, ``aux`` the global batch's."""
+    t, d = x.shape
+    probs = torch.softmax(x @ router, dim=-1)                  # [t, E]
+    every, lo = gather(probs)                                  # [T, E]
+    capacity = max(1, math.ceil(
+        top_k * every.shape[0] / n_experts * capacity_factor))
+    kidx, gates, _, keep = route(every, top_k, capacity)
+    aux = _aux(every, kidx, n_experts)
+    # this rank's kept choices, choice-major (choice j of token i at j*t+i),
+    # grouped by expert
+    flat = kidx[lo:lo + t].t().reshape(-1)
+    kept = keep[lo:lo + t].t().reshape(-1).nonzero()[:, 0]
+    order = kept[torch.argsort(flat[kept], stable=True)]
+    counts = torch.bincount(flat[order], minlength=n_experts).tolist()
+    _STATS["expert_rows"] += len(order)
+    rows = x[order % t]
+    outs = []
+    for e, chunk in enumerate(rows.split(counts)):
+        h = chunk @ w1[e]
+        if b1 is not None:
+            h = h + b1[e]
+        out = torch.relu(h) @ w2[e]
+        if b2 is not None:
+            out = out + b2[e]
+        outs.append(out)
+    gate = gates[lo:lo + t].t().reshape(-1)[order]
+    out = torch.cat(outs) * gate[:, None].to(x.dtype)
+    # back to (choice, token), summed over the choices as moe_apply does
+    y = x.new_zeros((top_k * t, d)).index_put((order,), out)
+    y = y.view(top_k, t, d).sum(0)
     return (x + y if residual else y), aux
 
 

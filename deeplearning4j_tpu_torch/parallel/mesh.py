@@ -4,10 +4,12 @@ Counterpart of the JAX package's ``parallel/mesh.py``. The JAX package
 names mesh axes over the devices of one program; the port runs one
 process per rank (the PyTorch idiom) joined by ``torch.distributed``, and
 a :class:`Mesh` here is the data axis of that process group: its size is
-the world size, and each process holds one replica. The other axes
-(``model``, ``pipeline``, ``sequence``, ``expert``) are refused until
-``parallel/{tensor, expert, pipeline}.py`` are ported (ROADMAP A: "The
-remainder, in dependency order").
+the world size, and each process holds one replica. Experts ride the data
+axis (``ParallelWrapper(expert_parallel=True)``, ``parallel/expert.py``),
+as in the JAX package's GShard layout, so an ``expert`` axis of its own is
+refused, as are ``model``, ``pipeline`` and ``sequence``, until
+``parallel/{tensor, pipeline}.py`` are ported (ROADMAP A: "The remainder,
+in dependency order").
 
 Backends: NCCL when the model lives on a CUDA device, gloo on the CPU, and
 gloo on CUDA tensors only when the caller names ``backend="gloo"``
@@ -86,10 +88,11 @@ class MeshConfig:
             if getattr(self, name) != 1:
                 raise NotImplementedError(
                     f"mesh axis {name!r} = {getattr(self, name)}: only the "
-                    f"data axis is ported; tensor, pipeline, sequence and "
-                    f"expert parallelism wait for parallel/{{tensor, expert, "
-                    f"pipeline}}.py (ROADMAP A: 'The remainder, in "
-                    f"dependency order')")
+                    f"data axis is ported (experts ride it: "
+                    f"ParallelWrapper(expert_parallel=True)); tensor, "
+                    f"pipeline and sequence parallelism wait for "
+                    f"parallel/{{tensor, pipeline}}.py (ROADMAP A: 'The "
+                    f"remainder, in dependency order')")
         world = scheduler.world_of()
         if self.data not in (-1, world):
             raise ValueError(f"mesh data axis {self.data} must equal the "

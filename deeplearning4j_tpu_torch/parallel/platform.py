@@ -1052,8 +1052,8 @@ def live_platforms() -> List[ModelPlatform]:
 
 
 def platforms_summary() -> List[dict]:
-    """Stats for every live platform (the JAX package's UI ``/platform``
-    payload; the port's UI is not ported)."""
+    """Stats for every live platform: the payload of the UI's
+    ``/platform`` endpoint (``ui.server``)."""
     return [p.stats() for p in live_platforms()]
 
 

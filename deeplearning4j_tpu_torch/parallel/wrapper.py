@@ -48,6 +48,23 @@ Modes (the JAX package's semantics):
   move); every ``averaging_frequency`` iterations params, state and (with
   ``average_updaters``) updater state are averaged.
 
+Truncated BPTT (a ``TRUNCATED_BPTT`` network) runs in the exact,
+threshold and averaging modes as the JAX wrapper's segment scans: one
+optimization step a segment, the carries passed on detached, each
+segment's gradients all-reduced over the global batch after its backward
+(exact), one threshold exchange a segment with the residual and the
+adaptive tau carried on (threshold), or each replica's own scan (an
+all-padding one does not move) before the periodic average (averaging).
+The iteration counter moves by the segments; the batch's score is their
+mean. With explicit buckets, ZeRO, ``fused_steps`` or
+``expert_parallel`` it is refused, as in the JAX package.
+
+An MoE network (``MoELayer``) trains in the exact mode without
+``expert_parallel`` as well: its router's top-k, the capacity queue and
+the auxiliary loss are taken over the global batch (``conf.layers_moe``
+under ``comms.global_batch``), as the JAX package's one SPMD step does.
+The per-rank modes (threshold, averaging, bucketed, ZeRO) refuse it.
+
 Under a health mode (``telemetry.health.configure``) every mode guards
 its step as the JAX package's wrapper does: exact, bucketed and ZeRO on
 the summed (post-exchange) gradients, identical on every rank (ZeRO from
@@ -212,10 +229,15 @@ class ParallelWrapper:
         if not self._is_graph and not isinstance(model, MultiLayerNetwork):
             raise TypeError(f"unsupported model type {type(model)}")
         self.expert_parallel = bool(expert_parallel)
+        # both networks expose tbptt_scan_parts / tbptt_batch_arrays
+        self._tbptt = model.conf.backprop_type is BackpropType.TRUNCATED_BPTT
+        if self._tbptt:
+            seg = int(model.conf.tbptt_fwd_length)
+            back = int(model.conf.tbptt_back_length or seg)
+            self._tbptt_seg, self._tbptt_back = seg, min(back, seg)
         if self.expert_parallel and (
                 training_mode is not TrainingMode.SHARED_GRADIENTS
-                or threshold_algorithm is not None
-                or model.conf.backprop_type is BackpropType.TRUNCATED_BPTT):
+                or threshold_algorithm is not None or self._tbptt):
             raise ValueError(
                 "expert_parallel composes with the exact "
                 "SHARED_GRADIENTS mode only (no threshold "
@@ -225,10 +247,6 @@ class ParallelWrapper:
                 "partition_rules is not ported yet: it waits for "
                 "sharding/plan.py's ShardingPlan (ROADMAP A: 'The remainder, "
                 "in dependency order')")
-        if model.conf.backprop_type is BackpropType.TRUNCATED_BPTT:
-            raise NotImplementedError(
-                "truncated BPTT through ParallelWrapper is not ported yet "
-                "(ROADMAP A: 'What PRs 12-15 left of their slices')")
         self.mesh = mesh if mesh is not None else mesh_mod.single_host_mesh(
             n_devices=workers)
         self.workers = self.mesh.world
@@ -249,11 +267,17 @@ class ParallelWrapper:
                         f"layer {name}: n_experts={layer.n_experts} must "
                         f"be a multiple of the data-axis size "
                         f"{self.workers}")
-        elif sharded and self.workers > 1:
+        elif sharded and self.workers > 1 and (
+                training_mode is not TrainingMode.SHARED_GRADIENTS
+                or threshold_algorithm is not None
+                or gradient_bucket_mb is not None or zero_optimizer):
+            # the exact mode routes over the global batch (the layer's
+            # forward under comms.global_batch)
             raise NotImplementedError(
                 f"layer {sharded[0][0]}: an MoE layer's capacity is shared "
                 "over the global batch, which the per-rank data-parallel "
-                "modes do not see; train it with expert_parallel=True")
+                "modes (threshold, averaging, bucketed, ZeRO) do not see; "
+                "train it in the exact mode or with expert_parallel=True")
         self.training_mode = training_mode
         self.averaging_frequency = int(averaging_frequency)
         self.average_updaters = bool(average_updaters)
@@ -274,7 +298,7 @@ class ParallelWrapper:
             self.gradient_bucket_bytes = (int(mb * 2 ** 20) if mb > 0
                                           else None)
             self._explicit_exchange = True
-        if self._explicit_exchange and self.expert_parallel:
+        if self._explicit_exchange and (self.expert_parallel or self._tbptt):
             raise ValueError(
                 "gradient_bucket_mb composes with the standard "
                 "SHARED_GRADIENTS / AVERAGING steps only (no "
@@ -282,7 +306,7 @@ class ParallelWrapper:
         self._zero = bool(zero_optimizer)
         if self._zero and (training_mode is not TrainingMode.SHARED_GRADIENTS
                            or threshold_algorithm is not None
-                           or self.expert_parallel):
+                           or self.expert_parallel or self._tbptt):
             raise ValueError(
                 "zero_optimizer composes with the exact SHARED_GRADIENTS "
                 "path only (no threshold compression, no expert_parallel, "
@@ -291,7 +315,7 @@ class ParallelWrapper:
         if self.fused_steps > 1 and (
                 training_mode is not TrainingMode.SHARED_GRADIENTS
                 or threshold_algorithm is not None or self.expert_parallel
-                or self._explicit_exchange or self._zero):
+                or self._explicit_exchange or self._zero or self._tbptt):
             raise ValueError(
                 "fused_steps composes with the exact SHARED_GRADIENTS "
                 "SPMD path only (no threshold compression, no "
@@ -326,10 +350,13 @@ class ParallelWrapper:
         arrays."""
         m = self.model
         if self._is_graph:
-            features, labels, fmasks, lmasks = m._prep_batch(ds)
+            features, labels, fmasks, lmasks = (
+                m.tbptt_batch_arrays(ds) if self._tbptt
+                else m._prep_batch(ds))
             return (list(features), list(labels), fmasks,
                     list(lmasks)), int(features[0].shape[0])
-        features, labels, fmask, lmask = m._batch_arrays(ds)
+        features, labels, fmask, lmask = (
+            m.tbptt_batch_arrays(ds) if self._tbptt else m._batch_arrays(ds))
         return (features, labels, fmask, lmask), int(features.shape[0])
 
     def _pad(self, batch, rows: int, target: int):
@@ -357,13 +384,15 @@ class ParallelWrapper:
         return seed if self.rank == 0 else (
             seed + self.rank * 1_000_003) % (2 ** 63)
 
-    def _gradients(self, batch, cur, on_leaves=None):
+    def _gradients(self, batch, cur, on_leaves=None, carries=None):
+        """``(loss, new_state, grads)`` of one step (a tBPTT segment's
+        with its ``carries``, replaced in place by the final ones)."""
         m = self.model
         if self._is_graph:
             return m._backward_arrays(*batch, seed=self._step_seed(cur),
-                                      on_leaves=on_leaves)
+                                      on_leaves=on_leaves, carries=carries)
         return m._backward(*batch, seed=self._step_seed(cur),
-                           on_leaves=on_leaves)
+                           on_leaves=on_leaves, carries=carries)
 
     def _grad_keys(self):
         """(layer key, param key) of every param leaf, in flatten order."""
@@ -533,11 +562,16 @@ class ParallelWrapper:
         cur = m.iteration
         did_avg = False
         vec = None
+        inc = 1
         telemetry.host_gap_close()
         # each step brackets its gradient pass (PHASE_COMPUTE) and its
         # exchange with the update (PHASE_GRAD_SYNC); under a health mode
         # each returns its guard vector too
-        if self.training_mode is TrainingMode.AVERAGING:
+        if self._tbptt:
+            # one optimization step (and one exchange) a segment
+            loss, vec, did_avg, inc = self._tbptt_step(batch, rows, target,
+                                                       cur)
+        elif self.training_mode is TrainingMode.AVERAGING:
             loss, vec, did_avg = self._averaging_step(batch, rows, cur)
         elif self.threshold_algorithm is not None:
             loss, vec = self._threshold_step(batch, rows, cur)
@@ -562,13 +596,14 @@ class ParallelWrapper:
         # loop's order)
         m._cast_params = None
         m._score = loss
-        m.iteration += 1
+        m.iteration += inc
+        last = m.iteration - 1  # a tBPTT batch's last segment
         if vec is not None:
-            self._observe(cur, loss, vec, batch)
+            self._observe(last, loss, vec, batch)
         if profiler.panic_enabled():
-            profiler.check_step(loss, "parallel", cur)
+            profiler.check_step(loss, "parallel", last)
         for lst in m.listeners:
-            lst.iteration_done(m, cur, m.epoch, loss)
+            lst.iteration_done(m, last, m.epoch, loss)
 
     def _observe(self, cur: int, loss, vec, batch) -> None:
         """The step's guard vector to the monitor, the wrapper the owner
@@ -634,18 +669,118 @@ class ParallelWrapper:
             return self._update(self._hooks.finish(), new_state,
                                 self._sum_scalar(loss), cur)
 
-    def _update(self, grads, new_state, loss, cur: int):
+    def _tbptt_step(self, batch, rows: int, target: int, cur: int):
+        """Truncated BPTT over this rank's rows, one optimization step a
+        segment (the JAX wrapper's segment scans):
+
+        - exact: each segment's forward and backward over the global batch
+          (``comms.global_batch``) and its gradients all-reduced after that
+          segment's backward, as the JAX package's SPMD-partitioned scan
+          does;
+        - threshold: one exchange a segment, the residual carried across
+          segments and batches, the adaptive tau retuned each segment;
+        - averaging: this rank's replica runs the whole scan on its rows
+          (an all-padding replica does not move), then the periodic
+          average where the segments' iterations cross its cadence.
+
+        The carries pass from segment to segment detached; the batch's
+        score is the mean of its segments'. Returns ``(loss, guard vector
+        or None, averaged, segments)``."""
+        m = self.model
+        segments, zero_carries, advance, _ = m.tbptt_scan_parts(
+            self._tbptt_seg, self._tbptt_back)
+        if self._is_graph:
+            groups = [list(zip(*segments(g))) for g in batch]
+            segs = [tuple(list(a) for a in seg) for seg in zip(*groups)]
+        else:
+            segs = list(zip(*(segments(a) for a in batch)))
+        averaging = self.training_mode is TrainingMode.AVERAGING
+        if averaging:
+            m.params, m.state, m.opt_state = (self._params, self._state,
+                                              self._opt)
+        c = ctot = None
+        if averaging or self.threshold_algorithm is not None:
+            c, ctot = self._counts(rows)
+        m._cast_params = None
+        carries = zero_carries(batch[0])
+        losses, vecs = [], []
+        for j, seg in enumerate(segs):
+            it = cur + j
+            if averaging and c <= 0:
+                losses.append(torch.zeros((), device=m.device))
+                continue
+            seg = advance(carries, *seg)
+            old = dict(carries)
+            if averaging:
+                with telemetry.span(telemetry.PHASE_COMPUTE):
+                    loss, new_state, grads = self._gradients(seg, it,
+                                                             carries=carries)
+                    if self._health_mode:
+                        vecs.append(health.guarded_update(
+                            m, loss, grads, new_state, it, m.epoch,
+                            self._health_mode, (old, carries)))
+                    else:
+                        m._apply_updates(grads, it)
+                        m.state.update(new_state)
+            elif self.threshold_algorithm is not None:
+                with telemetry.span(telemetry.PHASE_COMPUTE):
+                    loss, new_state, grads = self._gradients(seg, it,
+                                                             carries=carries)
+                loss, vec = self._threshold_exchange(
+                    loss, new_state, grads, c, ctot, it, (old, carries))
+                vecs.append(vec)
+            else:
+                on_leaves = self._hooks.arm(None)
+                with telemetry.span(telemetry.PHASE_COMPUTE), \
+                        global_batch.global_batch(self.group, target,
+                                                  target * self.workers):
+                    loss, new_state, _ = self._gradients(seg, it, on_leaves,
+                                                         carries)
+                with telemetry.span(telemetry.PHASE_GRAD_SYNC):
+                    loss, vec = self._update(self._hooks.finish(), new_state,
+                                             self._sum_scalar(loss), it,
+                                             (old, carries))
+                vecs.append(vec)
+            m._cast_params = None
+            losses.append(loss.detach())
+        inc = len(segs)
+        # as the networks' own tBPTT fit: each segment's loss
+        m.last_segment_losses = torch.stack(losses)
+        loss = m.last_segment_losses.mean()
+        vec = m._combine_guards(vecs) if self._health_mode else None
+        did_avg = False
+        if averaging:
+            if self._health_mode:
+                if vec is None:  # an all-padding replica reports 0
+                    vec = torch.zeros(
+                        (health.GUARD_HEAD
+                         + len(health.bucket_keys(m.params)),),
+                        dtype=torch.float32, device=m.device)
+                vec = health.combine_across(vec, self.group)
+            did_avg = ((cur + inc) // self.averaging_frequency
+                       > cur // self.averaging_frequency)
+            with telemetry.span(telemetry.PHASE_GRAD_SYNC):
+                if did_avg:
+                    group = (self._params, self._state) + (
+                        (self._opt,) if self.average_updaters else ())
+                    self._average_into(group)
+                loss = self._sum_scalar(loss * float(c)) / float(ctot)
+        return loss, vec, did_avg, inc
+
+    def _update(self, grads, new_state, loss, cur: int, carries=None):
         """The update pass of the modes whose ``grads`` are the summed
         (shared) gradients, the same on every rank: plain, or guarded on
         those gradients (``health.guarded_update``, SKIP_STEP's select
-        included). Returns ``(loss, guard vector or None)``."""
+        included, a tBPTT segment's ``(old, new)`` carries too). Returns
+        ``(loss, guard vector or None)``."""
         m = self.model
         if not self._health_mode:
             m._apply_updates(grads, cur)
             m.state.update(new_state)
             return loss, None
         return loss, health.guarded_update(m, loss, grads, new_state, cur,
-                                           m.epoch, self._health_mode)
+                                           m.epoch, self._health_mode,
+                                           carries)
 
     def _bucketed_step(self, batch, rows: int, cur: int):
         m = self.model
@@ -660,12 +795,20 @@ class ParallelWrapper:
                 self._sum_scalar(loss * float(c)) / float(ctot), cur)
 
     def _threshold_step(self, batch, rows: int, cur: int):
-        m = self.model
         c, ctot = self._counts(rows)
-        n = self.workers
-        w = float(c * np.float32(n) / ctot)
         with telemetry.span(telemetry.PHASE_COMPUTE):
             loss, new_state, grads = self._gradients(batch, cur)
+        return self._threshold_exchange(loss, new_state, grads, c, ctot, cur)
+
+    def _threshold_exchange(self, loss, new_state, grads, c, ctot, cur: int,
+                            carries=None):
+        """The threshold mode's exchange of one step (of one tBPTT segment:
+        one exchange a segment, the residual carried across segments and
+        batches): ``encode(grad * c * n / ctot + residual)`` to +-tau, the
+        messages summed, the update, then the adaptive tau retuned from the
+        ranks' mean sparsity."""
+        n = self.workers
+        w = float(c * np.float32(n) / ctot)
         with telemetry.span(telemetry.PHASE_GRAD_SYNC):
             grads = scheduler.tree_map(lambda g: g * w, grads)
             old_residual = self._residual
@@ -675,7 +818,8 @@ class ParallelWrapper:
                                    self.gradient_bucket_bytes)
             loss, vec = self._update(
                 shared, self._weighted_state(new_state, float(c / ctot)),
-                self._sum_scalar(loss * float(c)) / float(ctot), cur)
+                self._sum_scalar(loss * float(c)) / float(ctot), cur,
+                carries)
             if self._health_mode == "skip":
                 # SKIP_STEP reverts the residual with the params
                 self._residual = health.apply_skip(

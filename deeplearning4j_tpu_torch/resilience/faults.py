@@ -53,13 +53,8 @@ Named sites (the permanent hooks in product code)::
                          treats it as resumable and the whole job
                          resumes from the last distributed snapshot)
 
-The port's product code carries the hooks of ``checkpoint.write``,
-``train.step``, ``serving.launch``, ``decode.launch``, ``model.load`` and
-``model.swap``. ``ingest.device_put``, ``stats.flush``,
-``snapshot.shard_write`` and ``pod.heartbeat`` name modules the port has
-not taken over yet (the device ring's staging, ``ui.stats``,
-``resilience.pod`` and ``resilience.session``): a plan may arm them, and
-they fire nowhere.
+The port's product code carries every one of these hooks, at the same
+places as the JAX package's.
 
 Per-model scoping: an engine constructed with ``name=`` fires
 ``serving.launch:<name>`` / ``decode.launch:<name>`` instead of the

@@ -113,6 +113,11 @@ class RetryPolicy:
 #: permanent.
 CHECKPOINT_RETRY = RetryPolicy(max_attempts=3, base_delay_s=0.05,
                                name="checkpoint.write")
+#: Device staging (``datasets.prefetch.DeviceRingIterator``): a
+#: host-to-device copy's transient failure clears in milliseconds or is
+#: permanent.
+INGEST_RETRY = RetryPolicy(max_attempts=3, base_delay_s=0.01,
+                           name="ingest.device_put")
 #: One retry only: a serving launch is the latency-critical edge, and a
 #: persistent failure should reach the circuit breaker (which sheds)
 #: rather than burn the batch's deadline on backoff.

@@ -363,19 +363,29 @@ class TrainingSession:
     # --- training -----------------------------------------------------------
     def fit(self, data, labels=None, epochs: int = 1,
             batch_size: Optional[int] = None,
-            to_epoch: Optional[int] = None):
+            to_epoch: Optional[int] = None,
+            fused_steps: Optional[int] = None):
         """Train to ``model.epoch + epochs`` — ``epochs`` is RELATIVE to
         the resumed position — snapshotting periodically and auto-resuming
         on resumable failure. A restart that must finish the ORIGINAL
         run's budget passes the absolute ``to_epoch``: ``fit(it,
         to_epoch=3)`` trains to epoch 3 wherever the snapshot left off.
         The data order must be deterministic across replays (it is, for
-        the port's iterators)."""
+        the port's iterators). ``fused_steps=K`` feeds a model from a
+        K-stacking device ring, as the network's ``fit`` does (a wrapper
+        takes its own ``fused_steps``); one stacked item is one
+        super-step, and a resume's fast-forward stages and stacks none of
+        the items it skips."""
+        from deeplearning4j_tpu_torch.nn import io as nn_io
         from deeplearning4j_tpu_torch.nn.multilayer import _as_iterator
         from deeplearning4j_tpu_torch.resilience import pod as pod_mod
 
         if self.model is None:
             self.resume()
+        if self._trainer() is not None and fused_steps:
+            raise ValueError(
+                "configure fused_steps on the ParallelWrapper, not the "
+                "session, when driving a wrapper")
         net = self._net
         if net.params is None:
             net.init()
@@ -393,6 +403,9 @@ class TrainingSession:
             # one stacked item is one super-step, so the position counts
             # super-steps and a kill replays a super-step whole
             iterator = StackBatchIterator(iterator, trainer.fused_steps)
+        else:
+            iterator = nn_io.wrap_fused(iterator, fused_steps, net.conf,
+                                        net.device)
         target_epoch = int(to_epoch) if to_epoch is not None \
             else int(net.epoch) + int(epochs)
         restarts_this_fit = 0
@@ -480,6 +493,14 @@ class TrainingSession:
                     lst.on_epoch_start(m, m.epoch)
                 iterator.reset()
                 skip = self._batch_in_epoch
+                if skip and hasattr(iterator, "skip_staging"):
+                    # the fast-forward must not pay the copies of the
+                    # (super-)steps it discards
+                    iterator.skip_staging(skip)
+                elif skip and hasattr(iterator, "skip_stacking"):
+                    # host-only stacking (the wrapper's fused mode): skip
+                    # the K-batch copies the same way
+                    iterator.skip_stacking(skip)
                 for i, ds in enumerate(iterator):
                     if i < skip:
                         continue  # replay fast-forward to the crash point

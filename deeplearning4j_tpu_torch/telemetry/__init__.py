@@ -124,6 +124,17 @@ def record_collective_plan(intent: str, choice: str, nbytes: float,
                         "plan", intent=intent).set(launches)
 
 
+def record_ingest(nbytes: float, batches: int = 1) -> None:
+    """Count host-to-device batch staging (``DeviceRingIterator`` and
+    ``AsyncDataSetIterator(device_put=True)``)."""
+    if not spans._enabled:
+        return
+    REGISTRY.counter("dl4j_ingest_batches_total",
+                     help="batches staged to device").inc(batches)
+    REGISTRY.counter("dl4j_ingest_bytes_total",
+                     help="bytes staged to device").inc(nbytes)
+
+
 def record_shard_bytes(param_bytes: float, opt_bytes: float,
                        device=None) -> None:
     """Publish this rank's parameter / optimizer-state footprint

@@ -30,7 +30,8 @@ WeakSet (the fleet router's input).
 
 A copy of the JAX package's ``telemetry/slo.py`` (which imports no jax):
 one seeded outcome stream gives the same transitions at the same indices
-in both packages. The JAX package's UI ``/slo`` endpoint is not ported.
+in both packages. The UI serves the monitors' states at ``/slo``
+(``ui.server``).
 """
 
 from __future__ import annotations

@@ -23,6 +23,8 @@ losses rtol 1e-5, params rtol 1e-4, atol 1e-5. Each comparison checks the
 smallest top-k router-probability margin first.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,6 +39,7 @@ from deeplearning4j_tpu.conf.layers import OutputLayer as JOut
 from deeplearning4j_tpu.conf.layers_moe import MoELayer as JMoE
 from deeplearning4j_tpu.conf.losses import LossMCXENT as JMCXENT
 from deeplearning4j_tpu.conf.multilayer import NeuralNetConfiguration as JNNC
+from deeplearning4j_tpu.conf.updaters import Adam as JAdam
 from deeplearning4j_tpu.conf.updaters import Sgd as JSgd
 from deeplearning4j_tpu.datasets.dataset import DataSet as JDataSet
 from deeplearning4j_tpu.nn.graph import ComputationGraph as JGraph
@@ -113,6 +116,32 @@ def _graph_case(l2, aux_weight=0.0, steps=1, n=32, seed=3):
                          "batch": _batch(n, seed), "steps": steps}
 
 
+def _exact_jconf(adam=False):
+    """Capacity 1.25 (tokens drop: the queue decides which) and the aux
+    loss on, as the zoo's MoE blocks have them."""
+    b = (JNNC.builder().seed(9).updater(JAdam(learning_rate=1e-2) if adam
+                                        else JSgd(learning_rate=0.1))
+         .weight_init(JWI.XAVIER))
+    g = b.graph_builder().add_inputs("input").set_input_types(
+        JIT.feed_forward(D))
+    g.add_layer("embed", JDense(n_out=D, activation=JAct.TANH), "input")
+    g.add_layer("moe", JMoE(n_experts=4, d_hidden=2 * D, top_k=2,
+                            aux_weight=1e-2, capacity_factor=1.25), "embed")
+    g.add_layer("out", JOut(n_out=CLASSES, activation=JAct.SOFTMAX,
+                            loss_fn=JMCXENT()), "moe")
+    g.set_outputs("out")
+    return g.build()
+
+
+def _exact_case(adam=False, steps=3):
+    jconf = _exact_jconf(adam)
+    jnet = JGraph(jconf).init()
+    return jconf, jnet, {"kind": "exact", "conf_json": jconf.to_json(),
+                         "params": _np(dict(jnet.params)),
+                         "state": _np(dict(jnet.state)),
+                         "batch": _batch(32, 5), "steps": steps}
+
+
 def _expert_mesh(n):
     return Mesh(np.array(jax.devices()[:n]), (EXPERT_AXIS,))
 
@@ -146,8 +175,22 @@ CASES = {
                 np.random.default_rng(11).integers(0, 3, 16)])},
     "refuse_split": lambda: {"kind": "refusal", "expert_parallel": True,
                              "conf_json": _graph_jconf(n_experts=3).to_json()},
-    "refuse_plain_dp": lambda: {"kind": "refusal", "expert_parallel": False,
-                                "conf_json": _graph_jconf().to_json()},
+    "refuse_plain_dp": lambda: {
+        "kind": "refusal", "expert_parallel": False,
+        "conf_json": _graph_jconf().to_json(),
+        "kw": {"training_mode": TrainingMode.AVERAGING}},
+    "refuse_threshold_dp": lambda: {
+        "kind": "refusal", "expert_parallel": False,
+        "conf_json": _graph_jconf().to_json(),
+        "kw": {"threshold_algorithm": ThresholdAlgorithm(1e-3)}},
+    "refuse_bucketed_dp": lambda: {
+        "kind": "refusal", "expert_parallel": False,
+        "conf_json": _graph_jconf().to_json(),
+        "kw": {"gradient_bucket_mb": 0}},
+    "exact": lambda: _exact_case()[2],
+    "exact_control": lambda: {**_exact_case()[2],
+                              "per_rank_capacity": True},
+    "exact_adam": lambda: _exact_case(adam=True)[2],
 }
 FOUR = ("ep", "ep_l2", "spmd_top1", "spmd_top2", "step_top1", "step_top2")
 
@@ -297,8 +340,107 @@ def test_expert_count_must_divide_the_ranks(port2):
 
 
 def test_an_moe_net_is_refused_by_the_per_rank_modes(port2):
-    assert port2[0]["refuse_plain_dp"].startswith("NotImplementedError")
-    assert "expert_parallel=True" in port2[0]["refuse_plain_dp"]
+    """Averaging, threshold and bucketed steps route each rank's tokens
+    alone: above one rank they refuse an unsharded MoE net, naming both
+    ways out (the exact mode takes it)."""
+    for name in ("refuse_plain_dp", "refuse_threshold_dp",
+                 "refuse_bucketed_dp"):
+        msg = port2[0][name]
+        assert msg.startswith("NotImplementedError"), name
+        assert "expert_parallel=True" in msg and "exact mode" in msg
+
+
+@pytest.fixture(scope="module")
+def jax_exact():
+    """The JAX network's ``fit_batch`` on the global batch, step by step:
+    what the JAX wrapper's exact mode (one SPMD step over the global
+    batch) computes."""
+    out = {}
+    for name, adam in (("exact", False), ("exact_adam", True)):
+        jconf, jnet, spec = _exact_case(adam)
+        x, y = spec["batch"]
+        probs = jax.nn.softmax(np.tanh(x @ spec["params"]["embed"]["W"]
+                                       + spec["params"]["embed"]["b"])
+                               @ spec["params"]["moe"]["router"])
+        assert _margin(probs, 2) > 1e-4
+        scores = [float(jnet.fit_batch(JDataSet(x, y)))
+                  for _ in range(spec["steps"])]
+        out[name] = (scores, _np(dict(jnet.params)))
+    return out
+
+
+@pytest.mark.parametrize("name", ["exact", "exact_adam"])
+def test_moe_exact_mode_matches_jax_on_the_global_batch(port2, jax_exact,
+                                                        name):
+    """Two ranks, experts unsharded, capacity 1.25 (the global queue drops
+    tokens) and the aux loss on: every step's score and the params against
+    the JAX network's fit on the global batch, at ``test_torch_moe.py``'s
+    tolerances (scores rtol 1e-5, params after SGD atol 2e-6; Adam's
+    params with its floor of 1e-2 of the rate)."""
+    scores, params = jax_exact[name]
+    for r in (0, 1):
+        res = port2[r][name]
+        np.testing.assert_allclose(res["scores"], scores, rtol=1e-5)
+        tol = dict(rtol=0, atol=1e-4 if name == "exact_adam" else 2e-6)
+        for k in params:
+            for pk in params[k]:
+                np.testing.assert_allclose(res["params"][k][pk],
+                                           params[k][pk], **tol,
+                                           err_msg=f"{name} {k}/{pk}")
+
+
+def test_moe_per_rank_capacity_misses_the_exact_comparison(port2, jax_exact):
+    """The planted control: each rank routing its own tokens alone (its own
+    capacity, queue and aux) moves the step outside the tolerance."""
+    scores, params = jax_exact["exact"]
+    res = port2[0]["exact_control"]
+    diff = max(float(np.abs(res["params"][k][pk] - params[k][pk]).max())
+               for k in params for pk in params[k])
+    assert diff > 100 * 2e-6
+
+
+def test_global_routing_runs_only_this_ranks_tokens():
+    """``moe_apply_global`` at two simulated ranks (the gather hands each
+    the other rank's router probabilities): each rank's outputs, the aux
+    and the ranks' summed gradients are one rank's ``moe_apply`` over the
+    global batch (atol 1e-6), while each rank's experts run only its own
+    kept choices: fewer rows than the global queue's ``E x C``."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import expert
+
+    t, d, h, e, k, cf = 16, 8, 12, 4, 2, 1.25
+    rng = np.random.default_rng(21)
+    leaves = [torch.tensor(rng.normal(size=s, scale=0.5).astype(np.float32),
+                           requires_grad=True)
+              for s in ((d, e), (e, d, h), (e, h, d))]
+    router, w1, w2 = leaves
+    x = torch.tensor(rng.normal(size=(2 * t, d)).astype(np.float32))
+    c = torch.tensor(rng.normal(size=(2 * t, d)).astype(np.float32))
+    cap = math.ceil(k * 2 * t / e * cf)
+    expert.reset_stats()
+    y, aux = expert.moe_apply(router, w1, w2, x, e, cap, top_k=k,
+                              axis_name=None)
+    whole = expert.stats()["expert_rows"]
+    ref = torch.autograd.grad((y * c).sum() + aux, leaves)
+    xs, cs_ = x.split(t), c.split(t)
+    total = 0.0
+    for r in (0, 1):
+        other = torch.softmax(xs[1 - r] @ router, dim=-1)
+
+        def gather(p, r=r, other=other):
+            return (torch.cat([p, other] if r == 0 else [other, p]), r * t)
+
+        expert.reset_stats()
+        yr, auxr = expert.moe_apply_global(router, w1, w2, xs[r], e, cf, k,
+                                           gather)
+        assert expert.stats()["expert_rows"] < whole
+        np.testing.assert_allclose(yr.detach(), y[r * t:(r + 1) * t].detach(),
+                                   rtol=0, atol=1e-6)
+        np.testing.assert_allclose(auxr.item(), aux.item(), rtol=1e-6)
+        total = total + (yr * cs_[r]).sum() + auxr / 2
+    for g, gr in zip(torch.autograd.grad(total, leaves), ref):
+        np.testing.assert_allclose(g, gr, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -1,9 +1,20 @@
 """The port stands alone: importing every module of
 ``deeplearning4j_tpu_torch`` (and the scripts that drive it on the card)
 loads neither ``jax``
-nor the JAX package, and no source of the port names either."""
+nor the JAX package, and no source of the port names either.
 
+Each listed module is imported alone in a clean process: a module
+fixture starts one interpreter that loads numpy and torch (the slow
+imports, neither of which loads jax) and nothing of the repository, and
+forks a fresh child of it for each module; the child imports the module
+and reports which of ``jax``, ``jaxlib`` and the JAX package its
+``sys.modules`` holds. A fork inherits no module of the repository, so
+each case sees what importing its module alone loads, as a fresh
+interpreter would."""
+
+import json
 import re
+import select
 import subprocess
 import sys
 from pathlib import Path
@@ -26,7 +37,7 @@ for name in names:
 import chip_data_parallel, chip_gen_profile, chip_kernel_ab
 import chip_lenet_spread, chip_platform, chip_sequence, chip_smoke
 import chip_train_profile, chip_zoo, chip_layers, chip_moe, chip_transfer
-import chip_session
+import chip_session, chip_ingest
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))
 print(len(names), bad)
@@ -214,20 +225,102 @@ SESSION_MODULES = [
 ]
 
 
+# the staged and data-parallel training slice's modules (the device ring,
+# the wrapper's tBPTT and MoE exact mode, the engine over
+# ParallelInference, the session's fast-forward) and its chip phase
+INGEST_MODULES = [
+    "deeplearning4j_tpu_torch.datasets.prefetch",
+    "deeplearning4j_tpu_torch.resilience.retry",
+    "deeplearning4j_tpu_torch.resilience.session",
+    "deeplearning4j_tpu_torch.parallel.wrapper",
+    "deeplearning4j_tpu_torch.parallel.batcher",
+    "deeplearning4j_tpu_torch.comms.global_batch",
+    "deeplearning4j_tpu_torch.conf.layers_moe",
+    "deeplearning4j_tpu_torch.nn.io",
+    "deeplearning4j_tpu_torch.nn.inference_opt",
+    "deeplearning4j_tpu_torch.telemetry",
+    "chip_ingest",
+]
+
+
+# the clean parent: numpy and torch loaded, nothing of the repository; one
+# forked child a request line, its answer one "RESULT <json>" line
+_ZYGOTE = r"""
+import json, os, sys
+import numpy, torch
+for line in sys.stdin:
+    module = line.strip()
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:
+        os.close(r)
+        try:
+            __import__(module)
+            bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                         ("jax", "jaxlib", "deeplearning4j_tpu"))
+            msg = {"ok": True, "bad": bad}
+        except BaseException as e:
+            msg = {"ok": False, "error": repr(e)}
+        os.write(w, json.dumps(msg).encode())
+        os._exit(0)
+    os.close(w)
+    data = b""
+    while True:
+        chunk = os.read(r, 65536)
+        if not chunk:
+            break
+        data += chunk
+    os.close(r)
+    os.waitpid(pid, 0)
+    print("RESULT " + (data.decode() or "{}"), flush=True)
+"""
+
+
+@pytest.fixture(scope="module")
+def zygote():
+    proc = subprocess.Popen([sys.executable, "-c", _ZYGOTE], cwd=ROOT,
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.DEVNULL, text=True, bufsize=1)
+    yield proc
+    proc.stdin.close()
+    proc.wait(timeout=30)
+
+
+def _import_alone(proc, module: str, timeout: float = 120.0) -> dict:
+    proc.stdin.write(module + "\n")
+    proc.stdin.flush()
+    while True:
+        ready, _, _ = select.select([proc.stdout], [], [], timeout)
+        assert ready, f"importing {module} took over {timeout} s"
+        line = proc.stdout.readline()
+        assert line, "the clean parent died"
+        if line.startswith("RESULT "):
+            return json.loads(line[len("RESULT "):])
+
+
 # a module named by two slices runs once, under its first slice's id
 @pytest.mark.parametrize("module", list(dict.fromkeys(
     GENERATION_MODULES + TRAINING_MODULES + QUANT_MODULES
     + MLN_TRAINING_MODULES + BF16_TRAINING_MODULES + TUNING_MODULES
     + DATA_PARALLEL_MODULES + SEQUENCE_MODULES + PLATFORM_MODULES
-    + ZOO_MODULES + MOE_MODULES + TRANSFER_MODULES + SESSION_MODULES)))
-def test_generation_module_alone_loads_no_jax(module):
-    code = (f"import sys, {module}\n"
-            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'deeplearning4j_tpu')))")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "[]"
+    + ZOO_MODULES + MOE_MODULES + TRANSFER_MODULES + SESSION_MODULES
+    + INGEST_MODULES)))
+def test_generation_module_alone_loads_no_jax(zygote, module):
+    out = _import_alone(zygote, module)
+    assert out.get("ok"), out
+    assert out["bad"] == []
+
+
+def test_a_forked_child_starts_without_the_repository(zygote):
+    """The clean parent holds nothing of the repository: a child that
+    imports only ``os`` sees neither package (so each case's import is its
+    module's alone)."""
+    out = _import_alone(zygote, "os")
+    assert out == {"ok": True, "bad": []}
+    probe = _import_alone(zygote, "deeplearning4j_tpu.conf")
+    assert probe["ok"] and "deeplearning4j_tpu" in probe["bad"]
+    again = _import_alone(zygote, "os")
+    assert again["bad"] == []
 
 
 def test_no_port_source_imports_jax_or_the_jax_package():
@@ -242,7 +335,7 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                                  "chip_sequence.py", "chip_platform.py",
                                  "chip_zoo.py", "chip_layers.py",
                                  "chip_moe.py", "chip_transfer.py",
-                                 "chip_session.py")]
+                                 "chip_session.py", "chip_ingest.py")]
     offenders = [str(p.relative_to(ROOT)) for p in sources
                  if pattern.search(p.read_text())]
     assert offenders == []

@@ -72,10 +72,7 @@ from deeplearning4j_tpu.parallel import SparkDl4jMultiLayer as JSpark
 from deeplearning4j_tpu.parallel import ThresholdAlgorithm as JThreshold
 from deeplearning4j_tpu.parallel import TrainingMode as JMode
 from deeplearning4j_tpu.parallel import single_host_mesh as jmesh
-from deeplearning4j_tpu_torch.conf.multilayer import (
-    BackpropType,
-    MultiLayerConfiguration,
-)
+from deeplearning4j_tpu_torch.conf.multilayer import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.parallel import (
     ParallelWrapper,
@@ -654,9 +651,9 @@ def _port_moe():
 
 
 @pytest.mark.parametrize("kw,match", [
-    # an MoE net trains data-parallel only with its experts sharded
-    ({"model": _port_moe, "mesh": port_mesh.Mesh(world=2, rank=0)},
-     "expert_parallel=True"),
+    # a per-rank mode trains an MoE net only with its experts sharded
+    ({"model": _port_moe, "mesh": port_mesh.Mesh(world=2, rank=0),
+      "training_mode": TrainingMode.AVERAGING}, "expert_parallel=True"),
     ({"partition_rules": [(".*", None)]}, "waits for sharding/plan.py"),
 ], ids=["kw0-item 5", "kw1-item 5"])
 def test_unported_options_are_refused(kw, match):
@@ -664,14 +661,6 @@ def test_unported_options_are_refused(kw, match):
     model = kw.pop("model", _port_mlp)()
     with pytest.raises(NotImplementedError, match=match):
         ParallelWrapper(model, **kw)
-
-
-def test_tbptt_is_refused():
-    net = _port_mlp(backprop_type=BackpropType.TRUNCATED_BPTT)
-    with pytest.raises(NotImplementedError,
-                       match="truncated BPTT through ParallelWrapper is not "
-                             "ported yet"):
-        ParallelWrapper(net)
 
 
 @pytest.mark.parametrize("kw", [

@@ -493,6 +493,72 @@ def test_calibrate_takes_tuples_and_uint8_images():
                                    r_f.ranges[key]["hi"], rtol=1e-6)
 
 
+@pytest.mark.parametrize("fixture", sorted(FIXTURES))
+def test_calibrate_records_the_quant_calibrate_span_as_jax(fixture):
+    """Under enabled telemetry each calibration batch's range observation
+    is one ``quant_calibrate`` span, in both packages."""
+    from deeplearning4j_tpu import telemetry as jtel
+    from deeplearning4j_tpu_torch import telemetry as tel
+
+    make, shape = FIXTURES[fixture]
+    jnet, net = make()
+    batches = _batches(shape, n=4)
+    tel.reset()
+    jtel.reset()
+    tel.enable()
+    jtel.enable()
+    try:
+        iopt.calibrate(net, batches)
+        jiopt.calibrate(jnet, batches)
+        got = [e for e in tel.events() if e["name"] == "quant_calibrate"]
+        want = [e for e in jtel.events() if e["name"] == "quant_calibrate"]
+    finally:
+        tel.disable()
+        jtel.disable()
+    assert len(got) == len(want) == 4
+    assert tel.phase_stats()["quant_calibrate"]["count"] == 4
+
+
+def test_calibrate_records_no_span_while_telemetry_is_off():
+    from deeplearning4j_tpu_torch import telemetry as tel
+
+    _, net = _mlp()
+    tel.reset()
+    iopt.calibrate(net, _batches((16, 9), n=2))
+    assert not [e for e in tel.events() if e["name"] == "quant_calibrate"]
+
+
+@pytest.mark.parametrize("types,quantized", [
+    (("img",), False), (("img",), True), (("ff",), False), (("ff",), True),
+    (("img", "ff"), False), (("img", "ff"), True), (("ff", "img"), True)])
+def test_warm_dtype_variants_match_jax(types, quantized):
+    """``nn.io.warm_dtype_variants`` against the JAX derivation
+    (``tests/test_quant.py::test_warm_dtype_variants_single_source_of_
+    truth``): image inputs get (float32, uint8), flat inputs float32, and a
+    ``QuantizationSpec`` adds no variant."""
+    from deeplearning4j_tpu.conf.layers_quant import (
+        QuantizationSpec as JSpec,
+    )
+    from deeplearning4j_tpu.nn import io as jio
+    from deeplearning4j_tpu_torch.conf import inputs as pit
+    from deeplearning4j_tpu_torch.conf.layers_quant import QuantizationSpec
+    from deeplearning4j_tpu_torch.nn import io as pio
+
+    port_t = {"img": pit.Convolutional(4, 4, 3), "ff": pit.FeedForward(9)}
+    jax_t = {"img": JIT.convolutional(4, 4, 3), "ff": JIT.feed_forward(9)}
+    spec = (QuantizationSpec(scheme="int8", digest="ab" * 32, seed=0)
+            if quantized else None)
+    jspec = (JSpec(scheme="int8", digest="ab" * 32, seed=0) if quantized
+             else None)
+    base = np.dtype(np.float32)
+    got = pio.warm_dtype_variants([port_t[t] for t in types], base,
+                                  quantization=spec)
+    want = jio.warm_dtype_variants([jax_t[t] for t in types], base,
+                                   quantization=jspec)
+    assert got == want
+    assert got == pio.warm_dtype_variants([port_t[t] for t in types], base)
+
+
 # --------------------------------------------------------------------------
 # refusals (the JAX package's tests/test_quant.py pins the same)
 # --------------------------------------------------------------------------

@@ -523,3 +523,83 @@ def test_platform_http_model_and_host_503s(platform):
         eng._ensure_thread()
         for h in held:
             assert h.event.wait(60)
+
+
+# --- an engine over ParallelInference ---------------------------------------
+
+def _jax_parallel_engine(jnet, workers, max_batch):
+    from deeplearning4j_tpu.parallel import ParallelInference as JPI
+    from deeplearning4j_tpu.parallel.batcher import (
+        BatchingConfig as JBatchingConfig,
+    )
+    from deeplearning4j_tpu.parallel.batcher import (
+        InferenceEngine as JEngine,
+    )
+
+    return JEngine(JPI(jnet, workers=workers),
+                   JBatchingConfig(max_batch=max_batch), graph_opt=False)
+
+
+@pytest.mark.parametrize("workers,max_batch", [(2, 32), (4, 24), (3, 16)])
+def test_engine_over_parallel_inference_aligns_its_ladder(nets, workers,
+                                                           max_batch):
+    """``InferenceEngine(ParallelInference(net))`` takes the worker count as
+    the bucket alignment: the JAX engine's ladder over the JAX
+    ``ParallelInference`` at the same worker count (``tests/
+    test_serving.py``'s bucketed sweep), and every padded launch a multiple
+    of the workers."""
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+
+    jnet, net = nets
+    pi = ParallelInference(net, devices=["cpu"] * workers)
+    eng = InferenceEngine(pi, BatchingConfig(max_batch=max_batch))
+    try:
+        jeng = _jax_parallel_engine(jnet, workers, max_batch)
+        try:
+            assert eng.buckets() == jeng.buckets()
+        finally:
+            jeng.close()
+        assert eng.buckets() == bucket_ladder(max_batch, workers)
+        assert all(b % workers == 0 for b in eng.buckets())
+        launched = []
+        real = type(eng.model)._run
+
+        def spy(self, xs):
+            launched.append(xs[0].shape[0])
+            return real(self, xs)
+
+        type(eng.model)._run = spy
+        try:
+            for n in (1, 3, 5, max_batch - 1):
+                x = _images(n, 40 + n)
+                np.testing.assert_allclose(eng.predict(x),
+                                           np.asarray(jnet.output(x)), **TOL)
+        finally:
+            type(eng.model)._run = real
+        assert launched == [bucket_rows(n, workers)
+                            for n in (1, 3, 5, max_batch - 1)]
+        assert all(r % workers == 0 for r in launched)
+    finally:
+        eng.close()
+
+
+def test_engine_over_parallel_inference_serves_the_folded_replicas(nets):
+    """``graph_opt`` serves replicas of the network's inference copy: the
+    source network's params are not the served ones, and warmup runs one
+    forward per aligned bucket and input dtype."""
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+
+    jnet, net = nets
+    eng = InferenceEngine(ParallelInference(net, devices=["cpu", "cpu"]),
+                          BatchingConfig(max_batch=8))
+    try:
+        assert eng.model.model is not net
+        assert eng.model.workers == 2
+        out = eng.warmup()
+        assert out["buckets"] == [2, 4, 8]
+        assert out["forwards"] == 3 * 2  # float32 and uint8 images
+        x = _images(6, 77, uint8=True)
+        np.testing.assert_allclose(eng.predict(x),
+                                   np.asarray(jnet.output(x)), **TOL)
+    finally:
+        eng.close()

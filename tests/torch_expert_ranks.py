@@ -43,6 +43,33 @@ def wrapper(rank, world, spec):
             "exchanged": expert.stats()}
 
 
+def exact(rank, world, spec):
+    """``ParallelWrapper`` in the exact mode, experts unsharded, for
+    ``steps`` steps on this rank's rows: the router, the capacity queue and
+    the aux loss over the global batch. ``per_rank_capacity`` is the
+    planted control: each rank routes its own tokens alone."""
+    from deeplearning4j_tpu_torch.comms import global_batch
+
+    conf = ComputationGraphConfiguration.from_json(spec["conf_json"])
+    p, s = params_from_jax(conf, spec["params"], spec["state"])
+    net = ComputationGraph(conf, device="cpu").set_params(p, s)
+    x, y = spec["batch"]
+    rows = _rows(x.shape[0], rank, world)
+    pw = ParallelWrapper(net, prefetch_buffer=0)
+    real = global_batch.gather_rows
+    if spec.get("per_rank_capacity"):
+        global_batch.gather_rows = lambda t: (t, 0)
+    try:
+        scores = []
+        for _ in range(spec.get("steps", 1)):
+            pw.fit(DataSet(x[rows], y[rows]))
+            scores.append(pw.score_value)
+    finally:
+        global_batch.gather_rows = real
+    params, state = params_to_jax(conf, net.params, net.state)
+    return {"scores": scores, "params": params, "state": state}
+
+
 def spmd(rank, world, spec):
     """``moe_spmd_fn`` on this rank's tokens and expert shard."""
     m = mesh.single_host_mesh()
@@ -88,11 +115,13 @@ def zoo(rank, world, spec):
 
 
 def refusal(rank, world, spec):
-    """The message a wrapper over a layer of ``n_experts`` gives."""
+    """The message a wrapper over a layer of ``n_experts`` gives (with
+    the spec's other wrapper arguments)."""
     conf = ComputationGraphConfiguration.from_json(spec["conf_json"])
     net = ComputationGraph(conf, device="cpu").init()
     try:
-        ParallelWrapper(net, expert_parallel=spec["expert_parallel"])
+        ParallelWrapper(net, expert_parallel=spec["expert_parallel"],
+                        **spec.get("kw", {}))
     except (ValueError, NotImplementedError) as e:
         return f"{type(e).__name__}: {e}"
     return None
