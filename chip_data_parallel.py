@@ -4,7 +4,7 @@ ResNet-50 (``fused_conv_bn``, ``use_kernels``, Adam(1e-3), global batch
 32) through ``ParallelWrapper.fit`` on one H100.
 
 - [26a] NCCL at ``torch.cuda.device_count()`` ranks: exact mode and
-  bucketed exact at ``gradient_bucket_mb=25``, 3 steps each, held after
+  bucketed exact at ``gradient_bucket_mb=25``, 2 steps each, held after
   every step against ``ComputationGraph.fit`` on the same global batches
   in one process at [7]'s training gates (step-1 gradients, every loss,
   the BN state after step 1); the largest differences of params, BN state
@@ -20,7 +20,7 @@ ResNet-50 (``fused_conv_bn``, ``use_kernels``, Adam(1e-3), global batch
   that restores, in one process, to the gathered state; threshold (fixed
   tau 1e-3 and adaptive), kernel route against stock by the share of
   flipped messages and the params outside them; averaging every 2 steps
-  over 4 steps, the replicas the same bits after each average, kernel
+  over 2 steps, the replicas the same bits after the average, kernel
   against stock at [7]'s gates. With 2 cards or more the [26b] set runs
   over NCCL as well, one rank a card.
 
@@ -58,8 +58,10 @@ import warnings
 import chip_smoke as cs
 
 DP_BATCH = 32
-DP_STEPS = 3
-DP_AVG_STEPS = 4
+# steps a mode, and the averaging modes' (one average, at step 2): the
+# script's time limit bounds the depth
+DP_STEPS = 2
+DP_AVG_STEPS = 2
 DP_AVG_FREQ = 2
 DP_BUCKET_MB = 25
 DP_TAU = 1e-3

@@ -10,9 +10,9 @@ one H100, with full-width ResNet-50 (224x224x3, 1000 classes,
   versions, and agree within their tolerances wherever no special value
   reached.
 - (b) ``TrainingSession(ParallelWrapper(exact), snapshot_every=2)`` at one
-  NCCL rank, 8 steps: a seeded ``FaultPlan`` raises at ``train.step`` on
+  NCCL rank, 6 steps: a seeded ``FaultPlan`` raises at ``train.step`` on
   step 5, the session resumes, and params, BN state and Adam state after
-  step 8 equal an uninterrupted run's bit for bit; a fresh process resumes
+  step 6 equal an uninterrupted run's bit for bit; a fresh process resumes
   from the directory alone and finishes equal again.
 - (c) Two gloo ranks share ``cuda:0`` in ZeRO mode with pod snapshots (two
   shards): a ``HostDeathError`` at ``pod.heartbeat`` on rank 1 and a
@@ -28,7 +28,8 @@ one H100, with full-width ResNet-50 (224x224x3, 1000 classes,
   ``RemoteUIStatsStorageRouter`` to a ``UIServer`` on 127.0.0.1:0:
   ``/health`` strict JSON with ``dl4j_resumes_total`` >= 1 (and the pod
   block during (c)), one record per 2 iterations in ``/train/stats.json``,
-  the other endpoints 200 and ``/sharding`` 501.
+  the other endpoints 200, ``/sharding`` among them (a JSON list of the
+  live sharding plans).
 - (f) The legacy solvers on LeNet (row 1 at its dense layer), a synthetic
   MNIST full batch of 256: ``LBFGS``, ``ConjugateGradient`` and
   ``LineGradientDescent`` lower the loss monotonically on both routes,
@@ -61,12 +62,13 @@ SPECIAL_BITS = (0x7FFFFFFF, 0xFFFFFFFF, 0x7FC00000, 0x7F800000, 0xFF800000,
 # magnitude, i.e. that no special value reached
 UNTOUCHED = 1e6
 # (b)-(e): full-width ResNet-50 (``RESNET``: the zoo's defaults), global
-# batch 32, one epoch of 8 steps, a snapshot every 2, the train.step fault
-# on call 5 (a resume from the iteration-4 snapshot); the pod session of
-# (c) takes 6 steps and loses host 1 at its 4th heartbeat
+# batch 32, one epoch of 6 steps (the script's time limit bounds the
+# depth), a snapshot every 2, the train.step fault on call 5 (a resume from
+# the iteration-4 snapshot); the pod session of (c) takes 6 steps and
+# loses host 1 at its 4th heartbeat
 RESNET = {}
 BATCH = 32
-STEPS = 8
+STEPS = 6
 SNAP_EVERY = 2
 KILL_AT = 5
 POD_STEPS = 6
@@ -79,9 +81,10 @@ TIMEOUT = 600.0
 # (f): LeNet on a synthetic MNIST full batch
 LENET_N = 256
 LBFGS_ITERS, CG_ITERS, GD_ITERS = 20, 10, 10
-# the endpoints (e) reads, all of which answer 200, and /sharding's 501
+# the endpoints (e) reads, all of which answer 200
 ENDPOINTS = ("/", "/train/stats.json", "/metrics", "/metrics.json",
-             "/platform", "/slo", "/traces", "/analysis", "/health")
+             "/platform", "/slo", "/traces", "/analysis", "/health",
+             "/sharding")
 
 
 def _log(msg: str) -> None:
@@ -324,7 +327,7 @@ def _strict(body: bytes):
 def _endpoints(port) -> dict:
     """Every endpoint (e) reads: status codes, /health and the records."""
     out = {"status": {}}
-    for path in ENDPOINTS + ("/sharding",):
+    for path in ENDPOINTS:
         code, body = _get(port, path)
         out["status"][path] = code
         if path == "/health":
@@ -904,8 +907,7 @@ def _session_runs(torch, dev, smi, cfg, line, failures, spawn, logging):
     resumes = sum(v for k, v in ep["health"]["resilience"]["counters"].items()
                   if k.startswith("dl4j_resumes_total"))
     _check(all(ep["status"][p] == 200 for p in ENDPOINTS)
-           and ep["status"]["/sharding"] == 501
-           and "sharding/plan.py" in ep["sharding"]["waits_for"],
+           and isinstance(ep["sharding"], list),
            f"[34e] endpoint status {ep['status']}", failures)
     _check(iters == list(range(0, STEPS, STATS_FREQ)),
            f"[34e] records at iterations {iters}", failures)

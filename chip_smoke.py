@@ -167,14 +167,14 @@ Phases, in order; any failure exits non-zero:
    ``use_kernels=False``) with weights from ``stem_weights_to_s2d`` against
    the 7x7 stem; then full-width ResNet-50 with ``stem_space_to_depth`` and
    ``fused_conv_bn`` under ``compute_dtype="bfloat16"`` (batch 32, seeded
-   weights and one-hot labels, Adam(1e-3)) trained 18 steps by
+   weights and one-hot labels, Adam(1e-3)) trained 7 steps by
    ``ComputationGraph.fit`` on the kernel route with a
-   ``CheckpointListener`` saving every 5 iterations and keeping 2:
+   ``CheckpointListener`` saving every 3 iterations and keeping 1:
    ``matmul_stats`` launches 36 times a step in bf16 over the fit alone,
    the loss falls, params, updater state and BN state stay float32;
-   retention keeps the zips of iterations 10 and 15, and the newest zip,
-   restored by ``load_checkpoint_graph`` and trained the remaining 3
-   steps, equals the uninterrupted run bit for bit (cuDNN's deterministic
+   retention keeps the zip of iteration 6 alone, and that zip, restored
+   by ``load_checkpoint_graph`` and trained the remaining step, equals
+   the uninterrupted run bit for bit (cuDNN's deterministic
    algorithms for both); the kernel route against the bf16 stock route,
    both against the float32 stock route (``BF16_*_FLOOR``): step-1
    gradients, 3 losses, BN state; the bf16 step per route beside [7]'s
@@ -334,8 +334,21 @@ Phases, in order; any failure exits non-zero:
    (ResNet-50, row 1) and AlexNet's ``quant_calibrate`` span (row 4);
    bf16 ``TextGenerationLSTM``, UNet and YOLO2 through ``fit`` (row 1),
    Xception and NASNet training steps.
+36. the sharding subsystem with tensor and sequence parallelism
+   (``chip_sharding.py``): the full-width GPT-2-small-width LM trained
+   through ``ParallelWrapper(partition_rules=plan_for(transformer_rules(),
+   data=1, model=2))`` on two gloo ranks sharing the card, against
+   one-rank ``fit_batch`` at [14]'s gates (losses, step-1 gradients,
+   Adam's state), the no-reduce control caught, each rank's shard shapes
+   and bytes against the plan, rows 6-8 at [8, 6, 1024, 64] 12 times a
+   step a rank; a ``model=1`` plan at one NCCL rank bit for bit; LeNet
+   under ``lenet_rules`` (row 1 on the dense layer's 250-column half),
+   ``publish_to_engine`` into an ``InferenceEngine`` and
+   ``reshard_training_state`` onto a 2 x 1 wrapper bit for bit;
+   ``ring_attention`` across two ranks at [8, 12, 1024, 64] and the
+   Megatron block at GPT-2 widths against one rank.
 
-Then the ``{"ingest": ...}``, ``{"session": ...}``, ``{"transfer": ...}``, ``{"layers": ...}``, ``{"moe": ...}``, ``{"zoo": ...}``, ``{"platform": ...}``, ``{"trained_text_lstm": ...}``,
+Then the ``{"sharding": ...}``, ``{"ingest": ...}``, ``{"session": ...}``, ``{"transfer": ...}``, ``{"layers": ...}``, ``{"moe": ...}``, ``{"zoo": ...}``, ``{"platform": ...}``, ``{"trained_text_lstm": ...}``,
 ``{"sequence_attention": ...}``, ``{"trained_mln": ...}`` and
 ``{"trained_bf16": ...}`` lines, one
 ``{"kernels": [...]}`` line with every kernel (row 1 with its [21] shapes
@@ -346,7 +359,8 @@ and launches; rows 2 and 6-8 with their bf16 numbers under
 under ``platform``; row 1 with [30]'s launches and shapes under ``zoo``
 and [31]'s under ``layers`` and [33]'s under ``transfer``; rows 6-8 with
 [32]'s launches under ``moe``; rows 1, 2, 4 and 6-8 with [35]'s launches
-under ``ingest``),
+under ``ingest``; rows 1 and 6-8 with [36]'s launches under
+``sharding``),
 the served,
 trained, generated, trained_lm, served_int8, prefix_cached, speculative,
 tuned and data_parallel lines, and last
@@ -602,14 +616,15 @@ BF16_LOSS_RTOL = BF16_ULP
 BF16_TRACK_RTOL = 1e-2
 # [22] the kernel route's uninterrupted run under a CheckpointListener that
 # saves every CKPT_EVERY iterations and keeps the last CKPT_KEEP zips: saves
-# at steps 5, 10 and 15, retention removes the first, and the run resumed
-# from the newest zip trains the remaining 3 steps
-BF16_STEPS = 18
+# at steps 3 and 6, retention removes the first, and the run resumed from
+# the newest zip trains the remaining step (the script's time limit bounds
+# the depth: each zip is 283 MB)
+BF16_STEPS = 7
 # [22]-[23]'s step timings: alternating turns a route (the script's time
 # limit bounds their depth)
 BF16_TIMING_PAIRS = 2
-CKPT_EVERY = 5
-CKPT_KEEP = 2
+CKPT_EVERY = 3
+CKPT_KEEP = 1
 # [22] the s2d stem against the 7x7 stem, float32, eval mode
 S2D_BATCH = 4
 # [24] the AttentionVertex graph's time-distributed softmax head
@@ -5324,6 +5339,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     t_start = time.monotonic()
 
+    log(f"[t] phase 1 starts at {time.monotonic() - t_start:.1f} s")
     # 1. the card
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -5332,6 +5348,7 @@ def main() -> int:
     smi = nvidia_smi_line()
     log(smi)
 
+    log(f"[t] phase 2 starts at {time.monotonic() - t_start:.1f} s")
     # 2. build + probe
     t0 = time.monotonic()
     build.build_all(impls.SOURCES)
@@ -5345,6 +5362,7 @@ def main() -> int:
                 f"spill stores, {loads} bytes spill loads")
     probe = check_probe(torch, impls, dev)
 
+    log(f"[t] phase 3 starts at {time.monotonic() - t_start:.1f} s")
     # 3. the serving kernel against its plain version
     shapes = path_shapes(ResNet50().conf(), BATCH)
     if len(shapes) != 36 or len(set(shapes)) != 15:
@@ -5353,9 +5371,11 @@ def main() -> int:
     worst = check_matmul(torch, impls, Activation, dev,
                          sorted(set(shapes)) + list(MLN_SHAPES))
 
+    log(f"[t] phase 4 starts at {time.monotonic() - t_start:.1f} s")
     # 4. the serving path
     served = serve_resnet50(torch, dev, ResNet50())
 
+    log(f"[t] phase 5 starts at {time.monotonic() - t_start:.1f} s")
     # 5. serving timings
     rows = time_kernels(torch, impls, Activation, F, dev, shapes)
     x = probe["x"]
@@ -5383,6 +5403,7 @@ def main() -> int:
     del served
     torch.cuda.empty_cache()
 
+    log(f"[t] phase 6 starts at {time.monotonic() - t_start:.1f} s")
     # 6. the training kernel against its plain version
     fused = ResNet50()
     fused.fused_conv_bn = True
@@ -5390,11 +5411,13 @@ def main() -> int:
         return fail("the fused graph's 1x1 sites differ from the unfused")
     stats_worst = check_matmul_stats(torch, impls, dev, sorted(set(shapes)))
 
+    log(f"[t] phase 7 starts at {time.monotonic() - t_start:.1f} s")
     # 7. the training path
     trained = train_resnet50(torch, dev)
     unfused = train_unfused(torch, dev)
     torch.cuda.empty_cache()
 
+    log(f"[t] phase 8 starts at {time.monotonic() - t_start:.1f} s")
     # 8. training timings
     stat_rows = time_stats_kernel(torch, impls, F, dev, shapes)
     for r in stat_rows:
@@ -5433,16 +5456,20 @@ def main() -> int:
     del trained, unfused
     torch.cuda.empty_cache()
 
+    log(f"[t] phase 9 starts at {time.monotonic() - t_start:.1f} s")
     # 9. flash attention against its plain version
     serve_full_f32()
     flash_worst = check_flash(torch, att, dev)
 
+    log(f"[t] phase 10 starts at {time.monotonic() - t_start:.1f} s")
     # 10. paged decode attention against its plain version
     decode_worst = check_decode(torch, att, dev)
 
+    log(f"[t] phase 11 starts at {time.monotonic() - t_start:.1f} s")
     # 11. the generation path
     gen = serve_gpt2(torch, dev)
 
+    log(f"[t] phase 12 starts at {time.monotonic() - t_start:.1f} s")
     # 12. generation timings
     n_layers = GEN_MODEL["n_layers"]
     flash_rows, decode_rows = time_attention(torch, F, att, dev,
@@ -5493,18 +5520,22 @@ def main() -> int:
         f"{gen_line['tokens_per_s_stock']:.1f} tokens/s (TTFT p50 "
         f"{gen_line['ttft_ms_p50_stock']:.1f} ms) [{smi}]")
 
+    log(f"[t] phase 19-20 starts at {time.monotonic() - t_start:.1f} s")
     # 19-20. the prefix cache and speculative decoding, on [11]'s model
     prefix_line, spec_line = decode_features(torch, F, att, dev, gen, fl, pd,
                                              smi)
     del gen
     torch.cuda.empty_cache()
 
+    log(f"[t] phase 13 starts at {time.monotonic() - t_start:.1f} s")
     # 13. the flash backward kernels against their plain version
     bwd_worst = check_flash_bwd(torch, att, dev)
 
+    log(f"[t] phase 14 starts at {time.monotonic() - t_start:.1f} s")
     # 14. the transformer's training path
     trained_lm = train_gpt2(torch, dev)
 
+    log(f"[t] phase 15 starts at {time.monotonic() - t_start:.1f} s")
     # 15. training timings of the transformer
     bwd_rows = time_flash_bwd(torch, F, att, dev)
     report["kernels"] += flash_bwd_report(bwd_rows, trained_lm["launches"],
@@ -5524,12 +5555,15 @@ def main() -> int:
         f"({lm_line['tokens_per_s_stock']:.0f} tokens/s) [{smi}]")
     torch.cuda.empty_cache()
 
+    log(f"[t] phase 16 starts at {time.monotonic() - t_start:.1f} s")
     # 16. the int8 kernel against its plain version
     int8_worst = check_int8(torch, impls, Activation, dev, shapes)
 
+    log(f"[t] phase 17 starts at {time.monotonic() - t_start:.1f} s")
     # 17. the int8 serving path
     served8 = serve_alexnet_int8(torch, dev)
 
+    log(f"[t] phase 18 starts at {time.monotonic() - t_start:.1f} s")
     # 18. int8 timings
     int8_rows = time_int8(torch, impls, Activation, dev)
     for r in int8_rows:
@@ -5563,6 +5597,7 @@ def main() -> int:
         prof = int8_line[f"profile_{name}"]
         log(f"[18] {name} forward, device time {prof['device_ms']:.3f} ms: "
             + "; ".join(f"{k} {v:.3f}" for k, v in prof["top"]))
+    log(f"[t] phase 21 starts at {time.monotonic() - t_start:.1f} s")
     # 21. MultiLayerNetwork training
     mln_line, mln_rows = mln_training(torch, impls, Activation, F, dev, smi)
     mm = report["kernels"][0]
@@ -5574,6 +5609,7 @@ def main() -> int:
                        f"256, and SimpleCNN's 9216 -> 128 relu at M 32; "
                        f"library = F.linear then relu")
     mm["mln_shapes"] = mln_rows
+    log(f"[t] phase 22-24 starts at {time.monotonic() - t_start:.1f} s")
     # 22-24. bf16-policy training, checkpoint resume, the AttentionVertex
     bf16_line, bf16_rows = bf16_training(torch, impls, F, att, dev, smi,
                                          lm_line["losses"])
@@ -5588,6 +5624,7 @@ def main() -> int:
     q8["registers"] = {r["kernel"]: r["registers"] for r in q8["ptxas"]}
     q8["spills"] = {r["kernel"]: r["spill_stores"] + r["spill_loads"]
                     for r in q8["ptxas"]}
+    log(f"[t] phase 25 starts at {time.monotonic() - t_start:.1f} s")
     # 25. the kernel registry, the per-shape tuner and its cache (last: the
     # earlier phases run the default tilings)
     torch.cuda.empty_cache()
@@ -5596,6 +5633,7 @@ def main() -> int:
         kid = TUNED_ID.get(row["name"])
         if kid in tuned_rows:
             row["tuning"] = tuned_rows[kid]
+    log(f"[t] phase 26 starts at {time.monotonic() - t_start:.1f} s")
     # 26. data-parallel training through ParallelWrapper.fit: its ranks are
     # processes of their own on the kernels built in [2]
     torch.cuda.empty_cache()
@@ -5605,6 +5643,7 @@ def main() -> int:
     for row in report["kernels"]:
         if row["name"] == "matmul_stats":
             row["data_parallel"] = dp_row
+    log(f"[t] phase 27-28 starts at {time.monotonic() - t_start:.1f} s")
     # 27-28. the sequence layers: TextGenerationLSTM trained with tBPTT and
     # sampled; LearnedSelfAttentionLayer on rows 6-8
     torch.cuda.empty_cache()
@@ -5622,6 +5661,7 @@ def main() -> int:
                           "= masked F.scaled_dot_product_attention (its "
                           "autograd, dq, dk and dv together, for rows 7-8)"),
                 "shapes": seq_rows[row["name"]]}
+    log(f"[t] phase 29 starts at {time.monotonic() - t_start:.1f} s")
     # 29. the multi-tenant serving platform: three full-width tenants on
     # their kernels behind InferenceServer(platform)
     torch.cuda.empty_cache()
@@ -5631,12 +5671,14 @@ def main() -> int:
     for row in report["kernels"]:
         if row["name"] in plat_rows:
             row["platform"] = plat_rows[row["name"]]
+    log(f"[t] phase 30 starts at {time.monotonic() - t_start:.1f} s")
     # 30. the rest of the graph zoo at full width, row 1 at every routed site
     torch.cuda.empty_cache()
     import chip_zoo
 
     zoo_line, report["kernels"][0]["zoo"] = chip_zoo.zoo_phase(torch, F, dev,
                                                                smi)
+    log(f"[t] phase 31 starts at {time.monotonic() - t_start:.1f} s")
     # 31. the rest of the layer DSL: every new layer card against CPU,
     # MobileNet-v1 served and C3D trained on row 1
     torch.cuda.empty_cache()
@@ -5644,6 +5686,7 @@ def main() -> int:
 
     layers_line, report["kernels"][0]["layers"] = \
         chip_layers.layers_dsl_phase(torch, F, dev, smi)
+    log(f"[t] phase 32 starts at {time.monotonic() - t_start:.1f} s")
     # 32. the MoE transformer on rows 6-8: one rank, then experts across
     # ranks of their own
     torch.cuda.empty_cache()
@@ -5653,12 +5696,14 @@ def main() -> int:
     for row in report["kernels"]:
         if row["name"] in moe_rows:
             row["moe"] = moe_rows[row["name"]]
+    log(f"[t] phase 33 starts at {time.monotonic() - t_start:.1f} s")
     # 33. a pretrained AlexNet fine-tuned on row 1 under the health layer
     torch.cuda.empty_cache()
     import chip_transfer
 
     transfer_line, report["kernels"][0]["transfer"] = \
         chip_transfer.transfer_phase(torch, F, dev, smi)
+    log(f"[t] phase 34 starts at {time.monotonic() - t_start:.1f} s")
     # 34. preemption-safe, monitored training: the NaN-keeping split on
     # rows 1, 2, 6-8, ResNet-50 sessions and pod snapshots on row 2, the
     # guard modes across ranks, the UI, the legacy solvers on row 1
@@ -5679,6 +5724,7 @@ def main() -> int:
                            "flash_attention", "flash_attention_bwd_dq",
                            "flash_attention_bwd_dkv"):
             row["nan_inf_kept"] = True  # [34a] holds it
+    log(f"[t] phase 35 starts at {time.monotonic() - t_start:.1f} s")
     # 35. staged and data-parallel training completed: the device ring on
     # row 2, tBPTT and MoE through the exact mode, the platform's leftovers
     torch.cuda.empty_cache()
@@ -5688,6 +5734,19 @@ def main() -> int:
     for row in report["kernels"]:
         if row["name"] in ingest_rows:
             row["ingest"] = ingest_rows[row["name"]]
+    log(f"[t] phase 36 starts at {time.monotonic() - t_start:.1f} s")
+    # 36. the sharding subsystem: the LM tensor-parallel over two ranks on
+    # rows 6-8, LeNet's split dense layer on row 1, reshard and publish,
+    # ring attention and the Megatron block
+    torch.cuda.empty_cache()
+    import chip_sharding
+
+    sharding_line, sharding_rows = chip_sharding.sharding_phase(torch, dev,
+                                                                smi)
+    for row in report["kernels"]:
+        if row["name"] in sharding_rows:
+            row["sharding"] = sharding_rows[row["name"]]
+    log(json.dumps({"sharding": sharding_line}, default=str))
     log(json.dumps({"ingest": ingest_line}, default=str))
     log(json.dumps({"session": session_line}))
     log(json.dumps({"transfer": transfer_line}))
@@ -5709,7 +5768,7 @@ def main() -> int:
     log(json.dumps({"speculative": spec_line}))
     log(json.dumps({"tuned": tuned_line}))
     log(json.dumps({"data_parallel": dp_line}))
-    log(f"[35] total wall time of the script {time.monotonic() - t_start:.1f}"
+    log(f"[36] total wall time of the script {time.monotonic() - t_start:.1f}"
         f" s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

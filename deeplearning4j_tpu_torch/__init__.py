@@ -26,14 +26,19 @@ Package map (the serving and training slices):
 - ``parallel``  — dynamic-batching ``InferenceEngine``, ``InferenceServer``
                   and the ``GenerationEngine``; the multi-tenant
                   ``ModelPlatform`` and ``ModelRegistry``,
-                  ``ParallelInference``; data-parallel training
-                  (``ParallelWrapper``, ``TrainingMode``, the mesh,
+                  ``ParallelInference``; data-, tensor- and
+                  sequence-parallel training (``ParallelWrapper`` with
+                  its partition-rules plans, ``TrainingMode``, the
+                  process grid, the Megatron block and operators,
                   compression, the cluster masters, ``spawn``)
 - ``resilience`` — circuit breaker, retry policies, fault injection
 - ``telemetry`` — metrics registry, request traces, spans, SLO monitors
 - ``analysis``  — the findings log
-- ``comms``     — the collective scheduler and exact mode's global batch
-- ``sharding``  — ``ZeroSpec``, the ZeRO optimizer-state layout
+- ``comms``     — the collective scheduler, exact mode's global batch and
+                  cross-mesh resharding
+- ``sharding``  — partition-rule tables, ``ShardingPlan`` and
+                  ``ZeroSpec``, the ZeRO optimizer-state layout
+- ``ops``       — ring attention over the sequence ranks
 - ``zoo``       — ``ResNet50``, ``TransformerEncoder``, ``LeNet``,
                   ``SimpleCNN``, ``AlexNet``
 - ``util``      — conversion from and to the JAX package's layouts, the

@@ -1,4 +1,4 @@
-"""Collective communication layer of the data-parallel trainer.
+"""Collective communication layer of the parallel trainer.
 
 - :mod:`deeplearning4j_tpu_torch.comms.scheduler` — the
   :class:`CollectiveScheduler`: one planner owning bucket layout, issue
@@ -11,11 +11,20 @@
   of exact data-parallel training: batch-norm statistics and loss
   denominators over every rank's rows.
 
-The JAX package's ``comms/reshard.py`` (cross-mesh hand-offs) waits for
-the sharding subsystem (ROADMAP A: "The remainder, in dependency
-order").
+- :mod:`deeplearning4j_tpu_torch.comms.reshard` — cross-mesh hand-offs by
+  slice intersection: a live wrapper's training state onto another mesh
+  shape, flat vectors re-cut between slice counts (the pod restore), and
+  a live wrapper's params published into a serving engine.
 """
 
+from deeplearning4j_tpu_torch.comms.reshard import (  # noqa: F401
+    Placement,
+    publish_to_engine,
+    recut_flat,
+    reshard,
+    reshard_flat,
+    reshard_training_state,
+)
 from deeplearning4j_tpu_torch.comms.scheduler import (  # noqa: F401
     CollectivePlan,
     CollectiveScheduler,

@@ -15,6 +15,12 @@ Contract:
   ``train`` selects batch statistics and dropout; ``gen`` is the
   ``torch.Generator`` of the step's dropout draws (None = no dropout). A
   new state is computed outside the autograd graph.
+- ``forward_sharded(params, state, x, split, axis, ...)`` (the dense and
+  sequence-embedding layers here, ``ConvolutionLayer`` and
+  ``SelfAttentionLayer``): the forward of this rank's slice of the
+  layer's weights under a tensor-parallel plan, over the model subgroup
+  (``parallel.tensor``: ``split`` says how the leaves are cut, ``axis``
+  holds the operators);
 - ``param_order()``: canonical parameter ordering;
   ``regularized_param_keys()``: the params the layer's weight
   regularization applies to (the others take ``regularization_bias``).
@@ -145,6 +151,25 @@ def _fold_out_channels(layer, params, key, scale, shift, axis=0):
     return dataclasses.replace(layer, has_bias=True), out
 
 
+def _local_dense(layer, act, params, state, x, train, gen, split, axis):
+    """``layer`` cut to this rank's output rows (``act`` its activation)
+    run as the unsharded layer runs: through ``kernels.maybe_forward``
+    (row 1) under ``use_kernels``, else its own forward."""
+    w = params["W"]
+    local = dataclasses.replace(layer, n_out=int(w.shape[0]),
+                                activation=act)
+    p = {"W": w}
+    if layer.has_bias:
+        p["b"] = axis.local_bias(split, params, "b")
+    if axis.use_kernels:
+        from deeplearning4j_tpu_torch import kernels
+
+        routed = kernels.maybe_forward(local, p, state, x, train, gen)
+        if routed is not None:
+            return routed[0]
+    return local.forward(p, state, x, train=train, gen=gen)[0]
+
+
 def _as_ff_size(input_type) -> int:
     if isinstance(input_type, it.FeedForward):
         return input_type.size
@@ -195,6 +220,48 @@ class DenseLayer(BaseLayer):
         is IDENTITY — the caller checks. Returns ``(new_layer,
         new_params)``; a bias appears if the layer had none."""
         return _fold_out_channels(self, params, "W", scale, shift)
+
+    # --- tensor parallel (parallel/tensor.py) --------------------------------
+    def forward_sharded(self, params, state, x, split, axis, train=False,
+                        gen=None):
+        """This rank's slice of the layer. Column-parallel (W's rows, the
+        output features, split): the product of this rank's rows on the
+        whole input (row 1 where the unsharded layer routes there), the
+        replicated bias sliced to them, then the features of every rank
+        gathered, after an elementwise activation or before any other (or
+        left split for a row-parallel consumer). Row-parallel (W's columns
+        split): this rank's input features (already split, or sliced),
+        the partial products summed over the model ranks, then the bias
+        and the activation."""
+        if split.kind == "column":
+            pointwise = self.activation is not Activation.SOFTMAX
+            act = self.activation if pointwise else Activation.IDENTITY
+            y = _local_dense(self, act, params, state,
+                             axis.into(x), train, gen, split, axis)
+            if split.keep_out:
+                return y, state
+            y = axis.gather(y)
+            return (y if pointwise else self.activation.apply(y)), state
+        x = self._dropout_input(x, train, gen)
+        return self.activation.apply(self._row_pre(params, x, split,
+                                                   axis)), state
+
+    def _row_pre(self, params, x, split, axis):
+        if not split.split_in:
+            x = axis.scatter(x)
+        x, w, b = promote(x, params["W"], params.get("b"))
+        z = axis.reduce(F.linear(x, w))
+        return z + b if self.has_bias else z
+
+    def pre_output_sharded(self, params, x, split, axis):
+        """:meth:`pre_output` of this rank's slice, whole."""
+        if split.kind == "column":
+            x, w = promote(axis.into(x), params["W"])
+            b = axis.local_bias(split, params, "b") if self.has_bias \
+                else None
+            return axis.gather(F.linear(x, w, None if b is None
+                                        else b.to(w.dtype)))
+        return self._row_pre(params, x, split, axis)
 
 
 @serde.register
@@ -294,6 +361,13 @@ class EmbeddingSequenceLayer(BaseLayer):
 
     def forward(self, params, state, x, train=False, gen=None):
         y = F.embedding(x.long(), params["W"])
+        return self.activation.apply(y), state
+
+    def forward_sharded(self, params, state, x, split, axis, train=False,
+                        gen=None):
+        """This rank's columns of the table (its share of the output
+        features): looked up, then every rank's gathered."""
+        y = axis.gather(F.embedding(x.long(), params["W"]))
         return self.activation.apply(y), state
 
 

@@ -181,6 +181,32 @@ class SelfAttentionLayer(BaseLayer):
             y = y * mask.to(y.dtype)[:, :, None]
         return y, state
 
+    def forward_sharded(self, params, state, x, split, axis, train=False,
+                        gen=None, mask=None):
+        """Megatron attention on this rank's heads: ``Wq/Wk/Wv`` rows
+        (their output features, whole heads) and ``Wo`` columns split. The
+        projections of this rank's ``n_heads / t`` heads on the whole
+        input, the core at ``[B, H/t, T, D]`` (the flash kernels under
+        ``use_kernels``), this rank's part of the output projection summed
+        over the model ranks, then ``bo``, the activation and the mask."""
+        x = self._dropout_input(x, train, gen)
+        h = axis.into(x)
+        heads = self.n_heads // axis.size
+
+        def proj(w, b):
+            return F.linear(h, params[w], axis.local_bias(split, params, b))
+
+        o = _attn_core(_split_heads(proj("Wq", "bq"), heads),
+                       _split_heads(proj("Wk", "bk"), heads),
+                       _split_heads(proj("Wv", "bv"), heads), mask,
+                       self.causal, self.attention_impl, train,
+                       axis.use_kernels)
+        y = axis.reduce(F.linear(_merge_heads(o), params["Wo"])) + params["bo"]
+        y = self.activation.apply(y)
+        if mask is not None:
+            y = y * mask.to(y.dtype)[:, :, None]
+        return y, state
+
     # --- KV-cached autoregressive decode (nn.decoding / generation) -------
 
     def _decode_check(self):

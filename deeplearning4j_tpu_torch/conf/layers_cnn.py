@@ -158,6 +158,31 @@ class ConvolutionLayer(BaseLayer):
         is IDENTITY."""
         return _fold_out_channels(self, params, "W", scale, shift)
 
+    def forward_sharded(self, params, state, x, split, axis, train=False,
+                        gen=None):
+        """This rank's output channels (W's OIHW rows split): the conv of
+        this rank's filters on the whole input, as the unsharded layer
+        runs it (a 1x1 site on row 1 under ``use_kernels``), the
+        replicated bias sliced to them, then every rank's channels
+        gathered, after an elementwise activation or before any other."""
+        from deeplearning4j_tpu_torch import kernels
+
+        pointwise = self.activation is not Activation.SOFTMAX
+        w = params["W"]
+        local = dataclasses.replace(
+            self, n_out=int(w.shape[0]),
+            activation=self.activation if pointwise else Activation.IDENTITY)
+        p = {"W": w}
+        if self.has_bias:
+            p["b"] = axis.local_bias(split, params, "b")
+        x = axis.into(x)
+        routed = (kernels.maybe_forward(local, p, state, x, train, gen)
+                  if axis.use_kernels else None)
+        y = routed[0] if routed is not None else local.forward(
+            p, state, x, train=train, gen=gen)[0]
+        y = axis.gather(y, 1)
+        return (y if pointwise else self.activation.apply(y)), state
+
 
 def _conv1d_pads(size, mode, kernel, stride, padding) -> Tuple[int, int]:
     """(low, high) time padding of a ``Convolution1DLayer``: XLA's SAME

@@ -197,6 +197,9 @@ class ComputationGraph(nn_io.HealthHooks):
         self._cast_params = None  # compute-dtype copy of params, built once
         self._rnn_carries: Optional[Dict[str, dict]] = None  # rnn_time_step
         self.last_segment_losses: Optional[torch.Tensor] = None  # tBPTT
+        # a tensor-parallel step's parallel.tensor.ModelAxis: params hold
+        # this rank's slices, and split vertices run through it
+        self._model_axis = None
         self._topo = conf.topo_order()
         self._vmap = conf.vertex_map()
         self._image = [nn_io.image_input(t) for t in conf.input_types]
@@ -322,7 +325,14 @@ class ComputationGraph(nn_io.HealthHooks):
                 spec.vertex, "has_carry", False) and not _is_go_backwards(
                 spec.vertex)
             routed = None
-            if self.conf.use_kernels and not threaded:
+            ax = self._model_axis
+            if ax is not None and name in ax.splits:
+                if ax.direct(name) and not threaded:
+                    routed = ax.vertex_forward(spec.vertex, name, p, s, xs,
+                                               train, gen, mask)
+                else:  # the general route: the sharded leaves whole
+                    p = ax.gathered(name, p)
+            if routed is None and self.conf.use_kernels and not threaded:
                 routed = kernels.maybe_vertex_forward(spec.vertex, p, s, xs,
                                                       train, gen, **kw)
             if threaded:
@@ -469,10 +479,15 @@ class ComputationGraph(nn_io.HealthHooks):
                                         skip={s.name for s in out_specs},
                                         fmasks=fmasks, carries=carries)
         loss = 0.0
+        ax = self._model_axis
         for i, spec in enumerate(out_specs):
             x = acts[spec.inputs[0]].to(self._dtype)
-            loss = loss + spec.vertex.score(params.get(spec.name, {}), x,
-                                            labels[i], lmasks[i])
+            p = params.get(spec.name, {})
+            if ax is not None and spec.name in ax.splits:
+                loss = loss + ax.vertex_score(spec.vertex, spec.name, p, x,
+                                              labels[i], lmasks[i])
+                continue
+            loss = loss + spec.vertex.score(p, x, labels[i], lmasks[i])
         if global_batch.adds_regularization():  # once over the ranks
             loss = loss + solver.regularization_score(params,
                                                       self._layer_conf)

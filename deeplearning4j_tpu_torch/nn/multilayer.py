@@ -151,6 +151,9 @@ class MultiLayerNetwork(nn_io.HealthHooks):
         self._cast_params = None  # compute-dtype copy of params, built once
         self._rnn_carries: Optional[Dict[str, dict]] = None  # rnn_time_step
         self.last_segment_losses: Optional[torch.Tensor] = None  # tBPTT
+        # a tensor-parallel step's parallel.tensor.ModelAxis: params hold
+        # this rank's slices, and split layers run through it
+        self._model_axis = None
         self._image = nn_io.image_input(conf.input_type)
         # token ids cross as integers (a bfloat16 cast would round them)
         self._ids = bool(conf.layers) and isinstance(
@@ -246,9 +249,17 @@ class MultiLayerNetwork(nn_io.HealthHooks):
             threaded = carries is not None and getattr(
                 layer, "has_carry", False) and not nn_io.contains_go_backwards(
                 layer)
-            routed = (kernels.maybe_forward(
-                layer, p, s, x, train, dropout_gen(layer, seed, i), **kw)
-                if route and not threaded else None)
+            routed = None
+            ax = self._model_axis
+            if ax is not None and str(i) in ax.splits:
+                if ax.direct(str(i)) and not threaded:
+                    routed = ax.layer_forward(layer, str(i), p, s, x, train,
+                                              dropout_gen(layer, seed, i), kw)
+                else:  # the general route: the sharded leaves whole
+                    p = ax.gathered(str(i), p)
+            if routed is None and route and not threaded:
+                routed = kernels.maybe_forward(
+                    layer, p, s, x, train, dropout_gen(layer, seed, i), **kw)
             if threaded:
                 c = carries.get(str(i))
                 if c is None:
@@ -392,8 +403,14 @@ class MultiLayerNetwork(nn_io.HealthHooks):
         x, new_state = self._run(self._cast(params), self.state, features,
                                  train, seed, upto=last, fmask=fmask,
                                  carries=carries)
-        loss = out_layer.score(params.get(str(last), {}), x.to(self._dtype),
-                               labels, lmask)
+        ax = self._model_axis
+        if ax is not None and str(last) in ax.splits:
+            loss = ax.layer_score(out_layer, str(last),
+                                  params.get(str(last), {}),
+                                  x.to(self._dtype), labels, lmask)
+        else:
+            loss = out_layer.score(params.get(str(last), {}),
+                                   x.to(self._dtype), labels, lmask)
         if global_batch.adds_regularization():  # once over the ranks
             loss = loss + solver.regularization_score(
                 params, lambda key: self.conf.layers[int(key)])

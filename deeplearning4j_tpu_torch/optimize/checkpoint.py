@@ -152,10 +152,12 @@ class CheckpointListener(TrainingListener):
 
         trainer = serializer.live_trainer(model)
         if trainer is not None:
-            # data-parallel fit: every rank gathers (a collective), rank 0
-            # writes
+            # data-parallel fit: every rank gathers (a collective), the
+            # grid's first process writes (ranks of one data index hold
+            # the same gathered model)
             trainer.sync_model()
-            if trainer.rank != 0:
+            if trainer.rank != 0 or trainer.mesh.model_rank \
+                    or trainer.mesh.sequence_rank:
                 return
         num = self._count
         self._count += 1

@@ -1,11 +1,13 @@
 """Parallelism: serving (the dynamic-batching ``InferenceEngine``, the HTTP
 ``InferenceServer``, the ``GenerationEngine``, in their own modules; the
 multi-tenant ``ModelPlatform`` with its ``ModelRegistry``, and
-``ParallelInference``, exported here) and data-parallel training on
-``torch.distributed`` (reference ``deeplearning4j-scaleout``): the
-process-group mesh, ``ParallelWrapper`` and its exchange modes, compressed
-gradient exchange, the cluster masters, and ``spawn`` for ranks started
-from Python."""
+``ParallelInference``, exported here) and training on ``torch.distributed``
+(reference ``deeplearning4j-scaleout``): the process grid of data, model and
+sequence ranks, ``ParallelWrapper`` and its exchange modes (the
+partition-rules plan among them), compressed gradient exchange, the
+Megatron tensor-parallel block and operators (``parallel.tensor``), ring
+attention over the sequence ranks (``ops.ring``), the cluster masters, and
+``spawn`` for ranks started from Python."""
 
 from deeplearning4j_tpu_torch.parallel.compression import (  # noqa: F401
     AdaptiveThresholdAlgorithm,
@@ -62,4 +64,15 @@ from deeplearning4j_tpu_torch.parallel.platform import (  # noqa: F401
     ModelRegistry,
     TenantConfig,
     UnknownModelError,
+)
+from deeplearning4j_tpu_torch.parallel.tensor import (  # noqa: F401
+    shard_tp_params,
+    tp_block_apply,
+    tp_block_init,
+    tp_block_shardings,
+    tp_train_step,
+)
+from deeplearning4j_tpu_torch.ops.ring import (  # noqa: F401
+    ring_attention,
+    ring_attention_local,
 )

@@ -261,12 +261,12 @@ def moe_apply_global(router, w1, w2, x, n_experts: int,
 
 def shard_moe_params(params: dict, mesh) -> dict:
     """This rank's share of ``moe_init``'s params: the router whole, the
-    experts' leading axis cut into ``mesh.world`` blocks."""
+    experts' leading axis cut into ``mesh.data`` blocks."""
     e = params["w1"].shape[0]
-    if e % mesh.world:
-        raise ValueError(f"{e} experts do not split over {mesh.world} ranks")
-    n = e // mesh.world
-    lo = mesh.rank * n
+    if e % mesh.data:
+        raise ValueError(f"{e} experts do not split over {mesh.data} ranks")
+    n = e // mesh.data
+    lo = mesh.data_rank * n
     return {k: (v if k == "router" else v[lo:lo + n]).detach().clone()
             for k, v in params.items()}
 
@@ -285,7 +285,7 @@ def moe_spmd_fn(n_experts: int, capacity: int, mesh, top_k: int = 1):
                             mesh.group)
         aux = aux.detach().reshape(1).clone()
         scheduler.all_reduce(aux, mesh.group)
-        return y, aux[0] / mesh.world
+        return y, aux[0] / mesh.data
 
     return fn
 
@@ -302,7 +302,7 @@ def moe_train_step(n_experts: int, capacity: int, mesh, lr: float = 0.05,
         leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
         y, aux = _moe_local(leaves, x, n_experts, capacity, top_k,
                             mesh.group)
-        loss = (torch.mean((y - target) ** 2) + aux_weight * aux) / mesh.world
+        loss = (torch.mean((y - target) ** 2) + aux_weight * aux) / mesh.data
         loss.backward()
         g = {k: v.grad for k, v in leaves.items()}
         scheduler.all_reduce(g["router"], mesh.group)

@@ -1,25 +1,33 @@
-"""Process group / topology for data-parallel training.
+"""Process grid / topology for data-, tensor- and sequence-parallel
+training.
 
 Counterpart of the JAX package's ``parallel/mesh.py``. The JAX package
-names mesh axes over the devices of one program; the port runs one
-process per rank (the PyTorch idiom) joined by ``torch.distributed``, and
-a :class:`Mesh` here is the data axis of that process group: its size is
-the world size, and each process holds one replica. Experts ride the data
-axis (``ParallelWrapper(expert_parallel=True)``, ``parallel/expert.py``),
-as in the JAX package's GShard layout, so an ``expert`` axis of its own is
-refused, as are ``model``, ``pipeline`` and ``sequence``, until
-``parallel/{tensor, pipeline}.py`` are ported (ROADMAP A: "The remainder,
-in dependency order").
+names mesh axes over the devices of one program; the port runs one process
+per rank (the PyTorch idiom) joined by ``torch.distributed``, and a
+:class:`Mesh` here is a grid of those processes: ``data`` x ``model`` x
+``sequence`` ranks, ordered as the JAX package's device mesh orders its
+devices (``sequence`` fastest, then ``model``, then ``data``: rank
+``(d * model + m) * sequence + s``). Each axis has one
+``torch.distributed`` subgroup for every slice of the grid along it
+(:meth:`MeshConfig.build` creates them all, in one fixed order, on every
+rank); a mesh of the data axis alone keeps the default group. Experts ride
+the data axis (``ParallelWrapper(expert_parallel=True)``,
+``parallel/expert.py``), as in the JAX package's GShard layout, so an
+``expert`` axis of its own is refused, and so is ``pipeline`` until
+``parallel/pipeline.py`` is ported (ROADMAP A: "The remainder, in
+dependency order").
 
 Backends: NCCL when the model lives on a CUDA device, gloo on the CPU, and
 gloo on CUDA tensors only when the caller names ``backend="gloo"``
-(:func:`initialize_distributed`).
+(:func:`initialize_distributed`); the subgroups take the world's backend.
 
-Batches follow the JAX package's multi-process contract: rank ``r`` of a
-global batch of ``B`` rows holds rows ``[r*s, (r+1)*s)`` with
-``s = ceil(B / workers)``; a short partition is zero-padded to ``s`` rows
-(:func:`pad_leading`) and its padding rows carry a zero label mask
-(:func:`shard_valid_counts` gives each rank's valid rows).
+Batches follow the JAX package's multi-process contract over the data axis
+only: data index ``r`` of a global batch of ``B`` rows holds rows
+``[r*s, (r+1)*s)`` with ``s = ceil(B / workers)`` (``workers`` = the data
+axis's size), and ranks that share a data index read the same rows; a
+short partition is zero-padded to ``s`` rows (:func:`pad_leading`) and its
+padding rows carry a zero label mask (:func:`shard_valid_counts` gives each
+data index's valid rows).
 """
 
 from __future__ import annotations
@@ -48,19 +56,58 @@ DEFAULT_TIMEOUT = 600.0
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The data axis of a process group: ``shape[DATA_AXIS]`` ranks, this
-    process at ``rank``. ``group`` None is the default group (or, with no
-    process group initialized, a one-rank mesh whose collectives are the
-    identity)."""
+    """A grid of ranks: ``data`` ranks on the data axis (this process at
+    data index ``data_rank``, its data subgroup ``group``), ``model`` on the
+    model axis and ``sequence`` on the sequence axis, each with this
+    process's index and subgroup. ``group`` None is the default group (or,
+    with no process group initialized, a one-rank mesh whose collectives
+    are the identity); a mesh with model or sequence ranks always has
+    subgroups."""
 
-    world: int
-    rank: int
+    data: int
+    data_rank: int
     group: object = None
+    model: int = 1
+    sequence: int = 1
+    model_rank: int = 0
+    sequence_rank: int = 0
+    model_group: object = None
+    sequence_group: object = None
 
     @property
     def shape(self) -> dict:
-        return {DATA_AXIS: self.world, MODEL_AXIS: 1, PIPELINE_AXIS: 1,
-                SEQUENCE_AXIS: 1, EXPERT_AXIS: 1}
+        return {DATA_AXIS: self.data, MODEL_AXIS: self.model,
+                PIPELINE_AXIS: 1, SEQUENCE_AXIS: self.sequence,
+                EXPERT_AXIS: 1}
+
+    @property
+    def axis_names(self) -> tuple:
+        return ALL_AXES
+
+    def index(self, axis: str) -> int:
+        """This process's coordinate on ``axis``."""
+        return {DATA_AXIS: self.data_rank, MODEL_AXIS: self.model_rank,
+                SEQUENCE_AXIS: self.sequence_rank}.get(axis, 0)
+
+    def axis_group(self, axis: str):
+        """The subgroup of this process's slice along ``axis`` (None on a
+        mesh of the data axis alone: the default group for ``data``, and
+        for ``model`` and ``sequence``, of size 1, no group at all: their
+        collectives are skipped)."""
+        return {DATA_AXIS: self.group, MODEL_AXIS: self.model_group,
+                SEQUENCE_AXIS: self.sequence_group}[axis]
+
+    def coords(self, rank: int) -> dict:
+        """The grid coordinates of process ``rank`` (the default group's
+        numbering)."""
+        s = rank % self.sequence
+        m = (rank // self.sequence) % self.model
+        d = rank // (self.sequence * self.model)
+        return {DATA_AXIS: d, MODEL_AXIS: m, SEQUENCE_AXIS: s}
+
+    def rank_at(self, data: int = 0, model: int = 0, sequence: int = 0):
+        """The process at these grid coordinates."""
+        return (data * self.model + model) * self.sequence + sequence
 
     @property
     def backend(self) -> tp.Optional[str]:
@@ -71,11 +118,27 @@ class Mesh:
         return str(dist.get_backend(self.group)).lower()
 
 
+def _axis_slices(data: int, model: int, sequence: int):
+    """For each axis, the rank lists of every slice along it (the grid's
+    row-major order: sequence fastest)."""
+    def at(d, m, s):
+        return (d * model + m) * sequence + s
+
+    return {
+        DATA_AXIS: [[at(d, m, s) for d in range(data)]
+                    for m in range(model) for s in range(sequence)],
+        MODEL_AXIS: [[at(d, m, s) for m in range(model)]
+                     for d in range(data) for s in range(sequence)],
+        SEQUENCE_AXIS: [[at(d, m, s) for s in range(sequence)]
+                        for d in range(data) for m in range(model)],
+    }
+
+
 @dataclasses.dataclass
 class MeshConfig:
     """Declarative mesh shape (the JAX package's). ``data=-1`` takes the
-    whole process group; every other axis must be 1 until its item is
-    ported."""
+    ranks the other axes leave; ``data * model * sequence`` must be the
+    process group's world size. ``pipeline`` and ``expert`` must be 1."""
 
     data: int = -1
     model: int = 1
@@ -84,28 +147,66 @@ class MeshConfig:
     expert: int = 1
 
     def build(self) -> Mesh:
-        for name in (MODEL_AXIS, PIPELINE_AXIS, SEQUENCE_AXIS, EXPERT_AXIS):
-            if getattr(self, name) != 1:
-                raise NotImplementedError(
-                    f"mesh axis {name!r} = {getattr(self, name)}: only the "
-                    f"data axis is ported (experts ride it: "
-                    f"ParallelWrapper(expert_parallel=True)); tensor, "
-                    f"pipeline and sequence parallelism wait for "
-                    f"parallel/{{tensor, pipeline}}.py (ROADMAP A: 'The "
-                    f"remainder, in dependency order')")
+        if self.pipeline != 1:
+            raise NotImplementedError(
+                f"mesh axis 'pipeline' = {self.pipeline}: pipeline "
+                f"parallelism waits for parallel/pipeline.py (ROADMAP A: "
+                f"'The remainder, in dependency order')")
+        if self.expert != 1:
+            raise NotImplementedError(
+                f"mesh axis 'expert' = {self.expert}: experts ride the data "
+                f"axis (ParallelWrapper(expert_parallel=True)), as in the "
+                f"JAX package's GShard layout")
         world = scheduler.world_of()
-        if self.data not in (-1, world):
-            raise ValueError(f"mesh data axis {self.data} must equal the "
-                             f"process group's world size {world} (one "
-                             f"replica a process)")
-        return Mesh(world, scheduler.rank_of())
+        fixed = int(self.model) * int(self.sequence)
+        if fixed < 1:
+            raise ValueError(f"mesh axes model={self.model}, sequence="
+                             f"{self.sequence} must be >= 1")
+        if self.data == -1:
+            if world % fixed:
+                raise ValueError(f"{world} ranks not divisible by model*"
+                                 f"sequence={fixed}")
+            data = world // fixed
+        else:
+            data = int(self.data)
+        if data * fixed != world:
+            if fixed == 1:
+                raise ValueError(f"mesh data axis {self.data} must equal the "
+                                 f"process group's world size {world} (one "
+                                 f"replica a process)")
+            raise ValueError(f"mesh {data} x {self.model} x {self.sequence} "
+                             f"needs {data * fixed} ranks, the process group "
+                             f"has {world}")
+        rank = scheduler.rank_of()
+        if fixed == 1:
+            return Mesh(world, rank)
+        import torch.distributed as dist
+
+        groups = {}
+        for axis, slices in _axis_slices(data, self.model,
+                                         self.sequence).items():
+            # every rank creates every subgroup, in this order
+            groups[axis], _ = dist.new_subgroups_by_enumeration(slices)
+        s = rank % self.sequence
+        m = (rank // self.sequence) % self.model
+        return Mesh(data, rank // fixed, groups[DATA_AXIS],
+                    int(self.model), int(self.sequence), m, s,
+                    groups[MODEL_AXIS], groups[SEQUENCE_AXIS])
 
 
 def single_host_mesh(n_devices: tp.Optional[int] = None, **axes) -> Mesh:
-    """The data axis over the whole process group (``n_devices``, when
-    given, must equal its world size)."""
-    return MeshConfig(data=-1 if n_devices is None else int(n_devices),
-                      **axes).build()
+    """The grid over the whole process group: ``axes`` as
+    :class:`MeshConfig` takes them (``n_devices``, when given, must equal
+    the world size; with no other axis it is the data axis)."""
+    if n_devices is not None and axes:
+        world = scheduler.world_of()
+        if int(n_devices) != world:
+            raise ValueError(f"n_devices={n_devices} must equal the process "
+                             f"group's world size {world}")
+        return MeshConfig(**axes).build()
+    if "data" not in axes:
+        axes["data"] = -1 if n_devices is None else int(n_devices)
+    return MeshConfig(**axes).build()
 
 
 def device_count(mesh: Mesh, axis: str = DATA_AXIS) -> int:
@@ -205,7 +306,7 @@ def shard_batch(mesh: Mesh, batch):
     axis), zero-padded to ``ceil(B / workers)`` rows: what each rank feeds
     ``ParallelWrapper.fit`` when every process holds the whole batch."""
     rows = int(np.shape(scheduler.tree_leaves(batch)[0])[0])
-    lo, hi, s = partition_rows(rows, mesh.rank, mesh.world)
+    lo, hi, s = partition_rows(rows, mesh.data_rank, mesh.data)
     return pad_leading(scheduler.tree_map(lambda x: x[lo:hi], batch), s)
 
 

@@ -44,6 +44,17 @@ Modes (the JAX package's semantics):
   rank's share arrives through the all-to-all's backward), a penalty on
   the shards counted in full, floating state averaged. The model holds
   every expert again after ``fit`` (and for a save mid-fit).
+- **SHARED_GRADIENTS, partition rules** (``partition_rules``: a rule
+  table or a ``sharding.ShardingPlan`` on the wrapper's mesh of data x
+  model ranks): the exact mode over the data axis, each rank holding its
+  model index's slice of every sharded leaf and of its updater state
+  (``parallel.tensor``: the split dense, conv, embedding and attention
+  layers compute their own shard, any other sharded leaf is gathered
+  before use); the batch norms and loss denominators over the data
+  subgroup, each gradient summed over it (a sharded leaf's as its
+  slice); the guards and gradient normalization count a sharded leaf's
+  squares over its axes, a replicated leaf's once. The model holds the
+  whole trees again after ``fit`` (and for a save mid-fit).
 - **AVERAGING**: independent replicas (an all-padding rank does not
   move); every ``averaging_frequency`` iterations params, state and (with
   ``average_updaters``) updater state are averaged.
@@ -80,9 +91,9 @@ sees the wrapper as the owner (its ``_health_snapshot`` /
 While ``fit`` runs, the model's ``_live_trainer`` points here, so
 ``util.serializer.write_model``, ``CheckpointListener`` and the training
 snapshots gather the live trees first (ZeRO's scattered updater state,
-the averaging replicas' mean). That gather is a collective: every rank
-runs the same listeners and calls, as every JAX process does, and a
-``CheckpointListener`` writes on rank 0 only.
+the averaging replicas' mean, a plan's slices). That gather is a
+collective: every rank runs the same listeners and calls, as every JAX
+process does, and a ``CheckpointListener`` writes on rank 0 only.
 """
 
 from __future__ import annotations
@@ -242,18 +253,18 @@ class ParallelWrapper:
                 "expert_parallel composes with the exact "
                 "SHARED_GRADIENTS mode only (no threshold "
                 "compression, no tBPTT)")
-        if partition_rules is not None:
-            raise NotImplementedError(
-                "partition_rules is not ported yet: it waits for "
-                "sharding/plan.py's ShardingPlan (ROADMAP A: 'The remainder, "
-                "in dependency order')")
+        if mesh is None and partition_rules is not None \
+                and hasattr(partition_rules, "mesh"):
+            mesh = partition_rules.mesh  # a plan brings its mesh
         self.mesh = mesh if mesh is not None else mesh_mod.single_host_mesh(
             n_devices=workers)
-        self.workers = self.mesh.world
+        # the data axis's ranks (the replicas), as the JAX package's
+        # workers: a data 1 x model 2 grid has one worker on two ranks
+        self.workers = self.mesh.data
         if workers is not None and self.workers != workers:
             raise ValueError(
                 f"mesh data axis = {self.workers}, workers = {workers}")
-        self.rank = self.mesh.rank
+        self.rank = self.mesh.data_rank  # this process's data index
         self.group = self.mesh.group
         if self.mesh.backend == "nccl" and model.device.type != "cuda":
             raise ValueError(
@@ -311,11 +322,39 @@ class ParallelWrapper:
                 "zero_optimizer composes with the exact SHARED_GRADIENTS "
                 "path only (no threshold compression, no expert_parallel, "
                 "no tBPTT, no AVERAGING)")
+        # declarative DP x TP placement (sharding/plan.py): a regex rule
+        # table (or a ShardingPlan built on the wrapper's mesh) cuts params
+        # and updater state over the mesh's model axis; the exact step runs
+        # on this rank's slices (parallel/tensor.py)
+        if partition_rules is None:
+            self._plan = None
+        else:
+            from deeplearning4j_tpu_torch.sharding import ShardingPlan
+
+            self._plan = (partition_rules
+                          if isinstance(partition_rules, ShardingPlan)
+                          else ShardingPlan(partition_rules, mesh=self.mesh))
+            if self._plan.mesh is not self.mesh:
+                raise ValueError(
+                    "partition_rules plan must be built on the wrapper's "
+                    "mesh (pass mesh=plan.mesh or let the wrapper build "
+                    "the plan from a rule table)")
+            if (training_mode is not TrainingMode.SHARED_GRADIENTS
+                    or threshold_algorithm is not None
+                    or self.expert_parallel or self._tbptt or self._zero
+                    or self._explicit_exchange):
+                raise ValueError(
+                    "partition_rules composes with the exact "
+                    "SHARED_GRADIENTS SPMD path only (no threshold "
+                    "compression, no expert_parallel, no tBPTT, no "
+                    "AVERAGING, no gradient_bucket_mb — the plan owns the "
+                    "collective schedule — and no zero_optimizer yet)")
         self.fused_steps = int(fused_steps or 0)
         if self.fused_steps > 1 and (
                 training_mode is not TrainingMode.SHARED_GRADIENTS
                 or threshold_algorithm is not None or self.expert_parallel
-                or self._explicit_exchange or self._zero or self._tbptt):
+                or self._explicit_exchange or self._zero or self._tbptt
+                or self._plan is not None):
             raise ValueError(
                 "fused_steps composes with the exact SHARED_GRADIENTS "
                 "SPMD path only (no threshold compression, no "
@@ -328,6 +367,9 @@ class ParallelWrapper:
         self._mp_target = None
         self._health_mode = None  # the guard mode the steps were set up for
         self._fused_group = None  # a fused group's [(step, loss, vec)]
+        self._cut = False  # the model's trees hold this rank's plan slices
+        # whole shapes of slices comms.reshard handed over (to resolve on)
+        self._prestaged = None
         # True while the model's trees hold the live training state
         # (ZeRO's updater state and the averaging replicas live here)
         self._synced = True
@@ -445,7 +487,10 @@ class ParallelWrapper:
                              for pk in sorted(_shard_axes(layer))
                              if pk in m.params.get(k, {})]
             self._shard_experts()
-        if not (self._zero or self.expert_parallel) and \
+        elif self._plan is not None:
+            self._setup_plan()
+        if not (self._zero or self.expert_parallel
+                or self._plan is not None) and \
                 self.training_mode is TrainingMode.SHARED_GRADIENTS and \
                 self.threshold_algorithm is None and self._hooks is None:
             plan = scheduler.plan_for(m.params, "all_reduce", DATA,
@@ -579,6 +624,8 @@ class ParallelWrapper:
             loss, vec = self._zero_step(batch, rows, cur)
         elif self.expert_parallel:
             loss, vec = self._expert_step(batch, cur)
+        elif self._plan is not None:
+            loss, vec = self._plan_step(batch, target, cur)
         elif self._explicit_exchange:
             loss, vec = self._bucketed_step(batch, rows, cur)
         else:
@@ -588,7 +635,7 @@ class ParallelWrapper:
             telemetry.record_step("parallel", rows)
             self._record_exchange(did_avg)
         self._score = loss
-        if (self._zero or self.expert_parallel
+        if (self._zero or self.expert_parallel or self._plan is not None
                 or self.training_mode is TrainingMode.AVERAGING):
             self._synced = False  # the live trees moved past the model's
         # the networks' step bookkeeping, with the wrapper's health
@@ -1056,6 +1103,262 @@ class ParallelWrapper:
                     else v for sk, v in st.items()}
         m._cast_params = None
 
+    # --- the partition-rules plan (DP x TP) ---------------------------------
+    def _setup_plan(self):
+        """Resolve the plan on the model's whole trees (the byte gauges
+        from it), cut them to this rank's slices and hand the network its
+        model axis. The gradient exchange crosses the data subgroup: one
+        hooked all-reduce over every leaf but those sharded over the data
+        axis, whose gathers already summed their gradients."""
+        from deeplearning4j_tpu_torch.optimize import aot_cache
+        from deeplearning4j_tpu_torch.parallel import tensor
+
+        from deeplearning4j_tpu_torch.comms.reshard import (
+            _shape_view,
+            _ShapeNet,
+        )
+
+        m = self.model
+        shapes = self._prestaged
+        if self._cut and shapes is None:
+            # the live slices stay (a re-armed guard mode)
+            self._synced = False
+            self._plan_hooks()
+            return
+        if shapes is None:
+            shapes = _ShapeNet(_shape_view(m.params, None, None),
+                               _shape_view(m.opt_state, None, None), m.conf)
+        plan = self._plan
+        self._pspecs = plan.storage_specs(shapes)
+        self._ospecs = plan.opt_storage_specs(shapes)
+        metrics = plan.publish_metrics(shapes, device=m.device)
+        self._plan_param_bytes = metrics["param_bytes"]
+        self._plan_sig = (f"{aot_cache.graph_signature(m.conf)}:pw_rules:"
+                          f"{plan.cache_tag()}{health.graph_mode()}")
+        self._axis = tensor.ModelAxis(self.mesh, tensor.plan_splits(
+            m, self._pspecs, self.mesh), getattr(m.conf, "use_kernels",
+                                                 False))
+        self._leaf_axes = {(k, pk): sorted({a for _, axes in
+                                            tensor._leaf_dims(spec,
+                                                              self.mesh)
+                                            for a in axes})
+                           for k, vp in self._pspecs.items()
+                           for pk, spec in vp.items()}
+        self._data_cut = sorted(kp for kp, axes in self._leaf_axes.items()
+                                if DATA in axes)
+        if self._prestaged is not None:
+            # comms.reshard handed this rank its slices already
+            self._prestaged = None
+            m._model_axis = self._axis
+            self._synced = False
+        else:
+            self._cut_trees()
+        self._hooks = None
+        self._plan_hooks()
+        layers = dict(self._layer_confs())
+        self._regs = {}
+        for k, pk in self._grad_keys():
+            layer = layers.get(k)
+            regs = () if layer is None else (
+                layer.regularization if pk in layer.regularized_param_keys()
+                else getattr(layer, "regularization_bias", ()))
+            if regs:
+                self._regs[(k, pk)] = tuple(regs)
+
+    def _plan_hooks(self):
+        """The gradient exchange over the data subgroup: one hooked
+        all-reduce over the slices of every leaf but those sharded over
+        the data axis (their gathers summed their gradients already)."""
+        if self._hooks is not None:
+            return
+        m = self.model
+        keys = [kp for kp in self._grad_keys() if kp not in self._data_cut]
+        tree = {}
+        for k, pk in keys:
+            tree.setdefault(k, {})[pk] = m.params[k][pk]
+        plan_x = scheduler.plan_for(tree, "all_reduce", DATA, None)
+        self._hooks = _HookedAllReduce(plan_x, keys, self.group)
+
+    def _cut_trees(self):
+        """The model's params and updater state cut to this rank's slices
+        (from whole trees every rank holds alike: no exchange)."""
+        m = self.model
+        m.params = self._plan.place(m.params, self._pspecs)
+        m.opt_state = self._plan.place(m.opt_state, self._ospecs)
+        m._cast_params = None
+        m._model_axis = self._axis
+        self._cut = True
+        self._synced = False
+
+    def _gather_tree(self, tree, specs):
+        """Every sharded leaf of ``tree`` whole (a collective)."""
+        from deeplearning4j_tpu_torch.parallel import tensor
+        from deeplearning4j_tpu_torch.sharding.rules import PartitionSpec
+
+        if isinstance(specs, PartitionSpec):
+            t = tree
+            for dim, axes in reversed(tensor._leaf_dims(specs, self.mesh)):
+                for ax in reversed(axes):
+                    t = tensor._gather_dim(t, self.mesh.axis_group(ax),
+                                           int(self.mesh.shape[ax]), dim)
+            return t
+        return {k: self._gather_tree(tree[k], specs[k]) for k in tree}
+
+    def _axis_sums(self, values: dict) -> dict:
+        """{(layer, param): scalar} -> each summed over the mesh axes its
+        leaf is sharded over (a replicated leaf's value as it is): one
+        all-reduce per axis and set of leaves."""
+        out = dict(values)
+        groups = {}
+        for kp in values:
+            axes = tuple(self._leaf_axes.get(kp, ()))
+            if axes:
+                groups.setdefault(axes, []).append(kp)
+        for axes, kps in groups.items():
+            vec = torch.stack([values[kp].reshape(()).float()
+                               for kp in kps])
+            for ax in axes:
+                scheduler.all_reduce(vec, self.mesh.axis_group(ax))
+            for i, kp in enumerate(kps):
+                out[kp] = vec[i]
+        return out
+
+    def _plan_step(self, batch, target: int, cur: int):
+        """The exact step on this rank's slices: the global-batch forward
+        over the data subgroup with the split layers' model-axis
+        collectives, the gradients summed over the data subgroup (a
+        sharded leaf's as its slice), the update on the slices."""
+        from deeplearning4j_tpu_torch.optimize import aot_cache
+
+        m = self.model
+        if not self._cut:  # a mid-fit write-back put the whole trees back
+            self._cut_trees()
+        seen = {}
+        arm = self._hooks.arm(None)
+
+        def on_leaves(leaves):
+            seen["leaves"] = leaves
+            arm(leaves)
+
+        feats = batch[0] if isinstance(batch[0], (list, tuple)) \
+            else [batch[0]]
+        key = aot_cache.envelope_key(self._plan_sig, feats, m.device)
+        with telemetry.span(telemetry.PHASE_COMPUTE), \
+                global_batch.global_batch(self.group, target,
+                                          target * self.workers):
+            loss, new_state, _ = aot_cache.run_envelope(
+                key, lambda: self._gradients(batch, cur, on_leaves))
+        with telemetry.span(telemetry.PHASE_GRAD_SYNC):
+            grads = self._hooks.finish()
+            for k, pk in self._data_cut:
+                leaf = seen["leaves"][k][pk]
+                grads.setdefault(k, {})[pk] = (
+                    leaf.grad if leaf.grad is not None
+                    else torch.zeros_like(leaf))
+            grads = {k: grads[k] for k in sorted(grads)}
+            loss = self._plan_loss(loss)
+            return self._plan_update(grads, new_state, loss, cur)
+
+    def _plan_loss(self, loss):
+        """The step's score over the data subgroup, with each sharded
+        leaf's regularization counted whole (each rank's loss holds its
+        slices' terms only)."""
+        if not self._regs:
+            return self._sum_scalar(loss)
+        m = self.model
+        with torch.no_grad():
+            pen = {(k, pk): sum(r.score_term(m.params[k][pk]) for r in regs)
+                   for (k, pk), regs in self._regs.items()}
+            pen = {kp: torch.as_tensor(v, dtype=torch.float32,
+                                       device=m.device)
+                   for kp, v in pen.items()}
+            full = self._axis_sums(pen)
+            first = self.rank == 0 or self.workers == 1
+            local = torch.stack(list(pen.values())).sum()
+            whole = torch.stack(list(full.values())).sum()
+        data_part = loss.detach() - (local if first else 0.0)
+        return self._sum_scalar(data_part) + whole
+
+    def _plan_update(self, grads, new_state, loss, cur: int):
+        """Gradient normalization (whole-tensor norms: a sharded leaf's
+        squares summed over its axes), the updater on the slices, and under
+        a health mode the guard vector from the same sums (a replicated
+        leaf counted once), SKIP_STEP selecting on its flag."""
+        from deeplearning4j_tpu_torch.conf.layers import GradientNormalization
+        from deeplearning4j_tpu_torch.optimize import solver
+
+        m = self.model
+        mode = self._health_mode
+        gn = {k for k in grads if getattr(
+            m._layer_updater(k)[0], "gradient_normalization", None)
+            not in (None, GradientNormalization.NONE)}
+        sharded = {k for k, _ in self._leaf_axes_nonempty()}
+        need = [(k, pk) for k in grads for pk in sorted(grads[k])
+                if (mode or k in gn) and grads[k][pk].is_floating_point()]
+        with torch.no_grad():
+            sq = self._axis_sums({kp: grads[kp[0]][kp[1]].float().pow(2)
+                                  .sum() for kp in need}) if need else {}
+            news = {}
+            for k in grads:
+                layer, upd = m._layer_updater(k)
+                g_k = grads[k]
+                if k in gn:
+                    g_k = (solver.normalize_layer_slices(
+                        layer, g_k, {pk: sq[(k, pk)] for pk in g_k})
+                        if k in sharded
+                        else solver.normalize_layer_gradients(layer, g_k))
+                lr = upd.current_lr(cur, m.epoch)
+                if mode:
+                    upds, new_o = solver.layer_updates(
+                        layer, upd, m.params[k], g_k, m.opt_state[k], lr,
+                        cur, m.epoch)
+                    news[k] = ({pk: p - upds[pk]
+                                for pk, p in m.params[k].items()}, new_o)
+                else:
+                    m.params[k], m.opt_state[k] = \
+                        solver.apply_updater_to_layer(
+                            layer, upd, m.params[k], g_k, m.opt_state[k], lr,
+                            cur, m.epoch)
+            if not mode:
+                m.state.update(new_state)
+                return loss, None
+            keys = health.bucket_keys(grads)
+            bucket_sq = [torch.stack([sq[(k, pk)] for pk in sorted(grads[k])
+                                      if (k, pk) in sq]).sum()
+                         if any(kp[0] == k for kp in sq)
+                         else torch.zeros((), device=m.device)
+                         for k in keys]
+            floats = [(k, pk) for k in news for pk in sorted(news[k][0])
+                      if m.params[k][pk].is_floating_point()]
+            norms = self._axis_sums(
+                {("d",) + kp: (news[kp[0]][0][kp[1]].float()
+                               - m.params[kp[0]][kp[1]].float()).pow(2).sum()
+                 for kp in floats} | {
+                 ("p",) + kp: m.params[kp[0]][kp[1]].float().pow(2).sum()
+                 for kp in floats}) if floats else {}
+            upd_sq = sum((v for kp, v in norms.items() if kp[0] == "d"),
+                         torch.zeros((), device=m.device))
+            par_sq = sum((v for kp, v in norms.items() if kp[0] == "p"),
+                         torch.zeros((), device=m.device))
+            vec = health.assemble(loss, bucket_sq, upd_sq, par_sq)
+            ok = health.vec_ok(vec) if mode == "skip" else None
+            for k, (new_p, new_o) in news.items():
+                for pk, p in m.params[k].items():
+                    p.copy_(new_p[pk] if ok is None
+                            else torch.where(ok, new_p[pk], p))
+                if ok is not None:
+                    new_o = health._select(ok, new_o, m.opt_state[k])
+                m.opt_state[k] = new_o
+            if ok is not None:
+                new_state = {k: health._select(ok, v, m.state[k])
+                             if k in m.state else v
+                             for k, v in new_state.items()}
+            m.state.update(new_state)
+        return loss, vec
+
+    def _leaf_axes_nonempty(self):
+        return [kp for kp, axes in self._leaf_axes.items() if axes]
+
     def _averaging_step(self, batch, rows: int, cur: int):
         """A local step on this rank's replica (none for an all-padding
         rank), then every ``averaging_frequency`` iterations the average
@@ -1136,6 +1439,13 @@ class ParallelWrapper:
                     self._opt_slices, self.group).items()}
         elif self.expert_parallel:
             self._gather_experts()
+        elif self._plan is not None and self._cut:
+            # gather-on-save: every rank holds the whole trees again
+            m.params = self._gather_tree(m.params, self._pspecs)
+            m.opt_state = self._gather_tree(m.opt_state, self._ospecs)
+            m._cast_params = None
+            m._model_axis = None
+            self._cut = False
 
     # --- health-layer hooks (thin, as the networks') ------------------------
     def _health_snapshot(self):
@@ -1162,6 +1472,8 @@ class ParallelWrapper:
     def _health_restore(self, snap):
         from deeplearning4j_tpu_torch.optimize import checkpoint
 
+        self.model._model_axis = None
+        self._cut = False  # the model holds the snapshot's whole trees
         checkpoint.restore_training_state(self.model, snap)
         if self._setup_done:
             self._setup()  # re-stage replicas / slices from the model
@@ -1206,7 +1518,11 @@ class ParallelWrapper:
               else "grad_psum")
         layout = getattr(self, "_grad_layout", None)
         if layout is None:
-            layout = self._grad_layout = bucket_layout(
-                m.params, self.gradient_bucket_bytes)
+            # DP x TP: a model-sharded leaf's gradient crosses the data
+            # axis as its slice: the per-rank payload, not the dense tree
+            # (the model-axis activation collectives are not counted)
+            layout = self._grad_layout = (
+                [self._plan_param_bytes] if self._plan is not None
+                else bucket_layout(m.params, self.gradient_bucket_bytes))
             telemetry.record_bucket_layout(op, layout)
         telemetry.record_collective(op, sum(layout), len(layout))

@@ -35,9 +35,11 @@ logging it.
 
 Restore concatenates the hosts' slices (each shard digest-verified): the
 full vectors whatever pod shape restores them, so a restore across pod
-shapes is the same bits (the JAX package re-cuts through its
+shapes is the same bits. The JAX package re-cuts through its
 ``comms.reshard`` where it has the devices, to the same bits; the port's
-device re-cut waits for ``comms/reshard.py``).
+restore builds whole arrays on every rank, so a device re-cut
+(``comms.reshard.recut_flat``) would move the same bits a longer way and
+is not used here.
 
 Real and emulated pods: on ``torch.distributed`` ranks (world > 1) each
 rank is one host and writes its own shard; in one process,

@@ -7,9 +7,10 @@ server) with ``/train/stats.json``, a Prometheus ``/metrics`` scrape +
 ``/metrics.json``, ``/health``, ``/platform``, ``/slo``, ``/traces``,
 ``/analysis`` and auto-refresh, no JS dependencies.
 
-Counterpart of the JAX package's ``ui/server.py``. ``/sharding`` answers
-501: the sharding plans it lists wait for ``sharding/plan.py``, which the
-port does not have yet."""
+Counterpart of the JAX package's ``ui/server.py``. ``/sharding`` lists the
+live sharding plans (``sharding.plans_summary()``: each resolved
+param-path -> PartitionSpec table), and the System tab renders them as the
+"Sharding plans" panel."""
 
 from __future__ import annotations
 
@@ -86,10 +87,6 @@ def _chart(title: str, series: Dict[str, Tuple[List[float], List[float]]],
             f'<text x="{_PAD}" y="14" font-size="11">{"".join(legend)}'
             f'</text></svg></div>')
 
-
-# what /sharding waits for
-SHARDING_WAITS_FOR = ("sharding/plan.py (ShardingPlan and its registry, "
-                      "plans_summary), not ported yet")
 
 _HW, _HH = 150, 90
 
@@ -202,17 +199,15 @@ class UIServer:
                         telemetry.telemetry_record()).encode()
                     ctype = "application/json"
                 elif self.path == "/sharding":
-                    # the sharding plans' tables wait for sharding/plan.py:
-                    # say so, rather than list no plans
-                    payload = _json.dumps({
-                        "error": "not implemented",
-                        "waits_for": SHARDING_WAITS_FOR}).encode()
-                    self.send_response(501)
-                    self.send_header("Content-Type", "application/json")
-                    self.send_header("Content-Length", str(len(payload)))
-                    self.end_headers()
-                    self.wfile.write(payload)
-                    return
+                    # live sharding plans (sharding.plan registry): the
+                    # resolved param-path -> PartitionSpec tables as JSON,
+                    # the scriptable twin of the System-tab panel
+                    from deeplearning4j_tpu_torch.sharding import (
+                        plans_summary,
+                    )
+
+                    payload = _json.dumps(plans_summary()).encode()
+                    ctype = "application/json"
                 elif self.path == "/platform":
                     # live multi-tenant serving platforms
                     # (parallel.platform registry): per-model version,
@@ -449,6 +444,36 @@ class UIServer:
         a transition or the collector has published a gauge."""
         return self._metric_table_panel("SLOs (burn rates)", "dl4j_slo_")
 
+    def _sharding_panel(self) -> str:
+        """Live sharding plans (sharding.plan registry): the resolved
+        param-path -> PartitionSpec table (opt-state specs summarized), the
+        System-tab view of "which tensor lives where". Rendered only when a
+        plan has resolved in this process."""
+        import json
+
+        from deeplearning4j_tpu_torch.sharding import plans_summary
+
+        summaries = plans_summary()
+        if not summaries:
+            return ""
+        blocks = []
+        for s in summaries:
+            rows = "".join(
+                f"<tr><td>{html.escape(r['path'])}</td>"
+                f"<td>{html.escape('x'.join(map(str, r['shape'])) or 'scalar')}"
+                f"</td><td>{html.escape(r['spec'])}"
+                f"{' (demoted)' if r.get('demoted') else ''}</td></tr>"
+                for r in s["params"])
+            blocks.append(
+                f"<h4>mesh {html.escape(json.dumps(s['mesh']))} · "
+                f"{len(s['params'])} params · "
+                f"{len(s['opt_state'])} opt buffers</h4>"
+                '<table style="font-size:12px;border-spacing:8px 2px">'
+                "<tr><th>param</th><th>shape</th><th>spec</th></tr>"
+                + rows + "</table>")
+        return ('<div class="chart"><h3>Sharding plans</h3>'
+                + "".join(blocks) + "</div>")
+
     def _pod_panel(self) -> str:
         """Pod topology + distributed-snapshot metrics
         (resilience.pod): host count, per-host shard bytes, snapshot /
@@ -563,6 +588,7 @@ class UIServer:
             self._slo_panel(),
             self._collectives_panel(),
             self._kernels_panel(),
+            self._sharding_panel(),
             self._pod_panel(),
         ]) or "<p>No stats collected yet.</p>"
         refresh = (f"<meta http-equiv='refresh' content='{refresh_seconds}'>"

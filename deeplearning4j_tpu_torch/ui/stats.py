@@ -383,8 +383,23 @@ def collect_system_metrics() -> dict:
         out["aot_cache"] = aot_cache.stats()
     except Exception:
         pass
-    # the JAX package's ``sharding_plans`` block waits for sharding/plan.py,
-    # which the port does not have yet
+    try:
+        # active sharding plans (sharding.plan registry): compact rows; the
+        # full param-path -> spec tables live on /sharding and the
+        # System-tab panel
+        from deeplearning4j_tpu_torch.sharding import active_plans
+
+        plans = []
+        for p in active_plans():
+            s = p.explain(fmt="json")
+            plans.append({"mesh": s["mesh"], "params": len(s["params"]),
+                          "opt_buffers": len(s["opt_state"]),
+                          "demoted": sum(1 for r in s["params"]
+                                         if r.get("demoted"))})
+        if plans:
+            out["sharding_plans"] = plans
+    except Exception:
+        pass
     try:
         # collective-scheduler counters (comms.scheduler): plans built /
         # plan-cache hits

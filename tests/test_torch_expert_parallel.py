@@ -474,5 +474,5 @@ def test_the_divisibility_check_counts_the_mesh():
     net = ComputationGraph(conf, device="cpu").init()
     with pytest.raises(ValueError, match="n_experts=6 must be a multiple "
                                          "of the data-axis size 4"):
-        ParallelWrapper(net, mesh=PMesh(world=4, rank=0),
+        ParallelWrapper(net, mesh=PMesh(data=4, data_rank=0),
                         expert_parallel=True)

@@ -37,7 +37,7 @@ for name in names:
 import chip_data_parallel, chip_gen_profile, chip_kernel_ab
 import chip_lenet_spread, chip_platform, chip_sequence, chip_smoke
 import chip_train_profile, chip_zoo, chip_layers, chip_moe, chip_transfer
-import chip_session, chip_ingest
+import chip_session, chip_ingest, chip_sharding
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))
 print(len(names), bad)
@@ -243,6 +243,27 @@ INGEST_MODULES = [
 ]
 
 
+# the sharding slice's modules (rule tables and plans, the zoo's tables,
+# cross-mesh resharding, tensor parallelism, ring attention, the process
+# grid, the layers' sharded forwards, the UI's sharding endpoint) and its
+# chip phase
+SHARDING_MODULES = [
+    "deeplearning4j_tpu_torch.sharding.rules",
+    "deeplearning4j_tpu_torch.sharding.plan",
+    "deeplearning4j_tpu_torch.zoo.rules",
+    "deeplearning4j_tpu_torch.comms.reshard",
+    "deeplearning4j_tpu_torch.parallel.tensor",
+    "deeplearning4j_tpu_torch.ops",
+    "deeplearning4j_tpu_torch.ops.ring",
+    "deeplearning4j_tpu_torch.parallel.mesh",
+    "deeplearning4j_tpu_torch.conf.layers",
+    "deeplearning4j_tpu_torch.conf.layers_attention",
+    "deeplearning4j_tpu_torch.conf.layers_cnn",
+    "deeplearning4j_tpu_torch.ui.server",
+    "chip_sharding",
+]
+
+
 # the clean parent: numpy and torch loaded, nothing of the repository; one
 # forked child a request line, its answer one "RESULT <json>" line
 _ZYGOTE = r"""
@@ -304,7 +325,7 @@ def _import_alone(proc, module: str, timeout: float = 120.0) -> dict:
     + MLN_TRAINING_MODULES + BF16_TRAINING_MODULES + TUNING_MODULES
     + DATA_PARALLEL_MODULES + SEQUENCE_MODULES + PLATFORM_MODULES
     + ZOO_MODULES + MOE_MODULES + TRANSFER_MODULES + SESSION_MODULES
-    + INGEST_MODULES)))
+    + INGEST_MODULES + SHARDING_MODULES)))
 def test_generation_module_alone_loads_no_jax(zygote, module):
     out = _import_alone(zygote, module)
     assert out.get("ok"), out
@@ -335,7 +356,8 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                                  "chip_sequence.py", "chip_platform.py",
                                  "chip_zoo.py", "chip_layers.py",
                                  "chip_moe.py", "chip_transfer.py",
-                                 "chip_session.py", "chip_ingest.py")]
+                                 "chip_session.py", "chip_ingest.py",
+                                 "chip_sharding.py")]
     offenders = [str(p.relative_to(ROOT)) for p in sources
                  if pattern.search(p.read_text())]
     assert offenders == []

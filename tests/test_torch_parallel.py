@@ -652,14 +652,18 @@ def _port_moe():
 
 @pytest.mark.parametrize("kw,match", [
     # a per-rank mode trains an MoE net only with its experts sharded
-    ({"model": _port_moe, "mesh": port_mesh.Mesh(world=2, rank=0),
+    ({"model": _port_moe, "mesh": port_mesh.Mesh(data=2, data_rank=0),
       "training_mode": TrainingMode.AVERAGING}, "expert_parallel=True"),
-    ({"partition_rules": [(".*", None)]}, "waits for sharding/plan.py"),
+    # partition_rules is ported: what stays unported is the pipeline axis
+    ({"mesh_config": {"pipeline": 2}}, "The remainder, in dependency order"),
 ], ids=["kw0-item 5", "kw1-item 5"])
 def test_unported_options_are_refused(kw, match):
     kw = dict(kw)
     model = kw.pop("model", _port_mlp)()
+    mesh_config = kw.pop("mesh_config", None)
     with pytest.raises(NotImplementedError, match=match):
+        if mesh_config is not None:
+            kw["mesh"] = port_mesh.MeshConfig(**mesh_config).build()
         ParallelWrapper(model, **kw)
 
 

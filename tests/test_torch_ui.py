@@ -304,13 +304,23 @@ def test_stats_json_holds_the_records(live):
 
 
 def test_sharding_answers_501_naming_what_it_waits_for(live):
+    """``/sharding`` no longer waits: ``sharding/plan.py`` is ported, and
+    the endpoint answers 200 with ``plans_summary()``, as the JAX
+    package's does (the name is kept from when it answered 501)."""
+    from deeplearning4j_tpu_torch.parallel.mesh import Mesh
+    from deeplearning4j_tpu_torch.sharding import ShardingPlan
+    from deeplearning4j_tpu_torch.sharding.rules import P
+
     _, port = live
-    with pytest.raises(urllib.error.HTTPError) as ei:
-        _get(port, "/sharding")
-    assert ei.value.code == 501
-    body = json.loads(ei.value.read())
-    assert body["waits_for"] == ui_server.SHARDING_WAITS_FOR
-    assert "sharding/plan.py" in body["waits_for"]
+    plan = ShardingPlan([(r"W$", P(None, "model")), (".*", P())],
+                        mesh=Mesh(data=2, data_rank=0, model=2),
+                        demote_indivisible=True)
+    plan.param_specs({"0": {"W": np.zeros((4, 16), np.float32)}})
+    status, ctype, body = _get(port, "/sharding")
+    assert status == 200 and ctype.startswith("application/json")
+    plans = json.loads(body)
+    assert any(p["mesh"] == {"data": 2, "model": 2} for p in plans)
+    assert not hasattr(ui_server, "SHARDING_WAITS_FOR")
 
 
 def test_unknown_path_is_404(live):
