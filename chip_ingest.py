@@ -93,7 +93,7 @@ ZOO_ARGS = {"UNet": {}, "YOLO2": {}, "Xception": {}, "NASNet": {}}
 RING_STEPS = 4  # the script's time limit bounds the depth
 RING_BATCH = 32
 FUSED_K = 2
-TIMING_TURNS = 2  # alternating turns of the four feeds' timed fits
+TIMING_TURNS = 1  # turns of the four feeds' timed fits (the time limit)
 POOL_SHAPES = 40  # batch shapes staged through one stager
 # the page-locked pool's growth over them, in largest batches: the caching
 # host allocator's power-of-two size classes (2.03 read on an H100)

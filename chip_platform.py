@@ -73,7 +73,7 @@ RESNET = {}   # ResNet50 arguments (full width: 224x224x3, 1000 classes)
 ALEXNET = {}  # AlexNet arguments (full width)
 BIAS_SHIFT = 0.5  # std of v2's output-bias move
 HTTP_SIZES = (1, 2, 1)  # images a request; the second sent as uint8
-LATENCY_REQUESTS = 16
+LATENCY_REQUESTS = 8  # p50 / p95 sample (the script's time limit)
 THROUGHPUT = (4, 4, 4)  # clients x requests x images
 # each client cycles over its SWAP_INPUTS requests until the swap returns,
 # then sends SWAP_AFTER more

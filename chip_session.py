@@ -10,9 +10,9 @@ one H100, with full-width ResNet-50 (224x224x3, 1000 classes,
   versions, and agree within their tolerances wherever no special value
   reached.
 - (b) ``TrainingSession(ParallelWrapper(exact), snapshot_every=2)`` at one
-  NCCL rank, 6 steps: a seeded ``FaultPlan`` raises at ``train.step`` on
-  step 5, the session resumes, and params, BN state and Adam state after
-  step 6 equal an uninterrupted run's bit for bit; a fresh process resumes
+  NCCL rank, 4 steps: a seeded ``FaultPlan`` raises at ``train.step`` on
+  step 3, the session resumes, and params, BN state and Adam state after
+  step 4 equal an uninterrupted run's bit for bit; a fresh process resumes
   from the directory alone and finishes equal again.
 - (c) Two gloo ranks share ``cuda:0`` in ZeRO mode with pod snapshots (two
   shards): a ``HostDeathError`` at ``pod.heartbeat`` on rank 1 and a
@@ -62,20 +62,20 @@ SPECIAL_BITS = (0x7FFFFFFF, 0xFFFFFFFF, 0x7FC00000, 0x7F800000, 0xFF800000,
 # magnitude, i.e. that no special value reached
 UNTOUCHED = 1e6
 # (b)-(e): full-width ResNet-50 (``RESNET``: the zoo's defaults), global
-# batch 32, one epoch of 6 steps (the script's time limit bounds the
-# depth), a snapshot every 2, the train.step fault on call 5 (a resume from
-# the iteration-4 snapshot); the pod session of (c) takes 6 steps and
-# loses host 1 at its 4th heartbeat
+# batch 32, one epoch of 4 steps (the script's time limit bounds the
+# depth), a snapshot every 2, the train.step fault on call 3 (a resume from
+# the iteration-2 snapshot); the pod session of (c) takes 4 steps and
+# loses host 1 at its 3rd heartbeat
 RESNET = {}
 BATCH = 32
-STEPS = 6
+STEPS = 4
 SNAP_EVERY = 2
-KILL_AT = 5
-POD_STEPS = 6
-HEARTBEAT_KILL = 4
+KILL_AT = 3
+POD_STEPS = 4
+HEARTBEAT_KILL = 3
 STATS_FREQ = 2
 POISON_STEP = 3  # (d): the step whose rank-1 rows hold a NaN
-GUARD_PAIRS, GUARD_STEPS = 2, 4
+GUARD_PAIRS, GUARD_STEPS = 1, 4
 SYNC_STEPS = 2
 TIMEOUT = 600.0
 # (f): LeNet on a synthetic MNIST full batch

@@ -310,7 +310,7 @@ Phases, in order; any failure exits non-zero:
    inputs keep their plain versions' NaN and inf pattern; full-width
    ResNet-50 (fused_conv_bn, Adam, batch 32, row 2 36 times a step)
    under ``TrainingSession(ParallelWrapper exact)`` at one NCCL rank,
-   killed at ``train.step`` call 5 and resumed bit for bit, then resumed
+   killed at ``train.step`` call 3 and resumed bit for bit, then resumed
    by a fresh process from the directory alone; ZeRO across two gloo
    ranks on the card with pod snapshots, host 1 dead at a heartbeat and
    resumed bit for bit, a 2 -> 1 restore and a corrupted shard passed
@@ -347,8 +347,18 @@ Phases, in order; any failure exits non-zero:
    ``reshard_training_state`` onto a 2 x 1 wrapper bit for bit;
    ``ring_attention`` across two ranks at [8, 12, 1024, 64] and the
    Megatron block at GPT-2 widths against one rank.
+37. pipeline parallelism (``chip_pipeline.py``): the full-width
+   GPT-2-small-width LM through ``PipelineParallelWrapper(n_micro=4)`` at
+   data 1 x pipeline 2 on two gloo ranks sharing the card, GPipe then
+   1F1B, against one-rank ``fit_batch`` at [14]'s gates (losses, step-1
+   gradients, Adam's state) and each other, a skipped-backward control
+   caught, rows 6-8 once a microbatch for each attention layer of a
+   rank's stage; step ms, hand-offs and peak MiB per schedule at M 4 and
+   M 8; LeNet at data 2 x pipeline 2 on four ranks through ``fit`` against
+   one-rank ``fit_batch`` (row 1 on the dense layer's stage), every rank
+   the same params after ``write_back``.
 
-Then the ``{"sharding": ...}``, ``{"ingest": ...}``, ``{"session": ...}``, ``{"transfer": ...}``, ``{"layers": ...}``, ``{"moe": ...}``, ``{"zoo": ...}``, ``{"platform": ...}``, ``{"trained_text_lstm": ...}``,
+Then the ``{"pipeline": ...}``, ``{"sharding": ...}``, ``{"ingest": ...}``, ``{"session": ...}``, ``{"transfer": ...}``, ``{"layers": ...}``, ``{"moe": ...}``, ``{"zoo": ...}``, ``{"platform": ...}``, ``{"trained_text_lstm": ...}``,
 ``{"sequence_attention": ...}``, ``{"trained_mln": ...}`` and
 ``{"trained_bf16": ...}`` lines, one
 ``{"kernels": [...]}`` line with every kernel (row 1 with its [21] shapes
@@ -360,7 +370,7 @@ under ``platform``; row 1 with [30]'s launches and shapes under ``zoo``
 and [31]'s under ``layers`` and [33]'s under ``transfer``; rows 6-8 with
 [32]'s launches under ``moe``; rows 1, 2, 4 and 6-8 with [35]'s launches
 under ``ingest``; rows 1 and 6-8 with [36]'s launches under
-``sharding``),
+``sharding`` and [37]'s under ``pipeline``),
 the served,
 trained, generated, trained_lm, served_int8, prefix_cached, speculative,
 tuned and data_parallel lines, and last
@@ -620,9 +630,11 @@ BF16_TRACK_RTOL = 1e-2
 # the newest zip trains the remaining step (the script's time limit bounds
 # the depth: each zip is 283 MB)
 BF16_STEPS = 7
-# [22]-[23]'s step timings: alternating turns a route (the script's time
-# limit bounds their depth)
-BF16_TIMING_PAIRS = 2
+# [22]-[23]'s step timings: one turn a route, and one step a bf16 route
+# under torch.profiler (the script's time limit bounds their depth: a
+# profiled ResNet-50 step holds ~6k kernels and ~20k host events)
+BF16_TIMING_PAIRS = 1
+BF16_PROFILE_STEPS = 1
 CKPT_EVERY = 3
 CKPT_KEEP = 1
 # [22] the s2d stem against the 7x7 stem, float32, eval mode
@@ -672,7 +684,7 @@ LENET_EPOCHS = 2
 LENET_COMPARE = 10
 LENET_MIN_ACC = 0.85
 LENET_ACC_GAP = 0.02
-LENET_PROFILE_STEPS = 20
+LENET_PROFILE_STEPS = 5  # the script's time limit bounds the depth
 LENET_RESUME_STEPS = 5
 # SimpleCNN (48x48x3, three 3x3 conv + BN blocks, dense 128): 5 steps at
 # batch 32 on a seeded synthetic batch, kernel route against stock
@@ -4535,7 +4547,7 @@ def bf16_step_times(torch, models: dict, ds, steps: int, smi: str,
         out[f"step_ms_{side}"] = times[f"step_ms_{side}"]
         out[f"per_s_{side}"] = unit / times[f"step_ms_{side}"] * 1e3
     for side in ("bf16_kernel", "bf16_stock"):
-        prof = _profile_steps(torch, models[side], ds, 3)
+        prof = _profile_steps(torch, models[side], ds, BF16_PROFILE_STEPS)
         out[f"profile_{side}"] = prof
     return out
 
@@ -5746,6 +5758,18 @@ def main() -> int:
     for row in report["kernels"]:
         if row["name"] in sharding_rows:
             row["sharding"] = sharding_rows[row["name"]]
+    log(f"[t] phase 37 starts at {time.monotonic() - t_start:.1f} s")
+    # 37. pipeline parallelism: the LM over two stages on rows 6-8 (GPipe
+    # and 1F1B), LeNet at data 2 x pipeline 2 on row 1
+    torch.cuda.empty_cache()
+    import chip_pipeline
+
+    pipeline_line, pipeline_rows = chip_pipeline.pipeline_phase(torch, dev,
+                                                                smi)
+    for row in report["kernels"]:
+        if row["name"] in pipeline_rows:
+            row["pipeline"] = pipeline_rows[row["name"]]
+    log(json.dumps({"pipeline": pipeline_line}, default=str))
     log(json.dumps({"sharding": sharding_line}, default=str))
     log(json.dumps({"ingest": ingest_line}, default=str))
     log(json.dumps({"session": session_line}))

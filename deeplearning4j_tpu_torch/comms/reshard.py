@@ -9,9 +9,9 @@ intersected with the source boxes that cover it), **minimal exchange**
 (only the intersecting blocks move, point to point, and a block the target
 rank already holds moves nothing; a replicated source box is sent by the
 target itself where it holds a copy, else by its lowest holder) and
-**reassembly** (the blocks written into the target box). gloo moves CUDA
-tensors through the host (``scheduler.stats()["host_staged"]``); NCCL
-moves them on the card.
+**reassembly** (the blocks written into the target box). The moves run
+through ``scheduler.p2p``: gloo moves CUDA tensors through the host
+(``scheduler.stats()["host_staged"]``); NCCL moves them on the card.
 
 Consumers:
 
@@ -83,39 +83,6 @@ def _rel(box, origin):
     return tuple(slice(lo - o, hi - o) for (lo, hi), (o, _) in zip(box, origin))
 
 
-def _dist():
-    import torch.distributed as dist
-
-    return dist
-
-
-def _exchange(sends, recvs, group=None) -> None:
-    """Point-to-point ``sends`` [(dst, tensor)] and ``recvs`` [(src,
-    buffer)], matched in order for each pair of ranks; gloo stages CUDA
-    tensors through the host."""
-    if not sends and not recvs:
-        return
-    dist = _dist()
-    staged = str(dist.get_backend(group)).lower() == "gloo"
-    ops, back = [], []
-    for dst, t in sends:
-        if staged and t.is_cuda:
-            scheduler._count(scheduler._STATS.host_staged, "send")
-            t = t.cpu()
-        ops.append(dist.P2POp(dist.isend, t.contiguous(), dst, group))
-    for src, buf in recvs:
-        host = buf
-        if staged and buf.is_cuda:
-            scheduler._count(scheduler._STATS.host_staged, "recv")
-            host = torch.empty(buf.shape, dtype=buf.dtype)
-            back.append((buf, host))
-        ops.append(dist.P2POp(dist.irecv, host, src, group))
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    for buf, host in back:
-        buf.copy_(host)
-
-
 def _plan_leaf(shape, src: Placement, dst: Placement, world: int, me: int):
     """This rank's part of one leaf's move: ``(sends, recvs, locals)``
     with sends ``(dst rank, my source-block slices)``, recvs ``(src rank,
@@ -167,7 +134,7 @@ def _reshard_leaves(leaves, shapes, sources, targets, group=None):
             buf = x.new_empty(block)
             recvs.append((src_rank, buf, out, into))
         outs.append(out)
-    _exchange(sends, [(s, buf) for s, buf, _, _ in recvs], group)
+    scheduler.p2p(sends, [(s, buf) for s, buf, _, _ in recvs], group)
     for _, buf, out, into in recvs:
         out[into].copy_(buf)
     return outs
@@ -252,7 +219,7 @@ def recut_flat(x, logical_size: int, target_padded: int, group=None,
     for block, a, b in local:
         out[a:b].copy_(block)
     if world > 1:
-        _exchange(sends, [(s, buf) for s, buf, _, _ in recvs], group)
+        scheduler.p2p(sends, [(s, buf) for s, buf, _, _ in recvs], group)
     for _, buf, a, b in recvs:
         out[a:b].copy_(buf)
     return out

@@ -35,6 +35,12 @@ version, so on CUDA tensors those three always run through an explicit
 host stage (copy to the CPU, the CPU collective, copy back), counted in
 :func:`stats` under ``host_staged``.
 NCCL never takes that path. Every backend's errors raise.
+
+Point to point (:func:`p2p`: a pipeline's stage hand-offs, the slice
+moves of ``comms.reshard``): gloo moves CUDA tensors through the host,
+counted under ``host_staged`` (``send`` / ``recv``); NCCL moves them on
+the card. Every send and receive counts under ``p2p`` (``sends``,
+``recvs``, ``bytes_sent``).
 """
 
 from __future__ import annotations
@@ -249,6 +255,7 @@ class _Stats:
         self.plans_built = 0
         self.plan_cache_hits = 0
         self.host_staged: Dict[str, int] = {}
+        self.p2p: Dict[str, int] = {}
 
 
 _STATS = _Stats()
@@ -264,7 +271,8 @@ def stats() -> dict:
         return {"plans_built": _STATS.plans_built,
                 "plan_cache_hits": _STATS.plan_cache_hits,
                 "registered": len(_BY_DIGEST),
-                "host_staged": dict(_STATS.host_staged)}
+                "host_staged": dict(_STATS.host_staged),
+                "p2p": dict(_STATS.p2p)}
 
 
 def lookup_plan(digest: str) -> Optional[CollectivePlan]:
@@ -281,6 +289,7 @@ def reset() -> None:
         _STATS.plans_built = 0
         _STATS.plan_cache_hits = 0
         _STATS.host_staged.clear()
+        _STATS.p2p.clear()
 
 
 class CollectiveScheduler:
@@ -385,9 +394,9 @@ def _backend(group) -> str:
     return str(_dist().get_backend(group)).lower()
 
 
-def _count(table: dict, op: str) -> None:
+def _count(table: dict, op: str, n: int = 1) -> None:
     with _LOCK:
-        table[op] = table.get(op, 0) + 1
+        table[op] = table.get(op, 0) + n
 
 
 def all_reduce(t: torch.Tensor, group=None, async_op: bool = False,
@@ -462,6 +471,61 @@ def all_to_all(out: torch.Tensor, inp: torch.Tensor, group=None) -> None:
         out.copy_(host)
         return
     _dist().all_to_all_single(out, inp, group=group)
+
+
+class Pending:
+    """Sends :func:`p2p` posted without waiting: :meth:`wait` completes
+    them (their host copies live until then)."""
+
+    def __init__(self, works, keep):
+        self._works, self._keep = works, keep
+
+    def wait(self) -> None:
+        for work in self._works:
+            work.wait()
+        self._works, self._keep = [], []
+
+
+def p2p(sends, recvs, group=None, wait: bool = True) -> Pending:
+    """Point-to-point ``sends`` [(dst, tensor)] and ``recvs`` [(src,
+    buffer)] (``dst`` / ``src``: ranks of the default group), matched in
+    order for each pair of ranks; every receive has landed in its buffer
+    on return. gloo stages CUDA tensors through the host. With ``wait``
+    False the sends are left running: the returned :class:`Pending`
+    completes them (a rank that both sends and later receives from the
+    same peer must not block on its send first)."""
+    if not sends and not recvs:
+        return Pending([], [])
+    dist = _dist()
+    staged = _backend(group) == "gloo"
+    ops, back, keep = [], [], []
+    for dst, t in sends:
+        _count(_STATS.p2p, "sends")
+        _count(_STATS.p2p, "bytes_sent", t.numel() * t.element_size())
+        if staged and t.is_cuda:
+            _count(_STATS.host_staged, "send")
+            t = t.cpu()
+        t = t.contiguous()
+        keep.append(t)
+        ops.append(dist.P2POp(dist.isend, t, dst, group))
+    n_sends = len(ops)
+    for src, buf in recvs:
+        _count(_STATS.p2p, "recvs")
+        host = buf
+        if staged and buf.is_cuda:
+            _count(_STATS.host_staged, "recv")
+            host = torch.empty(buf.shape, dtype=buf.dtype)
+            back.append((buf, host))
+        ops.append(dist.P2POp(dist.irecv, host, src, group))
+    works = dist.batch_isend_irecv(ops)
+    for work in works[n_sends:]:
+        work.wait()
+    for buf, host in back:
+        buf.copy_(host)
+    pending = Pending(works[:n_sends], keep)
+    if wait:
+        pending.wait()
+    return pending
 
 
 def run_bucket(intent: str, vals, group=None):

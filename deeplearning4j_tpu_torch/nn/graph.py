@@ -286,7 +286,7 @@ class ComputationGraph(nn_io.HealthHooks):
 
     def _forward(self, params, state, inputs: Sequence, train=False,
                  seed=None, keep_all=False, skip=frozenset(), fmasks=None,
-                 carries=None):
+                 carries=None, preset=None, only=None):
         """DAG forward; returns ``(activations, new_state)``. Eval mode keeps
         every vertex's activation only with ``keep_all`` (else it frees each
         one after its last consumer); train mode keeps them all for the
@@ -296,15 +296,20 @@ class ComputationGraph(nn_io.HealthHooks):
         propagated and handed to mask-consuming layers. ``carries``
         ({vertex name: carry}, or None for zero carries): each
         carry-bearing vertex (``go_backwards`` layers excepted) starts from
-        its entry, and the dict receives its final carry in place."""
+        its entry, and the dict receives its final carry in place.
+        ``preset`` ({name: activation}) and ``only`` (a set of vertex
+        names): a pipeline stage's span, its inputs given by name and only
+        its vertices run."""
         acts: Dict[str, torch.Tensor] = dict(zip(self.conf.network_inputs,
                                                  inputs))
+        if preset is not None:
+            acts.update(preset)
         masks: Dict[str, torch.Tensor] = {}
         if fmasks is not None:
             masks.update(zip(self.conf.network_inputs, fmasks))
         new_state = {}
         for i, name in enumerate(self._topo):
-            if name in skip:
+            if name in skip or (only is not None and name not in only):
                 continue
             spec = self._vmap[name]
             xs = [acts[src] for src in spec.inputs]

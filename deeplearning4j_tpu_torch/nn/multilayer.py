@@ -227,8 +227,9 @@ class MultiLayerNetwork(nn_io.HealthHooks):
         return kernels.cache_tag(self.conf)
 
     def _run(self, params, state, x, train=False, seed=None, upto=None,
-             fmask=None, keep_all=False, carries=None):
-        """The forward over layers ``[0, upto)``; returns ``(x, new_state)``
+             fmask=None, keep_all=False, carries=None, start=0):
+        """The forward over layers ``[start, upto)`` (a pipeline stage runs
+        its own span); returns ``(x, new_state)``
         (``keep_all``: every layer's activation instead of the last, stock
         forwards only, as the JAX package's ``feed_forward``). ``seed``
         seeds the step's dropout generators; ``fmask`` ([batch, time]) goes
@@ -240,7 +241,7 @@ class MultiLayerNetwork(nn_io.HealthHooks):
         route = self.conf.use_kernels and not keep_all
         remat = train and self.conf.gradient_checkpointing
         acts, new_state = [], {}
-        for i in range(n):
+        for i in range(start, n):
             layer = self.conf.layers[i]
             p = params.get(str(i), {})
             s = state.get(str(i), {})

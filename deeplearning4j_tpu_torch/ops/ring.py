@@ -40,11 +40,11 @@ def _shift(x: torch.Tensor, group, size: int, index: int,
            step: int) -> torch.Tensor:
     """``x`` sent ``step`` hops round the ring (to ``index + step``), the
     block of ``index - step`` received."""
-    from deeplearning4j_tpu_torch.comms.reshard import _exchange
+    from deeplearning4j_tpu_torch.comms import scheduler
 
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    _exchange([(_peer(group, (index + step) % size), x.contiguous())],
-              [(_peer(group, (index - step) % size), out)], group)
+    scheduler.p2p([(_peer(group, (index + step) % size), x.contiguous())],
+                  [(_peer(group, (index - step) % size), out)], group)
     return out
 
 

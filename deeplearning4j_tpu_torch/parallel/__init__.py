@@ -2,9 +2,11 @@
 ``InferenceServer``, the ``GenerationEngine``, in their own modules; the
 multi-tenant ``ModelPlatform`` with its ``ModelRegistry``, and
 ``ParallelInference``, exported here) and training on ``torch.distributed``
-(reference ``deeplearning4j-scaleout``): the process grid of data, model and
-sequence ranks, ``ParallelWrapper`` and its exchange modes (the
-partition-rules plan among them), compressed gradient exchange, the
+(reference ``deeplearning4j-scaleout``): the process grid of data, model,
+pipeline and sequence ranks, ``ParallelWrapper`` and its exchange modes
+(the partition-rules plan among them), pipeline-parallel training
+(``PipelineParallelWrapper``, GPipe and 1F1B), compressed gradient
+exchange, the
 Megatron tensor-parallel block and operators (``parallel.tensor``), ring
 attention over the sequence ranks (``ops.ring``), the cluster masters, and
 ``spawn`` for ranks started from Python."""
@@ -64,6 +66,12 @@ from deeplearning4j_tpu_torch.parallel.platform import (  # noqa: F401
     ModelRegistry,
     TenantConfig,
     UnknownModelError,
+)
+from deeplearning4j_tpu_torch.parallel.pipeline import (  # noqa: F401
+    PipelineParallelWrapper,
+    pipeline_spmd_fn,
+    pipeline_train_step,
+    stack_stage_params,
 )
 from deeplearning4j_tpu_torch.parallel.tensor import (  # noqa: F401
     shard_tp_params,

@@ -5,17 +5,19 @@ Counterpart of the JAX package's ``parallel/mesh.py``. The JAX package
 names mesh axes over the devices of one program; the port runs one process
 per rank (the PyTorch idiom) joined by ``torch.distributed``, and a
 :class:`Mesh` here is a grid of those processes: ``data`` x ``model`` x
-``sequence`` ranks, ordered as the JAX package's device mesh orders its
-devices (``sequence`` fastest, then ``model``, then ``data``: rank
-``(d * model + m) * sequence + s``). Each axis has one
-``torch.distributed`` subgroup for every slice of the grid along it
-(:meth:`MeshConfig.build` creates them all, in one fixed order, on every
-rank); a mesh of the data axis alone keeps the default group. Experts ride
-the data axis (``ParallelWrapper(expert_parallel=True)``,
-``parallel/expert.py``), as in the JAX package's GShard layout, so an
-``expert`` axis of its own is refused, and so is ``pipeline`` until
-``parallel/pipeline.py`` is ported (ROADMAP A: "The remainder, in
-dependency order").
+``pipeline`` x ``sequence`` ranks, ordered as the JAX package's device
+mesh orders its devices (``sequence`` fastest, then ``pipeline``, then
+``model``, then ``data``: rank ``((d * model + m) * pipeline + p) *
+sequence + s``). Each axis has one ``torch.distributed`` subgroup for
+every slice of the grid along it (:meth:`MeshConfig.build` creates them
+all, in one fixed order, on every rank); a mesh of the data axis alone
+keeps the default group. A pipeline rank is one stage of
+``parallel.pipeline.PipelineParallelWrapper``: :attr:`Mesh.stage`, and the
+previous and next stages' ranks :attr:`Mesh.prev_stage` /
+:attr:`Mesh.next_stage`. Experts ride the data axis
+(``ParallelWrapper(expert_parallel=True)``, ``parallel/expert.py``), as
+in the JAX package's GShard layout, so an ``expert`` axis of its own is
+refused.
 
 Backends: NCCL when the model lives on a CUDA device, gloo on the CPU, and
 gloo on CUDA tensors only when the caller names ``backend="gloo"``
@@ -58,11 +60,11 @@ DEFAULT_TIMEOUT = 600.0
 class Mesh:
     """A grid of ranks: ``data`` ranks on the data axis (this process at
     data index ``data_rank``, its data subgroup ``group``), ``model`` on the
-    model axis and ``sequence`` on the sequence axis, each with this
-    process's index and subgroup. ``group`` None is the default group (or,
-    with no process group initialized, a one-rank mesh whose collectives
-    are the identity); a mesh with model or sequence ranks always has
-    subgroups."""
+    model axis, ``pipeline`` on the pipeline axis and ``sequence`` on the
+    sequence axis, each with this process's index and subgroup. ``group``
+    None is the default group (or, with no process group initialized, a
+    one-rank mesh whose collectives are the identity); a mesh with model,
+    pipeline or sequence ranks always has subgroups."""
 
     data: int
     data_rank: int
@@ -73,11 +75,14 @@ class Mesh:
     sequence_rank: int = 0
     model_group: object = None
     sequence_group: object = None
+    pipeline: int = 1
+    pipeline_rank: int = 0
+    pipeline_group: object = None
 
     @property
     def shape(self) -> dict:
         return {DATA_AXIS: self.data, MODEL_AXIS: self.model,
-                PIPELINE_AXIS: 1, SEQUENCE_AXIS: self.sequence,
+                PIPELINE_AXIS: self.pipeline, SEQUENCE_AXIS: self.sequence,
                 EXPERT_AXIS: 1}
 
     @property
@@ -87,27 +92,58 @@ class Mesh:
     def index(self, axis: str) -> int:
         """This process's coordinate on ``axis``."""
         return {DATA_AXIS: self.data_rank, MODEL_AXIS: self.model_rank,
+                PIPELINE_AXIS: self.pipeline_rank,
                 SEQUENCE_AXIS: self.sequence_rank}.get(axis, 0)
 
     def axis_group(self, axis: str):
         """The subgroup of this process's slice along ``axis`` (None on a
         mesh of the data axis alone: the default group for ``data``, and
-        for ``model`` and ``sequence``, of size 1, no group at all: their
-        collectives are skipped)."""
+        for the others, of size 1, no group at all: their collectives are
+        skipped)."""
         return {DATA_AXIS: self.group, MODEL_AXIS: self.model_group,
+                PIPELINE_AXIS: self.pipeline_group,
                 SEQUENCE_AXIS: self.sequence_group}[axis]
 
     def coords(self, rank: int) -> dict:
         """The grid coordinates of process ``rank`` (the default group's
-        numbering)."""
+        numbering); ``pipeline`` only on a mesh with pipeline ranks."""
         s = rank % self.sequence
-        m = (rank // self.sequence) % self.model
-        d = rank // (self.sequence * self.model)
-        return {DATA_AXIS: d, MODEL_AXIS: m, SEQUENCE_AXIS: s}
+        p = (rank // self.sequence) % self.pipeline
+        m = (rank // (self.sequence * self.pipeline)) % self.model
+        d = rank // (self.sequence * self.pipeline * self.model)
+        out = {DATA_AXIS: d, MODEL_AXIS: m, SEQUENCE_AXIS: s}
+        if self.pipeline > 1:
+            out[PIPELINE_AXIS] = p
+        return out
 
-    def rank_at(self, data: int = 0, model: int = 0, sequence: int = 0):
+    def rank_at(self, data: int = 0, model: int = 0, sequence: int = 0,
+                pipeline: int = 0):
         """The process at these grid coordinates."""
-        return (data * self.model + model) * self.sequence + sequence
+        return (((data * self.model + model) * self.pipeline + pipeline)
+                * self.sequence + sequence)
+
+    @property
+    def stage(self) -> int:
+        """This process's pipeline stage."""
+        return self.pipeline_rank
+
+    def stage_rank(self, stage: int) -> int:
+        """The process of pipeline stage ``stage`` in this process's
+        pipeline (its data, model and sequence coordinates)."""
+        return self.rank_at(self.data_rank, self.model_rank,
+                            self.sequence_rank, stage)
+
+    @property
+    def prev_stage(self):
+        """The previous stage's process (None on stage 0)."""
+        return (self.stage_rank(self.stage - 1) if self.stage > 0
+                else None)
+
+    @property
+    def next_stage(self):
+        """The next stage's process (None on the last stage)."""
+        return (self.stage_rank(self.stage + 1)
+                if self.stage < self.pipeline - 1 else None)
 
     @property
     def backend(self) -> tp.Optional[str]:
@@ -118,27 +154,35 @@ class Mesh:
         return str(dist.get_backend(self.group)).lower()
 
 
-def _axis_slices(data: int, model: int, sequence: int):
+def _axis_slices(data: int, model: int, sequence: int, pipeline: int = 1):
     """For each axis, the rank lists of every slice along it (the grid's
-    row-major order: sequence fastest)."""
-    def at(d, m, s):
-        return (d * model + m) * sequence + s
+    row-major order: sequence fastest); the pipeline axis only where it
+    has ranks."""
+    def at(d, m, p, s):
+        return ((d * model + m) * pipeline + p) * sequence + s
 
-    return {
-        DATA_AXIS: [[at(d, m, s) for d in range(data)]
-                    for m in range(model) for s in range(sequence)],
-        MODEL_AXIS: [[at(d, m, s) for m in range(model)]
-                     for d in range(data) for s in range(sequence)],
-        SEQUENCE_AXIS: [[at(d, m, s) for s in range(sequence)]
-                        for d in range(data) for m in range(model)],
-    }
+    grid = [(d, m, p, s) for d in range(data) for m in range(model)
+            for p in range(pipeline) for s in range(sequence)]
+
+    def slices(axis: int):
+        out = {}
+        for c in grid:
+            key = c[:axis] + c[axis + 1:]
+            out.setdefault(key, []).append(at(*c))
+        return list(out.values())
+
+    out = {DATA_AXIS: slices(0), MODEL_AXIS: slices(1)}
+    if pipeline > 1:
+        out[PIPELINE_AXIS] = slices(2)
+    out[SEQUENCE_AXIS] = slices(3)
+    return out
 
 
 @dataclasses.dataclass
 class MeshConfig:
     """Declarative mesh shape (the JAX package's). ``data=-1`` takes the
-    ranks the other axes leave; ``data * model * sequence`` must be the
-    process group's world size. ``pipeline`` and ``expert`` must be 1."""
+    ranks the other axes leave; ``data * model * pipeline * sequence`` must
+    be the process group's world size. ``expert`` must be 1."""
 
     data: int = -1
     model: int = 1
@@ -147,25 +191,21 @@ class MeshConfig:
     expert: int = 1
 
     def build(self) -> Mesh:
-        if self.pipeline != 1:
-            raise NotImplementedError(
-                f"mesh axis 'pipeline' = {self.pipeline}: pipeline "
-                f"parallelism waits for parallel/pipeline.py (ROADMAP A: "
-                f"'The remainder, in dependency order')")
         if self.expert != 1:
             raise NotImplementedError(
                 f"mesh axis 'expert' = {self.expert}: experts ride the data "
                 f"axis (ParallelWrapper(expert_parallel=True)), as in the "
                 f"JAX package's GShard layout")
         world = scheduler.world_of()
-        fixed = int(self.model) * int(self.sequence)
-        if fixed < 1:
-            raise ValueError(f"mesh axes model={self.model}, sequence="
-                             f"{self.sequence} must be >= 1")
+        fixed = int(self.model) * int(self.pipeline) * int(self.sequence)
+        if min(int(self.model), int(self.pipeline), int(self.sequence)) < 1:
+            raise ValueError(f"mesh axes model={self.model}, pipeline="
+                             f"{self.pipeline}, sequence={self.sequence} "
+                             f"must be >= 1")
         if self.data == -1:
             if world % fixed:
                 raise ValueError(f"{world} ranks not divisible by model*"
-                                 f"sequence={fixed}")
+                                 f"pipeline*sequence={fixed}")
             data = world // fixed
         else:
             data = int(self.data)
@@ -174,24 +214,26 @@ class MeshConfig:
                 raise ValueError(f"mesh data axis {self.data} must equal the "
                                  f"process group's world size {world} (one "
                                  f"replica a process)")
-            raise ValueError(f"mesh {data} x {self.model} x {self.sequence} "
-                             f"needs {data * fixed} ranks, the process group "
-                             f"has {world}")
+            raise ValueError(f"mesh {data} x {self.model} x {self.pipeline} "
+                             f"x {self.sequence} needs {data * fixed} ranks, "
+                             f"the process group has {world}")
         rank = scheduler.rank_of()
         if fixed == 1:
             return Mesh(world, rank)
         import torch.distributed as dist
 
+        model, pipe, seq = int(self.model), int(self.pipeline), \
+            int(self.sequence)
         groups = {}
-        for axis, slices in _axis_slices(data, self.model,
-                                         self.sequence).items():
+        for axis, slices in _axis_slices(data, model, seq, pipe).items():
             # every rank creates every subgroup, in this order
             groups[axis], _ = dist.new_subgroups_by_enumeration(slices)
-        s = rank % self.sequence
-        m = (rank // self.sequence) % self.model
-        return Mesh(data, rank // fixed, groups[DATA_AXIS],
-                    int(self.model), int(self.sequence), m, s,
-                    groups[MODEL_AXIS], groups[SEQUENCE_AXIS])
+        s = rank % seq
+        p = (rank // seq) % pipe
+        m = (rank // (seq * pipe)) % model
+        return Mesh(data, rank // fixed, groups[DATA_AXIS], model, seq, m, s,
+                    groups[MODEL_AXIS], groups[SEQUENCE_AXIS], pipe, p,
+                    groups.get(PIPELINE_AXIS))
 
 
 def single_host_mesh(n_devices: tp.Optional[int] = None, **axes) -> Mesh:

@@ -258,6 +258,12 @@ class ParallelWrapper:
             mesh = partition_rules.mesh  # a plan brings its mesh
         self.mesh = mesh if mesh is not None else mesh_mod.single_host_mesh(
             n_devices=workers)
+        if self.mesh.shape[mesh_mod.PIPELINE_AXIS] > 1:
+            raise ValueError(
+                f"mesh pipeline axis = "
+                f"{self.mesh.shape[mesh_mod.PIPELINE_AXIS]}: pipeline "
+                f"stages train under parallel.pipeline."
+                f"PipelineParallelWrapper, not ParallelWrapper")
         # the data axis's ranks (the replicas), as the JAX package's
         # workers: a data 1 x model 2 grid has one worker on two ranks
         self.workers = self.mesh.data

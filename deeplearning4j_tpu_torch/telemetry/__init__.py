@@ -73,7 +73,8 @@ def reset() -> None:
 
 def record_step(path: str, examples: int = 0, steps: int = 1) -> None:
     """Count one dispatch's optimization steps (and examples) for a
-    training path: ``multilayer``, ``graph`` or ``parallel``."""
+    training path: ``multilayer``, ``graph``, ``parallel`` or
+    ``pipeline``."""
     if not spans._enabled:
         return
     REGISTRY.counter("dl4j_training_steps_total",
@@ -81,6 +82,22 @@ def record_step(path: str, examples: int = 0, steps: int = 1) -> None:
     if examples:
         REGISTRY.counter("dl4j_training_examples_total",
                          help="examples consumed", path=path).inc(examples)
+
+
+def record_pipeline_schedule(n_stages: int, n_micro: int,
+                             schedule: str) -> None:
+    """Record a pipeline wrapper's static bubble fraction
+    ``(S-1)/(S+M-1)`` (the fill / drain cost GPipe and 1F1B both pay),
+    its stage count and its microbatch count."""
+    if not spans._enabled:
+        return
+    frac = (n_stages - 1) / max(n_stages + n_micro - 1, 1)
+    REGISTRY.gauge("dl4j_pipeline_bubble_fraction",
+                   help="(S-1)/(S+M-1) fill/drain bubble",
+                   schedule=schedule).set(frac)
+    REGISTRY.gauge("dl4j_pipeline_stages", schedule=schedule).set(n_stages)
+    REGISTRY.gauge("dl4j_pipeline_microbatches",
+                   schedule=schedule).set(n_micro)
 
 
 def record_collective(op: str, nbytes: float, buckets: int = 1) -> None:

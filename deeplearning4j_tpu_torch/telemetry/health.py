@@ -182,6 +182,13 @@ def loss_guard_vector(loss) -> torch.Tensor:
                         z, z, z, z, z, z])
 
 
+def loss_guard(loss) -> torch.Tensor:
+    """The host-callable loss-only guard (the JAX package's
+    ``loss_guard``): :func:`loss_guard_vector` on the step's device loss,
+    queued behind it with no host read (the monitor decides when to
+    materialize)."""
+    return loss_guard_vector(loss)
+
 
 def vec_ok(vec) -> torch.Tensor:
     """A device bool: the step is numerically healthy."""

@@ -37,7 +37,7 @@ for name in names:
 import chip_data_parallel, chip_gen_profile, chip_kernel_ab
 import chip_lenet_spread, chip_platform, chip_sequence, chip_smoke
 import chip_train_profile, chip_zoo, chip_layers, chip_moe, chip_transfer
-import chip_session, chip_ingest, chip_sharding
+import chip_session, chip_ingest, chip_sharding, chip_pipeline
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))
 print(len(names), bad)
@@ -264,6 +264,20 @@ SHARDING_MODULES = [
 ]
 
 
+# the pipeline slice's modules (the stages' schedules and hand-offs, the
+# grid's pipeline axis, the shared point-to-point helper, the loss-only
+# guard, the gauges) and its chip phase
+PIPELINE_MODULES = [
+    "deeplearning4j_tpu_torch.parallel.pipeline",
+    "deeplearning4j_tpu_torch.parallel.mesh",
+    "deeplearning4j_tpu_torch.comms.scheduler",
+    "deeplearning4j_tpu_torch.comms.reshard",
+    "deeplearning4j_tpu_torch.telemetry.health",
+    "deeplearning4j_tpu_torch.telemetry",
+    "chip_pipeline",
+]
+
+
 # the clean parent: numpy and torch loaded, nothing of the repository; one
 # forked child a request line, its answer one "RESULT <json>" line
 _ZYGOTE = r"""
@@ -325,7 +339,7 @@ def _import_alone(proc, module: str, timeout: float = 120.0) -> dict:
     + MLN_TRAINING_MODULES + BF16_TRAINING_MODULES + TUNING_MODULES
     + DATA_PARALLEL_MODULES + SEQUENCE_MODULES + PLATFORM_MODULES
     + ZOO_MODULES + MOE_MODULES + TRANSFER_MODULES + SESSION_MODULES
-    + INGEST_MODULES + SHARDING_MODULES)))
+    + INGEST_MODULES + SHARDING_MODULES + PIPELINE_MODULES)))
 def test_generation_module_alone_loads_no_jax(zygote, module):
     out = _import_alone(zygote, module)
     assert out.get("ok"), out

@@ -650,20 +650,20 @@ def _port_moe():
         moe_experts=2).conf(), device="cpu").init()
 
 
-@pytest.mark.parametrize("kw,match", [
+@pytest.mark.parametrize("kw,exc,match", [
     # a per-rank mode trains an MoE net only with its experts sharded
     ({"model": _port_moe, "mesh": port_mesh.Mesh(data=2, data_rank=0),
-      "training_mode": TrainingMode.AVERAGING}, "expert_parallel=True"),
-    # partition_rules is ported: what stays unported is the pipeline axis
-    ({"mesh_config": {"pipeline": 2}}, "The remainder, in dependency order"),
+      "training_mode": TrainingMode.AVERAGING}, NotImplementedError,
+     "expert_parallel=True"),
+    # the pipeline axis is ported: its stages train under
+    # PipelineParallelWrapper, and ParallelWrapper refuses such a mesh
+    ({"mesh": port_mesh.Mesh(data=1, data_rank=0, pipeline=2)}, ValueError,
+     "PipelineParallelWrapper"),
 ], ids=["kw0-item 5", "kw1-item 5"])
-def test_unported_options_are_refused(kw, match):
+def test_unported_options_are_refused(kw, exc, match):
     kw = dict(kw)
     model = kw.pop("model", _port_mlp)()
-    mesh_config = kw.pop("mesh_config", None)
-    with pytest.raises(NotImplementedError, match=match):
-        if mesh_config is not None:
-            kw["mesh"] = port_mesh.MeshConfig(**mesh_config).build()
+    with pytest.raises(exc, match=match):
         ParallelWrapper(model, **kw)
 
 

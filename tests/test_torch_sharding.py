@@ -334,9 +334,13 @@ def test_the_grid_orders_ranks_as_the_jax_device_mesh():
 
 
 def test_only_the_pipeline_and_expert_axes_are_refused():
-    with pytest.raises(NotImplementedError,
-                       match="The remainder, in dependency order"):
+    # the pipeline axis is ported (parallel/pipeline.py): it builds as the
+    # model and sequence axes do, and like them needs its ranks; only the
+    # expert axis stays refused (experts ride the data axis)
+    with pytest.raises(ValueError, match="1 ranks not divisible by "
+                                         "model\\*pipeline\\*sequence=2"):
         MeshConfig(pipeline=2).build()
+    assert Mesh(data=1, data_rank=0, pipeline=2).shape["pipeline"] == 2
     with pytest.raises(NotImplementedError, match="expert_parallel"):
         MeshConfig(expert=2).build()
     # a model axis needs its ranks: one process has one
@@ -345,6 +349,7 @@ def test_only_the_pipeline_and_expert_axes_are_refused():
     with pytest.raises(ValueError, match="1 ranks not divisible"):
         MeshConfig(sequence=2).build()
     assert MeshConfig().build().shape["model"] == 1
+    assert MeshConfig(pipeline=1).build().shape["pipeline"] == 1
 
 
 # --------------------------------------------------------------------------
